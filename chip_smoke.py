@@ -9,10 +9,11 @@ It builds the CUDA kernels from `uvol_tpu_torch/csrc/` (nvcc, sm_90a),
 holds each kernel bit-for-bit against its plain PyTorch twin, drives the
 flagship codec chain at full width (32 frames x 26,145 vertices, 32
 layers of 1024x1024) through the codecs' public entry points, checks
-its bytes against the CPU codecs, and times kernels and chain with CUDA
-events. Each phase prints one JSON line; then come the card's
-`nvidia-smi` name/power-limit line, the kernels line, and last
-`{"ok": true, "device": {...}}`.
+its bytes against the CPU codecs, times kernels and chain with CUDA
+events, and traces one pass of each codec stage with `torch.profiler`
+to split its time between host and device. Each phase prints one JSON
+line; then come the card's `nvidia-smi` name/power-limit line, the
+kernels line, and last `{"ok": true, "device": {...}}`.
 
 Any failed check raises and the script exits non-zero without the last
 line. Without a CUDA card, or without the rest of the repository beside
@@ -97,7 +98,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
     # the port; alone in a directory this import fails before any output
-    from uvol_tpu.containers.ktx2 import read_ktx2
     from uvol_tpu_torch import _build
     from uvol_tpu_torch.codecs.basis import etc as tetc
     from uvol_tpu_torch.codecs.basis import etc_cuda
@@ -107,9 +107,11 @@ def main() -> int:
         TextureSequenceCodec,
         decode_device,
         encode_device,
+        host_rans_is_native,
+        read_ktx2,
     )
     from uvol_tpu_torch._device import true_div
-    from uvol_tpu_torch.utils.timing import median_cuda_ms
+    from uvol_tpu_torch.utils.timing import device_time_ms, device_trace, median_cuda_ms
 
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
@@ -117,12 +119,10 @@ def main() -> int:
     # ---- 1. environment ------------------------------------------------------
     smi = nvidia_smi_line()
     print(smi, flush=True)
-    from uvol_tpu import native
-
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
-          "native_rans_loaded": native.get_lib() is not None})
+          "native_rans_loaded": host_rans_is_native()})
 
     # ---- 2. build --------------------------------------------------------------
     t = time.perf_counter()
@@ -256,8 +256,38 @@ def main() -> int:
     ms["host_encode"] = median_cuda_ms(encode_all, REPS)
     ms["host_decode"] = median_cuda_ms(lambda: decode_all(blobs, tex_blob), REPS)
     fps = {k: F / (ms[k] / 1e3) for k in ("device_chain", "host_encode", "host_decode")}
-    emit({"phase": "times", "frames": F, "reps": REPS, "ms": ms, "frames_per_s": fps,
-          "total_s": time.perf_counter() - t_start})
+    emit({"phase": "times", "frames": F, "reps": REPS, "ms": ms, "frames_per_s": fps})
+
+    # ---- 6. one torch.profiler pass per host-inclusive stage ------------------
+    # wall_ms includes the profiler's own overhead; device_ms sums the
+    # device-side events (one stream, so they do not overlap)
+    stages = {
+        "geometry_encode": lambda: geo.encode(frames),
+        "texture_encode": lambda: texc.encode_segment(textures),
+        "geometry_decode": lambda: geo.decode(blobs, as_numpy=False),
+        "texture_decode": lambda: texc.decode_segment(read_ktx2(tex_blob), as_numpy=False),
+    }
+    profile = {}
+    for name, fn in stages.items():
+        with device_trace() as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        by_name = device_time_ms(prof)
+        kinds = {"h2d": 0.0, "d2h": 0.0, "etc1_kernels": 0.0, "other": 0.0}
+        for k, v in by_name.items():
+            kind = ("h2d" if k.startswith("Memcpy HtoD") else
+                    "d2h" if k.startswith("Memcpy DtoH") else
+                    "etc1_kernels" if "etc1_" in k else "other")
+            kinds[kind] += v
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        profile[name] = {
+            "wall_ms": wall, "device_ms": kinds, "device_busy_share": busy / wall,
+            "top": [[k[:80], v] for k, v in top],
+        }
+    emit({"phase": "profile", "stages": profile, "total_s": time.perf_counter() - t_start})
 
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": [

@@ -91,6 +91,19 @@ def test_delta_roundtrip_matches_jax():
     np.testing.assert_array_equal(back.numpy(), qt.numpy())
 
 
+def test_delta_along_planar_vertex_dim_matches_jax():
+    """`dim=-1` on the codec's planar [F, C, N] layout gives the
+    reference's interleaved [F, N, C] result, transposed."""
+    x, mask = _attr(seed=8)
+    q = np.asarray(jq.quantize(jnp.asarray(x), 11, mask=jnp.asarray(mask)).values)
+    d_ref = np.asarray(jpred.delta_encode(jnp.asarray(q)))
+    planar = torch.from_numpy(np.ascontiguousarray(q.transpose(0, 2, 1)))
+    d = tpred.delta_encode(planar, dim=-1)
+    np.testing.assert_array_equal(d.numpy().transpose(0, 2, 1), d_ref)
+    back = tpred.delta_decode(d, torch.int32, dim=-1)
+    np.testing.assert_array_equal(back.numpy(), planar.numpy())
+
+
 def test_delta_decode_wraps_in_int32_like_jax():
     big = np.full((1, 4, 1), 2**30, np.int32)
     ref = np.asarray(jpred.delta_decode(jnp.asarray(big)))

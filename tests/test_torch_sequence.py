@@ -118,9 +118,9 @@ def test_bucket_frames_copy_matches_jax():
     from uvol_tpu.parallel.mesh import bucket_frames_by_count
 
     counts = np.random.default_rng(9).integers(1, 5000, 40)
-    for mesh_size in (1, 4):
-        ref = bucket_frames_by_count(counts, mesh_size)
-        got = tseq.bucket_frames_by_count(counts, mesh_size)
+    for max_waste in (0.1, 0.25, 0.5):
+        ref = bucket_frames_by_count(counts, 1, max_waste)
+        got = tseq.bucket_frames_by_count(counts, max_waste)
         assert [list(b) for b in got] == [list(b) for b in ref]
 
 

@@ -6,10 +6,12 @@ its kernel build must fail loudly, naming nvcc, where there is none.
 """
 
 import os
+import re
 import subprocess
 import sys
 import textwrap
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -19,8 +21,17 @@ import torch
 import __graft_entry__
 from uvol_tpu_torch import _build
 from uvol_tpu_torch.entry import entry, example_inputs
+from uvol_tpu_torch.utils.timing import device_time_ms
 
 REPO = Path(__file__).resolve().parents[1]
+#: the JAX package's jax-free host modules that the port may import
+HOST_MODULES = {
+    "uvol_tpu.codecs.symbol_coding",
+    "uvol_tpu.codecs.buffer",
+    "uvol_tpu.containers.ktx2",
+    "uvol_tpu.native",
+    "uvol_tpu.native.zstd",
+}
 
 
 def test_entry_matches_jax_entry():
@@ -49,9 +60,8 @@ def test_port_runs_without_jax(tmp_path):
         sys.modules["jax"] = None  # any import of jax now raises
         import numpy as np
         import uvol_tpu_torch
-        from uvol_tpu.containers.ktx2 import read_ktx2
         from uvol_tpu_torch.models.sequence import (
-            GeometryFrameSet, GeometrySequenceCodec, TextureSequenceCodec)
+            GeometryFrameSet, GeometrySequenceCodec, TextureSequenceCodec, read_ktx2)
         r = np.random.default_rng(0)
         pos = r.normal(size=(2, 300, 3)).astype(np.float32)
         uv = r.uniform(size=(2, 300, 2)).astype(np.float32)
@@ -85,6 +95,35 @@ def test_port_sources_never_import_jax():
         for line in f.read_text().splitlines():
             s = line.strip()
             assert not s.startswith(("import jax", "from jax")), (f, line)
+
+
+def test_port_imports_only_jax_free_host_modules():
+    """The package reaches `uvol_tpu` only through its jax-free host
+    modules; `chip_smoke.py` reaches it only through the port."""
+    files = list((REPO / "uvol_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    seen = set()
+    for f in files:
+        for line in f.read_text().splitlines():
+            m = re.match(r"\s*(?:from|import)\s+(uvol_tpu(?:\.[\w.]+)?)\b", line)
+            if m:
+                assert f.name != "chip_smoke.py", line
+                assert m.group(1) in HOST_MODULES, (f, line)
+                seen.add(m.group(1))
+    assert "uvol_tpu.codecs.symbol_coding" in seen  # the scan finds imports
+
+
+def test_device_time_ms_sums_device_events_only():
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    def ev(name, kind, us):
+        return SimpleNamespace(name=name, device_type=kind,
+                               time_range=SimpleNamespace(elapsed_us=lambda: us))
+
+    prof = SimpleNamespace(events=lambda: [
+        ev("k", cuda, 1500.0), ev("k", cuda, 500.0), ev("Memcpy HtoD", cuda, 250.0),
+        ev("aten::copy_", cpu, 9000.0),
+    ])
+    assert device_time_ms(prof) == {"k": 2.0, "Memcpy HtoD": 0.25}
 
 
 def test_build_without_nvcc_names_nvcc(monkeypatch, tmp_path):

@@ -22,16 +22,16 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from uvol_tpu.codecs.buffer import DecoderBuffer, EncoderBuffer
 from uvol_tpu.codecs.symbol_coding import decode_symbols, encode_symbols
-from uvol_tpu.containers.ktx2 import (
+from uvol_tpu.containers.ktx2 import (  # read_ktx2: the decode side's reader
     SUPERCOMPRESSION_NONE,
     SUPERCOMPRESSION_ZSTD,
     KTX2File,
     KTX2Header,
     KTX2Level,
+    read_ktx2,  # noqa: F401
     write_ktx2,
 )
 from uvol_tpu_torch._device import DeviceLike, resolve_device, synchronize, true_div
@@ -42,10 +42,14 @@ from uvol_tpu_torch.codecs.basis.etc_cuda import (
     pack_words2,
     unpack_words2,
 )
+from uvol_tpu_torch.ops.prediction import delta_decode, delta_encode
 from uvol_tpu_torch.ops.quantize import (
+    compute_quantization_transform,
+    dequantize_scaled,
     symbols_from_numpy,
     symbols_to_numpy,
     zigzag_decode,
+    zigzag_encode,
 )
 
 Tensor = torch.Tensor
@@ -65,13 +69,13 @@ class GeometryFrameSet:
     faces: List[np.ndarray]  # per-frame [Mf, 3] int32
 
 
-def bucket_frames_by_count(counts, mesh_size: int = 1, max_waste: float = 0.25):
+def bucket_frames_by_count(counts, max_waste: float = 0.25):
     """Group frame indices into padding buckets for ragged sequences.
 
-    Copy of `uvol_tpu.parallel.mesh.bucket_frames_by_count`: frames are
-    sorted by count and cut greedily so each bucket's padded waste
-    (1 - sum(counts)/(len*max)) stays under `max_waste`; lengths round
-    to multiples of `mesh_size` where possible."""
+    Copy of `uvol_tpu.parallel.mesh.bucket_frames_by_count` for one
+    device (`mesh_size=1`): frames are sorted by count and cut greedily
+    so each bucket's padded waste (1 - sum(counts)/(len*max)) stays
+    under `max_waste`."""
     counts = np.asarray(counts, np.int64)
     order = np.argsort(counts, kind="stable")
     buckets = []
@@ -85,15 +89,10 @@ def bucket_frames_by_count(counts, mesh_size: int = 1, max_waste: float = 0.25):
             new_total = total + c
             # order is count-sorted, so c IS the running max
             waste = 1.0 - new_total / ((end - start + 1) * max(c, 1))
-            if waste > max_waste and (end - start) >= mesh_size:
+            if waste > max_waste:
                 break
             total = new_total
             end += 1
-        if mesh_size > 1 and end < n:
-            span = end - start
-            even = (span // mesh_size) * mesh_size
-            if even >= mesh_size:
-                end = start + even
         buckets.append(order[start:end])
         start = end
     return buckets
@@ -101,19 +100,17 @@ def bucket_frames_by_count(counts, mesh_size: int = 1, max_waste: float = 0.25):
 
 def _syms(xt: Tensor, bits: int, mask: Tensor):
     """Quantize + delta + zigzag in the planar [F, C, N] layout; returns
-    (syms [F, C, N] int32 bit patterns, min [F, C], range [F]). The same
-    float32 op order as the reference's `_syms`."""
-    big = torch.finfo(xt.dtype).max
-    m = mask[:, None, :]
-    mn = torch.where(m, xt, big).amin(dim=-1)  # [F, C]
-    mx = torch.where(m, xt, -big).amax(dim=-1)
-    rng = (mx - mn).amax(dim=-1)  # [F] Draco-style scalar range
-    rng = torch.where(rng <= 0, torch.ones_like(rng), rng)
+    (syms [F, C, N] int32 bit patterns, min [F, C], range [F]).
+
+    The rounding step is the reference codec's own, `floor(x * (max_q /
+    range) + 0.5)` with no clip, which differs in float32 from
+    `ops.quantize.quantize`'s `x * (1 / (range / max_q))`; the min/range,
+    delta and zigzag are the `ops` functions."""
+    mn, rng = compute_quantization_transform(xt.transpose(1, 2), mask)
     inv = true_div(float((1 << bits) - 1), rng)
-    xm = torch.where(m, xt - mn[..., None], 0.0)
+    xm = torch.where(mask[:, None, :], xt - mn[..., None], 0.0)
     q = torch.floor(xm * inv[:, None, None] + 0.5).to(torch.int32)
-    d = q - F.pad(q[:, :, :-1], (1, 0))
-    return (d >> 31) ^ (d << 1), mn, rng
+    return zigzag_encode(delta_encode(q, dim=-1)), mn, rng
 
 
 def encode_device(pos: Tensor, uv: Optional[Tensor], mask: Tensor,
@@ -127,15 +124,25 @@ def encode_device(pos: Tensor, uv: Optional[Tensor], mask: Tensor,
     return out
 
 
+def _dequantize_planar(syms: Tensor, mn: Tensor, scale: Tensor) -> Tensor:
+    q = delta_decode(zigzag_decode(syms), torch.int32, dim=-1)  # [F, C, N]
+    return dequantize_scaled(q.transpose(1, 2), mn, scale).transpose(1, 2).contiguous()
+
+
 def decode_device(pos_syms: Tensor, pos_min: Tensor, pos_scale: Tensor,
                   uv_syms: Tensor, uv_min: Tensor, uv_scale: Tensor):
     """Device decode stage: planar syms [F, C, N] → cumsum (int32) →
     min + q * scale, per frame. Outputs stay planar [F, C, N]."""
-    qpos = torch.cumsum(zigzag_decode(pos_syms), dim=-1, dtype=torch.int32)
-    pos = pos_min[..., None] + qpos.to(torch.float32) * pos_scale[:, None, None]
-    quv = torch.cumsum(zigzag_decode(uv_syms), dim=-1, dtype=torch.int32)
-    uv = uv_min[..., None] + quv.to(torch.float32) * uv_scale[:, None, None]
-    return pos, uv
+    return (_dequantize_planar(pos_syms, pos_min, pos_scale),
+            _dequantize_planar(uv_syms, uv_min, uv_scale))
+
+
+def host_rans_is_native() -> bool:
+    """Whether the host rANS runs in the compiled library (built with g++
+    at first use); otherwise it runs in Python, slower but identical."""
+    from uvol_tpu.native import get_lib
+
+    return get_lib() is not None
 
 
 def _fan_out(fn, items, f: int):
@@ -220,7 +227,7 @@ class GeometrySequenceCodec:
         (quantization is per frame)."""
         counts = np.array([len(p) for p in positions], np.int64)
         out: List[Optional[bytes]] = [None] * len(counts)
-        for idx in bucket_frames_by_count(counts, 1, max_waste):
+        for idx in bucket_frames_by_count(counts, max_waste):
             nmax = int(counts[idx].max())
             pos = np.zeros((len(idx), nmax, 3), np.float32)
             uv = np.zeros((len(idx), nmax, 2), np.float32) if uvs is not None else None

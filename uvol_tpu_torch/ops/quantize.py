@@ -55,18 +55,10 @@ def compute_quantization_transform(
     return mn, rng
 
 
-def quantize(
-    x: Tensor,
-    qbits: int,
-    *,
-    mask: Optional[Tensor] = None,
-    min_value: Optional[Tensor] = None,
-    range_value: Optional[Tensor] = None,
-) -> QuantizedAttr:
+def quantize(x: Tensor, qbits: int, *, mask: Optional[Tensor] = None) -> QuantizedAttr:
     """q = clip(floor((v - min) * (1 / delta) + 0.5), 0, 2^qbits - 1) with
     delta = range / (2^qbits - 1); rows outside `mask` are 0."""
-    if min_value is None or range_value is None:
-        min_value, range_value = compute_quantization_transform(x, mask)
+    min_value, range_value = compute_quantization_transform(x, mask)
     max_q = (1 << qbits) - 1
     delta = true_div(range_value, max_q)
     inv = true_div(1.0, delta)[..., None, None]
@@ -78,9 +70,15 @@ def quantize(
 
 
 def dequantize(q: QuantizedAttr, qbits: int) -> Tensor:
-    max_q = (1 << qbits) - 1
-    delta = true_div(q.range_value, max_q)[..., None, None]
-    return q.min_value[..., None, :] + q.values.to(torch.float32) * delta
+    delta = true_div(q.range_value, (1 << qbits) - 1)
+    return dequantize_scaled(q.values, q.min_value, delta)
+
+
+def dequantize_scaled(values: Tensor, min_value: Tensor, scale: Tensor) -> Tensor:
+    """min + values * scale per frame: `values` [..., N, D] int32,
+    `min_value` [..., D], `scale` [...] = range / (2^qbits - 1). The
+    product is rounded before the add (no FMA)."""
+    return min_value[..., None, :] + values.to(torch.float32) * scale[..., None, None]
 
 
 def zigzag_encode(v: Tensor) -> Tensor:

@@ -2,15 +2,16 @@
 
 `cuda_timer` times a region of queued GPU work with CUDA events;
 `median_cuda_ms` repeats a callable; `device_trace` wraps a region in a
-`torch.profiler` trace. All of them need a card: a measurement that
-finds none raises rather than timing the CPU.
+`torch.profiler` trace and `device_time_ms` sums its device-side events
+by name. All of them need a card: a measurement that finds none raises
+rather than timing the CPU.
 """
 
 from __future__ import annotations
 
 import contextlib
 import statistics
-from typing import Callable, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import torch
 
@@ -58,17 +59,24 @@ def median_cuda_ms(fn: Callable[[], object], reps: int = 5, warmup: int = 1
 
 
 @contextlib.contextmanager
-def device_trace(log_dir: Optional[str]) -> Iterator[Optional[torch.profiler.profile]]:
-    """Wrap a region in a `torch.profiler` trace (CPU + CUDA activities)
-    when `log_dir` is given; the Chrome trace is written there."""
-    if log_dir is None:
-        yield None
-        return
+def device_trace(log_dir: Optional[str] = None) -> Iterator[torch.profiler.profile]:
+    """Wrap a region in a `torch.profiler` trace (CPU + CUDA activities).
+    The Chrome trace is written under `log_dir` when one is given; read
+    the device time with `device_time_ms` after the block."""
     _require_cuda()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(
-        activities=acts,
-        on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir),
-    ) as prof:
+    handler = torch.profiler.tensorboard_trace_handler(log_dir) if log_dir else None
+    with torch.profiler.profile(activities=acts, on_trace_ready=handler) as prof:
         yield prof
         torch.cuda.synchronize()
+
+
+def device_time_ms(prof) -> Dict[str, float]:
+    """Milliseconds of device-side events (kernels, memcopies, memsets)
+    per event name in a finished trace; host-side ops are left out, so
+    nothing is counted twice."""
+    out: Dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out
