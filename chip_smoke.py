@@ -8,12 +8,14 @@ Run from the repository root, with no arguments:
 It builds the CUDA kernels from `uvol_tpu_torch/csrc/` (nvcc, sm_90a),
 holds each kernel bit-for-bit against its plain PyTorch twin, drives the
 flagship codec chain at full width (32 frames x 26,145 vertices, 32
-layers of 1024x1024) through the codecs' public entry points, checks
-its bytes against the CPU codecs, times kernels and chain with CUDA
-events, and traces one pass of each codec stage with `torch.profiler`
-to split its time between host and device. Each phase prints one JSON
-line; then come the card's `nvidia-smi` name/power-limit line, the
-kernels line, and last `{"ok": true, "device": {...}}`.
+layers of 1024x1024) and the ETC1S/BasisLZ segment encoder at the
+encoder CLI's segment (5 layers of 1024x1024, 256/256 palettes) through
+the codecs' public entry points, checks their bytes against the CPU
+codecs, times kernels and chains with CUDA events, and traces one pass
+of each codec stage with `torch.profiler` to split its time between
+host and device. Each phase prints one JSON line; then come the card's
+`nvidia-smi` name/power-limit line, the kernels line, and last
+`{"ok": true, "device": {...}}`.
 
 Any failed check raises and the script exits non-zero without the last
 line. Without a CUDA card, or without the rest of the repository beside
@@ -33,6 +35,14 @@ DEVICE = "cuda"
 F, N, H, W = 32, 26145, 1024, 1024  # the bench's liam-scale batch
 REPS = 5  # timed runs per number (median), after one warmup
 PARITY_SIDE = 1024  # random parity inputs: one 1024^2 layer = 65,536 blocks
+ETC1S_LAYERS = 5  # the encoder CLI's KTX2_BATCH_SIZE: one segment
+ETC1S_PALETTE = 256  # endpoints = selectors, encode_ktx2_etc1s's default
+ETC1S_ENTRIES = (256, 1024)  # K4 endpoints / K6 centroids held at parity
+ETC1S_CPU_SIDE = 256  # the CPU comparison: 1 layer of 256x256
+ETC1S_REPS = 3  # timed segment encodes (median), after the warmup
+#: K4-K6 kernel names in a profiler trace (csrc/etc1s.cu)
+ETC1S_KERNEL_NAMES = ("assign_endpoints_kernel", "inten_errors_kernel",
+                      "kmeans_tile_kernel", "pair_sum_kernel")
 
 
 class CheckFailed(RuntimeError):
@@ -90,6 +100,165 @@ def boundary_blocks() -> np.ndarray:
     return np.concatenate([b, flat])
 
 
+def check_full_f32(torch) -> None:
+    """The port runs its f32 matmuls in full f32 (TF32 off): the ETC1S
+    selector errors are integer sums below 2^24 that TF32 would round."""
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are on")
+    check(torch.backends.cudnn.allow_tf32 is False, "TF32 convolutions are on")
+    check(torch.get_float32_matmul_precision() == "highest", "f32 matmul precision")
+
+
+def etc1s_parity(torch, dev, textures, bb) -> dict:
+    """K4, K5 and K6 against their plain twins on the card (and on the
+    CPU for the boundary blocks): max_abs_err per kernel."""
+    from uvol_tpu_torch.codecs.basis import etc1s_cuda as k
+    from uvol_tpu_torch.codecs.basis.etc1s_encode import block_features
+
+    r = np.random.default_rng(2)
+    inputs = {
+        "bench_texture_1x1024": textures[0].reshape(H // 4, 4, W // 4, 4, 3)
+        .transpose(0, 2, 1, 3, 4).reshape(-1, 16, 3),
+        "random_blocks": r.integers(0, 256, ((PARITY_SIDE // 4) ** 2, 16, 3), dtype=np.uint8),
+        "boundary_blocks": bb.reshape(-1, 16, 3),
+    }
+    err = {"etc1s_assign_endpoints": 0, "etc1s_inten_errors": 0, "etc1s_kmeans_iter": 0}
+
+    def diff(name, got, *twins):
+        for tw in twins:  # int32 indices and errors, f32 sums: all exact in f64
+            e = float((got.cpu().double() - tw.cpu().double()).abs().max())
+            check(e == 0, f"{name} differs from its plain twin")
+            err[name] = max(err[name], e)
+
+    for name, blocks_np in inputs.items():
+        blocks = torch.from_numpy(np.ascontiguousarray(blocks_np))
+        n = len(blocks)
+        small = n < 4096  # the CPU twin too, where it is quick
+        bd = blocks.to(dev)
+        base = torch.from_numpy(r.integers(0, 256, (n, 3)).astype(np.int32))
+        base[: min(n, 4)] = torch.tensor([[0, 0, 0], [255, 255, 255], [4, 251, 128],
+                                          [251, 4, 7]])[: min(n, 4)]
+        got = k.inten_errors(bd, base.to(dev))
+        diff("etc1s_inten_errors", got, k.inten_errors_plain(bd, base.to(dev)),
+             *([k.inten_errors_plain(blocks, base)] if small else []))
+        feats = block_features(bd)
+        for e in ETC1S_ENTRIES:
+            eb = torch.from_numpy(r.integers(0, 256, (e, 3)).astype(np.int32))
+            ei = torch.from_numpy(r.integers(0, 8, e).astype(np.int32))
+            eb[e - 1], ei[e - 1] = eb[0], ei[0]  # a duplicate endpoint: ties
+            table = k.endpoint_table(eb, ei)
+            got = k.assign_endpoints(bd, table.to(dev))
+            diff("etc1s_assign_endpoints", got, k.assign_endpoints_plain(bd, table.to(dev)),
+                 *([k.assign_endpoints_plain(blocks, table)] if small else []))
+            pick = torch.from_numpy(r.integers(0, n, e)).to(dev)
+            cb = feats[pick] + torch.from_numpy(r.random((e, 4)).astype(np.float32)).to(dev)
+            got = k.kmeans_iter(feats, cb)
+            twins = [k.kmeans_iter_plain(feats, cb)]
+            if small:
+                twins.append(k.kmeans_iter_plain(feats.cpu(), cb.cpu()))
+            for i in range(3):
+                diff("etc1s_kmeans_iter", got[i], *(t[i] for t in twins))
+    torch.cuda.synchronize()
+    emit({"phase": "etc1s_kernel_parity", "inputs": list(inputs), "entries": ETC1S_ENTRIES,
+          "max_abs_err": err})
+    return err
+
+
+def etc1s_main_path(torch, textures) -> dict:
+    """`encode_ktx2_etc1s` on one segment at full width: launches, byte
+    determinism, transcoded PSNR, the quality floor's rebuilds, and the
+    CPU port at 1 layer of 256x256."""
+    from uvol_tpu_torch.codecs.basis import etc1s_cuda as k
+    from uvol_tpu_torch.codecs.basis.etc1s_encode import (
+        encode_ktx2_etc1s, read_ktx2, transcode_ktx2_etc1s)
+
+    frames = textures[:ETC1S_LAYERS]
+    kw = dict(num_endpoints=ETC1S_PALETTE, num_selectors=ETC1S_PALETTE)
+    encode_ktx2_etc1s(frames[:1, :256, :256], device=DEVICE, **kw)  # warmup
+    torch.cuda.synchronize()
+    k.reset_launches()
+    stats = {}
+    t = time.perf_counter()
+    blob = encode_ktx2_etc1s(frames, device=DEVICE, stats=stats, **kw)
+    first_s = time.perf_counter() - t
+    launches = dict(k.LAUNCHES)
+    for name, v in launches.items():
+        check(v >= 1, f"the ETC1S main path never launched {name}")
+    check(encode_ktx2_etc1s(frames, device=DEVICE, **kw) == blob,
+          "two CUDA encodes of one segment gave different bytes")
+    dec = transcode_ktx2_etc1s(read_ktx2(blob))[..., :3]
+    check(dec.shape == frames.shape and dec.dtype == np.uint8, "transcoded shape")
+    mse = float(((dec.astype(np.float64) - frames) ** 2).mean())
+    psnr = 10 * np.log10(255.0**2 / mse)
+    check(np.isfinite(psnr) and psnr >= 24.0, f"ETC1S PSNR {psnr:.2f} dB")
+
+    small = np.ascontiguousarray(frames[:1, :ETC1S_CPU_SIDE, :ETC1S_CPU_SIDE])
+    t = time.perf_counter()
+    cpu_blob = encode_ktx2_etc1s(small, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t
+    cuda_blob = encode_ktx2_etc1s(small, device=DEVICE, **kw)
+    same = cpu_blob == cuda_blob
+
+    def small_psnr(b):
+        out = transcode_ktx2_etc1s(read_ktx2(b))[..., :3].astype(np.float64)
+        return 10 * np.log10(255.0**2 / float(((out - small) ** 2).mean()))
+
+    p_cpu, p_cuda = small_psnr(cpu_blob), small_psnr(cuda_blob)
+    check(same or (abs(p_cpu - p_cuda) <= 0.05
+                   and abs(len(cpu_blob) - len(cuda_blob)) <= 0.01 * len(cpu_blob)),
+          "CUDA and CPU ETC1S encodes differ beyond quality parity")
+    emit({"phase": "etc1s_main_path", "layers": ETC1S_LAYERS, "size": [H, W],
+          "palette": ETC1S_PALETTE, "launches": launches, "ktx2_bytes": len(blob),
+          "transcoded_psnr_db": psnr, "lam_ladder_builds": stats["builds"],
+          "palette_psnr_db": stats["palette_psnr_db"], "first_encode_s": first_s,
+          "deterministic": True,
+          "cpu_compare": {"size": [ETC1S_CPU_SIDE] * 2, "bytes_equal": same,
+                          "cpu_bytes": len(cpu_blob), "cuda_bytes": len(cuda_blob),
+                          "cpu_psnr_db": p_cpu, "cuda_psnr_db": p_cuda, "cpu_s": cpu_s}})
+    return launches
+
+
+def etc1s_times(torch, dev, textures, median_cuda_ms) -> dict:
+    """K4-K6 and their twins at the main path's shapes (5 x 1024^2 =
+    327,680 blocks, 256 entries); the palette core on device-resident
+    blocks, the palette build and the segment encode, host-inclusive."""
+    from uvol_tpu_torch.codecs.basis import etc1s_cuda as k
+    from uvol_tpu_torch.codecs.basis.etc1s_encode import (
+        _blocks_of, block_features, build_palettes, encode_ktx2_etc1s, palette_core)
+
+    frames = textures[:ETC1S_LAYERS]
+    bd = torch.from_numpy(_blocks_of(frames)).to(dev)
+    n = len(bd)
+    r = np.random.default_rng(3)
+    feats = block_features(bd)
+    cb = feats[torch.from_numpy(r.integers(0, n, ETC1S_PALETTE)).to(dev)]
+    eb = torch.from_numpy(r.integers(0, 256, (ETC1S_PALETTE, 3)).astype(np.int32)).to(dev)
+    ei = torch.from_numpy(r.integers(0, 8, ETC1S_PALETTE).astype(np.int32)).to(dev)
+    table = k.endpoint_table(eb, ei)
+    base = eb[k.kmeans_iter(feats, cb)[2].long()]
+    ms = {
+        "etc1s_assign_endpoints": median_cuda_ms(lambda: k.assign_endpoints(bd, table), REPS),
+        "etc1s_assign_endpoints_plain": median_cuda_ms(
+            lambda: k.assign_endpoints_plain(bd, table), REPS),
+        "etc1s_inten_errors": median_cuda_ms(lambda: k.inten_errors(bd, base), REPS),
+        "etc1s_inten_errors_plain": median_cuda_ms(lambda: k.inten_errors_plain(bd, base), REPS),
+        "etc1s_kmeans_iter": median_cuda_ms(lambda: k.kmeans_iter(feats, cb), REPS),
+        "etc1s_kmeans_iter_plain": median_cuda_ms(lambda: k.kmeans_iter_plain(feats, cb), REPS),
+    }
+    # the encode, and the two stages inside it: the device-resident palette
+    # core, and the build (upload, core, refine, fetch, host relabel)
+    kw = dict(num_endpoints=ETC1S_PALETTE, num_selectors=ETC1S_PALETTE, device=DEVICE)
+    ms["etc1s_palette_core"] = median_cuda_ms(
+        lambda: palette_core(bd, ETC1S_PALETTE, ETC1S_PALETTE, 6), ETC1S_REPS)
+    ms["etc1s_build_palettes"] = median_cuda_ms(
+        lambda: build_palettes(frames, ETC1S_PALETTE, ETC1S_PALETTE, device=DEVICE),
+        ETC1S_REPS, warmup=0)
+    ms["etc1s_segment_encode"] = median_cuda_ms(lambda: encode_ktx2_etc1s(frames, **kw),
+                                                ETC1S_REPS, warmup=0)
+    emit({"phase": "etc1s_times", "blocks": n, "entries": ETC1S_PALETTE, "reps": REPS,
+          "ms": ms, "segment_layers_per_s": ETC1S_LAYERS / (ms["etc1s_segment_encode"] / 1e3)})
+    return ms
+
+
 def main() -> int:
     import torch
 
@@ -110,11 +279,13 @@ def main() -> int:
         host_rans_is_native,
         read_ktx2,
     )
+    from uvol_tpu_torch.codecs.basis.etc1s_encode import encode_ktx2_etc1s
     from uvol_tpu_torch._device import true_div
     from uvol_tpu_torch.utils.timing import device_time_ms, device_trace, median_cuda_ms
 
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
+    check_full_f32(torch)
 
     # ---- 1. environment ------------------------------------------------------
     smi = nvidia_smi_line()
@@ -168,6 +339,7 @@ def main() -> int:
         err["etc1_decode"] = max(err["etc1_decode"], e)
     emit({"phase": "kernel_parity", "inputs_k1": list(enc_inputs),
           "inputs_k2": list(dec_inputs), "max_abs_err": err})
+    err.update(etc1s_parity(torch, dev, textures, bb))
 
     # ---- 4. main path at full width ---------------------------------------------
     frames = GeometryFrameSet(positions, uvs, counts, faces)
@@ -227,6 +399,7 @@ def main() -> int:
           "ktx2_bytes": len(tex_blob), "pos_err": pos_err, "step": step,
           "cuda_vs_cpu_max_abs_err": {"positions": geo_err, "uvs": uv_err},
           "texture_psnr_db": psnr})
+    launches.update(etc1s_main_path(torch, textures))
 
     # ---- 5. times (CUDA events, median of REPS after one warmup) -----------------
     words = etc_cuda.encode_etc1_images(tex_dev)
@@ -257,6 +430,7 @@ def main() -> int:
     ms["host_decode"] = median_cuda_ms(lambda: decode_all(blobs, tex_blob), REPS)
     fps = {k: F / (ms[k] / 1e3) for k in ("device_chain", "host_encode", "host_decode")}
     emit({"phase": "times", "frames": F, "reps": REPS, "ms": ms, "frames_per_s": fps})
+    ms.update(etc1s_times(torch, dev, textures, median_cuda_ms))
 
     # ---- 6. one torch.profiler pass per host-inclusive stage ------------------
     # wall_ms includes the profiler's own overhead; device_ms sums the
@@ -266,6 +440,9 @@ def main() -> int:
         "texture_encode": lambda: texc.encode_segment(textures),
         "geometry_decode": lambda: geo.decode(blobs, as_numpy=False),
         "texture_decode": lambda: texc.decode_segment(read_ktx2(tex_blob), as_numpy=False),
+        "etc1s_segment_encode": lambda: encode_ktx2_etc1s(
+            textures[:ETC1S_LAYERS], num_endpoints=ETC1S_PALETTE,
+            num_selectors=ETC1S_PALETTE, device=DEVICE),
     }
     profile = {}
     for name, fn in stages.items():
@@ -275,20 +452,23 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
         by_name = device_time_ms(prof)
-        kinds = {"h2d": 0.0, "d2h": 0.0, "etc1_kernels": 0.0, "other": 0.0}
+        kinds = {"h2d": 0.0, "d2h": 0.0, "etc1_kernels": 0.0, "etc1s_kernels": 0.0,
+                 "other": 0.0}
         for k, v in by_name.items():
             kind = ("h2d" if k.startswith("Memcpy HtoD") else
                     "d2h" if k.startswith("Memcpy DtoH") else
-                    "etc1_kernels" if "etc1_" in k else "other")
+                    "etc1_kernels" if "etc1_" in k else
+                    "etc1s_kernels" if any(kn in k for kn in ETC1S_KERNEL_NAMES) else "other")
             kinds[kind] += v
         busy = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         profile[name] = {
             "wall_ms": wall, "device_ms": kinds, "device_busy_share": busy / wall,
-            "top": [[k[:80], v] for k, v in top],
+            "host_ms": wall - busy, "top": [[k[:80], v] for k, v in top],
         }
     emit({"phase": "profile", "stages": profile, "total_s": time.perf_counter() - t_start})
 
+    check_full_f32(torch)
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": [
         {"name": "etc1_encode", "route": "cuda", "source": "uvol_tpu_torch/csrc/etc1.cu",
@@ -299,6 +479,13 @@ def main() -> int:
          "replaces": "uvol_tpu/codecs/basis/etc_pallas.py:350",
          "launches": launches["etc1_decode"], "max_abs_err": err["etc1_decode"],
          "ms": ms["etc1_decode"], "plain_ms": ms["etc1_decode_plain"]},
+    ] + [
+        {"name": name, "route": "cuda", "source": "uvol_tpu_torch/csrc/etc1s.cu",
+         "replaces": f"uvol_tpu/codecs/basis/etc1s_pallas.py:{line}",
+         "launches": launches[name], "max_abs_err": err[name],
+         "ms": ms[name], "plain_ms": ms[name + "_plain"]}
+        for name, line in (("etc1s_assign_endpoints", 149), ("etc1s_inten_errors", 217),
+                           ("etc1s_kmeans_iter", 310))
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from uvol_tpu_torch.codecs.basis import etc as tetc
-from uvol_tpu_torch.codecs.basis import etc_cuda
+from uvol_tpu_torch.codecs.basis import etc1s_cuda, etc_cuda
 from uvol_tpu_torch.entry import entry
 from uvol_tpu_torch.models import sequence as tseq
 
@@ -103,3 +103,55 @@ def test_texture_codec_on_card_matches_cpu(card):
 
     f = read_ktx2(blob)
     np.testing.assert_array_equal(cuda_codec.decode_segment(f), cpu_codec.decode_segment(f))
+
+
+# ---- ETC1S palette-build kernels K4-K6 ------------------------------------
+
+
+def _etc1s_inputs(n: int, e: int, seed: int):
+    r = np.random.default_rng(seed)
+    blocks = _blocks()[:n] if n <= len(_blocks()) else r.integers(0, 256, (n, 16, 3))
+    blocks = torch.from_numpy(np.ascontiguousarray(blocks.reshape(n, 16, 3), np.uint8))
+    base = torch.from_numpy(r.integers(0, 256, (e, 3)).astype(np.int32))
+    inten = torch.from_numpy(r.integers(0, 8, e).astype(np.int32))
+    return blocks, base, inten
+
+
+@pytest.mark.parametrize("e", [256, 1024, 2048])
+def test_etc1s_assign_endpoints_kernel_matches_twin(card, e):
+    blocks, base, inten = _etc1s_inputs(2304, e, e)
+    table = etc1s_cuda.endpoint_table(base, inten)
+    before = etc1s_cuda.LAUNCHES["etc1s_assign_endpoints"]
+    got = etc1s_cuda.assign_endpoints(blocks.to(card), table.to(card))
+    torch.cuda.synchronize()
+    assert etc1s_cuda.LAUNCHES["etc1s_assign_endpoints"] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  etc1s_cuda.assign_endpoints_plain(blocks, table).numpy())
+
+
+def test_etc1s_inten_errors_kernel_matches_twin(card):
+    blocks, base, _ = _etc1s_inputs(2304, 2304, 3)
+    got = etc1s_cuda.inten_errors(blocks.to(card), base.to(card))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  etc1s_cuda.inten_errors_plain(blocks, base).numpy())
+
+
+@pytest.mark.parametrize("k", [256, 1024, 2048])
+def test_etc1s_kmeans_iter_kernel_matches_twin(card, k):
+    r = np.random.default_rng(k)
+    feats = torch.from_numpy((r.random((70001, 4)) * 255).astype(np.float32))
+    cb = feats[torch.from_numpy(r.choice(len(feats), k, replace=False))] + 0.25
+    got = etc1s_cuda.kmeans_iter(feats.to(card), cb.to(card))
+    torch.cuda.synchronize()
+    for g, w in zip(got, etc1s_cuda.kmeans_iter_plain(feats, cb)):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+def test_etc1s_encode_on_card_is_deterministic(card):
+    from uvol_tpu_torch.codecs.basis.etc1s_encode import encode_ktx2_etc1s
+
+    frames = np.random.default_rng(9).integers(0, 256, (2, 128, 128, 3)).astype(np.uint8)
+    first = encode_ktx2_etc1s(frames, num_endpoints=64, num_selectors=64, device="cuda")
+    assert encode_ktx2_etc1s(frames, num_endpoints=64, num_selectors=64,
+                             device="cuda") == first

@@ -28,6 +28,9 @@ REPO = Path(__file__).resolve().parents[1]
 HOST_MODULES = {
     "uvol_tpu.codecs.symbol_coding",
     "uvol_tpu.codecs.buffer",
+    "uvol_tpu.codecs.basis.etc1s_encode",  # its host functions only
+    "uvol_tpu.codecs.basis.huffman",
+    "uvol_tpu.codecs.basis.transcoder",
     "uvol_tpu.containers.ktx2",
     "uvol_tpu.native",
     "uvol_tpu.native.zstd",
@@ -53,7 +56,9 @@ def test_entry_matches_jax_entry():
 
 def test_port_runs_without_jax(tmp_path):
     """A subprocess where `import jax` fails imports the port and runs a
-    2-frame geometry and texture round trip on the CPU."""
+    2-frame geometry and texture round trip and a 1-frame ETC1S encode
+    on the CPU (so no lazy `import jax` of the JAX package's host code
+    is reached)."""
     script = textwrap.dedent(
         """
         import sys
@@ -75,6 +80,10 @@ def test_port_runs_without_jax(tmp_path):
         tc = TextureSequenceCodec(sequence_size=2, supercompression="zstd", device="cpu")
         out = tc.decode_segment(read_ktx2(tc.encode_segment(tex)))
         assert out.shape == tex.shape and out.dtype == np.uint8
+        from uvol_tpu_torch.codecs.basis.etc1s_encode import (
+            encode_ktx2_etc1s, read_ktx2 as read_basis, transcode_ktx2_etc1s)
+        blob = encode_ktx2_etc1s(tex[:1], num_endpoints=8, num_selectors=8, device="cpu")
+        assert transcode_ktx2_etc1s(read_basis(blob)).shape[:3] == (1, 16, 16)
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                        if sys.modules[m] is not None)
         print("ok")

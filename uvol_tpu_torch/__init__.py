@@ -9,12 +9,16 @@ obvious counterpart:
   codecs.basis.etc               ETC1 block codec, plain twins
   codecs.basis.etc_cuda          ETC1 image encode/decode wrappers over
                                  the hand-written kernels in csrc/etc1.cu
+  codecs.basis.etc1s_cuda        ETC1S palette-build kernels K4-K6 (csrc/
+                                 etc1s.cu) and their plain twins
+  codecs.basis.etc1s_encode      ETC1S/BasisLZ segment encoder, device side
   models.sequence                Geometry/TextureSequenceCodec (.uvtg, .ktx2)
   convert                        codec state from a JAX codec
   entry                          the fused forward step of __graft_entry__
 
 Host layers without JAX (rANS symbol coding, buffers, KTX2, zstd, the
-native rANS library) are imported from `uvol_tpu` as they are. This
+native rANS library, the Basis transcoder, Huffman coder and ETC1S bit
+emission) are imported from `uvol_tpu` as they are. This
 package never imports `jax`.
 """
 

@@ -96,9 +96,16 @@ def get_lib() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            for name in ("uvt_etc1_encode", "uvt_etc1_decode"):
+            signatures = {
+                "uvt_etc1_encode": [vp, vp, ci, ci, ci, vp],
+                "uvt_etc1_decode": [vp, vp, ci, ci, ci, vp],
+                "uvt_etc1s_inten_errors": [vp, vp, vp, ci, vp],
+                "uvt_etc1s_assign_endpoints": [vp, vp, vp, ci, ci, vp],
+                "uvt_etc1s_kmeans_iter": [vp, vp, ci, ci, vp, vp, vp, vp, vp],
+            }
+            for name, argtypes in signatures.items():
                 fn = getattr(lib, name)
-                fn.argtypes = [vp, vp, ci, ci, ci, vp]
+                fn.argtypes = argtypes
                 fn.restype = ci
             lib.uvt_cuda_error_string.argtypes = [ci]
             lib.uvt_cuda_error_string.restype = ctypes.c_char_p
