@@ -10,8 +10,10 @@ holds each kernel bit-for-bit against its plain PyTorch twin, drives the
 flagship codec chain at full width (32 frames x 26,145 vertices, 32
 layers of 1024x1024) and the ETC1S/BasisLZ segment encoder at the
 encoder CLI's segment (5 layers of 1024x1024, 256/256 palettes) through
-the codecs' public entry points, checks their bytes against the CPU
-codecs, times kernels and chains with CUDA events, and traces one pass
+the codecs' public entry points, holds every K4-K6 call that a segment
+encode makes against the plain twin on the same inputs, checks the
+bytes against the CPU codecs, times kernels and chains with CUDA
+events, and traces one pass
 of each codec stage with `torch.profiler` to split its time between
 host and device. Each phase prints one JSON line; then come the card's
 `nvidia-smi` name/power-limit line, the kernels line, and last
@@ -24,6 +26,7 @@ it, it exits non-zero before printing anything on stdout.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -43,6 +46,12 @@ ETC1S_REPS = 3  # timed segment encodes (median), after the warmup
 #: K4-K6 kernel names in a profiler trace (csrc/etc1s.cu)
 ETC1S_KERNEL_NAMES = ("assign_endpoints_kernel", "inten_errors_kernel",
                       "kmeans_tile_kernel", "pair_sum_kernel")
+#: K4-K6: launch-count name -> (wrapper, plain twin) in etc1s_cuda
+ETC1S_KERNELS = {
+    "etc1s_assign_endpoints": ("assign_endpoints", "assign_endpoints_plain"),
+    "etc1s_inten_errors": ("inten_errors", "inten_errors_plain"),
+    "etc1s_kmeans_iter": ("kmeans_iter", "kmeans_iter_plain"),
+}
 
 
 class CheckFailed(RuntimeError):
@@ -52,6 +61,42 @@ class CheckFailed(RuntimeError):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise CheckFailed(what)
+
+
+def hold(err: dict, name: str, got, *twins) -> None:
+    """Fail unless the kernel's output `got` (a tensor or a tuple of
+    them) equals every twin's; keep the largest |difference| in err[name].
+    int32 indices and errors, f32 sums: all exact in f64."""
+    got = got if isinstance(got, tuple) else (got,)
+    for tw in twins:
+        tw = tw if isinstance(tw, tuple) else (tw,)
+        for g, t in zip(got, tw, strict=True):
+            e = float((g.cpu().double() - t.cpu().double()).abs().max())
+            check(e == 0, f"{name} differs from its plain twin")
+            err[name] = max(err.get(name, 0), e)
+
+
+@contextlib.contextmanager
+def recorded_etc1s_calls(k):
+    """Keep (name, arguments, output) of every K4-K6 call made inside, as
+    the encoder made it; the calls launch as they would without this."""
+    calls = []
+    saved = {fn: getattr(k, fn) for fn, _ in ETC1S_KERNELS.values()}
+
+    def recording(name, fn):
+        def call(*args):
+            out = fn(*args)
+            calls.append((name, args, out))
+            return out
+        return call
+
+    for name, (fn, _) in ETC1S_KERNELS.items():
+        setattr(k, fn, recording(name, saved[fn]))
+    try:
+        yield calls
+    finally:
+        for fn, f in saved.items():
+            setattr(k, fn, f)
 
 
 def emit(obj) -> None:
@@ -121,14 +166,7 @@ def etc1s_parity(torch, dev, textures, bb) -> dict:
         "random_blocks": r.integers(0, 256, ((PARITY_SIDE // 4) ** 2, 16, 3), dtype=np.uint8),
         "boundary_blocks": bb.reshape(-1, 16, 3),
     }
-    err = {"etc1s_assign_endpoints": 0, "etc1s_inten_errors": 0, "etc1s_kmeans_iter": 0}
-
-    def diff(name, got, *twins):
-        for tw in twins:  # int32 indices and errors, f32 sums: all exact in f64
-            e = float((got.cpu().double() - tw.cpu().double()).abs().max())
-            check(e == 0, f"{name} differs from its plain twin")
-            err[name] = max(err[name], e)
-
+    err = {}
     for name, blocks_np in inputs.items():
         blocks = torch.from_numpy(np.ascontiguousarray(blocks_np))
         n = len(blocks)
@@ -138,7 +176,7 @@ def etc1s_parity(torch, dev, textures, bb) -> dict:
         base[: min(n, 4)] = torch.tensor([[0, 0, 0], [255, 255, 255], [4, 251, 128],
                                           [251, 4, 7]])[: min(n, 4)]
         got = k.inten_errors(bd, base.to(dev))
-        diff("etc1s_inten_errors", got, k.inten_errors_plain(bd, base.to(dev)),
+        hold(err, "etc1s_inten_errors", got, k.inten_errors_plain(bd, base.to(dev)),
              *([k.inten_errors_plain(blocks, base)] if small else []))
         feats = block_features(bd)
         for e in ETC1S_ENTRIES:
@@ -147,26 +185,25 @@ def etc1s_parity(torch, dev, textures, bb) -> dict:
             eb[e - 1], ei[e - 1] = eb[0], ei[0]  # a duplicate endpoint: ties
             table = k.endpoint_table(eb, ei)
             got = k.assign_endpoints(bd, table.to(dev))
-            diff("etc1s_assign_endpoints", got, k.assign_endpoints_plain(bd, table.to(dev)),
+            hold(err, "etc1s_assign_endpoints", got,
+                 k.assign_endpoints_plain(bd, table.to(dev)),
                  *([k.assign_endpoints_plain(blocks, table)] if small else []))
             pick = torch.from_numpy(r.integers(0, n, e)).to(dev)
             cb = feats[pick] + torch.from_numpy(r.random((e, 4)).astype(np.float32)).to(dev)
-            got = k.kmeans_iter(feats, cb)
-            twins = [k.kmeans_iter_plain(feats, cb)]
-            if small:
-                twins.append(k.kmeans_iter_plain(feats.cpu(), cb.cpu()))
-            for i in range(3):
-                diff("etc1s_kmeans_iter", got[i], *(t[i] for t in twins))
+            hold(err, "etc1s_kmeans_iter", k.kmeans_iter(feats, cb),
+                 k.kmeans_iter_plain(feats, cb),
+                 *([k.kmeans_iter_plain(feats.cpu(), cb.cpu())] if small else []))
     torch.cuda.synchronize()
     emit({"phase": "etc1s_kernel_parity", "inputs": list(inputs), "entries": ETC1S_ENTRIES,
           "max_abs_err": err})
     return err
 
 
-def etc1s_main_path(torch, textures) -> dict:
+def etc1s_main_path(torch, textures) -> tuple:
     """`encode_ktx2_etc1s` on one segment at full width: launches, byte
-    determinism, transcoded PSNR, the quality floor's rebuilds, and the
-    CPU port at 1 layer of 256x256."""
+    determinism, every K4-K6 call of the encode against its twin on the
+    same inputs, transcoded PSNR, the quality floor's rebuilds, and the
+    CPU port at 1 layer of 256x256. Returns (launches, max_abs_err)."""
     from uvol_tpu_torch.codecs.basis import etc1s_cuda as k
     from uvol_tpu_torch.codecs.basis.etc1s_encode import (
         encode_ktx2_etc1s, read_ktx2, transcode_ktx2_etc1s)
@@ -176,15 +213,29 @@ def etc1s_main_path(torch, textures) -> dict:
     encode_ktx2_etc1s(frames[:1, :256, :256], device=DEVICE, **kw)  # warmup
     torch.cuda.synchronize()
     k.reset_launches()
-    stats = {}
     t = time.perf_counter()
-    blob = encode_ktx2_etc1s(frames, device=DEVICE, stats=stats, **kw)
+    blob = encode_ktx2_etc1s(frames, device=DEVICE, **kw)
     first_s = time.perf_counter() - t
     launches = dict(k.LAUNCHES)
     for name, v in launches.items():
         check(v >= 1, f"the ETC1S main path never launched {name}")
-    check(encode_ktx2_etc1s(frames, device=DEVICE, **kw) == blob,
-          "two CUDA encodes of one segment gave different bytes")
+    # every palette build runs K5 three times (cluster_inten)
+    builds = launches["etc1s_inten_errors"] // 3
+    # the second encode keeps each kernel call's inputs (the real blocks,
+    # endpoint tables and centroids, with their near-ties) and output
+    with recorded_etc1s_calls(k) as calls:
+        again = encode_ktx2_etc1s(frames, device=DEVICE, **kw)
+    check(again == blob, "two CUDA encodes of one segment gave different bytes")
+    err = {}
+    replayed = {name: {"calls": 0, "shapes": []} for name in ETC1S_KERNELS}
+    for name, args, out in calls:
+        hold(err, name, out, getattr(k, ETC1S_KERNELS[name][1])(*args))
+        rec, shapes = replayed[name], [list(a.shape) for a in args]
+        rec["calls"] += 1
+        if shapes not in rec["shapes"]:
+            rec["shapes"].append(shapes)
+    for name, rec in replayed.items():
+        check(rec["calls"] == launches[name], f"{name}: calls differ between two encodes")
     dec = transcode_ktx2_etc1s(read_ktx2(blob))[..., :3]
     check(dec.shape == frames.shape and dec.dtype == np.uint8, "transcoded shape")
     mse = float(((dec.astype(np.float64) - frames) ** 2).mean())
@@ -208,19 +259,20 @@ def etc1s_main_path(torch, textures) -> dict:
           "CUDA and CPU ETC1S encodes differ beyond quality parity")
     emit({"phase": "etc1s_main_path", "layers": ETC1S_LAYERS, "size": [H, W],
           "palette": ETC1S_PALETTE, "launches": launches, "ktx2_bytes": len(blob),
-          "transcoded_psnr_db": psnr, "lam_ladder_builds": stats["builds"],
-          "palette_psnr_db": stats["palette_psnr_db"], "first_encode_s": first_s,
-          "deterministic": True,
+          "transcoded_psnr_db": psnr, "lam_ladder_builds": builds,
+          "first_encode_s": first_s, "deterministic": True,
+          "calls_vs_twin": {"max_abs_err": err, "calls": replayed},
           "cpu_compare": {"size": [ETC1S_CPU_SIDE] * 2, "bytes_equal": same,
                           "cpu_bytes": len(cpu_blob), "cuda_bytes": len(cuda_blob),
                           "cpu_psnr_db": p_cpu, "cuda_psnr_db": p_cuda, "cpu_s": cpu_s}})
-    return launches
+    return launches, err
 
 
-def etc1s_times(torch, dev, textures, median_cuda_ms) -> dict:
+def etc1s_times(torch, dev, textures, median_cuda_ms) -> tuple:
     """K4-K6 and their twins at the main path's shapes (5 x 1024^2 =
-    327,680 blocks, 256 entries); the palette core on device-resident
-    blocks, the palette build and the segment encode, host-inclusive."""
+    327,680 blocks, 256 entries), each output held against its twin's;
+    the palette core on device-resident blocks, the palette build and
+    the segment encode, host-inclusive. Returns (ms, max_abs_err)."""
     from uvol_tpu_torch.codecs.basis import etc1s_cuda as k
     from uvol_tpu_torch.codecs.basis.etc1s_encode import (
         _blocks_of, block_features, build_palettes, encode_ktx2_etc1s, palette_core)
@@ -235,15 +287,14 @@ def etc1s_times(torch, dev, textures, median_cuda_ms) -> dict:
     ei = torch.from_numpy(r.integers(0, 8, ETC1S_PALETTE).astype(np.int32)).to(dev)
     table = k.endpoint_table(eb, ei)
     base = eb[k.kmeans_iter(feats, cb)[2].long()]
-    ms = {
-        "etc1s_assign_endpoints": median_cuda_ms(lambda: k.assign_endpoints(bd, table), REPS),
-        "etc1s_assign_endpoints_plain": median_cuda_ms(
-            lambda: k.assign_endpoints_plain(bd, table), REPS),
-        "etc1s_inten_errors": median_cuda_ms(lambda: k.inten_errors(bd, base), REPS),
-        "etc1s_inten_errors_plain": median_cuda_ms(lambda: k.inten_errors_plain(bd, base), REPS),
-        "etc1s_kmeans_iter": median_cuda_ms(lambda: k.kmeans_iter(feats, cb), REPS),
-        "etc1s_kmeans_iter_plain": median_cuda_ms(lambda: k.kmeans_iter_plain(feats, cb), REPS),
-    }
+    ms, err = {}, {}
+    for name, args in (("etc1s_assign_endpoints", (bd, table)),
+                       ("etc1s_inten_errors", (bd, base)),
+                       ("etc1s_kmeans_iter", (feats, cb))):
+        kernel, twin = (getattr(k, fn) for fn in ETC1S_KERNELS[name])
+        hold(err, name, kernel(*args), twin(*args))
+        ms[name] = median_cuda_ms(lambda: kernel(*args), REPS)
+        ms[name + "_plain"] = median_cuda_ms(lambda: twin(*args), REPS)
     # the encode, and the two stages inside it: the device-resident palette
     # core, and the build (upload, core, refine, fetch, host relabel)
     kw = dict(num_endpoints=ETC1S_PALETTE, num_selectors=ETC1S_PALETTE, device=DEVICE)
@@ -255,8 +306,9 @@ def etc1s_times(torch, dev, textures, median_cuda_ms) -> dict:
     ms["etc1s_segment_encode"] = median_cuda_ms(lambda: encode_ktx2_etc1s(frames, **kw),
                                                 ETC1S_REPS, warmup=0)
     emit({"phase": "etc1s_times", "blocks": n, "entries": ETC1S_PALETTE, "reps": REPS,
-          "ms": ms, "segment_layers_per_s": ETC1S_LAYERS / (ms["etc1s_segment_encode"] / 1e3)})
-    return ms
+          "max_abs_err": err, "ms": ms,
+          "segment_layers_per_s": ETC1S_LAYERS / (ms["etc1s_segment_encode"] / 1e3)})
+    return ms, err
 
 
 def main() -> int:
@@ -399,7 +451,8 @@ def main() -> int:
           "ktx2_bytes": len(tex_blob), "pos_err": pos_err, "step": step,
           "cuda_vs_cpu_max_abs_err": {"positions": geo_err, "uvs": uv_err},
           "texture_psnr_db": psnr})
-    launches.update(etc1s_main_path(torch, textures))
+    etc1s_launches, main_err = etc1s_main_path(torch, textures)
+    launches.update(etc1s_launches)
 
     # ---- 5. times (CUDA events, median of REPS after one warmup) -----------------
     words = etc_cuda.encode_etc1_images(tex_dev)
@@ -430,7 +483,11 @@ def main() -> int:
     ms["host_decode"] = median_cuda_ms(lambda: decode_all(blobs, tex_blob), REPS)
     fps = {k: F / (ms[k] / 1e3) for k in ("device_chain", "host_encode", "host_decode")}
     emit({"phase": "times", "frames": F, "reps": REPS, "ms": ms, "frames_per_s": fps})
-    ms.update(etc1s_times(torch, dev, textures, median_cuda_ms))
+    etc1s_ms, times_err = etc1s_times(torch, dev, textures, median_cuda_ms)
+    ms.update(etc1s_ms)
+    for e in (main_err, times_err):  # the kernels line: the worst of every comparison
+        for name, v in e.items():
+            err[name] = max(err[name], v)
 
     # ---- 6. one torch.profiler pass per host-inclusive stage ------------------
     # wall_ms includes the profiler's own overhead; device_ms sums the

@@ -336,12 +336,8 @@ def build_palettes(
     )
     if rdo:
         lam, lam_sel, lam_cr = rdo_lambdas
-        rdo_refine_assignments(
-            blocks, pal, h // 4, w // 4,
-            lam=lam, lam_sel=lam_sel, lam_cr=lam_cr,
-            chain_breaks=rdo_chain_breaks,
-            dev_blocks=dev_blocks, dev_assign=assign, dev_sel_assign=sel_assign,
-        )
+        _rdo_refine(dev_blocks, assign, sel_assign, pal, h // 4, w // 4,
+                    lam, lam_sel, lam_cr, rdo_chain_breaks)
     else:
         pal.block_endpoint = assign.cpu().numpy().reshape(f, nb)
         pal.block_selector = sel_assign.cpu().numpy().reshape(f, nb)
@@ -403,28 +399,30 @@ def rdo_refine_assignments(
     lam_sel: float = 1.25,
     lam_cr: float = 1.5,
     chain_breaks: Sequence[int] = (),
-    dev_blocks: Optional[Tensor] = None,
-    dev_assign: Optional[Tensor] = None,
-    dev_sel_assign: Optional[Tensor] = None,
     device: DeviceLike = None,
 ) -> None:
     """In-place spatial/temporal RDO over per-frame assignments (the
-    reference's `rdo_refine_assignments`).
+    reference's `rdo_refine_assignments`), on `device`.
 
     `chain_breaks`: frames emitted as I-slices, where the temporal term
-    must not reward matching the previous frame. `dev_blocks`,
-    `dev_assign`, `dev_sel_assign` hand over tensors already on the
-    device (`build_palettes`' upload); otherwise `blocks` and the `pal`
-    grids are uploaded to `device`."""
-    f = pal.block_endpoint.shape[0]
+    must not reward matching the previous frame."""
+    dev = resolve_device(device)
+    _rdo_refine(
+        torch.from_numpy(np.ascontiguousarray(blocks)).to(dev),
+        torch.from_numpy(np.asarray(pal.block_endpoint, np.int32)).to(dev),
+        torch.from_numpy(np.asarray(pal.block_selector, np.int32)).to(dev),
+        pal, nby, nbx, lam, lam_sel, lam_cr, chain_breaks,
+    )
+
+
+def _rdo_refine(dev_blocks: Tensor, dev_assign: Tensor, dev_sel_assign: Tensor,
+                pal: Palettes, nby: int, nbx: int, lam: float, lam_sel: float,
+                lam_cr: float, chain_breaks: Sequence[int]) -> None:
+    """`rdo_refine_assignments` on blocks [F*nb, 16, 3] and assignments
+    [F*nb] already on the device; writes `pal`'s grids."""
+    f = len(dev_blocks) // (nby * nbx)
     nb = nby * nbx
-    if dev_blocks is None:
-        dev_blocks = torch.from_numpy(np.ascontiguousarray(blocks)).to(resolve_device(device))
     dev = dev_blocks.device
-    if dev_assign is None:
-        dev_assign = torch.from_numpy(np.asarray(pal.block_endpoint, np.int32)).to(dev)
-    if dev_sel_assign is None:
-        dev_sel_assign = torch.from_numpy(np.asarray(pal.block_selector, np.int32)).to(dev)
     px = dev_blocks.reshape(f, nb, 16, 3).to(torch.int32)
     c5 = torch.from_numpy(pal.color5.astype(np.int32)).to(dev)
     base = (c5 << 3) | (c5 >> 2)
@@ -572,7 +570,6 @@ def encode_ktx2_etc1s(
     endpoint_quads: bool = False,
     mesh: Optional[object] = None,
     device: DeviceLike = None,
-    stats: Optional[dict] = None,
 ) -> bytes:
     """[F, H, W, 3|4] uint8 → BasisLZ-supercompressed KTX2 (video layers):
     the reference's `encode_ktx2_etc1s`, with the palette build and the
@@ -582,9 +579,7 @@ def encode_ktx2_etc1s(
     slice sharing the codebooks. The quality floor rebuilds the palette
     at gentler delta lambdas while the palette PSNR is under
     `min_psnr_db`, exactly as the reference does (below 512 endpoints a
-    rebuild repeats the same build). `stats`, when given, receives
-    `builds` (how many builds ran) and `palette_psnr_db` (the last
-    self-measure, None when none was taken)."""
+    rebuild repeats the same build)."""
     if endpoint_quads:
         raise NotImplementedError("encode_ktx2_etc1s: endpoint_quads is not ported")
     if mesh is not None:
@@ -608,8 +603,6 @@ def encode_ktx2_etc1s(
     if delta_window > 0:
         lam_ladder += [delta_lambda / 3.0, delta_lambda / 10.0, 0.0]
     pal = None
-    psnr = None
-    builds = 0
     for lam_try in lam_ladder:
         pal = build_palettes(
             pal_input, num_endpoints, num_selectors, kmeans_iters,
@@ -620,12 +613,8 @@ def encode_ktx2_etc1s(
             rdo_chain_breaks=(f,) if has_alpha else (),
             device=device,
         )
-        builds += 1
         if len(lam_ladder) == 1:
             break
-        psnr = _palette_psnr(pal_input, pal, nby, nbx)
-        if psnr >= min_psnr_db:
+        if _palette_psnr(pal_input, pal, nby, nbx) >= min_psnr_db:
             break
-    if stats is not None:
-        stats.update(builds=builds, palette_psnr_db=psnr)
     return _emit_segment(pal, f, h, w, has_alpha, history_size, srgb)
