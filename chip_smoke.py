@@ -5,10 +5,11 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from `uvol_tpu_torch/csrc/` (nvcc, sm_90a),
-holds each kernel bit-for-bit against its plain PyTorch twin, drives the
-flagship codec chain at full width (32 frames x 26,145 vertices, 32
-layers of 1024x1024) and the ETC1S/BasisLZ segment encoder at the
+It builds the CUDA kernels from `uvol_tpu_torch/csrc/` (nvcc, sm_90a,
+one process per source), holds each kernel (K1-K6) bit-for-bit against
+its plain PyTorch twin, drives the flagship codec chain at full width
+(32 frames x 26,145 vertices, 32 layers of 1024x1024; the geometry
+encode launches K3 twice) and the ETC1S/BasisLZ segment encoder at the
 encoder CLI's segment (5 layers of 1024x1024, 256/256 palettes) through
 the codecs' public entry points, holds every K4-K6 call that a segment
 encode makes against the plain twin on the same inputs, checks the
@@ -16,12 +17,16 @@ bytes against the CPU codecs, times kernels and chains with CUDA
 events, and traces one pass
 of each codec stage with `torch.profiler` to split its time between
 host and device. Each phase prints one JSON line; then come the card's
-`nvidia-smi` name/power-limit line, the kernels line, and last
-`{"ok": true, "device": {...}}`.
+`nvidia-smi` name/power-limit line, the kernels line (each kernel's
+launches on its main path, worst difference from its twin, time, its
+twin's time, and its bound: the larger of the bytes it must move over
+the memory rate and its operations over the peak rate for their type),
+and last `{"ok": true, "device": {...}}`.
 
 Any failed check raises and the script exits non-zero without the last
-line. Without a CUDA card, or without the rest of the repository beside
-it, it exits non-zero before printing anything on stdout.
+line. So does a process that has loaded `jax` or the JAX package. Without
+a CUDA card, or without the rest of the repository beside it, it exits
+non-zero before printing anything on stdout.
 """
 
 from __future__ import annotations
@@ -51,6 +56,29 @@ ETC1S_KERNELS = {
     "etc1s_assign_endpoints": ("assign_endpoints", "assign_endpoints_plain"),
     "etc1s_inten_errors": ("inten_errors", "inten_errors_plain"),
     "etc1s_kmeans_iter": ("kmeans_iter", "kmeans_iter_plain"),
+}
+#: K3's kernel name in a profiler trace (csrc/geometry.cu)
+K3_KERNEL_NAME = "quantize_delta_zigzag_kernel"
+K3_PROFILED_LAUNCHES = 50  # launches averaged for K3's kernel-only time
+
+# The bound of a kernel: max(bytes / memory rate, operations / peak rate).
+# Published peaks of the H100 SXM (NVIDIA's data sheet) at 700 W: HBM
+# 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s. Integer work:
+# 33.5 T instructions/s, derived, not published: the SMs dispatch at most 128
+# thread-instructions per clock each (4 schedulers x 32 lanes), which is
+# also what the float32 peak counts (an FFMA as 2 FLOP: 67 T / 2); an
+# IMAD counts as one instruction.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+INT_OPS_PER_S = 67e12 / 2
+#: operations per unit of work, from each kernel's arithmetic (csrc/ notes)
+OPS = {
+    "etc1_encode": 3000,  # per 4x4 block: both flips x 8 tables, rank + refine
+    "etc1_decode": 12,  # per pixel: modifier select, 3 x (add, clamp)
+    "quantize_delta_zigzag": 10,  # per element: 2 x (fma, floor, cvt), sub, zigzag
+    "etc1s_assign_endpoints": 256,  # per (block, endpoint): 16 px x 4 codes x (3 IMAD + min)
+    "etc1s_inten_errors": 2048,  # per block: 16 px x 8 tables x 4 codes x (3 IMAD + min)
+    "etc1s_kmeans_iter": 8,  # FLOP per (row, centroid): 4 x (mul, add)
 }
 
 
@@ -101,6 +129,89 @@ def recorded_etc1s_calls(k):
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple:
+    """(bound_ms, bound_by): the least time for moving `nbytes` once and
+    doing `ops` operations at the card's peak rates."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_no_jax_loaded() -> None:
+    """The port runs without JAX: fail if this process loaded `jax` or
+    the JAX package."""
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "uvol_tpu"))
+    check(not loaded, f"JAX modules loaded: {loaded[:5]}")
+
+
+def boundary_offsets(inv: float, max_q: int) -> np.ndarray:
+    """float32 offsets whose product with `inv` lies at k + 0.5 (within 3
+    ulp either side, every k < max_q), and those near k + 0.5 for k + 1 a
+    power of two where one fused multiply-add and a rounded multiply
+    then a rounded add give different integers (tests/
+    test_torch_pallas_kernels.py builds the same set)."""
+    inv = np.float32(inv)
+
+    def fused(x):
+        return np.floor((x.astype(np.float64) * np.float64(inv) + 0.5).astype(np.float32))
+
+    def split(x):
+        return np.floor((x * inv).astype(np.float32) + np.float32(0.5))
+
+    x0 = ((np.arange(max_q, dtype=np.float64) + 0.5) / np.float64(inv)).astype(np.float32)
+    parts = [(x0.view(np.int32) + d).view(np.float32) for d in range(-3, 4)]
+    for e in range(int(np.log2(max_q)) + 1):
+        c = np.float32((2.0 ** e - 0.5) / float(inv))
+        x = (c.view(np.int32) + np.arange(-4000, 4000, dtype=np.int32)).view(np.float32)
+        x = x[x >= 0]
+        parts.append(x[fused(x) != split(x)])
+    out = np.concatenate(parts)
+    return out[(out >= 0) & (out * inv <= max_q)]
+
+
+def k3_parity(torch, dev, positions, uvs) -> dict:
+    """K3 against its plain twin on the card (and on the CPU): random
+    batches, rounding-boundary offsets (their quantized values also held
+    to one fused multiply-add), and the full positions and UVs of the
+    bench batch as the geometry encode gives them."""
+    from uvol_tpu_torch.models.sequence import quantize_offsets
+    from uvol_tpu_torch.ops import pallas_kernels as pk
+
+    r = np.random.default_rng(4)
+    inputs = {}
+    for f, c, n in ((1, 3, 1), (3, 2, 513), (4, 3, 4099)):
+        x = torch.from_numpy((r.normal(size=(f, c, n)) * 7).astype(np.float32))
+        mask = torch.from_numpy(np.arange(n)[None, :] < r.integers(1, n + 1, f)[:, None])
+        inputs[f"random_{f}x{c}x{n}"] = quantize_offsets(x, 11, mask)[:2]
+    invs = np.float32([1.0, 2047 / 1.7345, 1023 / 0.9871])
+    rows = [boundary_offsets(inv, 2047 if i < 2 else 1023) for i, inv in enumerate(invs)]
+    xb = np.zeros((len(rows), 1, max(map(len, rows))), np.float32)
+    for i, row in enumerate(rows):
+        xb[i, 0, : len(row)] = row
+    inputs["boundary"] = (torch.from_numpy(xb), torch.from_numpy(invs))
+    mask = torch.ones((F, N), dtype=torch.bool, device=dev)
+    for name, a in (("bench_positions", positions), ("bench_uvs", uvs)):
+        planar = torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1))).to(dev)
+        inputs[name] = quantize_offsets(planar, 11 if a.shape[-1] == 3 else 10, mask)[:2]
+    err, shapes = {}, {}
+    for name, (xm, inv) in inputs.items():
+        got = pk.fused_quantize_delta_zigzag(xm.to(dev), inv.to(dev))
+        hold(err, "quantize_delta_zigzag", got,
+             pk.fused_quantize_delta_zigzag_plain(xm.to(dev), inv.to(dev)),
+             pk.fused_quantize_delta_zigzag_plain(xm.cpu(), inv.cpu()))
+        shapes[name] = list(xm.shape)
+    # the boundary rows' quantized values are the fused multiply-add's
+    got = pk.fused_quantize_delta_zigzag(*(t.to(dev) for t in inputs["boundary"]))
+    zz = got.cpu().numpy().view(np.uint32).astype(np.int64)
+    q = np.cumsum(np.where(zz % 2 == 0, zz // 2, -(zz + 1) // 2), -1)
+    for i, row in enumerate(rows):
+        want = np.floor((row.astype(np.float64) * np.float64(invs[i]) + 0.5).astype(np.float32))
+        check(bool((q[i, 0, : len(row)] == want).all()), "K3 does not round as one FMA")
+    torch.cuda.synchronize()
+    emit({"phase": "k3_parity", "shapes": shapes, "boundary_rows": [len(x) for x in rows],
+          "max_abs_err": err})
+    return err
 
 
 def nvidia_smi_line() -> str:
@@ -333,7 +444,10 @@ def main() -> int:
     )
     from uvol_tpu_torch.codecs.basis.etc1s_encode import encode_ktx2_etc1s
     from uvol_tpu_torch._device import true_div
-    from uvol_tpu_torch.utils.timing import device_time_ms, device_trace, median_cuda_ms
+    from uvol_tpu_torch.models.sequence import quantize_offsets
+    from uvol_tpu_torch.ops import pallas_kernels as pk
+    from uvol_tpu_torch.utils.timing import (
+        cuda_timer, device_time_ms, device_trace, median_cuda_ms)
 
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
@@ -392,6 +506,7 @@ def main() -> int:
     emit({"phase": "kernel_parity", "inputs_k1": list(enc_inputs),
           "inputs_k2": list(dec_inputs), "max_abs_err": err})
     err.update(etc1s_parity(torch, dev, textures, bb))
+    err.update(k3_parity(torch, dev, positions, uvs))
 
     # ---- 4. main path at full width ---------------------------------------------
     frames = GeometryFrameSet(positions, uvs, counts, faces)
@@ -407,12 +522,15 @@ def main() -> int:
 
     decode_all(*encode_all())  # warmup: allocator, library load
     etc_cuda.reset_launches()
+    pk.reset_launches()
     blobs, tex_blob = encode_all()
     dec, tex_dec = decode_all(blobs, tex_blob)
     torch.cuda.synchronize()
-    launches = dict(etc_cuda.LAUNCHES)
+    launches = {**etc_cuda.LAUNCHES, **pk.LAUNCHES}
     for k, v in launches.items():
         check(v >= 1, f"main path never launched {k}")
+    # one geometry encode: K3 on the positions, then on the UVs
+    check(launches["quantize_delta_zigzag"] == 2, "the geometry encode did not launch K3 twice")
 
     # geometry: bytes equal to the CPU codec's, error within one step
     geo_cpu = GeometrySequenceCodec(position_bits=11, uv_bits=10, device="cpu")
@@ -478,6 +596,25 @@ def main() -> int:
         )
         return pos2, uv2, etc_cuda.decode_etc1_images(w, F, H, W)
 
+    # K3 at the geometry encode's shapes: a call (CUDA events, launch
+    # included), a call in a loop of back-to-back launches, and the kernel
+    # alone (profiler device time per launch)
+    for part, a, bits in (("", dev_pos, 11), ("_uv", dev_uv, 10)):
+        xm, inv = quantize_offsets(a, bits, dev_mask)[:2]
+        ms[f"quantize_delta_zigzag{part}"] = median_cuda_ms(
+            lambda: pk.fused_quantize_delta_zigzag(xm, inv), REPS)
+        ms[f"quantize_delta_zigzag{part}_plain"] = median_cuda_ms(
+            lambda: pk.fused_quantize_delta_zigzag_plain(xm, inv), REPS)
+        with cuda_timer() as t:
+            for _ in range(K3_PROFILED_LAUNCHES):
+                pk.fused_quantize_delta_zigzag(xm, inv)
+        ms[f"quantize_delta_zigzag{part}_in_loop"] = t.ms / K3_PROFILED_LAUNCHES
+        with device_trace() as prof:
+            for _ in range(K3_PROFILED_LAUNCHES):
+                pk.fused_quantize_delta_zigzag(xm, inv)
+        k3_ms = sum(v for k, v in device_time_ms(prof).items() if K3_KERNEL_NAME in k)
+        check(k3_ms > 0, "the profiler saw no K3 kernel")
+        ms[f"quantize_delta_zigzag{part}_kernel_only"] = k3_ms / K3_PROFILED_LAUNCHES
     ms["device_chain"] = median_cuda_ms(device_chain, REPS)
     ms["host_encode"] = median_cuda_ms(encode_all, REPS)
     ms["host_decode"] = median_cuda_ms(lambda: decode_all(blobs, tex_blob), REPS)
@@ -509,11 +646,12 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
         by_name = device_time_ms(prof)
-        kinds = {"h2d": 0.0, "d2h": 0.0, "etc1_kernels": 0.0, "etc1s_kernels": 0.0,
-                 "other": 0.0}
+        kinds = {"h2d": 0.0, "d2h": 0.0, "k3_kernel": 0.0, "etc1_kernels": 0.0,
+                 "etc1s_kernels": 0.0, "other": 0.0}
         for k, v in by_name.items():
             kind = ("h2d" if k.startswith("Memcpy HtoD") else
                     "d2h" if k.startswith("Memcpy DtoH") else
+                    "k3_kernel" if K3_KERNEL_NAME in k else
                     "etc1_kernels" if "etc1_" in k else
                     "etc1s_kernels" if any(kn in k for kn in ETC1S_KERNEL_NAMES) else "other")
             kinds[kind] += v
@@ -525,25 +663,43 @@ def main() -> int:
         }
     emit({"phase": "profile", "stages": profile, "total_s": time.perf_counter() - t_start})
 
+    # ---- 7. the kernels line: main-path launches, parity, times, bounds -------
+    nb = F * (H // 4) * (W // 4)  # K1/K2: 32 layers of 1024^2
+    nq = F * 3 * N  # K3: the positions call
+    ne = ETC1S_LAYERS * (H // 4) * (W // 4)  # K4-K6: 327,680 blocks
+    e = ETC1S_PALETTE
+    work = {  # name: (source, replaces, bytes moved once, operations, their rate)
+        "etc1_encode": ("etc1.cu", "codecs/basis/etc_pallas.py:230", nb * 48 + nb * 8,
+                        OPS["etc1_encode"] * nb, INT_OPS_PER_S),
+        "etc1_decode": ("etc1.cu", "codecs/basis/etc_pallas.py:350", nb * 8 + nb * 48,
+                        OPS["etc1_decode"] * nb * 16, INT_OPS_PER_S),
+        "quantize_delta_zigzag": ("geometry.cu", "ops/pallas_kernels.py:68",
+                                  nq * 4 + F * 4 + nq * 4,
+                                  OPS["quantize_delta_zigzag"] * nq, INT_OPS_PER_S),
+        "etc1s_assign_endpoints": ("etc1s.cu", "codecs/basis/etc1s_pallas.py:149",
+                                   ne * 48 + e * 80 + ne * 4,
+                                   OPS["etc1s_assign_endpoints"] * ne * e, INT_OPS_PER_S),
+        "etc1s_inten_errors": ("etc1s.cu", "codecs/basis/etc1s_pallas.py:217",
+                               ne * 48 + ne * 12 + ne * 32,
+                               OPS["etc1s_inten_errors"] * ne, INT_OPS_PER_S),
+        "etc1s_kmeans_iter": ("etc1s.cu", "codecs/basis/etc1s_pallas.py:310",
+                              ne * 16 + e * 16 + ne * 4 + e * 20,
+                              OPS["etc1s_kmeans_iter"] * ne * e, F32_FLOP_PER_S),
+    }
+    rows = []
+    for name, (src, replaces, nbytes, ops, rate) in work.items():
+        bound_ms, bound_by = bound(nbytes, ops, rate)
+        rows.append({
+            "name": name, "route": "cuda", "source": f"uvol_tpu_torch/csrc/{src}",
+            "replaces": f"uvol_tpu/{replaces}", "launches": launches[name],
+            "max_abs_err": err[name], "ms": ms[name], "plain_ms": ms[name + "_plain"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,  # no single PyTorch call computes any of the six
+        })
     check_full_f32(torch)
     print(nvidia_smi_line(), flush=True)
-    emit({"kernels": [
-        {"name": "etc1_encode", "route": "cuda", "source": "uvol_tpu_torch/csrc/etc1.cu",
-         "replaces": "uvol_tpu/codecs/basis/etc_pallas.py:230",
-         "launches": launches["etc1_encode"], "max_abs_err": err["etc1_encode"],
-         "ms": ms["etc1_encode"], "plain_ms": ms["etc1_encode_plain"]},
-        {"name": "etc1_decode", "route": "cuda", "source": "uvol_tpu_torch/csrc/etc1.cu",
-         "replaces": "uvol_tpu/codecs/basis/etc_pallas.py:350",
-         "launches": launches["etc1_decode"], "max_abs_err": err["etc1_decode"],
-         "ms": ms["etc1_decode"], "plain_ms": ms["etc1_decode_plain"]},
-    ] + [
-        {"name": name, "route": "cuda", "source": "uvol_tpu_torch/csrc/etc1s.cu",
-         "replaces": f"uvol_tpu/codecs/basis/etc1s_pallas.py:{line}",
-         "launches": launches[name], "max_abs_err": err[name],
-         "ms": ms[name], "plain_ms": ms[name + "_plain"]}
-        for name, line in (("etc1s_assign_endpoints", 149), ("etc1s_inten_errors", 217),
-                           ("etc1s_kmeans_iter", 310))
-    ]})
+    emit({"kernels": rows})
+    check_no_jax_loaded()
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -13,8 +13,10 @@ import torch
 
 from uvol_tpu_torch.codecs.basis import etc as tetc
 from uvol_tpu_torch.codecs.basis import etc1s_cuda, etc_cuda
+from uvol_tpu_torch.containers.ktx2 import read_ktx2
 from uvol_tpu_torch.entry import entry
 from uvol_tpu_torch.models import sequence as tseq
+from uvol_tpu_torch.ops import pallas_kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -99,10 +101,48 @@ def test_texture_codec_on_card_matches_cpu(card):
     cpu_codec = tseq.TextureSequenceCodec(sequence_size=3, device="cpu")
     blob = cuda_codec.encode_segment(frames)
     assert blob == cpu_codec.encode_segment(frames)
-    from uvol_tpu.containers.ktx2 import read_ktx2
-
     f = read_ktx2(blob)
     np.testing.assert_array_equal(cuda_codec.decode_segment(f), cpu_codec.decode_segment(f))
+
+
+# ---- K3: fused quantize + delta + zigzag -------------------------------------
+
+
+def _offsets(f: int, c: int, n: int, seed: int):
+    """Min-subtracted planar offsets and inv, as the geometry encode makes
+    them, with offsets at k + 0.5 (+-1 ulp) of inv in frame 0."""
+    r = np.random.default_rng(seed)
+    x = torch.from_numpy((r.normal(size=(f, c, n)) * 3).astype(np.float32))
+    mask = torch.from_numpy(np.arange(n)[None, :] < np.array([n] + [n - 5] * (f - 1))[:, None])
+    xm, inv, _, _ = tseq.quantize_offsets(x, 11, mask)
+    half = ((np.arange(n) % 2047 + 0.5) / np.float64(inv[0])).astype(np.float32)
+    steps = (np.arange(n) % 3 - 1).astype(np.int32)
+    xm[0, 0] = torch.from_numpy((half.view(np.int32) + steps).view(np.float32))
+    return xm, inv
+
+
+@pytest.mark.parametrize("f,c,n", [(1, 3, 1), (2, 2, 513), (4, 3, 26145), (32, 2, 26145)])
+def test_k3_kernel_matches_twin(card, f, c, n):
+    xm, inv = _offsets(f, c, n, seed=n)
+    before = pallas_kernels.LAUNCHES["quantize_delta_zigzag"]
+    got = pallas_kernels.fused_quantize_delta_zigzag(xm.to(card), inv.to(card))
+    torch.cuda.synchronize()
+    assert pallas_kernels.LAUNCHES["quantize_delta_zigzag"] == before + 1
+    want = pallas_kernels.fused_quantize_delta_zigzag_plain(xm, inv)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_geometry_codec_on_card_matches_cpu(card):
+    r = np.random.default_rng(6)
+    pos = r.normal(size=(3, 5000, 3)).astype(np.float32)
+    uv = r.uniform(size=(3, 5000, 2)).astype(np.float32)
+    counts = np.array([5000, 4000, 4999])
+    faces = [r.integers(0, 4000, (3000, 3)).astype(np.int32) for _ in range(3)]
+    fs = tseq.GeometryFrameSet(pos, uv, counts, faces)
+    before = pallas_kernels.LAUNCHES["quantize_delta_zigzag"]
+    blobs = tseq.GeometrySequenceCodec(device="cuda").encode(fs)
+    assert pallas_kernels.LAUNCHES["quantize_delta_zigzag"] == before + 2
+    assert blobs == tseq.GeometrySequenceCodec(device="cpu").encode(fs)
 
 
 # ---- ETC1S palette-build kernels K4-K6 ------------------------------------

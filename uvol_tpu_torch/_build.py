@@ -2,9 +2,10 @@
 
 The pattern of `uvol_tpu/native/__init__.py` (compile at first use,
 load with ctypes), with nvcc in place of g++: every `csrc/*.cu` file is
-compiled for Hopper (`sm_90a`) into `build/uvol_tpu_torch/` at the repo
-root, under a name carrying the hash of the sources and flags, so an
-edited source is rebuilt and a stale library is never loaded.
+compiled for Hopper (`sm_90a`), one nvcc per source, all started
+together, and linked into `build/uvol_tpu_torch/` at the repo root,
+under a name carrying the hash of the sources and flags, so an edited
+source is rebuilt and a stale library is never loaded.
 
 The library has a plain C interface: each entry point takes its
 pointers and the CUDA stream as `void*`, launches, and returns
@@ -31,8 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "uvol_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
 ]
 
 _lock = threading.Lock()
@@ -75,17 +75,30 @@ def build() -> Path:
         return so
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cus = [str(p) for p in _sources() if p.suffix == ".cu"]
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), *cus],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, so)  # atomic: a concurrent process never loads a partial file
+    tag = f"{so.stem}.{os.getpid()}"
+    cus = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [so.with_name(f"{tag}.{p.stem}.o") for p in cus]
+    tmp = so.with_name(f"{tag}.tmp")
+    try:
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for p, o in zip(cus, objs)
+        ]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [f"{p.name}:\n{log}"
+                  for p, proc, log in zip(cus, procs, logs) if proc.returncode != 0]
+        if not failed:
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if link.returncode != 0:
+                failed.append(f"link:\n{link.stdout}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        os.replace(tmp, so)  # atomic: a concurrent process never loads a partial file
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return so
 
 
@@ -102,6 +115,7 @@ def get_lib() -> ctypes.CDLL:
                 "uvt_etc1s_inten_errors": [vp, vp, vp, ci, vp],
                 "uvt_etc1s_assign_endpoints": [vp, vp, vp, ci, ci, vp],
                 "uvt_etc1s_kmeans_iter": [vp, vp, ci, ci, vp, vp, vp, vp, vp],
+                "uvt_quantize_delta_zigzag": [vp, vp, vp, ci, ci, ci, vp],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

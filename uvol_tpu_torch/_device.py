@@ -3,7 +3,8 @@
 Counterpart of `uvol_tpu.models.sequence._pallas_available`: the JAX
 package picks its Pallas kernels by backend; here the device of the
 tensors decides. A CUDA tensor goes through the hand-written kernels in
-`csrc/`, a CPU tensor through their plain PyTorch twins.
+`csrc/`, a CPU tensor through their plain PyTorch twins. The entry
+points run on the card unless the caller names the CPU.
 
 Importing this module pins float32 matmuls and convolutions to full
 precision: the reference runs its matmuls at `Precision.HIGHEST`, and on
@@ -31,16 +32,14 @@ Tensor = torch.Tensor
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """`None` picks the first CUDA card when there is one, else the CPU
-    (the JAX package's default-backend rule). Asking for `"cuda"` on a
-    machine without a card raises instead of running on the CPU."""
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    dev = torch.device(device)
+    """`None` is the current CUDA card. Asking for a card (by `None` or
+    by name) on a machine without one raises instead of running on the
+    CPU; the CPU runs only where the caller names it (`"cpu"`)."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"device {str(device)!r} requested but torch.cuda.is_available() "
-            "is False"
+            f"device {str(dev)!r} requested but torch.cuda.is_available() "
+            "is False (name device='cpu' to run on the CPU)"
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r}")

@@ -31,8 +31,8 @@ from typing import Tuple
 
 import torch
 
-from uvol_tpu.codecs.basis.transcoder import INTEN_TABLES as _INTEN_TABLES
 from uvol_tpu_torch import _build
+from uvol_tpu_torch.codecs.basis.transcoder import INTEN_TABLES as _INTEN_TABLES
 
 Tensor = torch.Tensor
 

@@ -1,4 +1,4 @@
-"""ETC1S / BasisLZ segment encoder, device side — counterpart of
+"""ETC1S / BasisLZ segment encoder — counterpart of
 `uvol_tpu/codecs/basis/etc1s_encode.py`.
 
 The palette build (`palette_core`, `build_palettes`) and the
@@ -7,8 +7,9 @@ device of the blocks; their three hot stages are the kernels of
 `etc1s_cuda` (K4 exact endpoint assignment, K5 intensity-table errors,
 K6 the feature-space Lloyd step), launched on a CUDA device and replaced
 by their plain twins on the CPU. The host side — the `Palettes` record,
-the palette relabel, the slice/codebook bit emission and the quality
-self-measure — is the JAX package's own host code, imported as it is.
+the palette relabel, the slice/codebook bit emission (native through
+`uvol_tpu_torch.native`) and the quality self-measure — is a copy of the
+reference's host code, under its names, unchanged.
 
 What the reference's TPU workarounds became:
 
@@ -36,27 +37,27 @@ of 512 or more endpoints), `endpoint_quads` and `mesh=`; each raises
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from uvol_tpu.codecs.basis.etc1s_encode import (  # host code, no JAX
-    Palettes,
-    _palette_psnr,
-    choose_codebook_sizes,
-    encode_endpoints_stream,
-    encode_etc1s_slice_bits,
-    encode_selectors_stream,
-    reorder_endpoint_palette,
-)
-from uvol_tpu.codecs.basis.huffman import BitWriter, HuffmanEncoder
-from uvol_tpu.codecs.basis.transcoder import (  # transcode_ktx2_etc1s: the decode side
+from uvol_tpu_torch.codecs.basis.huffman import BitWriter, HuffmanEncoder, write_vlc
+from uvol_tpu_torch.codecs.basis.transcoder import (  # transcode_ktx2_etc1s: the decode side
+    COLOR5_PAL0_PREV_HI,
+    COLOR5_PAL1_PREV_HI,
     ENDPOINT_PRED_REPEAT_LAST,
+    INTEN_TABLES,
+    PRED_ABOVE,
+    PRED_CR,
+    PRED_EXPLICIT,
+    PRED_LEFT,
+    ApproxMoveToFront,
     transcode_ktx2_etc1s,
 )
-from uvol_tpu.containers.ktx2 import (  # read_ktx2: the decode side's reader
+from uvol_tpu_torch.containers.ktx2 import (  # read_ktx2: the decode side's reader
     BasisLZGlobalData,
     KTX2Header,
     KTX2ImageDesc,
@@ -106,6 +107,15 @@ def _blocks_of(frames: np.ndarray) -> np.ndarray:
         .transpose(0, 1, 3, 2, 4, 5)
         .reshape(f * (h // 4) * (w // 4), 16, 3)
     )
+
+
+@dataclasses.dataclass
+class Palettes:
+    color5: np.ndarray  # [E, 3] uint8 (5-bit)
+    inten: np.ndarray  # [E] uint8 (3-bit)
+    selectors: np.ndarray  # [S, 16] uint8 (2-bit, row-major y*4+x)
+    block_endpoint: np.ndarray  # [F, NB] int32
+    block_selector: np.ndarray  # [F, NB] int32
 
 
 # ---------------------------------------------------------------------------
@@ -442,6 +452,399 @@ def _rdo_refine(dev_blocks: Tensor, dev_assign: Tensor, dev_sel_assign: Tensor,
         prev = (ep, sel)
     pal.block_endpoint = torch.stack(eps).to(torch.int32).cpu().numpy()
     pal.block_selector = torch.stack(sels).to(torch.int32).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Host emission: the reference's host code, copied unchanged
+# ---------------------------------------------------------------------------
+
+
+def reorder_endpoint_palette(pal: "Palettes") -> None:
+    """In-place palette relabel concentrating scan-order deltas on +1.
+
+    The slice format codes an explicit endpoint as a Huffman delta
+    against the previous block's index, so the permutation that matters
+    is the one that maps each entry's most frequent scan SUCCESSOR to
+    index+1. basisu's files show exactly this structure (seg 5: 54% of
+    transition mass on the per-source top successor, and 56% of its
+    emitted deltas are literally +1 — whole scan rows walk consecutive
+    palette indices). This is the maximum-weight Hamiltonian-path
+    greedy on the DIRECTED transition multigraph: take edges by weight,
+    each node gets at most one successor and one predecessor, reject
+    cycles (union-find), then label along the resulting chains. The
+    earlier tail-extension greedy on the SYMMETRIZED graph captured
+    almost none of this (PERF.md §8's negative reorder results — the
+    direction and the edge-global greedy are both load-bearing)."""
+    e = len(pal.color5)
+    if e <= 2:
+        return
+    ep = pal.block_endpoint
+    a = ep[:, :-1].reshape(-1).astype(np.int64)
+    b = ep[:, 1:].reshape(-1).astype(np.int64)
+    m = a != b
+    pair, wgt = np.unique(a[m] * e + b[m], return_counts=True)
+    src = (pair // e).astype(np.int64)
+    dst = (pair % e).astype(np.int64)
+    order_w = np.argsort(-wgt, kind="stable")
+    nxt = np.full(e, -1, np.int64)
+    has_pred = np.zeros(e, bool)
+    parent = np.arange(e, dtype=np.int64)
+
+    def find(x):
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for k in order_w:
+        s, t = src[k], dst[k]
+        if s == t or nxt[s] >= 0 or has_pred[t]:
+            continue
+        rs, rt = find(s), find(t)
+        if rs == rt:
+            continue  # would close a cycle
+        nxt[s] = t
+        has_pred[t] = True
+        parent[rs] = rt
+    # label along chains, heads first (nodes with no predecessor)
+    order = np.empty(e, np.int64)
+    pos = 0
+    for h in range(e):
+        if has_pred[h]:
+            continue
+        c = h
+        while c >= 0:
+            order[pos] = c
+            pos += 1
+            c = nxt[c]
+    assert pos == e
+    inv = np.empty(e, np.int32)
+    inv[order] = np.arange(e, dtype=np.int32)
+    pal.color5 = pal.color5[order]
+    pal.inten = pal.inten[order]
+    pal.block_endpoint = inv[pal.block_endpoint]
+
+
+def encode_endpoints_stream(color5: np.ndarray, inten: np.ndarray) -> bytes:
+    deltas: List[Tuple[int, int]] = []  # (model, delta) per color component
+    inten_deltas: List[int] = []
+    prev_color5 = [16, 16, 16]
+    prev_inten = 0
+    for e in range(len(color5)):
+        inten_deltas.append((int(inten[e]) - prev_inten) & 7)
+        prev_inten = int(inten[e])
+        for c in range(3):
+            prev = prev_color5[c]
+            if prev <= COLOR5_PAL0_PREV_HI:
+                model = 0
+            elif prev <= COLOR5_PAL1_PREV_HI:
+                model = 1
+            else:
+                model = 2
+            deltas.append((model, (int(color5[e, c]) - prev) & 31))
+            prev_color5[c] = int(color5[e, c])
+    freqs = [[0] * 32 for _ in range(3)]
+    for model, d in deltas:
+        freqs[model][d] += 1
+    for fr in freqs:
+        if sum(fr) == 0:
+            fr[0] = 1
+    ifreq = [0] * 8
+    for d in inten_deltas:
+        ifreq[d] += 1
+    encs = [HuffmanEncoder(fr) for fr in freqs]
+    ienc = HuffmanEncoder(ifreq)
+    bw = BitWriter()
+    for enc in encs:
+        enc.write_table(bw)
+    ienc.write_table(bw)
+    bw.put_bits(0, 1)  # grayscale = 0
+    di = iter(deltas)
+    for e in range(len(color5)):
+        ienc.encode(bw, inten_deltas[e])
+        for _ in range(3):
+            model, d = next(di)
+            encs[model].encode(bw, d)
+    return bw.getvalue()
+
+
+def encode_selectors_stream(selectors: np.ndarray) -> bytes:
+    """selectors [S, 16] 2-bit → delta-coded stream (used_raw=0 path)."""
+    rows = selectors.reshape(-1, 4, 4)
+    bytes_per_row = (
+        rows[..., 0] | (rows[..., 1] << 2) | (rows[..., 2] << 4) | (rows[..., 3] << 6)
+    ).astype(np.uint8)  # [S, 4]
+    deltas: List[int] = []
+    prev = [0, 0, 0, 0]
+    for srow in bytes_per_row:
+        for y in range(4):
+            d = int(srow[y]) ^ prev[y]
+            prev[y] = int(srow[y])
+            deltas.append(d)
+    freq = [0] * 256
+    for d in deltas:
+        freq[d] += 1
+    enc = HuffmanEncoder(freq)
+    bw = BitWriter()
+    bw.put_bits(0, 1)  # used_global_cb
+    bw.put_bits(0, 1)  # used_hybrid_cb
+    bw.put_bits(0, 1)  # used_raw
+    enc.write_table(bw)
+    for d in deltas:
+        enc.encode(bw, d)
+    return bw.getvalue()
+
+
+def encode_etc1s_slice_bits(
+    eps: np.ndarray,
+    sels: np.ndarray,
+    prev: Optional[Tuple[np.ndarray, np.ndarray]],
+    num_endpoints: int,
+    num_selectors: int,
+    history_size: int,
+    encoders: Optional[Dict[str, HuffmanEncoder]] = None,
+    freq_out: Optional[Dict[str, List[int]]] = None,
+) -> Optional[bytes]:
+    """One pass over the slice in decoder order. With `freq_out`, collects
+    symbol frequencies (pass 1); with `encoders`, emits bits (pass 2).
+    The state machines are identical to decode_etc1s_slice's, so emission
+    order equals consumption order by construction.
+    """
+    nby, nbx = eps.shape
+    is_p = prev is not None
+
+    # native fast path (etc1s_native.cpp, identical state machines)
+    if (encoders is None) != (freq_out is None):
+        from uvol_tpu_torch import native as uvt_native
+
+        if encoders is None:
+            res = uvt_native.etc1s_slice_native(
+                eps, sels, prev, num_endpoints, num_selectors, history_size
+            )
+            if res is not None:
+                for k in ("pred", "delta", "sel", "rle"):
+                    fr = freq_out[k]
+                    arr = res[k]
+                    if len(fr) < len(arr):
+                        fr.extend([0] * (len(arr) - len(fr)))
+                    for s in np.nonzero(arr)[0]:
+                        fr[int(s)] += int(arr[s])
+                return None
+        else:
+            tables = {}
+            for k, enc in encoders.items():
+                n = len(enc.code_sizes)
+                codes = np.zeros(n, np.uint32)
+                lens = np.zeros(n, np.uint8)
+                for sym, (code, length) in enc.codes.items():
+                    codes[sym] = code
+                    lens[sym] = length
+                tables[k] = (codes, lens)
+            bits = uvt_native.etc1s_slice_native(
+                eps, sels, prev, num_endpoints, num_selectors, history_size,
+                code_tables=tables,
+            )
+            if bits is not None:
+                return bits
+
+    bw = BitWriter() if encoders is not None else None
+
+    # pre-choose predictions (must be stable across both passes)
+    pred = np.full((nby, nbx), PRED_EXPLICIT, np.int32)
+    for by in range(nby):
+        for bx in range(nbx):
+            ep = int(eps[by, bx])
+            if (
+                is_p
+                and ep == int(prev[0][by, bx])
+                and int(sels[by, bx]) == int(prev[1][by, bx])
+            ):
+                pred[by, bx] = PRED_CR
+                continue
+            if bx > 0 and ep == int(eps[by, bx - 1]):
+                pred[by, bx] = PRED_LEFT
+            elif by > 0 and ep == int(eps[by - 1, bx]):
+                pred[by, bx] = PRED_ABOVE
+            else:
+                pred[by, bx] = PRED_EXPLICIT
+
+    def note(stream: str, sym: int) -> None:
+        if freq_out is not None:
+            fr = freq_out[stream]
+            while len(fr) <= sym:
+                fr.append(0)
+            fr[sym] += 1
+
+    def emit(stream: str, sym: int) -> None:
+        if bw is not None:
+            encoders[stream].encode(bw, sym)
+        note(stream, sym)
+
+    # quad symbol stream state
+    quad_syms: List[int] = []
+    for by in range(0, nby, 2):
+        for bx in range(0, nbx, 2):
+            p00 = int(pred[by, bx])
+            p01 = int(pred[by, bx + 1]) if bx + 1 < nbx else 0
+            p10 = int(pred[by + 1, bx]) if by + 1 < nby else 0
+            p11 = (
+                int(pred[by + 1, bx + 1]) if by + 1 < nby and bx + 1 < nbx else 0
+            )
+            quad_syms.append(p00 | (p01 << 2) | (p10 << 4) | (p11 << 6))
+    # plan pred emissions (literal / repeat escapes) per quad index
+    quad_plan: List[Optional[Tuple[int, int]]] = [None] * len(quad_syms)
+    i = 0
+    while i < len(quad_syms):
+        sym = quad_syms[i]
+        run = 1
+        while i + run < len(quad_syms) and quad_syms[i + run] == sym:
+            run += 1
+        quad_plan[i] = (sym, -1)
+        rest = run - 1
+        # the escape quad consumes prev_sym itself AND sets pred_rle=vlc+2
+        # further quads, so it covers vlc+3 of the remaining `rest` quads —
+        # only usable when rest >= 3 (decode_etc1s_slice:316-325)
+        if rest >= 3:
+            quad_plan[i + 1] = (ENDPOINT_PRED_REPEAT_LAST, rest - 3)
+            # quads i+2..i+run-1 consume the rle counter: no emission
+        else:
+            for k in range(1, run):
+                quad_plan[i + k] = (sym, -1)
+        i += run
+
+    # selector runs of hist[0]: plan with lookahead using a simulated MTF
+    hist = ApproxMoveToFront(history_size)
+    prev_ep = 0
+    sel_rle_left = 0
+    qi = 0
+    for by in range(nby):
+        for bx in range(nbx):
+            if (by & 1) == 0 and (bx & 1) == 0:
+                plan = quad_plan[qi]
+                qi += 1
+                if plan is not None:
+                    sym, extra = plan
+                    emit("pred", sym)
+                    if sym == ENDPOINT_PRED_REPEAT_LAST and bw is not None:
+                        write_vlc(bw, extra, 4)
+
+            p = int(pred[by, bx])
+            sel = int(sels[by, bx])
+
+            if p != PRED_CR:
+                ep = int(eps[by, bx])
+                if p == PRED_EXPLICIT:
+                    emit("delta", (ep - prev_ep) % num_endpoints)
+                prev_ep = ep
+
+            # selector stream (CR blocks participate too; the decoder
+            # DISCARDS a CR block's selector value, so CR blocks are
+            # wildcards — they match any run and may emit anything)
+            if sel_rle_left:
+                sel_rle_left -= 1
+                continue
+            if sel == hist[0] or p == PRED_CR:
+                # measure the run length of hist[0]/wildcards from here
+                run = 0
+                yy, xx = by, bx
+                while yy < nby:
+                    if (
+                        int(sels[yy, xx]) == hist[0]
+                        or int(pred[yy, xx]) == PRED_CR
+                    ):
+                        run += 1
+                    else:
+                        break
+                    xx += 1
+                    if xx == nbx:
+                        xx = 0
+                        yy += 1
+                if run >= 2:
+                    rle = run - 1  # decode: sel_rle = rle_sym + 1 more blocks
+                    # decode: sym -> if 63: += vlc(7); sel_rle = rle + 1
+                    base_rle = rle - 1
+                    if base_rle >= 63:
+                        emit("sel", num_selectors + history_size)
+                        emit("rle", 63)
+                        if bw is not None:
+                            write_vlc(bw, base_rle - 63, 7)
+                    else:
+                        emit("sel", num_selectors + history_size)
+                        emit("rle", base_rle)
+                    sel_rle_left = run - 1
+                else:
+                    emit("sel", num_selectors + 0)
+                    hist.use(0)
+                continue
+            idx = None
+            for k in range(history_size):
+                if hist[k] == sel:
+                    idx = k
+                    break
+            if idx is not None and idx > 0:
+                emit("sel", num_selectors + idx)
+                hist.use(idx)
+            else:
+                emit("sel", sel)
+                hist.add(sel)
+
+    return bw.getvalue() if bw is not None else None
+
+
+def _palette_psnr(frames_rgb: np.ndarray, pal: Palettes,
+                  nby: int, nbx: int) -> float:
+    """PSNR of the palette reconstruction against the source frames
+    (host math over the assignment grids; the encoder's quality-floor
+    self-measure)."""
+    f = pal.block_endpoint.shape[0]
+    nb = nby * nbx
+    blocks = (
+        frames_rgb.reshape(f, nby, 4, nbx, 4, 3)
+        .transpose(0, 1, 3, 2, 4, 5)
+        .reshape(f, nb, 16, 3)
+    )
+    base = (pal.color5.astype(np.int64) << 3) | (
+        pal.color5.astype(np.int64) >> 2
+    )
+    mods = np.asarray(INTEN_TABLES)[pal.inten]
+    codes = pal.selectors[pal.block_selector]
+    bmod = np.take_along_axis(mods[pal.block_endpoint], codes, axis=2)
+    recon = np.clip(
+        base[pal.block_endpoint][:, :, None, :] + bmod[..., None], 0, 255
+    )
+    mse = ((recon.astype(np.float64) - blocks) ** 2).mean()
+    return float(10 * np.log10(255**2 / max(mse, 1e-12)))
+
+
+def choose_codebook_sizes(frames: np.ndarray) -> Tuple[int, int]:
+    """Content-adaptive (num_endpoints, num_selectors) for a segment.
+
+    basisu grows its codebooks on hard content (the liam corpus shows
+    1501 endpoints / 738 selectors on its busiest segments vs the fixed
+    256/256 this encoder used through round 3 — PERF.md §8). Hardness
+    probe: mean within-4x4-block luma standard deviation (block
+    "activity") plus the mean luma gradient BETWEEN neighboring blocks
+    (palette diversity) — cheap host statistics that track how many
+    distinct (base color, contrast) pairs the content needs."""
+    rgb = frames[..., :3].astype(np.float32)
+    luma = rgb @ np.array([0.299, 0.587, 0.114], np.float32)
+    f, h, w = luma.shape
+    b = luma.reshape(f, h // 4, 4, w // 4, 4).transpose(0, 1, 3, 2, 4)
+    b = b.reshape(f, h // 4, w // 4, 16)
+    act = float(np.mean(b.std(axis=-1)))
+    means = b.mean(axis=-1)
+    grad = float(
+        np.mean(np.abs(np.diff(means, axis=2)))
+        + np.mean(np.abs(np.diff(means, axis=1)))
+    ) / 2.0
+    hardness = act + 0.5 * grad
+    if hardness < 6.0:
+        return 256, 256
+    if hardness < 12.0:
+        return 512, 384
+    if hardness < 20.0:
+        return 1024, 512
+    return 1536, 768
 
 
 # ---------------------------------------------------------------------------

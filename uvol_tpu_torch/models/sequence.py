@@ -1,17 +1,18 @@
 """Frame-sequence codecs (PyTorch) — counterpart of `uvol_tpu/models/sequence.py`.
 
   - GeometrySequenceCodec: [F, N, 3/2] attribute batches → quantize →
-    delta → zigzag on the device in the planar [F, C, N] layout, rANS
-    per frame on the host, `.uvtg` framing. Decode runs host rANS, then
-    cumsum → dequantize on the device. The device stages are plain torch
-    ops, as the reference's are plain XLA ops.
+    delta → zigzag on the device in the planar [F, C, N] layout (the
+    min/range reduction in plain torch, then the fused kernel K3 of
+    `ops.pallas_kernels`, or its plain twin on the CPU), rANS per frame
+    on the host, `.uvtg` framing. Decode runs host rANS, then cumsum →
+    dequantize on the device (plain torch).
   - TextureSequenceCodec: [L, H, W, 3] uint8 layers → ETC1 words
     (`etc_cuda`: the CUDA kernels on a card, the plain twins on the CPU)
     → one KTX2 segment (ETC2 RGB, vk_format 147), and back.
 
 Wire bytes are identical to the reference codecs'. The host layers
-(rANS symbol coding, buffers, KTX2, zstd) are the reference package's
-own jax-free modules. Multi-device (`mesh=`) is not ported yet.
+(rANS symbol coding, buffers, KTX2, zstd) are the port's copies of the
+reference's. Multi-device (`mesh=`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,17 +24,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from uvol_tpu.codecs.buffer import DecoderBuffer, EncoderBuffer
-from uvol_tpu.codecs.symbol_coding import decode_symbols, encode_symbols
-from uvol_tpu.containers.ktx2 import (  # read_ktx2: the decode side's reader
-    SUPERCOMPRESSION_NONE,
-    SUPERCOMPRESSION_ZSTD,
-    KTX2File,
-    KTX2Header,
-    KTX2Level,
-    read_ktx2,  # noqa: F401
-    write_ktx2,
-)
+from uvol_tpu_torch import native
 from uvol_tpu_torch._device import DeviceLike, resolve_device, synchronize, true_div
 from uvol_tpu_torch.codecs.basis.etc import pack_etc1_payload, unpack_etc1_payload
 from uvol_tpu_torch.codecs.basis.etc_cuda import (
@@ -42,14 +33,26 @@ from uvol_tpu_torch.codecs.basis.etc_cuda import (
     pack_words2,
     unpack_words2,
 )
-from uvol_tpu_torch.ops.prediction import delta_decode, delta_encode
+from uvol_tpu_torch.codecs.buffer import DecoderBuffer, EncoderBuffer
+from uvol_tpu_torch.codecs.symbol_coding import decode_symbols, encode_symbols
+from uvol_tpu_torch.containers.ktx2 import (  # read_ktx2: the decode side's reader
+    SUPERCOMPRESSION_NONE,
+    SUPERCOMPRESSION_ZSTD,
+    KTX2File,
+    KTX2Header,
+    KTX2Level,
+    read_ktx2,  # noqa: F401
+    write_ktx2,
+)
+from uvol_tpu_torch.native import zstd
+from uvol_tpu_torch.ops.pallas_kernels import fused_quantize_delta_zigzag
+from uvol_tpu_torch.ops.prediction import delta_decode
 from uvol_tpu_torch.ops.quantize import (
     compute_quantization_transform,
     dequantize_scaled,
     symbols_from_numpy,
     symbols_to_numpy,
     zigzag_decode,
-    zigzag_encode,
 )
 
 Tensor = torch.Tensor
@@ -98,19 +101,28 @@ def bucket_frames_by_count(counts, max_waste: float = 0.25):
     return buckets
 
 
+def quantize_offsets(xt: Tensor, bits: int, mask: Tensor):
+    """What K3 takes, from a planar [F, C, N] batch and its [F, N] mask:
+    (xm [F, C, N], inv [F], min [F, C], range [F]), with xm = x - min on
+    valid rows and 0 on padded ones, and inv = (2^bits - 1) / range."""
+    mn, rng = compute_quantization_transform(xt.transpose(1, 2), mask)
+    inv = true_div(float((1 << bits) - 1), rng)
+    xm = torch.where(mask[:, None, :], xt - mn[..., None], 0.0)
+    return xm, inv, mn, rng
+
+
 def _syms(xt: Tensor, bits: int, mask: Tensor):
     """Quantize + delta + zigzag in the planar [F, C, N] layout; returns
     (syms [F, C, N] int32 bit patterns, min [F, C], range [F]).
 
     The rounding step is the reference codec's own, `floor(x * (max_q /
-    range) + 0.5)` with no clip, which differs in float32 from
-    `ops.quantize.quantize`'s `x * (1 / (range / max_q))`; the min/range,
-    delta and zigzag are the `ops` functions."""
-    mn, rng = compute_quantization_transform(xt.transpose(1, 2), mask)
-    inv = true_div(float((1 << bits) - 1), rng)
-    xm = torch.where(mask[:, None, :], xt - mn[..., None], 0.0)
-    q = torch.floor(xm * inv[:, None, None] + 0.5).to(torch.int32)
-    return zigzag_encode(delta_encode(q, dim=-1)), mn, rng
+    range) + 0.5)` with no clip (one fused multiply-add in K3), which
+    differs in float32 from `ops.quantize.quantize`'s
+    `x * (1 / (range / max_q))`. A padded row
+    quantizes to 0, so the symbol at n = count is zigzag(-q[count - 1]);
+    the host keeps only `[:count]`."""
+    xm, inv, mn, rng = quantize_offsets(xt, bits, mask)
+    return fused_quantize_delta_zigzag(xm, inv), mn, rng
 
 
 def encode_device(pos: Tensor, uv: Optional[Tensor], mask: Tensor,
@@ -138,11 +150,10 @@ def decode_device(pos_syms: Tensor, pos_min: Tensor, pos_scale: Tensor,
 
 
 def host_rans_is_native() -> bool:
-    """Whether the host rANS runs in the compiled library (built with g++
-    at first use); otherwise it runs in Python, slower but identical."""
-    from uvol_tpu.native import get_lib
-
-    return get_lib() is not None
+    """Whether the host rANS runs in the port's compiled library (built
+    with g++ at first use); otherwise it runs in Python, slower but
+    identical."""
+    return native.get_lib() is not None
 
 
 def _fan_out(fn, items, f: int):
@@ -338,8 +349,6 @@ class TextureSequenceCodec:
         raw_len = len(payload)
         scheme = SUPERCOMPRESSION_NONE
         if self.supercompression == "zstd":
-            from uvol_tpu.native import zstd
-
             payload = zstd.compress(payload)
             scheme = SUPERCOMPRESSION_ZSTD
         header = KTX2Header(
