@@ -6,22 +6,25 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from `uvol_tpu_torch/csrc/` (nvcc, sm_90a,
-one process per source), holds each kernel (K1-K6) bit-for-bit against
-its plain PyTorch twin, drives the flagship codec chain at full width
-(32 frames x 26,145 vertices, 32 layers of 1024x1024; the geometry
-encode launches K3 twice) and the ETC1S/BasisLZ segment encoder at the
-encoder CLI's segment (5 layers of 1024x1024, 256/256 palettes) through
-the codecs' public entry points, holds every K4-K6 call that a segment
-encode makes against the plain twin on the same inputs, checks the
-bytes against the CPU codecs, times kernels and chains with CUDA
-events, and traces one pass
-of each codec stage with `torch.profiler` to split its time between
-host and device. Each phase prints one JSON line; then come the card's
-`nvidia-smi` name/power-limit line, the kernels line (each kernel's
-launches on its main path, worst difference from its twin, time, its
-twin's time, and its bound: the larger of the bytes it must move over
-the memory rate and its operations over the peak rate for their type),
-and last `{"ok": true, "device": {...}}`.
+one process per source), holds each kernel (K1-K6 and the fixed-order
+segment sum) bit-for-bit against its plain PyTorch twin, drives the
+flagship codec chain at full width (32 frames x 26,145 vertices, 32
+layers of 1024x1024; the geometry encode launches K3 twice) and the
+ETC1S/BasisLZ segment encoder at the encoder CLI's segment (5 layers of
+1024x1024, 256/256 palettes) through the codecs' public entry points,
+holds every K4-K6 and segment-sum call that a segment encode makes
+against the plain twin on the same inputs, checks the bytes against the
+CPU codecs, counts the kernels one K6 or segment-sum call launches
+(fixed, whatever N), times kernels and chains with CUDA events and the
+kernels alone with the profiler, and traces one pass of each codec
+stage with `torch.profiler` to split its time between host and device.
+Each phase prints one JSON line; then come the card's `nvidia-smi`
+name/power-limit line, the kernels line (each kernel's launches on its
+main path, worst difference from its twin, call time, its twin's time,
+its bound: the larger of the bytes it must move over the memory rate and
+its operations over the peak rate for their type; its time alone, and
+its registers, stack and static shared bytes), and last
+`{"ok": true, "device": {...}}`.
 
 Any failed check raises and the script exits non-zero without the last
 line. So does a process that has loaded `jax` or the JAX package. Without
@@ -33,9 +36,12 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
+
+from pathlib import Path
 
 import numpy as np
 
@@ -48,15 +54,34 @@ ETC1S_PALETTE = 256  # endpoints = selectors, encode_ktx2_etc1s's default
 ETC1S_ENTRIES = (256, 1024)  # K4 endpoints / K6 centroids held at parity
 ETC1S_CPU_SIDE = 256  # the CPU comparison: 1 layer of 256x256
 ETC1S_REPS = 3  # timed segment encodes (median), after the warmup
-#: K4-K6 kernel names in a profiler trace (csrc/etc1s.cu)
+#: K4-K6 and segment-sum kernel names in a profiler trace (csrc/etc1s.cu)
 ETC1S_KERNEL_NAMES = ("assign_endpoints_kernel", "inten_errors_kernel",
-                      "kmeans_tile_kernel", "pair_sum_kernel")
-#: K4-K6: launch-count name -> (wrapper, plain twin) in etc1s_cuda
+                      "kmeans_chunk_kernel", "seg_sum_chunk_kernel", "seg_sum_tree_kernel")
+#: K4-K6 and the segment sum: launch-count name -> (wrapper, plain twin) in etc1s_cuda
 ETC1S_KERNELS = {
     "etc1s_assign_endpoints": ("assign_endpoints", "assign_endpoints_plain"),
     "etc1s_inten_errors": ("inten_errors", "inten_errors_plain"),
     "etc1s_kmeans_iter": ("kmeans_iter", "kmeans_iter_plain"),
+    "etc1s_segment_sum": ("segment_sum", "segment_sum_plain"),
 }
+#: kernels each wrapper launches, per call (the names of cudaFuncGetAttributes)
+WRAPPER_KERNELS = {
+    "etc1_encode": ("etc1_encode_kernel",),
+    "etc1_decode": ("etc1_decode_kernel",),
+    "quantize_delta_zigzag": ("quantize_delta_zigzag_kernel",),
+    "etc1s_assign_endpoints": ("assign_endpoints_kernel",),
+    "etc1s_inten_errors": ("inten_errors_kernel",),
+    "etc1s_kmeans_iter": ("kmeans_chunk_kernel", "seg_sum_tree_kernel"),
+    "etc1s_segment_sum": ("seg_sum_chunk_kernel", "seg_sum_tree_kernel"),
+}
+#: the segment sums of one palette build at 256/256 (etc1s_encode.py): (k, D)
+#: of the bisections (endpoints D = 9, selectors D = 33, k doubling to 256),
+#: cluster_inten, the Lloyd step and sel_update; and the largest k
+SEG_SHAPES = tuple((1 << i, d) for d in (9, 33) for i in range(9)) + (
+    (256, 8), (256, 4), (256, 64), (2048, 64))
+#: row counts held at parity: tile and chunk edges, one N off the chunk grid
+SEG_ROWS = (1, 63, 64, 65, 1025, 20000, 70001)
+SEG_TIMED = (327680, 256, 64)  # sel_update's shape on the main path: N, k, D
 #: K3's kernel name in a profiler trace (csrc/geometry.cu)
 K3_KERNEL_NAME = "quantize_delta_zigzag_kernel"
 K3_PROFILED_LAUNCHES = 50  # launches averaged for K3's kernel-only time
@@ -73,12 +98,16 @@ F32_FLOP_PER_S = 67e12
 INT_OPS_PER_S = 67e12 / 2
 #: operations per unit of work, from each kernel's arithmetic (csrc/ notes)
 OPS = {
-    "etc1_encode": 3000,  # per 4x4 block: both flips x 8 tables, rank + refine
+    # per 4x4 block: both flips x 8 tables, rank + refine. The least count
+    # known: the static SASS of K1 with only its closed-form pass 2 (phase
+    # `build`, `k1_instructions`, which fails should this entry exceed it)
+    "etc1_encode": 2792,
     "etc1_decode": 12,  # per pixel: modifier select, 3 x (add, clamp)
     "quantize_delta_zigzag": 10,  # per element: 2 x (fma, floor, cvt), sub, zigzag
     "etc1s_assign_endpoints": 256,  # per (block, endpoint): 16 px x 4 codes x (3 IMAD + min)
     "etc1s_inten_errors": 2048,  # per block: 16 px x 8 tables x 4 codes x (3 IMAD + min)
     "etc1s_kmeans_iter": 8,  # FLOP per (row, centroid): 4 x (mul, add)
+    "etc1s_segment_sum": 1,  # FLOP per value: one add
 }
 
 
@@ -214,6 +243,39 @@ def k3_parity(torch, dev, positions, uvs) -> dict:
     return err
 
 
+def k1_instructions(build_dir) -> dict:
+    """Static SASS instructions of K1 (`cuobjdump -sass` of csrc/etc1.cu
+    built as the library is) with only the closed-form pass 2 and with
+    only the clip-aware one: a block costs at least the first (the
+    OPS entry) and at most about the second."""
+    from uvol_tpu_torch import _build
+
+    nvcc = _build.find_nvcc()
+    cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
+    src = (_build.CSRC / "etc1.cu").read_text()
+    cond = "__all_sync(__activemask(), bmin >= lg && bmax <= 255 - lg)"
+    check(src.count(cond) == 1, "K1's pass-2 branch not found")
+    procs = {}
+    for name, value in (("closed_form_only", "true"), ("clip_aware_only", "false")):
+        cu = build_dir / f"k1_{name}.cu"
+        cu.write_text(src.replace(cond, value))
+        obj = cu.with_suffix(".o")
+        procs[name] = (obj, subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(obj),
+                                              str(cu)], stdout=subprocess.DEVNULL))
+    counts = {}
+    for name, (obj, proc) in procs.items():
+        check(proc.wait(timeout=300) == 0, f"nvcc failed on the {name} variant of K1")
+        sass = subprocess.run([cuobjdump, "-sass", str(obj)], capture_output=True, text=True,
+                              check=True, timeout=120).stdout
+        body = [f for f in sass.split("Function : ")[1:]
+                if f.split("\n")[0].strip().endswith("etc1_encode_kernelEPKhPiiii")]
+        check(len(body) == 1, "K1 not found in the SASS")
+        counts[name] = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+[^;]*;", body[0]))
+    check(OPS["etc1_encode"] <= counts["closed_form_only"],
+          f"K1's OPS entry {OPS['etc1_encode']} exceeds its least count {counts}")
+    return counts
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -304,10 +366,72 @@ def etc1s_parity(torch, dev, textures, bb) -> dict:
             hold(err, "etc1s_kmeans_iter", k.kmeans_iter(feats, cb),
                  k.kmeans_iter_plain(feats, cb),
                  *([k.kmeans_iter_plain(feats.cpu(), cb.cpu())] if small else []))
+    # the segment sum at every (k, D) of a palette build and at k = 2048, and
+    # K6 at 1, 256 and 2048 centroids, over row counts at tile and chunk
+    # edges; values over many magnitudes with -0.0 among them
+    for n in SEG_ROWS:
+        small = n <= 1025
+        for kk, d in SEG_SHAPES:
+            idx = torch.from_numpy(r.integers(0, kk, n).astype(np.int64))
+            x = r.normal(size=(n, d)) * 10.0 ** r.integers(-3, 8, (n, d))
+            x[r.random((n, d)) < 0.1] = -0.0
+            x = torch.from_numpy(x.astype(np.float32))
+            got = k.segment_sum(idx.to(dev), kk, x.to(dev))
+            twins = [k.segment_sum_plain(idx.to(dev), kk, x.to(dev))]
+            twins += [k.segment_sum_plain(idx, kk, x)] if small else []
+            hold(err, "etc1s_segment_sum", got, *twins)
+            for tw in twins:  # signed zeros too: the bits, not only the values
+                check(torch.equal(got.cpu().view(torch.int32), tw.cpu().view(torch.int32)),
+                      "segment sum bits differ from its twin's")
+        feats = torch.from_numpy((r.random((n, 4)) * 255).astype(np.float32))
+        for kk in (1, 256, 2048):
+            cb = feats[torch.from_numpy(r.integers(0, n, kk))] + torch.from_numpy(
+                r.random((kk, 4)).astype(np.float32))
+            hold(err, "etc1s_kmeans_iter", k.kmeans_iter(feats.to(dev), cb.to(dev)),
+                 k.kmeans_iter_plain(feats.to(dev), cb.to(dev)),
+                 *([k.kmeans_iter_plain(feats, cb)] if small else []))
     torch.cuda.synchronize()
     emit({"phase": "etc1s_kernel_parity", "inputs": list(inputs), "entries": ETC1S_ENTRIES,
-          "max_abs_err": err})
+          "segment_sum": {"shapes_k_d": SEG_SHAPES, "rows": SEG_ROWS},
+          "kmeans_rows": SEG_ROWS, "max_abs_err": err})
     return err
+
+
+def kernel_only_ms(torch, fn, names, reps: int = REPS) -> tuple:
+    """(ms, launches traced per kernel): device time of the named kernels
+    per call of fn (profiler), after one untraced call: the kernels alone,
+    without the wrapper's host work. Each kernel's mean over the launches
+    the trace holds, so a launch the profiler drops does not count as a
+    zero."""
+    from uvol_tpu_torch.utils.timing import device_trace
+
+    fn()
+    with device_trace() as prof:
+        for _ in range(reps):
+            fn()
+    times = {n: [] for n in names}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for n in names:
+                if n in e.name:
+                    times[n].append(e.time_range.elapsed_us() / 1e3)
+    check(all(times.values()), f"the profiler saw none of {[n for n, t in times.items() if not t]}")
+    return sum(float(np.mean(t)) for t in times.values()), {n: len(t) for n, t in times.items()}
+
+
+def launches_per_call(torch, fn, names) -> int:
+    """Device kernels one call of fn runs, from a profiler trace; fails
+    if the trace holds a device event of another name."""
+    from uvol_tpu_torch.utils.timing import device_trace
+
+    fn()
+    with device_trace() as prof:
+        fn()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(all(any(n in kn for n in names) for kn in kernels),
+          f"unexpected device events: {[kn[:60] for kn in kernels]}")
+    return len(kernels)
 
 
 def etc1s_main_path(torch, textures) -> tuple:
@@ -341,7 +465,8 @@ def etc1s_main_path(torch, textures) -> tuple:
     replayed = {name: {"calls": 0, "shapes": []} for name in ETC1S_KERNELS}
     for name, args, out in calls:
         hold(err, name, out, getattr(k, ETC1S_KERNELS[name][1])(*args))
-        rec, shapes = replayed[name], [list(a.shape) for a in args]
+        rec = replayed[name]
+        shapes = [list(a.shape) if hasattr(a, "shape") else a for a in args]
         rec["calls"] += 1
         if shapes not in rec["shapes"]:
             rec["shapes"].append(shapes)
@@ -398,14 +523,31 @@ def etc1s_times(torch, dev, textures, median_cuda_ms) -> tuple:
     ei = torch.from_numpy(r.integers(0, 8, ETC1S_PALETTE).astype(np.int32)).to(dev)
     table = k.endpoint_table(eb, ei)
     base = eb[k.kmeans_iter(feats, cb)[2].long()]
+    sn, sk, sd = SEG_TIMED
+    traced = {}  # launches the profiler held per kernel, of REPS calls
+    seg_idx = torch.from_numpy(r.integers(0, sk, sn).astype(np.int32)).to(dev)
+    seg_x = torch.from_numpy(r.integers(-400, 400, (sn, sd)).astype(np.float32)).to(dev)
     ms, err = {}, {}
     for name, args in (("etc1s_assign_endpoints", (bd, table)),
                        ("etc1s_inten_errors", (bd, base)),
-                       ("etc1s_kmeans_iter", (feats, cb))):
+                       ("etc1s_kmeans_iter", (feats, cb)),
+                       ("etc1s_segment_sum", (seg_idx, sk, seg_x))):
         kernel, twin = (getattr(k, fn) for fn in ETC1S_KERNELS[name])
         hold(err, name, kernel(*args), twin(*args))
         ms[name] = median_cuda_ms(lambda: kernel(*args), REPS)
         ms[name + "_plain"] = median_cuda_ms(lambda: twin(*args), REPS)
+        ms[name + "_kernel"], traced[name] = kernel_only_ms(
+            torch, lambda: kernel(*args), WRAPPER_KERNELS[name])
+    # a K6 call and a segment-sum call launch a fixed number of kernels,
+    # whatever N (the int32 indices need no conversion kernel)
+    per_call = {
+        f"{name}@{rows}": launches_per_call(torch, fn, WRAPPER_KERNELS[name])
+        for rows in (1025, n)
+        for name, fn in (("etc1s_kmeans_iter", lambda: k.kmeans_iter(feats[:rows], cb)),
+                         ("etc1s_segment_sum",
+                          lambda: k.segment_sum(seg_idx[:rows], sk, seg_x[:rows])))
+    }
+    check(set(per_call.values()) == {2}, f"kernel launches per call: {per_call}")
     # the encode, and the two stages inside it: the device-resident palette
     # core, and the build (upload, core, refine, fetch, host relabel)
     kw = dict(num_endpoints=ETC1S_PALETTE, num_selectors=ETC1S_PALETTE, device=DEVICE)
@@ -417,6 +559,8 @@ def etc1s_times(torch, dev, textures, median_cuda_ms) -> tuple:
     ms["etc1s_segment_encode"] = median_cuda_ms(lambda: encode_ktx2_etc1s(frames, **kw),
                                                 ETC1S_REPS, warmup=0)
     emit({"phase": "etc1s_times", "blocks": n, "entries": ETC1S_PALETTE, "reps": REPS,
+          "segment_sum_shape": SEG_TIMED, "kernels_per_call": per_call,
+          "kernel_launches_traced": traced,
           "max_abs_err": err, "ms": ms,
           "segment_layers_per_s": ETC1S_LAYERS / (ms["etc1s_segment_encode"] / 1e3)})
     return ms, err
@@ -432,7 +576,7 @@ def main() -> int:
     # the port; alone in a directory this import fails before any output
     from uvol_tpu_torch import _build
     from uvol_tpu_torch.codecs.basis import etc as tetc
-    from uvol_tpu_torch.codecs.basis import etc_cuda
+    from uvol_tpu_torch.codecs.basis import etc1s_cuda, etc_cuda
     from uvol_tpu_torch.models.sequence import (
         GeometryFrameSet,
         GeometrySequenceCodec,
@@ -466,7 +610,8 @@ def main() -> int:
     so = _build.build()
     _build.get_lib()
     emit({"phase": "build", "library": str(so.relative_to(so.parents[2])),
-          "seconds": time.perf_counter() - t})
+          "seconds": time.perf_counter() - t,
+          "k1_static_sass_instructions": k1_instructions(so.parent)})
 
     # ---- 3. kernel parity: kernel (CUDA) vs plain twin on CUDA and on CPU -----
     positions, uvs, counts, faces, textures = bench_batch()
@@ -583,6 +728,12 @@ def main() -> int:
         "etc1_decode_plain": median_cuda_ms(
             lambda: etc_cuda.decode_etc1_images_plain(words, F, H, W), REPS),
     }
+    traced = {}  # launches the profiler held per kernel, of REPS calls
+    ms["etc1_encode_kernel"], traced["etc1_encode"] = kernel_only_ms(
+        torch, lambda: etc_cuda.encode_etc1_images(tex_dev), WRAPPER_KERNELS["etc1_encode"])
+    ms["etc1_decode_kernel"], traced["etc1_decode"] = kernel_only_ms(
+        torch, lambda: etc_cuda.decode_etc1_images(words, F, H, W),
+        WRAPPER_KERNELS["etc1_decode"])
     dev_pos = torch.from_numpy(positions.transpose(0, 2, 1).copy()).to(dev)
     dev_uv = torch.from_numpy(uvs.transpose(0, 2, 1).copy()).to(dev)
     dev_mask = torch.ones((F, N), dtype=torch.bool, device=dev)
@@ -619,7 +770,8 @@ def main() -> int:
     ms["host_encode"] = median_cuda_ms(encode_all, REPS)
     ms["host_decode"] = median_cuda_ms(lambda: decode_all(blobs, tex_blob), REPS)
     fps = {k: F / (ms[k] / 1e3) for k in ("device_chain", "host_encode", "host_decode")}
-    emit({"phase": "times", "frames": F, "reps": REPS, "ms": ms, "frames_per_s": fps})
+    emit({"phase": "times", "frames": F, "reps": REPS, "ms": ms, "frames_per_s": fps,
+          "kernel_launches_traced": traced})
     etc1s_ms, times_err = etc1s_times(torch, dev, textures, median_cuda_ms)
     ms.update(etc1s_ms)
     for e in (main_err, times_err):  # the kernels line: the worst of every comparison
@@ -668,6 +820,7 @@ def main() -> int:
     nq = F * 3 * N  # K3: the positions call
     ne = ETC1S_LAYERS * (H // 4) * (W // 4)  # K4-K6: 327,680 blocks
     e = ETC1S_PALETTE
+    sn, sk, sd = SEG_TIMED
     work = {  # name: (source, replaces, bytes moved once, operations, their rate)
         "etc1_encode": ("etc1.cu", "codecs/basis/etc_pallas.py:230", nb * 48 + nb * 8,
                         OPS["etc1_encode"] * nb, INT_OPS_PER_S),
@@ -685,7 +838,13 @@ def main() -> int:
         "etc1s_kmeans_iter": ("etc1s.cu", "codecs/basis/etc1s_pallas.py:310",
                               ne * 16 + e * 16 + ne * 4 + e * 20,
                               OPS["etc1s_kmeans_iter"] * ne * e, F32_FLOP_PER_S),
+        # the reference's segment sums are XLA one-hot products, not a Pallas site
+        "etc1s_segment_sum": ("etc1s.cu", "codecs/basis/etc1s_encode.py:103",
+                              sn * (sd + 1) * 4 + sk * sd * 4,
+                              OPS["etc1s_segment_sum"] * sn * sd, F32_FLOP_PER_S),
     }
+    attrs = {**etc_cuda.kernel_attrs(), **pk.kernel_attrs(), **etc1s_cuda.kernel_attrs()}
+    check(attrs["etc1_encode_kernel"]["stack_bytes"] == 0, "K1 uses stack memory")
     rows = []
     for name, (src, replaces, nbytes, ops, rate) in work.items():
         bound_ms, bound_by = bound(nbytes, ops, rate)
@@ -694,7 +853,9 @@ def main() -> int:
             "replaces": f"uvol_tpu/{replaces}", "launches": launches[name],
             "max_abs_err": err[name], "ms": ms[name], "plain_ms": ms[name + "_plain"],
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,  # no single PyTorch call computes any of the six
+            "library_ms": None,  # no single PyTorch call computes any of the seven
+            "kernel_ms": ms.get(name + "_kernel", ms.get(name + "_kernel_only")),
+            "kernel_attrs": {fn: attrs[fn] for fn in WRAPPER_KERNELS[name]},
         })
     check_full_f32(torch)
     print(nvidia_smi_line(), flush=True)

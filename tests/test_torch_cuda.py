@@ -195,3 +195,65 @@ def test_etc1s_encode_on_card_is_deterministic(card):
     first = encode_ktx2_etc1s(frames, num_endpoints=64, num_selectors=64, device="cuda")
     assert encode_ktx2_etc1s(frames, num_endpoints=64, num_selectors=64,
                              device="cuda") == first
+
+
+# ---- the fixed-order segment sum, K6 and K1 as redesigned ------------------
+
+
+def _seg_inputs(n: int, k: int, d: int, seed: int):
+    r = np.random.default_rng(seed)
+    idx = torch.from_numpy(r.integers(0, k, n))
+    x = r.normal(size=(n, d)) * 10.0 ** r.integers(-3, 8, (n, d))
+    x[r.random((n, d)) < 0.1] = -0.0
+    return idx, torch.from_numpy(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("k,d", [(1, 9), (128, 33), (256, 9), (256, 33), (256, 8), (256, 4),
+                                 (256, 64), (2048, 64)])
+@pytest.mark.parametrize("n", [65, 20000])
+def test_segment_sum_kernel_matches_twin(card, n, k, d):
+    """Bit for bit, signed zeros included, at the palette build's (k, D)."""
+    idx, x = _seg_inputs(n, k, d, n + k + d)
+    before = etc1s_cuda.LAUNCHES["etc1s_segment_sum"]
+    got = etc1s_cuda.segment_sum(idx.to(card), k, x.to(card))
+    torch.cuda.synchronize()
+    assert etc1s_cuda.LAUNCHES["etc1s_segment_sum"] == before + 1
+    want = etc1s_cuda.segment_sum_plain(idx, k, x)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.int32), want.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("n,k", [(1, 256), (63, 256), (65, 256), (1025, 256), (70001, 256),
+                                 (1025, 1), (1025, 2048)])
+def test_etc1s_kmeans_iter_kernel_at_odd_rows(card, n, k):
+    r = np.random.default_rng(n + k)
+    feats = torch.from_numpy((r.random((n, 4)) * 255).astype(np.float32))
+    cb = feats[torch.from_numpy(r.integers(0, n, k))] + 0.5
+    got = etc1s_cuda.kmeans_iter(feats.to(card), cb.to(card))
+    torch.cuda.synchronize()
+    for g, w in zip(got, etc1s_cuda.kmeans_iter_plain(feats, cb)):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("shape,offset", [((2, 8, 1028, 3), 0), ((1, 16, 1024, 3), 3)])
+def test_encode_kernel_other_widths_and_offsets(card, shape, offset):
+    """A width whose rows are not 16-byte aligned (two runs per block row),
+    and an image whose data starts off a 16-byte boundary."""
+    n = int(np.prod(shape))
+    flat = np.random.default_rng(offset).integers(0, 256, n + offset).astype(np.uint8)
+    img = torch.from_numpy(flat).to(card)[offset:].view(shape)
+    got = etc_cuda.encode_etc1_images(img)
+    torch.cuda.synchronize()
+    want = etc_cuda.encode_etc1_images_plain(torch.from_numpy(flat[offset:].reshape(shape)))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_etc1s_encode_on_card_matches_cpu_at_256(card):
+    from uvol_tpu_torch.codecs.basis.etc1s_encode import encode_ktx2_etc1s
+
+    yy, xx = np.mgrid[0:256, 0:256]
+    frames = np.stack([(xx // 4) % 256, (yy // 4) % 256, ((xx + yy) // 8) % 256],
+                      -1)[None].astype(np.uint8)
+    kw = dict(num_endpoints=256, num_selectors=256)
+    first = encode_ktx2_etc1s(frames, device="cuda", **kw)
+    assert encode_ktx2_etc1s(frames, device="cuda", **kw) == first
+    assert encode_ktx2_etc1s(frames, device="cpu", **kw) == first

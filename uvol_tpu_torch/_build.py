@@ -114,7 +114,11 @@ def get_lib() -> ctypes.CDLL:
                 "uvt_etc1_decode": [vp, vp, ci, ci, ci, vp],
                 "uvt_etc1s_inten_errors": [vp, vp, vp, ci, vp],
                 "uvt_etc1s_assign_endpoints": [vp, vp, vp, ci, ci, vp],
-                "uvt_etc1s_kmeans_iter": [vp, vp, ci, ci, vp, vp, vp, vp, vp],
+                "uvt_etc1s_kmeans_iter": [vp, vp, ci, ci, vp, vp, vp, vp],
+                "uvt_etc1s_segment_sum": [vp, vp, ci, ci, ci, vp, vp, vp],
+                "uvt_etc1_func_attrs": [ci, vp],
+                "uvt_etc1s_func_attrs": [ci, vp],
+                "uvt_geometry_func_attrs": [ci, vp],
                 "uvt_quantize_delta_zigzag": [vp, vp, vp, ci, ci, ci, vp],
             }
             for name, argtypes in signatures.items():
@@ -125,3 +129,19 @@ def get_lib() -> ctypes.CDLL:
             lib.uvt_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def func_attrs(fn: str, kernels) -> dict:
+    """{kernel: {"registers", "stack_bytes", "static_shared_bytes"}} from
+    `cudaFuncGetAttributes`, through the library's exported `fn(which,
+    out)`, which numbers its kernels in the order of `kernels`."""
+    lib = get_lib()
+    out = {}
+    for i, name in enumerate(kernels):
+        vals = (ctypes.c_int * 4)()
+        err = getattr(lib, fn)(i, ctypes.cast(vals, ctypes.c_void_p))
+        if err != 0:
+            raise RuntimeError(f"{fn}({name}): {lib.uvt_cuda_error_string(err).decode()}")
+        out[name] = {"registers": vals[0], "stack_bytes": vals[1],
+                     "static_shared_bytes": vals[2]}
+    return out

@@ -1,8 +1,10 @@
 """ETC1S palette-build kernels on the card — counterpart of `etc1s_pallas.py`.
 
 `assign_endpoints` (K4), `inten_errors` (K5) and `kmeans_iter` (K6) are
-the three hot stages of the palette build (`etc1s_encode.palette_core`).
-The device of the tensor decides the route:
+the three hot stages of the palette build (`etc1s_encode.palette_core`);
+`segment_sum` is the fixed-order segment sum that the build takes for
+every per-cluster reduction, the port's `_seg_reduce`. The device of the
+tensor decides the route:
 
   - a CUDA tensor launches the hand-written kernels of `csrc/etc1s.cu`,
     built by `_build` at first use; a build or launch failure raises,
@@ -10,16 +12,18 @@ The device of the tensor decides the route:
   - a CPU tensor goes through the plain twin beside each kernel
     (`*_plain`), which computes the same numbers in the same order.
 
-Each kernel launch adds one to `LAUNCHES[name]`; twin calls are not
-counted.
+Each wrapper call that launches adds one to `LAUNCHES[name]` (K6 and
+`segment_sum` are two kernels each); twin calls are not counted.
 
 K4 and K5 are exact integer arithmetic (the TPU kernels' f32 terms are
 all integers below 2^24), so kernel, twin and TPU kernel agree bit for
 bit, argmin ties included (first minimum). K6 is f32: its distances keep
 the TPU kernel's op order, and its sums take the fixed order of
-`segment_sum`, which the kernel mirrors, so kernel and twin agree bit
-for bit as well; against the TPU kernel (whose sums are an MXU product)
-the sums agree to rounding.
+`segment_sum_plain`, the order the segment-sum kernel keeps too, so
+kernel and twin agree bit for bit as well; against the TPU kernel (whose
+sums are an MXU product) the sums agree to rounding. `kmeans_iter_plain`
+sums through `segment_sum_plain` on every device, so K6's twin on the
+card stays independent of the kernel it is held against.
 
 Blocks are `[N, 16, 3]` uint8, pixels row-major within the block — the
 upload the palette build makes once per segment.
@@ -41,7 +45,12 @@ LAUNCHES = {
     "etc1s_assign_endpoints": 0,
     "etc1s_inten_errors": 0,
     "etc1s_kmeans_iter": 0,
+    "etc1s_segment_sum": 0,
 }
+
+#: the kernels of `csrc/etc1s.cu`, in the order of `uvt_etc1s_func_attrs`
+KERNEL_FUNCS = ("inten_errors_kernel", "assign_endpoints_kernel", "kmeans_chunk_kernel",
+                "seg_sum_chunk_kernel", "seg_sum_tree_kernel")
 
 #: the ETC1S intensity modifiers [8 tables, 4 codes]; `csrc/etc1s.cu`
 #: holds the same rows in constant memory
@@ -49,8 +58,12 @@ INTEN_TABLES = tuple(tuple(int(v) for v in row) for row in _INTEN_TABLES)
 
 #: rows per fixed-order partial of `segment_sum` (kSegTile in the kernel)
 SEG_TILE = 64
-#: most centroids K6 takes (its shared-memory table)
-KMEANS_MAX_K = 2048
+#: tiles per pass-1 chunk of the segment-sum kernel (kChunkTiles)
+SEG_CHUNK_TILES = 16
+#: most segments the kernel takes (its shared-memory map); K6's centroids
+SEG_MAX_K = KMEANS_MAX_K = 2048
+#: most rows the kernel takes (pass 2 reduces at most 64 x 256 chunk partials)
+SEG_MAX_ROWS = 1 << 24
 #: elements per temporary of the plain twins
 _TWIN_ELEMS = 1 << 24
 
@@ -80,6 +93,12 @@ def _launch(name: str, fn: str, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def _aligned(t: Tensor) -> Tensor:
+    """t itself when its data is 16-byte aligned (the kernels read float4
+    rows), else an aligned copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _check_blocks(blocks: Tensor) -> None:
     if blocks.dtype != torch.uint8 or blocks.ndim != 3 or tuple(blocks.shape[1:]) != (16, 3):
         raise ValueError(
@@ -88,13 +107,14 @@ def _check_blocks(blocks: Tensor) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Fixed-order segment sum (the order K6's kernel mirrors)
+# Fixed-order segment sum: the order K6 shares, and its kernel
 # ---------------------------------------------------------------------------
 
 
-def segment_sum(idx: Tensor, k: int, x: Tensor) -> Tensor:
-    """`out[s] = sum of x[i] over idx[i] == s`: x [N, D] f32, idx [N] in
-    [0, k) → [k, D] f32, in one order on every device and every run.
+def segment_sum_plain(idx: Tensor, k: int, x: Tensor) -> Tensor:
+    """Plain twin of the segment-sum kernel: `out[s] = sum of x[i] over
+    idx[i] == s`, x [N, D] f32, idx [N] in [0, k) → [k, D] f32, in one
+    order on every device and every run.
 
     Rows are added in order within consecutive tiles of `SEG_TILE` rows,
     starting from 0.0; the tile partials are then added pairwise, level
@@ -122,6 +142,34 @@ def segment_sum(idx: Tensor, k: int, x: Tensor) -> Tensor:
             part = torch.cat([part, part.new_zeros((1, k, d))])
         part = part[0::2] + part[1::2]
     return part[0]
+
+
+def segment_sum(idx: Tensor, k: int, x: Tensor) -> Tensor:
+    """The fixed-order segment sum of `segment_sum_plain`: idx [N] integer
+    in [0, k), k <= SEG_MAX_K, x [N, D] f32 → [k, D] f32. A CUDA tensor
+    launches the kernel of `csrc/etc1s.cu` (pass 1 over chunks of
+    `SEG_CHUNK_TILES` tiles, pass 2 over the chunk partials: two
+    launches whatever N), a CPU tensor takes the twin; both give the same
+    bits."""
+    if x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] < 1:
+        raise ValueError(f"expected [N, D] float32 values, got {tuple(x.shape)} {x.dtype}")
+    if idx.ndim != 1 or idx.shape[0] != x.shape[0]:
+        raise ValueError(f"expected [{x.shape[0]}] indices, got {tuple(idx.shape)}")
+    if not 0 < k <= SEG_MAX_K:
+        raise ValueError(f"segment_sum takes 1 <= k <= {SEG_MAX_K}, got {k}")
+    if not _route(x):
+        return segment_sum_plain(idx, k, x)
+    n, d = x.shape
+    if n > SEG_MAX_ROWS:
+        raise ValueError(f"segment_sum takes at most {SEG_MAX_ROWS} rows on the card, got {n}")
+    x = x.contiguous()
+    idx = idx.to(device=x.device, dtype=torch.int32).contiguous()
+    chunks = max(1, -(-n // (SEG_TILE * SEG_CHUNK_TILES)))
+    part = torch.empty((chunks, k, d), dtype=torch.float32, device=x.device)
+    out = torch.empty((k, d), dtype=torch.float32, device=x.device)
+    _launch("etc1s_segment_sum", "uvt_etc1s_segment_sum", x.device,
+            idx.data_ptr(), x.data_ptr(), n, d, k, part.data_ptr(), out.data_ptr())
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -254,7 +302,7 @@ def kmeans_iter_plain(feats: Tensor, cb: Tensor) -> Tuple[Tensor, Tensor, Tensor
             dist = dist + f[:, j : j + 1] * rows[j][None, :]
         assign.append(torch.argmin(dist, dim=1))
     assign = torch.cat(assign).to(torch.int32)
-    s5 = segment_sum(assign, k, torch.cat([feats, feats.new_ones((n, 1))], 1))
+    s5 = segment_sum_plain(assign, k, torch.cat([feats, feats.new_ones((n, 1))], 1))
     return s5[:, :4], s5[:, 4], assign
 
 
@@ -270,14 +318,22 @@ def kmeans_iter(feats: Tensor, cb: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
         raise ValueError("kmeans_iter needs at least one row")
     if not _route(feats):
         return kmeans_iter_plain(feats, cb)
-    feats = feats.contiguous()
-    rows = centroid_rows(cb.to(feats.device))
     n, k = feats.shape[0], cb.shape[0]
-    nt = -(-n // SEG_TILE)
-    part = torch.empty((2, nt, k, 5), dtype=torch.float32, device=feats.device)
+    if n > SEG_MAX_ROWS:
+        raise ValueError(f"kmeans_iter takes at most {SEG_MAX_ROWS} rows on the card, got {n}")
+    feats = _aligned(feats.contiguous())
+    cb = _aligned(cb.to(device=feats.device, dtype=torch.float32).contiguous())
+    chunks = -(-n // (SEG_TILE * SEG_CHUNK_TILES))
+    part = torch.empty((chunks, k, 5), dtype=torch.float32, device=feats.device)
     sums = torch.empty((k, 5), dtype=torch.float32, device=feats.device)
     assign = torch.empty(n, dtype=torch.int32, device=feats.device)
     _launch("etc1s_kmeans_iter", "uvt_etc1s_kmeans_iter", feats.device,
-            feats.data_ptr(), rows.data_ptr(), n, k, part[0].data_ptr(),
-            part[1].data_ptr(), sums.data_ptr(), assign.data_ptr())
+            feats.data_ptr(), cb.data_ptr(), n, k, part.data_ptr(),
+            sums.data_ptr(), assign.data_ptr())
     return sums[:, :4], sums[:, 4], assign
+
+
+def kernel_attrs() -> dict:
+    """Registers, stack bytes and static shared bytes of each kernel of
+    `csrc/etc1s.cu` (`cudaFuncGetAttributes`); needs the card."""
+    return _build.func_attrs("uvt_etc1s_func_attrs", KERNEL_FUNCS)

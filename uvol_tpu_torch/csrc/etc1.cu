@@ -17,14 +17,28 @@
 // even) with explicitly rounded intrinsics; the library is built with
 // -fmad=false and without --use_fast_math so nothing is contracted.
 //
-// K1 -- one thread per 4x4 block. It reads 4 rows of 12 bytes at a stride
-// of 3W and searches both flips x both subblocks x 8 tables in two passes
-// (~3k integer ops per block against 56 bytes moved), so it is bound by
-// integer ALU work, not memory. The 12-byte row loads of neighbouring
-// threads are 12 bytes apart and not coalesced into full sectors; staging
-// a tile of image rows through shared memory is the first optimisation to
-// make later.
-//
+// K1 -- one thread per 4x4 block, one CTA per run of 256 blocks of a
+// block row. The run's 4 image rows are staged in shared memory with
+// coalesced 16-byte loads (byte loads where W is not a multiple of 16),
+// and each thread keeps its 16 pixels packed, one 32-bit register each.
+// It searches both flips x both subblocks x 8 tables in two passes, bound
+// by integer ALU work (2.8k-4.2k instructions per block against 56 bytes
+// moved), so the design cuts instructions:
+//   - pass 1 ranks the tables by the unclipped linear model in closed
+//     form: with u = g - S (pixel channel sum less the base's), the least
+//     of the 4 codes is s2 + min(3s^2 - 2s|u|, 3l^2 - 2l|u|), exact in
+//     integers: 2 multiply-adds per (table, pixel) instead of 4 codes;
+//   - pass 2 in a table with no clipped channel is closed form too
+//     (e = |b - p|^2 + 3m^2 - 2m*u): the subblock's error is the sum of
+//     |b - p|^2 plus pass 1's total less 8*s2, each pixel's code the sign
+//     of u and whether 2|u| > 3(s + l); a clipping table scores its codes through the
+//     clip-aware modifiers me_c = clamp(b_c + m) - b_c,
+//     e = |b - p|^2 + |me|^2 + 2 me.(b - p), the code the low two bits of
+//     the least key 4e + code (the first minimum). A warp takes the
+//     closed form only when all its blocks may, so no lane diverges;
+//   - no register array is indexed by a runtime value (the table's
+//     modifiers are bytes of a 64-bit constant), so nothing spills.
+
 // K2 -- one thread per output pixel (16 per block). Each thread decodes
 // its block's word pair and writes its 3 bytes, so neighbouring threads
 // write neighbouring bytes. The kernel is memory-bound: 8 bytes in and 48
@@ -39,16 +53,11 @@ __constant__ int kModSmall[8] = {2, 5, 9, 13, 18, 24, 33, 47};
 __constant__ int kModLarge[8] = {8, 17, 29, 42, 60, 80, 106, 183};
 
 constexpr int kRankMask = 1 << 30;  // above any pass-1 ranking total
+constexpr int kThreads = 256;
 
 __device__ __forceinline__ int clamp255(int v) { return min(max(v, 0), 255); }
 __device__ __forceinline__ int extend5(int c) { return (c << 3) | (c >> 2); }
 __device__ __forceinline__ int extend4(int c) { return (c << 4) | c; }
-
-// modifier value of `code` (0:+small 1:+large 2:-small 3:-large) in `tab`
-__device__ __forceinline__ int mod_value(int tab, int code) {
-  int mag = (code & 1) ? kModLarge[tab] : kModSmall[tab];
-  return (code & 2) ? -mag : mag;
-}
 
 // 5-bit mean of one channel from its 8-pixel integer sum:
 // rint(((sum * 0.125) * 31) / 255) clipped to 0..31, each step rounded
@@ -60,62 +69,99 @@ __device__ __forceinline__ int mean_quant5(int sum) {
   return (int)v;
 }
 
-// Pixel k (0..7) of subblock `sb` under `flip`, as (y, x) in the block,
+// The modifier magnitudes of table t as bytes of one 64-bit constant, so a
+// table index held in a register selects them with a shift, not a load.
+constexpr unsigned long long kSmallBytes = 0x2F2118120D090502ull;  // 2 5 9 13 18 24 33 47
+constexpr unsigned long long kLargeBytes = 0xB76A503C2A1D1108ull;  // 8 17 29 42 60 80 106 183
+
+__device__ __forceinline__ int small_mod(int t) { return (int)((kSmallBytes >> (8 * t)) & 0xff); }
+__device__ __forceinline__ int large_mod(int t) { return (int)((kLargeBytes >> (8 * t)) & 0xff); }
+
+// channel c of a pixel packed as r | g << 8 | b << 16
+__device__ __forceinline__ int chan(uint32_t p, int c) { return (int)((p >> (8 * c)) & 0xffu); }
+__device__ __forceinline__ int chan_sum(uint32_t p) { return chan(p, 0) + chan(p, 1) + chan(p, 2); }
+
+// Pixel k (0..7) of subblock `sb` under `flip`, as y*4 + x in the block,
 // in the order the reference flattens subblocks.
-__device__ __forceinline__ void sub_pixel(int flip, int sb, int k, int* y, int* x) {
-  if (flip) {  // two 2-row halves: k = y'*4 + x
-    *y = 2 * sb + (k >> 2);
-    *x = k & 3;
-  } else {  // two 2-column halves: k = y*2 + x'
-    *y = k >> 1;
-    *x = 2 * sb + (k & 1);
-  }
+__device__ __forceinline__ int sub_pixel(int flip, int sb, int k) {
+  return flip ? (2 * sb + (k >> 2)) * 4 + (k & 3)   // two 2-row halves: k = y'*4 + x
+              : (k >> 1) * 4 + 2 * sb + (k & 1);    // two 2-column halves: k = y*2 + x'
+}
+
+// wire bit j = x*4 + y of pixel k of the subblock
+__device__ __forceinline__ int wire_bit(int flip, int sb, int k) {
+  const int p = sub_pixel(flip, sb, k);
+  return (p & 3) * 4 + (p >> 2);
 }
 
 struct SubResult {
   int table;
   int err;
-  uint32_t lsb, msb;  // code bit planes at wire positions j = x*4 + y
+  uint32_t codes;  // pixel code at bits 2j (lsb) and 2j+1 (msb), j = x*4 + y
 };
 
+// the bits of x at even positions, packed into the low 16 bits
+__device__ __forceinline__ uint32_t even_bits(uint32_t x) {
+  x &= 0x55555555u;
+  x = (x | (x >> 1)) & 0x33333333u;
+  x = (x | (x >> 2)) & 0x0f0f0f0fu;
+  x = (x | (x >> 4)) & 0x00ff00ffu;
+  return (x | (x >> 8)) & 0x0000ffffu;
+}
+
+// The least of four keys 4*e + code: the first minimum of e (strict <)
+// with its code in the low two bits. Adds e to *err and the code at wire
+// bit j to *codes.
+__device__ __forceinline__ void take_min4(int k0, int k1, int k2, int k3, int j, int* err,
+                                          uint32_t* codes) {
+  const int key = min(min(k0, k1), min(k2, k3));
+  *err += key >> 2;  // arithmetic: floor(key / 4) = e
+  *codes |= (uint32_t)(key & 3) << (2 * j);
+}
+
 // Two-pass table search for one subblock with extended base color b[3].
-__device__ __forceinline__ SubResult encode_subblock(const int (&px)[16][3], int flip, int sb,
-                                     const int (&b)[3]) {
-  int p[8][3];
+// Errors are exact integers, so any grouping of the sums gives the twin's
+// values; the argmins keep the twin's order (first minimum, strict <).
+__device__ __forceinline__ SubResult encode_subblock(const uint32_t (&px)[16], int flip, int sb,
+                                                    const int (&b)[3]) {
+  const int bs = b[0] + b[1] + b[2];
+  const int s2 = b[0] * b[0] + b[1] * b[1] + b[2] * b[2];
+  // u = g - S (pixel channel sum less the base's); |b - p|^2 summed over
+  // the subblock is common to every table and code
+  int u[8];
+  int d2 = 0;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    int y, x;
-    sub_pixel(flip, sb, k, &y, &x);
+    const uint32_t p = px[sub_pixel(flip, sb, k)];
+    u[k] = chan_sum(p) - bs;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) p[k][c] = px[y * 4 + x][c];
+    for (int c = 0; c < 3; ++c) {
+      const int dd = b[c] - chan(p, c);
+      d2 += dd * dd;
+    }
   }
-  // ---- pass 1: rank tables by the unclipped linear model
-  // q = sb2 + 2*m*sum(b) + 3*m^2 - 2*m*g_k, min over the 4 signed mods
-  const int s = b[0] + b[1] + b[2];
-  const int s2 = b[0] * b[0] + b[1] * b[1] + b[2] * b[2];
-  int g[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) g[k] = p[k][0] + p[k][1] + p[k][2];
+  // ---- pass 1: rank tables by the unclipped linear model. For m = +-a,
+  // q = s2 + 3a^2 - 2a*(+-u), so the least of the 4 codes is
+  // s2 + min(3s^2 - 2s|u|, 3l^2 - 2l|u|), in exact integers.
   int tot[8];
 #pragma unroll
   for (int t = 0; t < 8; ++t) {
-    int acc = 0;
+    const int sm = small_mod(t), lg = large_mod(t);
+    int acc = 8 * s2;
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      int best = 0;
-#pragma unroll
-      for (int code = 0; code < 4; ++code) {
-        const int m = mod_value(t, code);
-        const int q = s2 + 2 * m * s + 3 * m * m - 2 * m * g[k];
-        best = (code == 0 || q < best) ? q : best;
-      }
-      acc += best;
+      const int au = abs(u[k]);
+      acc += min(3 * sm * sm - 2 * sm * au, 3 * lg * lg - 2 * lg * au);
     }
     tot[t] = acc;
   }
-  int first = 0;
+  int first = 0, first_tot = tot[0];
 #pragma unroll
-  for (int t = 1; t < 8; ++t) first = tot[t] < tot[first] ? t : first;
+  for (int t = 1; t < 8; ++t)
+    if (tot[t] < first_tot) {
+      first_tot = tot[t];
+      first = t;
+    }
   int second = -1, second_tot = 0;
 #pragma unroll
   for (int t = 0; t < 8; ++t) {
@@ -125,85 +171,125 @@ __device__ __forceinline__ SubResult encode_subblock(const int (&px)[16][3], int
       second_tot = v;
     }
   }
-  // ---- pass 2: exact clipped error of the two ranked tables
-  SubResult r[2];
+  // ---- pass 2: exact clipped error of the two ranked tables. Per code,
+  // e = |b - p|^2 + e', with e' = 3m^2 + 2m*sum(b - p) = 3m^2 - 2m*u when
+  // no channel clips (b_c +- l within 0..255), in closed form; else
+  // e' = |me|^2 + 2 me.(b - p), me_c = clamp(b_c + m) - b_c, the code
+  // taken from keys 4*e' + code, one multiply-add per code and channel.
+  // A warp takes the closed form only when all its blocks may.
+  const int bmin = min(min(b[0], b[1]), b[2]), bmax = max(max(b[0], b[1]), b[2]);
+  SubResult r0, r1;
 #pragma unroll
   for (int pass = 0; pass < 2; ++pass) {
     const int tab = pass ? second : first;
-    int cand[4][3];
+    const int sm = small_mod(tab), lg = large_mod(tab);
+    const int mods[4] = {sm, lg, -sm, -lg};
+    int err = d2;
+    uint32_t codes = 0;
+    if (__all_sync(__activemask(), bmin >= lg && bmax <= 255 - lg)) {
+      // no channel clips: e' = 3m^2 - 2m*u, least at m = +-a with the
+      // sign of u (+ at u = 0, the first code), a = s unless 2|u| > 3(s + l)
+      // (the small code first on a tie), and its least is pass 1's term:
+      // the subblock's total is tot[tab] - 8*s2
+      err += (pass ? second_tot : first_tot) - 8 * s2;
+      const int thr = 3 * (sm + lg);
 #pragma unroll
-    for (int code = 0; code < 4; ++code)
-#pragma unroll
-      for (int c = 0; c < 3; ++c) cand[code][c] = clamp255(b[c] + mod_value(tab, code));
-    int err = 0;
-    uint32_t lsb = 0, msb = 0;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      int best = 0, best_code = 0;
+      for (int k = 0; k < 8; ++k) {
+        const uint32_t code = (u[k] < 0 ? 2u : 0u) | (2 * abs(u[k]) > thr ? 1u : 0u);
+        codes |= code << (2 * wire_bit(flip, sb, k));
+      }
+    } else {
+      int kq[4], kw[4][3];
 #pragma unroll
       for (int code = 0; code < 4; ++code) {
-        int e = 0;
+        kq[code] = code;
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          const int dd = cand[code][c] - p[k][c];
-          e += dd * dd;
-        }
-        if (code == 0 || e < best) {  // first minimum wins
-          best = e;
-          best_code = code;
+          const int me = clamp255(b[c] + mods[code]) - b[c];
+          kq[code] += 4 * me * me;
+          kw[code][c] = 8 * me;
         }
       }
-      err += best;
-      int y, x;
-      sub_pixel(flip, sb, k, &y, &x);
-      const int j = x * 4 + y;
-      lsb |= (uint32_t)(best_code & 1) << j;
-      msb |= (uint32_t)(best_code >> 1) << j;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const uint32_t p = px[sub_pixel(flip, sb, k)];
+        const int d0 = b[0] - chan(p, 0), d1 = b[1] - chan(p, 1), dd2 = b[2] - chan(p, 2);
+        int key[4];
+#pragma unroll
+        for (int code = 0; code < 4; ++code)
+          key[code] = kq[code] + kw[code][0] * d0 + kw[code][1] * d1 + kw[code][2] * dd2;
+        take_min4(key[0], key[1], key[2], key[3], wire_bit(flip, sb, k), &err, &codes);
+      }
     }
-    r[pass] = SubResult{tab, err, lsb, msb};
+    (pass ? r1 : r0) = SubResult{tab, err, codes};
   }
-  return r[1].err < r[0].err ? r[1] : r[0];  // strict: pass-1 winner keeps ties
+  return r1.err < r0.err ? r1 : r0;  // strict: pass-1 winner keeps ties
 }
 
+// One CTA per run of up to kThreads blocks of one block row (grid: runs x
+// block rows), one thread per block. The run's 4 image rows are staged in
+// shared memory with 16-byte loads where a row's bytes are 16-byte
+// aligned (W a multiple of 16), byte loads otherwise; neighbouring
+// threads read neighbouring addresses either way.
 __global__ void etc1_encode_kernel(const uint8_t* __restrict__ img,
                                    int32_t* __restrict__ out, int l, int h, int w) {
-  const int nbx = w >> 2, nby = h >> 2;
-  const int64_t nblocks = (int64_t)l * nby * nbx;
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nblocks) return;
-  const int bx = (int)(i % nbx);
-  const int by = (int)((i / nbx) % nby);
-  const int64_t layer = i / ((int64_t)nbx * nby);
-
-  int px[16][3];  // [y*4 + x][channel]
-  const uint8_t* base = img + ((layer * h + (int64_t)by * 4) * w + (int64_t)bx * 4) * 3;
+  __shared__ __align__(16) uint32_t s_rows[4][kThreads * 3];
+  const int nbx = w >> 2;
+  const int runs = (nbx + kThreads - 1) / kThreads;
+  const int64_t brow = blockIdx.x / runs;  // layer * nby + by
+  const int x0 = (int)(blockIdx.x % runs) * kThreads;
+  const int nbw = min(kThreads, nbx - x0);
+  const int nbytes = nbw * 12;
 #pragma unroll
   for (int y = 0; y < 4; ++y) {
-    const uint8_t* row = base + (int64_t)y * w * 3;
+    const uint8_t* src = img + ((brow * 4 + y) * w + (int64_t)x0 * 4) * 3;
+    uint8_t* dst = (uint8_t*)s_rows[y];
+    int done = 0;
+    if (((uintptr_t)src & 15) == 0) {
+      done = nbytes & ~15;
+      for (int i = threadIdx.x; i < done / 16; i += blockDim.x)
+        ((uint4*)dst)[i] = ((const uint4*)src)[i];
+    }
+    for (int i = done + threadIdx.x; i < nbytes; i += blockDim.x) dst[i] = src[i];
+  }
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t >= nbw) return;
+
+  uint32_t px[16];  // [y*4 + x], r | g << 8 | b << 16
 #pragma unroll
-    for (int x = 0; x < 4; ++x)
+  for (int y = 0; y < 4; ++y) {
+    const uint32_t w0 = s_rows[y][3 * t], w1 = s_rows[y][3 * t + 1], w2 = s_rows[y][3 * t + 2];
+    px[y * 4 + 0] = w0 & 0xffffffu;
+    px[y * 4 + 1] = __byte_perm(w0, w1, 0x0543) & 0xffffffu;
+    px[y * 4 + 2] = __byte_perm(w1, w2, 0x0432) & 0xffffffu;
+    px[y * 4 + 3] = w2 >> 8;
+  }
+  // channel sums of the 2x2 quadrants (r and b in the 16-bit halves)
+  uint32_t rb[2][2] = {{0, 0}, {0, 0}};
+  int gq[2][2] = {{0, 0}, {0, 0}};
 #pragma unroll
-      for (int c = 0; c < 3; ++c) px[y * 4 + x][c] = row[x * 3 + c];
+  for (int p = 0; p < 16; ++p) {
+    rb[(p >> 2) >> 1][(p & 3) >> 1] += px[p] & 0xff00ffu;
+    gq[(p >> 2) >> 1][(p & 3) >> 1] += chan(px[p], 1);
   }
 
   uint32_t word1[2], word2[2];
   int err[2];
 #pragma unroll
   for (int flip = 0; flip < 2; ++flip) {
+    // flip 0: left/right 2-column halves; flip 1: top/bottom 2-row halves
+    const uint32_t rb0 = flip ? rb[0][0] + rb[0][1] : rb[0][0] + rb[1][0];
+    const uint32_t rb1 = flip ? rb[1][0] + rb[1][1] : rb[0][1] + rb[1][1];
+    const int g0 = flip ? gq[0][0] + gq[0][1] : gq[0][0] + gq[1][0];
+    const int g1 = flip ? gq[1][0] + gq[1][1] : gq[0][1] + gq[1][1];
+    const int s0[3] = {(int)(rb0 & 0xffffu), g0, (int)(rb0 >> 16)};
+    const int s1[3] = {(int)(rb1 & 0xffffu), g1, (int)(rb1 >> 16)};
     int m0[3], d[3], b0[3], b1[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      int s0 = 0, s1 = 0;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        int y, x;
-        sub_pixel(flip, 0, k, &y, &x);
-        s0 += px[y * 4 + x][c];
-        sub_pixel(flip, 1, k, &y, &x);
-        s1 += px[y * 4 + x][c];
-      }
-      m0[c] = mean_quant5(s0);
-      const int m1 = mean_quant5(s1);
+      m0[c] = mean_quant5(s0[c]);
+      const int m1 = mean_quant5(s1[c]);
       d[c] = min(max(m1 - m0[c], -4), 3);  // differential: 3-bit delta
       b0[c] = extend5(m0[c]);
       b1[c] = extend5(m0[c] + d[c]);
@@ -216,11 +302,12 @@ __global__ void etc1_encode_kernel(const uint8_t* __restrict__ img,
                   ((uint32_t)m0[2] << 11) | ((uint32_t)(d[2] & 7) << 8) |
                   ((uint32_t)r0.table << 5) | ((uint32_t)r1.table << 2) | 2u |
                   (uint32_t)flip;
-    word2[flip] = (r0.lsb | r1.lsb) | ((r0.msb | r1.msb) << 16);
+    const uint32_t codes = r0.codes | r1.codes;
+    word2[flip] = even_bits(codes) | (even_bits(codes >> 1) << 16);
   }
-  const int f = err[1] < err[0] ? 1 : 0;  // strict: flip 0 keeps ties
-  out[2 * i] = (int32_t)word1[f];
-  out[2 * i + 1] = (int32_t)word2[f];
+  const bool f = err[1] < err[0];  // strict: flip 0 keeps ties
+  const int64_t i = brow * nbx + x0 + t;
+  ((int2*)out)[i] = make_int2((int32_t)(f ? word1[1] : word1[0]), (int32_t)(f ? word2[1] : word2[0]));
 }
 
 __global__ void etc1_decode_kernel(const int32_t* __restrict__ words,
@@ -264,20 +351,17 @@ __global__ void etc1_decode_kernel(const int32_t* __restrict__ words,
   }
 }
 
-constexpr int kThreads = 256;
-
 }  // namespace
 
 extern "C" {
 
 // img: [l, h, w, 3] uint8 (h, w multiples of 4); out: [l*(h/4)*(w/4), 2] int32.
 int uvt_etc1_encode(const void* img, void* out, int l, int h, int w, void* stream) {
-  const int64_t n = (int64_t)l * (h / 4) * (w / 4);
-  if (n > 0) {
-    const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
-    etc1_encode_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  const int64_t runs = (w / 4 + kThreads - 1) / kThreads;
+  const int64_t grid = runs * l * (h / 4);
+  if (grid > 0)
+    etc1_encode_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)img, (int32_t*)out, l, h, w);
-  }
   return (int)cudaGetLastError();
 }
 
@@ -294,6 +378,23 @@ int uvt_etc1_decode(const void* words, void* img, int l, int h, int w, void* str
 
 const char* uvt_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
+}
+
+// out[0..3]: registers per thread, local (stack) bytes, static shared
+// bytes, most threads per block of kernel `which`, in the order of
+// codecs/basis/etc_cuda.KERNEL_FUNCS.
+int uvt_etc1_func_attrs(int which, int* out) {
+  const void* fns[] = {(const void*)etc1_encode_kernel, (const void*)etc1_decode_kernel};
+  if (which < 0 || which >= (int)(sizeof(fns) / sizeof(fns[0])))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, fns[which]);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  return 0;
 }
 
 }  // extern "C"

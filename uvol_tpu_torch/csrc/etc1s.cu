@@ -6,7 +6,10 @@
 //   K5  `_inten_kernel` (inten_errors_pallas): per block, the error of its
 //       base color under each of the 8 intensity tables;
 //   K6  the k-means `_kernel` (kmeans_iter_pallas): one fused Lloyd step,
-//       nearest centroid plus per-cluster sums and counts.
+//       nearest centroid plus per-cluster sums and counts;
+// and the fixed-order segment sum that the palette build takes where the
+// reference's `_seg_reduce` (uvol_tpu/codecs/basis/etc1s_encode.py:103)
+// multiplies one-hot matrices on the MXU (XLA, not a Pallas site).
 // K4 and K5 read the [N, 16, 3] uint8 blocks of the segment upload
 // directly; the TPU's [N*16, 3] rows, [48, N] lane-major relayout and
 // 128-lane endpoint padding have no counterpart here.
@@ -29,14 +32,39 @@
 // K6 -- f32, mirroring the TPU kernel's op order: dist = c2[k], then
 // + f[j] * (-2*cb[k,j]) for j = 0..3, each step rounded (__fadd_rn /
 // __fmul_rn; the library is built with -fmad=false as well), first-minimum
-// argmin. The per-cluster sums are DETERMINISTIC (no float atomics) in
-// one fixed order, the order of `segment_sum` in codecs/basis/etc1s_cuda.py:
-// rows in order within consecutive tiles of kSegTile rows (from 0.0),
-// then tiles added pairwise, level by level (adjacent pairs; an odd last
-// tile is added to 0.0). Counts are sums of 1.0 in that order, exact
-// below 2^24. One thread per row for the assignment (centroids in shared
-// memory, K <= kKmMaxK); per tile, one thread per cluster scans the tile's
-// rows. The tile partials cost a [ceil(N/64), K, 5] f32 scratch buffer.
+// argmin. Without an FMA each step is two instructions, so K6 cannot pass
+// half of its float32 FLOP bound (which counts 8 FLOP per row and
+// centroid as 4 FMAs) while it keeps the reference's rounding. One CTA per
+// chunk of 1,024 rows, 4 rows per thread; the centroids sit in dynamic
+// shared memory sized to k, one 16-byte broadcast load per centroid's
+// weights, c2 beside them; the kernel forms both from cb in the order of
+// etc1s_cuda.centroid_rows.
+//
+// The per-cluster sums are DETERMINISTIC (no float atomics) in the fixed
+// order of `segment_sum_plain` in codecs/basis/etc1s_cuda.py: rows in
+// order within consecutive tiles of kSegTile rows (from 0.0), then tiles
+// added pairwise, level by level (adjacent pairs; an odd last tile is
+// added to 0.0). That is a complete binary tree over the tiles padded
+// with 0.0 to a power of two, which splits into two passes:
+//   pass 1 -- a chunk of 16 tiles (1,024 rows) is a level-4 subtree. One
+//     CTA stages the chunk's rows in shared memory (16 loads in flight per
+//     thread), sorts its keys segment << 10 | row (a bitonic sort in
+//     registers, warp shuffles and shared memory), so each segment's rows
+//     form one run in row order, and a thread per (segment, 4 columns)
+//     walks its run: each tile's sum from 0.0, then levels 0..3 over the
+//     16 tiles as a binary counter; one [k, d] partial per chunk. K6 fuses
+//     it into its assignment kernel (on [feats, 1.0] by assignment);
+//     `segment_sum` runs it on its own, columns split over CTAs in groups
+//     of at most 16;
+//   pass 2 -- the levels above, over the chunk partials of each element:
+//     a CTA reduces 32 consecutive elements (coalesced reads) in pieces of
+//     256 leaves in shared memory, then the piece roots.
+// Two launches per call whatever n, and a scratch of ceil(n/1024) x k x d
+// floats. A sum that starts from +0.0 is never -0.0 (round to nearest
+// gives -0.0 only for -0.0 + -0.0), so every 0.0 the twin adds is an
+// identity here too, and signed zeros match. Bound: bytes (each row's
+// index and values read once, the sums written once); counts are sums of
+// 1.0, exact below 2^24.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,9 +81,8 @@ __constant__ int kInten[8][4] = {
 constexpr int kThreads = 256;
 constexpr int kEpChunk = 256;   // endpoints per shared-memory chunk: 20 KB
 constexpr int kSegTile = 64;    // rows per fixed-order partial sum
-constexpr int kKmMaxK = 2048;   // centroids held in shared memory: 40 KB
-constexpr int kKmDim = 4;       // feature width
-constexpr int kKmCols = kKmDim + 1;  // features ++ 1.0 (the count)
+constexpr int kSegMaxK = 2048;  // most segments (K6: centroids) a sum takes
+constexpr int kKmCols = 5;      // K6's 4 features ++ 1.0 (the count)
 
 __device__ __forceinline__ int clamp255(int v) { return min(max(v, 0), 255); }
 
@@ -156,77 +183,328 @@ __global__ void assign_endpoints_kernel(const uint8_t* __restrict__ blocks,
   if (live) out[i] = best_e;
 }
 
-// ---- K6 ---------------------------------------------------------------
+// ---- fixed-order segment sum, and K6 on top of it ----------------------
 
-// cent: [5, k] rows -2*cb[:, 0..3] and c2. part: [ceil(n/kSegTile), k, 5].
-__global__ void kmeans_tile_kernel(const float* __restrict__ feats,
-                                   const float* __restrict__ cent, int n, int k,
-                                   float* __restrict__ part,
-                                   int32_t* __restrict__ assign) {
-  __shared__ float s_c[kKmCols][kKmMaxK];
-  __shared__ float s_f[kThreads][kKmCols];
-  __shared__ int s_a[kThreads];
-  for (int j = threadIdx.x; j < kKmCols * k; j += blockDim.x)
-    s_c[j / k][j % k] = cent[j];
-  __syncthreads();
+constexpr int kChunkTiles = 16;                     // tiles per pass-1 chunk (2^4)
+constexpr int kChunkLevels = 4;                     // log2(kChunkTiles)
+constexpr int kChunkRows = kChunkTiles * kSegTile;  // 1,024 rows
+constexpr int kSegMaxPitch = 16;                    // most columns a pass-1 CTA holds
+constexpr int kTreeCols = 32;                       // pass-2 elements per CTA
+constexpr int kTreeRows = 8;                        // pass-2 threads per element
+constexpr int kTreePiece = 256;                     // pass-2 leaves per round in shared memory
+constexpr int kTreeMaxPieces = 64;                  // rounds: n <= 2^24 rows
+constexpr int kSegMaxRows = kChunkRows * kTreePiece * kTreeMaxPieces;
+constexpr int kMaxDevices = 64;  // shared-memory limits granted, per device
 
+// Shared memory of one pass-1 chunk: `pitch` is a power of two >= the
+// columns held, `k` the segment count.
+struct ChunkSmem {
+  float* x;      // [kChunkRows][pitch] the chunk's values
+  int* key;      // [kChunkRows] segment << 10 | row (kNoSegment for none), then sorted
+  short* start;  // [k] first position of each segment in the sorted keys, -1 where absent
+};
+
+constexpr int kRowBits = 10;  // kChunkRows = 2^10
+constexpr int kNoSegment = kSegMaxK << kRowBits;  // sorts after every segment
+
+__host__ __device__ inline size_t chunk_smem_bytes(int pitch, int k) {
+  return (size_t)kChunkRows * (pitch * 4 + 4) + (size_t)k * 2;
+}
+
+__device__ inline ChunkSmem chunk_smem(unsigned char* base, int pitch, int k) {
+  ChunkSmem s;
+  s.x = (float*)base;
+  s.key = (int*)(s.x + kChunkRows * pitch);
+  s.start = (short*)(s.key + kChunkRows);
+  for (int i = threadIdx.x; i < k; i += blockDim.x) s.start[i] = -1;
+  return s;
+}
+
+// Bitonic sort of the chunk's kChunkRows keys, ascending. Thread t holds
+// keys t + kThreads*j (j = 0..3) in registers: a stride of kThreads or more
+// pairs two keys of one thread, strides of 32..kThreads/2 go through
+// shared memory, strides below 32 through warp shuffles.
+__device__ void sort_keys(int* key) {
+  constexpr int kPer = kChunkRows / kThreads;
   const int tid = threadIdx.x;
-  const int64_t row = (int64_t)blockIdx.x * kThreads + tid;
-  int bi = -1;
-  float f[kKmDim] = {0.f, 0.f, 0.f, 0.f};
-  if (row < n) {
+  int v[kPer];
 #pragma unroll
-    for (int j = 0; j < kKmDim; ++j) f[j] = feats[row * kKmDim + j];
-    float best = 0.f;
-    for (int kk = 0; kk < k; ++kk) {
-      float d = s_c[kKmDim][kk];
+  for (int j = 0; j < kPer; ++j) v[j] = key[tid + kThreads * j];
 #pragma unroll
-      for (int j = 0; j < kKmDim; ++j) d = __fadd_rn(d, __fmul_rn(f[j], s_c[j][kk]));
-      if (kk == 0 || d < best) {  // strict: the first minimum wins
-        best = d;
-        bi = kk;
+  for (int size = 2; size <= kChunkRows; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      int w[kPer];
+      if (stride >= 32 && stride < kThreads) {
+        __syncthreads();  // the last exchange's reads are done
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) key[tid + kThreads * j] = v[j];
+        __syncthreads();
+      }
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int i = tid + kThreads * j;
+        const int b = stride >= kThreads ? v[j ^ (stride / kThreads)]
+                      : stride >= 32     ? key[i ^ stride]
+                                         : __shfl_xor_sync(0xffffffffu, v[j], stride);
+        // the lower index of an ascending pair keeps the smaller key
+        const bool keep_min = ((i & stride) == 0) == ((i & size) == 0);
+        w[j] = keep_min ? min(v[j], b) : max(v[j], b);
+      }
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) v[j] = w[j];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) key[tid + kThreads * j] = v[j];
+  __syncthreads();
+}
+
+// Pass 1 of the fixed-order sum over one chunk whose keys and values are
+// staged: per segment and column, each tile's in-order sum from 0.0, then
+// the twin's pairwise levels 0..3 over the chunk's 16 tiles (a tile
+// without the segment is 0.0). Writes the chunk's [k][cols] partial to
+// out (row stride ld). pitch = 2^lp >= 4.
+__device__ void chunk_sums(const ChunkSmem& s, int lp, int cols, int k,
+                           float* __restrict__ out, int ld) {
+  // 1. sort the keys: each segment's rows become one run, in row order;
+  //    the run's first position goes to start[]
+  sort_keys(s.key);
+  for (int p = threadIdx.x; p < kChunkRows; p += blockDim.x) {
+    const int seg = s.key[p] >> kRowBits;
+    if (seg < k && (p == 0 || (s.key[p - 1] >> kRowBits) != seg)) s.start[seg] = (short)p;
+  }
+  __syncthreads();
+  // 2. per (segment, 4 columns): walk the segment's run, tile by tile, and
+  //    carry the tile sums through a binary counter (pend[l] waits for its
+  //    right sibling); t = 15 carries to the chunk's root
+  const int lq = lp - 2;
+  const float4* x4 = (const float4*)s.x;
+  for (int i = threadIdx.x; i < k << lq; i += blockDim.x) {
+    const int seg = i >> lq, q = i & ((1 << lq) - 1);
+    if (4 * q >= cols) continue;
+    int p = s.start[seg];
+    float node[4] = {0.f, 0.f, 0.f, 0.f};
+    if (p >= 0) {
+      int key = s.key[p];
+      const int end = (seg + 1) << kRowBits;  // the keys of this segment are below
+      float pend[kChunkLevels][4];
+#pragma unroll
+      for (int t = 0; t < kChunkTiles; ++t) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) node[c] = 0.f;
+        const int lim = min(end, (seg << kRowBits) + (t + 1) * kSegTile);
+        while (key < lim) {  // the next key is read ahead of the add
+          const float4 v = x4[((key & (kChunkRows - 1)) << lq) + q];
+          key = ++p < kChunkRows ? s.key[p] : kNoSegment;
+          node[0] = __fadd_rn(node[0], v.x);
+          node[1] = __fadd_rn(node[1], v.y);
+          node[2] = __fadd_rn(node[2], v.z);
+          node[3] = __fadd_rn(node[3], v.w);
+        }
+#pragma unroll
+        for (int l = 0; l < kChunkLevels; ++l) {
+          if (!((t >> l) & 1)) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) pend[l][c] = node[c];
+            break;
+          }
+#pragma unroll
+          for (int c = 0; c < 4; ++c) node[c] = __fadd_rn(pend[l][c], node[c]);
+        }
       }
     }
-    assign[row] = bi;
-  }
-  s_a[tid] = bi;
+    float* o = out + (int64_t)seg * ld + 4 * q;
 #pragma unroll
-  for (int j = 0; j < kKmDim; ++j) s_f[tid][j] = f[j];
-  s_f[tid][kKmDim] = 1.f;
-  __syncthreads();
-
-  // this thread's tile of kSegTile rows, and its lane within it
-  const int q = tid / kSegTile, lane = tid % kSegTile;
-  const int64_t tile = (int64_t)blockIdx.x * (kThreads / kSegTile) + q;
-  if (tile * kSegTile >= n) return;
-  const int r0 = q * kSegTile;
-  for (int kk = lane; kk < k; kk += kSegTile) {
-    float acc[kKmCols] = {0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int r = 0; r < kSegTile; ++r) {
-      if (s_a[r0 + r] != kk) continue;
-#pragma unroll
-      for (int j = 0; j < kKmCols; ++j) acc[j] = __fadd_rn(acc[j], s_f[r0 + r][j]);
-    }
-    float* dst = part + (tile * k + kk) * kKmCols;
-#pragma unroll
-    for (int j = 0; j < kKmCols; ++j) dst[j] = acc[j];
+    for (int c = 0; c < 4; ++c)
+      if (4 * q + c < cols) o[c] = node[c];
   }
 }
 
-// One level of the pairwise tile sum: out[t] = in[2t] + in[2t+1] (0.0 past
-// the last of the m input tiles), each tile `width` floats.
-__global__ void pair_sum_kernel(const float* __restrict__ in, float* __restrict__ out,
-                                int m, int64_t width) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t half = (m + 1) / 2;
-  if (i >= half * width) return;
-  const int64_t t = i / width, w = i % width;
-  const float a = in[2 * t * width + w];
-  const float b = 2 * t + 1 < m ? in[(2 * t + 1) * width + w] : 0.f;
-  out[i] = __fadd_rn(a, b);
+// Copies rows [row0, row0 + min(rows, kChunkRows)) x elements [0, cols) of
+// src (row stride ld elements) into dst [kChunkRows][2^lp], zero-filled,
+// with 16 loads in flight per thread.
+template <typename T>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ src, int ld, int rows,
+                                           int64_t row0, int cols, int lp, T* dst) {
+  constexpr int kBatch = 16;
+  const int total = kChunkRows << lp;
+  for (int base = threadIdx.x; base < total; base += kBatch * kThreads) {
+    T v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = base + u * kThreads, r = i >> lp, c = i & ((1 << lp) - 1);
+      v[u] = (i < total && r < rows && c < cols) ? src[(row0 + r) * ld + c] : T{};
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (base + u * kThreads < total) dst[base + u * kThreads] = v[u];
+  }
+}
+
+// Pass 1 of `segment_sum`: CTA (chunk, column group). idx: [n] int32
+// (rows outside [0, k) are dropped); x: [n, d] f32; part: [m, k, d].
+__global__ void seg_sum_chunk_kernel(const int32_t* __restrict__ idx,
+                                     const float* __restrict__ x, int n, int d, int k,
+                                     int dc, int lp, float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const ChunkSmem s = chunk_smem(smem, 1 << lp, k);
+  const int c0 = blockIdx.y * dc, cols = min(dc, d - c0);
+  const int64_t row0 = (int64_t)blockIdx.x * kChunkRows;
+  const int rows = (int)(n - row0);
+#pragma unroll
+  for (int j = 0; j < kChunkRows / kThreads; ++j) {
+    const int r = threadIdx.x + j * kThreads;
+    const int v = row0 + r < n ? idx[row0 + r] : -1;
+    s.key[r] = (v >= 0 && v < k) ? (v << kRowBits | r) : kNoSegment;
+  }
+  // the values, zero past n and past the group's columns: float4 loads
+  // where rows and columns allow them, 16 loads in flight per thread
+  const float* xg = x + c0;
+  if ((d | c0 | cols) % 4 == 0 && ((uintptr_t)x & 15) == 0)
+    stage_rows((const float4*)xg, d / 4, rows, row0, cols / 4, lp - 2, (float4*)s.x);
+  else
+    stage_rows(xg, d, rows, row0, cols, lp, s.x);
+  __syncthreads();
+  chunk_sums(s, lp, cols, k, part + (int64_t)blockIdx.x * k * d + c0, d);
+}
+
+// Pass 2: the twin's remaining levels over the m chunk partials of each
+// of e elements (part: [m, e]; out: [e]) -- a complete binary tree over
+// p = 2^ceil(log2 m) leaves, leaves >= m being 0.0. A CTA takes
+// kTreeCols consecutive elements (coalesced reads) and reduces aligned
+// pieces of up to kTreePiece leaves in shared memory, then the piece
+// roots.
+__global__ void seg_sum_tree_kernel(const float* __restrict__ part, int m, int64_t e,
+                                    float* __restrict__ out) {
+  __shared__ float s_leaf[kTreePiece][kTreeCols];
+  __shared__ float s_root[kTreeMaxPieces][kTreeCols];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int64_t el = (int64_t)blockIdx.x * kTreeCols + tx;
+  int p = 1;
+  while (p < m) p <<= 1;
+  const int piece = min(p, kTreePiece), pieces = p / piece;
+  for (int pc = 0; pc < pieces; ++pc) {
+    const int leaf0 = pc * piece;
+    if (leaf0 >= m) {  // a piece of absent chunks: its root is 0.0
+      if (ty == 0) s_root[pc][tx] = 0.f;
+      continue;
+    }
+    for (int j = ty; j < piece; j += kTreeRows) {
+      const int leaf = leaf0 + j;
+      s_leaf[j][tx] = (leaf < m && el < e) ? part[(int64_t)leaf * e + el] : 0.f;
+    }
+    __syncthreads();
+    for (int w = 1; w < piece; w *= 2) {  // level by level, in place
+      for (int j = ty * 2 * w; j < piece; j += kTreeRows * 2 * w)
+        s_leaf[j][tx] = __fadd_rn(s_leaf[j][tx], s_leaf[j + w][tx]);
+      __syncthreads();
+    }
+    if (ty == 0) s_root[pc][tx] = s_leaf[0][tx];
+    __syncthreads();  // s_leaf is refilled by the next piece
+  }
+  __syncthreads();
+  for (int w = 1; w < pieces; w *= 2) {  // the levels above the pieces
+    for (int j = ty * 2 * w; j < pieces; j += kTreeRows * 2 * w)
+      s_root[j][tx] = __fadd_rn(s_root[j][tx], s_root[j + w][tx]);
+    __syncthreads();
+  }
+  if (ty == 0 && el < e) out[el] = s_root[0][tx];
+}
+
+// K6: one CTA per chunk of kChunkRows rows. The nearest centroid of each
+// row (4 rows per thread, each centroid's weights one 16-byte shared
+// load, c2 beside them), then pass 1 of the fixed-order sum of
+// [feats, 1.0] by assignment. cb: [k] float4 centroids; part: [m, k, 5].
+__global__ void kmeans_chunk_kernel(const float4* __restrict__ feats,
+                                    const float4* __restrict__ cb, int n, int k,
+                                    float* __restrict__ part, int32_t* __restrict__ assign) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* s_w = (float4*)smem;
+  float* s_c2 = (float*)(s_w + k);
+  constexpr int kPitchLog = 3;  // kKmCols = 5 columns in a pitch of 8
+  const ChunkSmem s = chunk_smem((unsigned char*)(s_c2 + ((k + 3) & ~3)), 1 << kPitchLog, k);
+  // the rows of etc1s_cuda.centroid_rows: -2*cb, and c2 summed in order
+  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+    const float4 c = cb[j];
+    s_w[j] = make_float4(__fmul_rn(-2.f, c.x), __fmul_rn(-2.f, c.y), __fmul_rn(-2.f, c.z),
+                         __fmul_rn(-2.f, c.w));
+    s_c2[j] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(c.x, c.x), __fmul_rn(c.y, c.y)),
+                                  __fmul_rn(c.z, c.z)), __fmul_rn(c.w, c.w));
+  }
+  __syncthreads();
+
+  constexpr int kRows = kChunkRows / kThreads;
+  const int64_t row0 = (int64_t)blockIdx.x * kChunkRows;
+  float4 f[kRows];
+  float best[kRows];
+  int bi[kRows];
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const int64_t g = row0 + q * kThreads + threadIdx.x;
+    f[q] = g < n ? feats[g] : make_float4(0.f, 0.f, 0.f, 0.f);
+    best[q] = 0.f;
+    bi[q] = 0;
+  }
+  // dist = c2 + f0*w0 + f1*w1 + f2*w2 + f3*w3, every step rounded; the
+  // first minimum wins (strict <)
+  for (int kk = 0; kk < k; ++kk) {
+    const float4 w = s_w[kk];
+    const float c2 = s_c2[kk];
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      float d = __fadd_rn(c2, __fmul_rn(f[q].x, w.x));
+      d = __fadd_rn(d, __fmul_rn(f[q].y, w.y));
+      d = __fadd_rn(d, __fmul_rn(f[q].z, w.z));
+      d = __fadd_rn(d, __fmul_rn(f[q].w, w.w));
+      if (kk == 0 || d < best[q]) {
+        best[q] = d;
+        bi[q] = kk;
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const int r = q * kThreads + threadIdx.x;
+    const bool live = row0 + r < n;
+    if (live) assign[row0 + r] = bi[q];
+    s.key[r] = live ? (bi[q] << kRowBits | r) : kNoSegment;
+    float* xr = s.x + (r << kPitchLog);
+    xr[0] = f[q].x;
+    xr[1] = f[q].y;
+    xr[2] = f[q].z;
+    xr[3] = f[q].w;
+    xr[4] = 1.f;
+  }
+  __syncthreads();
+  chunk_sums(s, kPitchLog, kKmCols, k, part + (int64_t)blockIdx.x * k * kKmCols, kKmCols);
 }
 
 unsigned grid_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+
+int chunks_for(int n) { return n > 0 ? (n + kChunkRows - 1) / kChunkRows : 1; }
+
+// Raises a kernel's dynamic shared-memory limit on the current device
+// when `bytes` is above the default 48 KB and above what was granted.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, int (&granted)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || bytes <= 48 * 1024) return err;
+  if (dev < kMaxDevices && (int)bytes <= granted[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) granted[dev] = (int)bytes;
+  return err;
+}
+
+int g_chunk_smem[kMaxDevices], g_kmeans_smem[kMaxDevices];
+
+cudaError_t launch_tree(const float* part, int m, int64_t e, float* out, cudaStream_t s) {
+  const unsigned grid = (unsigned)((e + kTreeCols - 1) / kTreeCols);
+  seg_sum_tree_kernel<<<grid, dim3(kTreeCols, kTreeRows), 0, s>>>(part, m, e, out);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -250,32 +528,62 @@ int uvt_etc1s_assign_endpoints(const void* blocks, const void* table, void* out,
   return (int)cudaGetLastError();
 }
 
-// feats: [n, 4] f32; cent: [5, k] f32 (k <= 2048); part, part2: scratch of
-// ceil(n/64) * k * 5 f32 each; sums: [k, 5] f32 (features ++ count);
-// assign: [n] int32.
-int uvt_etc1s_kmeans_iter(const void* feats, const void* cent, int n, int k, void* part,
-                          void* part2, void* sums, void* assign, void* stream) {
-  if (n <= 0 || k <= 0 || k > kKmMaxK) return (int)cudaErrorInvalidValue;
+// idx: [n] int32 (n <= 2^24); x: [n, d] f32; part: scratch of ceil(n/1024) * k * d f32
+// (k*d for n = 0); out: [k, d] f32. Two launches, whatever n.
+int uvt_etc1s_segment_sum(const void* idx, const void* x, int n, int d, int k, void* part,
+                          void* out, void* stream) {
+  if (n < 0 || n > kSegMaxRows || d <= 0 || k <= 0 || k > kSegMaxK)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  kmeans_tile_kernel<<<grid_for(n), kThreads, 0, s>>>(
-      (const float*)feats, (const float*)cent, n, k, (float*)part, (int32_t*)assign);
-  const int64_t width = (int64_t)k * kKmCols;
-  int m = (n + kSegTile - 1) / kSegTile;
-  if (m == 1) {
-    cudaMemcpyAsync(sums, part, width * sizeof(float), cudaMemcpyDeviceToDevice, s);
-    return (int)cudaGetLastError();
-  }
-  float* src = (float*)part;
-  float* dst = (float*)part2;
-  while (m > 1) {
-    const int next = (m + 1) / 2;
-    float* o = next == 1 ? (float*)sums : dst;
-    pair_sum_kernel<<<grid_for(next * width), kThreads, 0, s>>>(src, o, m, width);
-    src = o;
-    dst = src == (float*)part ? (float*)part2 : (float*)part;
-    m = next;
-  }
-  return (int)cudaGetLastError();
+  const int m = chunks_for(n);
+  const int groups = (d + kSegMaxPitch - 1) / kSegMaxPitch;
+  const int dc = (d + groups - 1) / groups;
+  int lp = 2;  // a pitch of at least 4: the sums read float4
+  while ((1 << lp) < dc) ++lp;
+  const size_t smem = chunk_smem_bytes(1 << lp, k);
+  cudaError_t err = allow_smem(seg_sum_chunk_kernel, smem, g_chunk_smem);
+  if (err != cudaSuccess) return (int)err;
+  seg_sum_chunk_kernel<<<dim3((unsigned)m, (unsigned)groups), kThreads, smem, s>>>(
+      (const int32_t*)idx, (const float*)x, n, d, k, dc, lp, (float*)part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_tree((const float*)part, m, (int64_t)k * d, (float*)out, s);
+}
+
+// feats: [n, 4] f32 and cb: [k, 4] f32 (k <= 2048), both 16-byte aligned; part: scratch of ceil(n/1024) * k * 5 f32; sums:
+// [k, 5] f32 (features ++ count); assign: [n] int32. Two launches.
+int uvt_etc1s_kmeans_iter(const void* feats, const void* cb, int n, int k, void* part,
+                          void* sums, void* assign, void* stream) {
+  if (n <= 0 || n > kSegMaxRows || k <= 0 || k > kSegMaxK) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int m = chunks_for(n);
+  const size_t smem = (size_t)k * 16 + (size_t)((k + 3) & ~3) * 4 + chunk_smem_bytes(8, k);
+  cudaError_t err = allow_smem(kmeans_chunk_kernel, smem, g_kmeans_smem);
+  if (err != cudaSuccess) return (int)err;
+  kmeans_chunk_kernel<<<(unsigned)m, kThreads, smem, s>>>(
+      (const float4*)feats, (const float4*)cb, n, k, (float*)part, (int32_t*)assign);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_tree((const float*)part, m, (int64_t)k * kKmCols, (float*)sums, s);
+}
+
+// out[0..3]: registers per thread, local (stack) bytes, static shared
+// bytes, most threads per block of kernel `which`, in the order of
+// etc1s_cuda.KERNEL_FUNCS.
+int uvt_etc1s_func_attrs(int which, int* out) {
+  const void* fns[] = {(const void*)inten_errors_kernel, (const void*)assign_endpoints_kernel,
+                       (const void*)kmeans_chunk_kernel, (const void*)seg_sum_chunk_kernel,
+                       (const void*)seg_sum_tree_kernel};
+  if (which < 0 || which >= (int)(sizeof(fns) / sizeof(fns[0])))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, fns[which]);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  return 0;
 }
 
 }  // extern "C"
