@@ -22,8 +22,9 @@ Each phase prints one JSON line; then come the card's `nvidia-smi`
 name/power-limit line, the kernels line (each kernel's launches on its
 main path, worst difference from its twin, call time, its twin's time,
 its bound: the larger of the bytes it must move over the memory rate and
-its operations over the peak rate for their type; its time alone, and
-its registers, stack and static shared bytes), and last
+its operations over the peak rate for their type; the time of the one
+PyTorch call that computes the same, where there is one; its time alone,
+and its registers, stack and static shared bytes), and last
 `{"ok": true, "device": {...}}`.
 
 Any failed check raises and the script exits non-zero without the last
@@ -36,12 +37,9 @@ from __future__ import annotations
 
 import contextlib
 import json
-import re
 import subprocess
 import sys
 import time
-
-from pathlib import Path
 
 import numpy as np
 
@@ -83,8 +81,8 @@ SEG_SHAPES = tuple((1 << i, d) for d in (9, 33) for i in range(9)) + (
 SEG_ROWS = (1, 63, 64, 65, 1025, 20000, 70001)
 SEG_TIMED = (327680, 256, 64)  # sel_update's shape on the main path: N, k, D
 #: K3's kernel name in a profiler trace (csrc/geometry.cu)
-K3_KERNEL_NAME = "quantize_delta_zigzag_kernel"
-K3_PROFILED_LAUNCHES = 50  # launches averaged for K3's kernel-only time
+K3_KERNEL_NAME = WRAPPER_KERNELS["quantize_delta_zigzag"][0]
+K3_PROFILED_LAUNCHES = 50  # calls timed back to back, and traced for K3 alone
 
 # The bound of a kernel: max(bytes / memory rate, operations / peak rate).
 # Published peaks of the H100 SXM (NVIDIA's data sheet) at 700 W: HBM
@@ -99,8 +97,9 @@ INT_OPS_PER_S = 67e12 / 2
 #: operations per unit of work, from each kernel's arithmetic (csrc/ notes)
 OPS = {
     # per 4x4 block: both flips x 8 tables, rank + refine. The least count
-    # known: the static SASS of K1 with only its closed-form pass 2 (phase
-    # `build`, `k1_instructions`, which fails should this entry exceed it)
+    # known: the static SASS of K1 (csrc/etc1.cu) with only its closed-form
+    # pass 2, counted with `cuobjdump -sass` (PERF.md section 6); recount
+    # it when K1 changes
     "etc1_encode": 2792,
     "etc1_decode": 12,  # per pixel: modifier select, 3 x (add, clamp)
     "quantize_delta_zigzag": 10,  # per element: 2 x (fma, floor, cvt), sub, zigzag
@@ -241,39 +240,6 @@ def k3_parity(torch, dev, positions, uvs) -> dict:
     emit({"phase": "k3_parity", "shapes": shapes, "boundary_rows": [len(x) for x in rows],
           "max_abs_err": err})
     return err
-
-
-def k1_instructions(build_dir) -> dict:
-    """Static SASS instructions of K1 (`cuobjdump -sass` of csrc/etc1.cu
-    built as the library is) with only the closed-form pass 2 and with
-    only the clip-aware one: a block costs at least the first (the
-    OPS entry) and at most about the second."""
-    from uvol_tpu_torch import _build
-
-    nvcc = _build.find_nvcc()
-    cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
-    src = (_build.CSRC / "etc1.cu").read_text()
-    cond = "__all_sync(__activemask(), bmin >= lg && bmax <= 255 - lg)"
-    check(src.count(cond) == 1, "K1's pass-2 branch not found")
-    procs = {}
-    for name, value in (("closed_form_only", "true"), ("clip_aware_only", "false")):
-        cu = build_dir / f"k1_{name}.cu"
-        cu.write_text(src.replace(cond, value))
-        obj = cu.with_suffix(".o")
-        procs[name] = (obj, subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(obj),
-                                              str(cu)], stdout=subprocess.DEVNULL))
-    counts = {}
-    for name, (obj, proc) in procs.items():
-        check(proc.wait(timeout=300) == 0, f"nvcc failed on the {name} variant of K1")
-        sass = subprocess.run([cuobjdump, "-sass", str(obj)], capture_output=True, text=True,
-                              check=True, timeout=120).stdout
-        body = [f for f in sass.split("Function : ")[1:]
-                if f.split("\n")[0].strip().endswith("etc1_encode_kernelEPKhPiiii")]
-        check(len(body) == 1, "K1 not found in the SASS")
-        counts[name] = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+[^;]*;", body[0]))
-    check(OPS["etc1_encode"] <= counts["closed_form_only"],
-          f"K1's OPS entry {OPS['etc1_encode']} exceeds its least count {counts}")
-    return counts
 
 
 def nvidia_smi_line() -> str:
@@ -538,6 +504,13 @@ def etc1s_times(torch, dev, textures, median_cuda_ms) -> tuple:
         ms[name + "_plain"] = median_cuda_ms(lambda: twin(*args), REPS)
         ms[name + "_kernel"], traced[name] = kernel_only_ms(
             torch, lambda: kernel(*args), WRAPPER_KERNELS[name])
+    # the library's call for the same sums, in no fixed order (so the port
+    # does not use it): exact here, the values being small integers
+    def library():
+        return torch.zeros((sk, sd), device=dev).index_add_(0, seg_idx, seg_x)
+
+    library_err = float((library() - k.segment_sum_plain(seg_idx, sk, seg_x)).abs().max())
+    ms["etc1s_segment_sum_library"] = median_cuda_ms(library, REPS)
     # a K6 call and a segment-sum call launch a fixed number of kernels,
     # whatever N (the int32 indices need no conversion kernel)
     per_call = {
@@ -561,7 +534,7 @@ def etc1s_times(torch, dev, textures, median_cuda_ms) -> tuple:
     emit({"phase": "etc1s_times", "blocks": n, "entries": ETC1S_PALETTE, "reps": REPS,
           "segment_sum_shape": SEG_TIMED, "kernels_per_call": per_call,
           "kernel_launches_traced": traced,
-          "max_abs_err": err, "ms": ms,
+          "max_abs_err": err, "segment_sum_library_max_abs_err": library_err, "ms": ms,
           "segment_layers_per_s": ETC1S_LAYERS / (ms["etc1s_segment_encode"] / 1e3)})
     return ms, err
 
@@ -576,7 +549,7 @@ def main() -> int:
     # the port; alone in a directory this import fails before any output
     from uvol_tpu_torch import _build
     from uvol_tpu_torch.codecs.basis import etc as tetc
-    from uvol_tpu_torch.codecs.basis import etc1s_cuda, etc_cuda
+    from uvol_tpu_torch.codecs.basis import etc_cuda
     from uvol_tpu_torch.models.sequence import (
         GeometryFrameSet,
         GeometrySequenceCodec,
@@ -610,8 +583,7 @@ def main() -> int:
     so = _build.build()
     _build.get_lib()
     emit({"phase": "build", "library": str(so.relative_to(so.parents[2])),
-          "seconds": time.perf_counter() - t,
-          "k1_static_sass_instructions": k1_instructions(so.parent)})
+          "seconds": time.perf_counter() - t})
 
     # ---- 3. kernel parity: kernel (CUDA) vs plain twin on CUDA and on CPU -----
     positions, uvs, counts, faces, textures = bench_batch()
@@ -760,12 +732,9 @@ def main() -> int:
             for _ in range(K3_PROFILED_LAUNCHES):
                 pk.fused_quantize_delta_zigzag(xm, inv)
         ms[f"quantize_delta_zigzag{part}_in_loop"] = t.ms / K3_PROFILED_LAUNCHES
-        with device_trace() as prof:
-            for _ in range(K3_PROFILED_LAUNCHES):
-                pk.fused_quantize_delta_zigzag(xm, inv)
-        k3_ms = sum(v for k, v in device_time_ms(prof).items() if K3_KERNEL_NAME in k)
-        check(k3_ms > 0, "the profiler saw no K3 kernel")
-        ms[f"quantize_delta_zigzag{part}_kernel_only"] = k3_ms / K3_PROFILED_LAUNCHES
+        ms[f"quantize_delta_zigzag{part}_kernel"], traced[f"quantize_delta_zigzag{part}"] = (
+            kernel_only_ms(torch, lambda: pk.fused_quantize_delta_zigzag(xm, inv),
+                           WRAPPER_KERNELS["quantize_delta_zigzag"], K3_PROFILED_LAUNCHES))
     ms["device_chain"] = median_cuda_ms(device_chain, REPS)
     ms["host_encode"] = median_cuda_ms(encode_all, REPS)
     ms["host_decode"] = median_cuda_ms(lambda: decode_all(blobs, tex_blob), REPS)
@@ -843,7 +812,7 @@ def main() -> int:
                               sn * (sd + 1) * 4 + sk * sd * 4,
                               OPS["etc1s_segment_sum"] * sn * sd, F32_FLOP_PER_S),
     }
-    attrs = {**etc_cuda.kernel_attrs(), **pk.kernel_attrs(), **etc1s_cuda.kernel_attrs()}
+    attrs = _build.kernel_attrs()
     check(attrs["etc1_encode_kernel"]["stack_bytes"] == 0, "K1 uses stack memory")
     rows = []
     for name, (src, replaces, nbytes, ops, rate) in work.items():
@@ -853,8 +822,10 @@ def main() -> int:
             "replaces": f"uvol_tpu/{replaces}", "launches": launches[name],
             "max_abs_err": err[name], "ms": ms[name], "plain_ms": ms[name + "_plain"],
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,  # no single PyTorch call computes any of the seven
-            "kernel_ms": ms.get(name + "_kernel", ms.get(name + "_kernel_only")),
+            # index_add_ for the segment sum; no single PyTorch call computes
+            # any of the other six
+            "library_ms": ms.get(name + "_library"),
+            "kernel_ms": ms[name + "_kernel"],
             "kernel_attrs": {fn: attrs[fn] for fn in WRAPPER_KERNELS[name]},
         })
     check_full_f32(torch)

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -34,6 +35,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
 ]
+
+#: one per source: `fn(which, out, name)` of `csrc/func_attrs.cuh`
+_FUNC_ATTRS = ("uvt_etc1_func_attrs", "uvt_etc1s_func_attrs", "uvt_geometry_func_attrs")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -116,11 +120,10 @@ def get_lib() -> ctypes.CDLL:
                 "uvt_etc1s_assign_endpoints": [vp, vp, vp, ci, ci, vp],
                 "uvt_etc1s_kmeans_iter": [vp, vp, ci, ci, vp, vp, vp, vp],
                 "uvt_etc1s_segment_sum": [vp, vp, ci, ci, ci, vp, vp, vp],
-                "uvt_etc1_func_attrs": [ci, vp],
-                "uvt_etc1s_func_attrs": [ci, vp],
-                "uvt_geometry_func_attrs": [ci, vp],
                 "uvt_quantize_delta_zigzag": [vp, vp, vp, ci, ci, ci, vp],
             }
+            attrs = [ci, ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_char_p)]
+            signatures.update({fn: attrs for fn in _FUNC_ATTRS})
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
@@ -131,17 +134,20 @@ def get_lib() -> ctypes.CDLL:
         return _lib
 
 
-def func_attrs(fn: str, kernels) -> dict:
-    """{kernel: {"registers", "stack_bytes", "static_shared_bytes"}} from
-    `cudaFuncGetAttributes`, through the library's exported `fn(which,
-    out)`, which numbers its kernels in the order of `kernels`."""
+def kernel_attrs() -> dict:
+    """{kernel: {"registers", "stack_bytes", "static_shared_bytes"}} of
+    every kernel of the library, from `cudaFuncGetAttributes`
+    (`csrc/func_attrs.cuh`); needs the card."""
     lib = get_lib()
     out = {}
-    for i, name in enumerate(kernels):
-        vals = (ctypes.c_int * 4)()
-        err = getattr(lib, fn)(i, ctypes.cast(vals, ctypes.c_void_p))
-        if err != 0:
-            raise RuntimeError(f"{fn}({name}): {lib.uvt_cuda_error_string(err).decode()}")
-        out[name] = {"registers": vals[0], "stack_bytes": vals[1],
-                     "static_shared_bytes": vals[2]}
+    for fn in _FUNC_ATTRS:
+        for which in itertools.count():
+            vals, name = (ctypes.c_int * 3)(), ctypes.c_char_p()
+            err = getattr(lib, fn)(which, vals, ctypes.byref(name))
+            if err == -1:  # past the source's last kernel
+                break
+            if err != 0:
+                raise RuntimeError(f"{fn}({which}): {lib.uvt_cuda_error_string(err).decode()}")
+            out[name.value.decode()] = {"registers": vals[0], "stack_bytes": vals[1],
+                                        "static_shared_bytes": vals[2]}
     return out

@@ -48,10 +48,6 @@ LAUNCHES = {
     "etc1s_segment_sum": 0,
 }
 
-#: the kernels of `csrc/etc1s.cu`, in the order of `uvt_etc1s_func_attrs`
-KERNEL_FUNCS = ("inten_errors_kernel", "assign_endpoints_kernel", "kmeans_chunk_kernel",
-                "seg_sum_chunk_kernel", "seg_sum_tree_kernel")
-
 #: the ETC1S intensity modifiers [8 tables, 4 codes]; `csrc/etc1s.cu`
 #: holds the same rows in constant memory
 INTEN_TABLES = tuple(tuple(int(v) for v in row) for row in _INTEN_TABLES)
@@ -331,9 +327,3 @@ def kmeans_iter(feats: Tensor, cb: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
             feats.data_ptr(), cb.data_ptr(), n, k, part.data_ptr(),
             sums.data_ptr(), assign.data_ptr())
     return sums[:, :4], sums[:, 4], assign
-
-
-def kernel_attrs() -> dict:
-    """Registers, stack bytes and static shared bytes of each kernel of
-    `csrc/etc1s.cu` (`cudaFuncGetAttributes`); needs the card."""
-    return _build.func_attrs("uvt_etc1s_func_attrs", KERNEL_FUNCS)

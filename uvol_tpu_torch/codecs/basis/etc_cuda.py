@@ -37,9 +37,6 @@ Tensor = torch.Tensor
 #: are not counted)
 LAUNCHES = {"etc1_encode": 0, "etc1_decode": 0}
 
-#: the kernels of `csrc/etc1.cu`, in the order of `uvt_etc1_func_attrs`
-KERNEL_FUNCS = ("etc1_encode_kernel", "etc1_decode_kernel")
-
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -110,12 +107,6 @@ def decode_etc1_images(words: Tensor, l: int, h: int, w: int) -> Tensor:
     out = torch.empty((l, h, w, 3), dtype=torch.uint8, device=words.device)
     _launch("etc1_decode", "uvt_etc1_decode", words, out, l, h, w)
     return out
-
-
-def kernel_attrs() -> dict:
-    """Registers, stack bytes and static shared bytes of K1 and K2
-    (`cudaFuncGetAttributes`); needs the card."""
-    return _build.func_attrs("uvt_etc1_func_attrs", KERNEL_FUNCS)
 
 
 def pack_words2(words: Tensor, l: int) -> np.ndarray:

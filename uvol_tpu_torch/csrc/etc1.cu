@@ -47,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "func_attrs.cuh"
+
 namespace {
 
 __constant__ int kModSmall[8] = {2, 5, 9, 13, 18, 24, 33, 47};
@@ -380,21 +382,9 @@ const char* uvt_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// out[0..3]: registers per thread, local (stack) bytes, static shared
-// bytes, most threads per block of kernel `which`, in the order of
-// codecs/basis/etc_cuda.KERNEL_FUNCS.
-int uvt_etc1_func_attrs(int which, int* out) {
-  const void* fns[] = {(const void*)etc1_encode_kernel, (const void*)etc1_decode_kernel};
-  if (which < 0 || which >= (int)(sizeof(fns) / sizeof(fns[0])))
-    return (int)cudaErrorInvalidValue;
-  cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, fns[which]);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)a.sharedSizeBytes;
-  out[3] = a.maxThreadsPerBlock;
-  return 0;
+int uvt_etc1_func_attrs(int which, int* out, const char** name) {
+  static const KernelRef ks[] = {UVT_KERNEL(etc1_encode_kernel), UVT_KERNEL(etc1_decode_kernel)};
+  return fill_func_attrs(ks, which, out, name);
 }
 
 }  // extern "C"

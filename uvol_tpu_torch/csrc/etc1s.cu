@@ -69,6 +69,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "func_attrs.cuh"
+
 namespace {
 
 // uvol_tpu.codecs.basis.transcoder.INTEN_TABLES, code order
@@ -194,7 +196,6 @@ constexpr int kTreeRows = 8;                        // pass-2 threads per elemen
 constexpr int kTreePiece = 256;                     // pass-2 leaves per round in shared memory
 constexpr int kTreeMaxPieces = 64;                  // rounds: n <= 2^24 rows
 constexpr int kSegMaxRows = kChunkRows * kTreePiece * kTreeMaxPieces;
-constexpr int kMaxDevices = 64;  // shared-memory limits granted, per device
 
 // Shared memory of one pass-1 chunk: `pitch` is a power of two >= the
 // columns held, `k` the segment count.
@@ -485,20 +486,9 @@ unsigned grid_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads);
 
 int chunks_for(int n) { return n > 0 ? (n + kChunkRows - 1) / kChunkRows : 1; }
 
-// Raises a kernel's dynamic shared-memory limit on the current device
-// when `bytes` is above the default 48 KB and above what was granted.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, int (&granted)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || bytes <= 48 * 1024) return err;
-  if (dev < kMaxDevices && (int)bytes <= granted[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess && dev < kMaxDevices) granted[dev] = (int)bytes;
-  return err;
-}
-
-int g_chunk_smem[kMaxDevices], g_kmeans_smem[kMaxDevices];
+// A launch of more than 48 KB of dynamic shared memory needs the kernel's
+// limit raised first: both pass-1 kernels set it to the launch's bytes.
+constexpr cudaFuncAttribute kSmemLimit = cudaFuncAttributeMaxDynamicSharedMemorySize;
 
 cudaError_t launch_tree(const float* part, int m, int64_t e, float* out, cudaStream_t s) {
   const unsigned grid = (unsigned)((e + kTreeCols - 1) / kTreeCols);
@@ -541,7 +531,7 @@ int uvt_etc1s_segment_sum(const void* idx, const void* x, int n, int d, int k, v
   int lp = 2;  // a pitch of at least 4: the sums read float4
   while ((1 << lp) < dc) ++lp;
   const size_t smem = chunk_smem_bytes(1 << lp, k);
-  cudaError_t err = allow_smem(seg_sum_chunk_kernel, smem, g_chunk_smem);
+  cudaError_t err = cudaFuncSetAttribute(seg_sum_chunk_kernel, kSmemLimit, (int)smem);
   if (err != cudaSuccess) return (int)err;
   seg_sum_chunk_kernel<<<dim3((unsigned)m, (unsigned)groups), kThreads, smem, s>>>(
       (const int32_t*)idx, (const float*)x, n, d, k, dc, lp, (float*)part);
@@ -558,7 +548,7 @@ int uvt_etc1s_kmeans_iter(const void* feats, const void* cb, int n, int k, void*
   cudaStream_t s = (cudaStream_t)stream;
   const int m = chunks_for(n);
   const size_t smem = (size_t)k * 16 + (size_t)((k + 3) & ~3) * 4 + chunk_smem_bytes(8, k);
-  cudaError_t err = allow_smem(kmeans_chunk_kernel, smem, g_kmeans_smem);
+  cudaError_t err = cudaFuncSetAttribute(kmeans_chunk_kernel, kSmemLimit, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kmeans_chunk_kernel<<<(unsigned)m, kThreads, smem, s>>>(
       (const float4*)feats, (const float4*)cb, n, k, (float*)part, (int32_t*)assign);
@@ -567,23 +557,12 @@ int uvt_etc1s_kmeans_iter(const void* feats, const void* cb, int n, int k, void*
   return (int)launch_tree((const float*)part, m, (int64_t)k * kKmCols, (float*)sums, s);
 }
 
-// out[0..3]: registers per thread, local (stack) bytes, static shared
-// bytes, most threads per block of kernel `which`, in the order of
-// etc1s_cuda.KERNEL_FUNCS.
-int uvt_etc1s_func_attrs(int which, int* out) {
-  const void* fns[] = {(const void*)inten_errors_kernel, (const void*)assign_endpoints_kernel,
-                       (const void*)kmeans_chunk_kernel, (const void*)seg_sum_chunk_kernel,
-                       (const void*)seg_sum_tree_kernel};
-  if (which < 0 || which >= (int)(sizeof(fns) / sizeof(fns[0])))
-    return (int)cudaErrorInvalidValue;
-  cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, fns[which]);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)a.sharedSizeBytes;
-  out[3] = a.maxThreadsPerBlock;
-  return 0;
+int uvt_etc1s_func_attrs(int which, int* out, const char** name) {
+  static const KernelRef ks[] = {
+      UVT_KERNEL(inten_errors_kernel), UVT_KERNEL(assign_endpoints_kernel),
+      UVT_KERNEL(kmeans_chunk_kernel), UVT_KERNEL(seg_sum_chunk_kernel),
+      UVT_KERNEL(seg_sum_tree_kernel)};
+  return fill_func_attrs(ks, which, out, name);
 }
 
 }  // extern "C"

@@ -28,6 +28,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "func_attrs.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -68,21 +70,9 @@ int uvt_quantize_delta_zigzag(const void* xm, const void* inv, void* out, int f,
   return (int)cudaGetLastError();
 }
 
-// out[0..3]: registers per thread, local (stack) bytes, static shared
-// bytes, most threads per block of kernel `which`, in the order of
-// ops/pallas_kernels.KERNEL_FUNCS.
-int uvt_geometry_func_attrs(int which, int* out) {
-  const void* fns[] = {(const void*)quantize_delta_zigzag_kernel};
-  if (which < 0 || which >= (int)(sizeof(fns) / sizeof(fns[0])))
-    return (int)cudaErrorInvalidValue;
-  cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, fns[which]);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)a.sharedSizeBytes;
-  out[3] = a.maxThreadsPerBlock;
-  return 0;
+int uvt_geometry_func_attrs(int which, int* out, const char** name) {
+  static const KernelRef ks[] = {UVT_KERNEL(quantize_delta_zigzag_kernel)};
+  return fill_func_attrs(ks, which, out, name);
 }
 
 }  // extern "C"

@@ -43,9 +43,6 @@ Tensor = torch.Tensor
 #: kernel launches since the last reset
 LAUNCHES = {"quantize_delta_zigzag": 0}
 
-#: the kernels of `csrc/geometry.cu`, in the order of `uvt_geometry_func_attrs`
-KERNEL_FUNCS = ("quantize_delta_zigzag_kernel",)
-
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -91,9 +88,3 @@ def fused_quantize_delta_zigzag(xm: Tensor, inv_step: Tensor) -> Tensor:
         raise RuntimeError(f"quantize_delta_zigzag kernel launch failed: {msg} ({err})")
     LAUNCHES["quantize_delta_zigzag"] += 1
     return out
-
-
-def kernel_attrs() -> dict:
-    """Registers, stack bytes and static shared bytes of K3's kernel
-    (`cudaFuncGetAttributes`); needs the card."""
-    return _build.func_attrs("uvt_geometry_func_attrs", KERNEL_FUNCS)
