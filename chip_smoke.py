@@ -7,7 +7,10 @@ Run from the repository root, with no arguments:
 
 It builds the CUDA kernels from `uvol_tpu_torch/csrc/` (nvcc, sm_90a,
 one process per source), holds each kernel (K1-K6 and the fixed-order
-segment sum) bit-for-bit against its plain PyTorch twin, drives the
+segment sum) bit-for-bit against its plain PyTorch twin (K2 also on
+random words at widths off its 16-byte store path and from words that are
+only 8-byte aligned, K5 also off its CTA grid with every base at 0 and at
+255), drives the
 flagship codec chain at full width (32 frames x 26,145 vertices, 32
 layers of 1024x1024; the geometry encode launches K3 twice) and the
 ETC1S/BasisLZ segment encoder at the encoder CLI's segment (5 layers of
@@ -47,6 +50,14 @@ DEVICE = "cuda"
 F, N, H, W = 32, 26145, 1024, 1024  # the bench's liam-scale batch
 REPS = 5  # timed runs per number (median), after one warmup
 PARITY_SIDE = 1024  # random parity inputs: one 1024^2 layer = 65,536 blocks
+#: K2 on random (hostile) words at [L, H, W]: one block, one layer, widths
+#: off the 16-byte store path (W % 16 != 0, one of them two runs wide), the
+#: full batch
+K2_RANDOM_SHAPES = ((1, 4, 4), (1, PARITY_SIDE, PARITY_SIDE), (3, 12, 20), (2, 1024, 1028),
+                    (F, H, W))
+#: K5 block counts held at parity, each with bases at 0, at 255 and mixed:
+#: one block, and one block either side of a CTA's 128
+K5_ROWS = (1, 255, 257)
 ETC1S_LAYERS = 5  # the encoder CLI's KTX2_BATCH_SIZE: one segment
 ETC1S_PALETTE = 256  # endpoints = selectors, encode_ktx2_etc1s's default
 ETC1S_ENTRIES = (256, 1024)  # K4 endpoints / K6 centroids held at parity
@@ -101,10 +112,15 @@ OPS = {
     # pass 2, counted with `cuobjdump -sass` (PERF.md section 6); recount
     # it when K1 changes
     "etc1_encode": 2792,
-    "etc1_decode": 12,  # per pixel: modifier select, 3 x (add, clamp)
+    # per pixel: a block is ~130 instructions (header, 24 clamped values,
+    # per row a selector and 9 byte permutes), counted from the source
+    "etc1_decode": 8,
     "quantize_delta_zigzag": 10,  # per element: 2 x (fma, floor, cvt), sub, zigzag
     "etc1s_assign_endpoints": 256,  # per (block, endpoint): 16 px x 4 codes x (3 IMAD + min)
-    "etc1s_inten_errors": 2048,  # per block: 16 px x 8 tables x 4 codes x (3 IMAD + min)
+    # per (pixel, table) at most: 4 codes x 3 FFMA, 3 min, an add; 4 with
+    # every code open. Counted code by code on the timed bases by
+    # `inten_errors_ops`: recount both when K5 changes
+    "etc1s_inten_errors": 16,
     "etc1s_kmeans_iter": 8,  # FLOP per (row, centroid): 4 x (mul, add)
     "etc1s_segment_sum": 1,  # FLOP per value: one add
 }
@@ -164,6 +180,25 @@ def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple:
     doing `ops` operations at the card's peak rates."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def inten_errors_ops(torch, base) -> tuple:
+    """(operations, open share): the operations K5 needs on these bases
+    ([N, 3] int32) and the share of (block, code) pairs that clip no
+    channel of the base. Per pixel and table: each pair of codes +-m is
+    one FFMA where both are open, else one per open code, three per
+    clipped one and a minimum; then the minimum of the pairs and the add
+    (4 with every code open, `OPS["etc1s_inten_errors"]` with none)."""
+    from uvol_tpu_torch.codecs.basis.etc1s_cuda import INTEN_TABLES
+
+    mods = torch.tensor([row[2:] for row in INTEN_TABLES], device=base.device).reshape(-1)
+    plus = base.max(1).values[:, None] <= 255 - mods  # [N, 16]: +m clips no channel
+    minus = base.min(1).values[:, None] >= mods
+    pair = torch.where(plus & minus, 1, (3 - 2 * plus.int()) + (3 - 2 * minus.int()) + 1)
+    ops = 16 * int((pair.sum(1) + 2 * len(INTEN_TABLES)).sum())
+    check(ops <= 16 * OPS["etc1s_inten_errors"] * len(INTEN_TABLES) * base.shape[0],
+          "K5's operation count passes its most")
+    return ops, float((plus.float().mean() + minus.float().mean()) / 2)
 
 
 def check_no_jax_loaded() -> None:
@@ -332,6 +367,16 @@ def etc1s_parity(torch, dev, textures, bb) -> dict:
             hold(err, "etc1s_kmeans_iter", k.kmeans_iter(feats, cb),
                  k.kmeans_iter_plain(feats, cb),
                  *([k.kmeans_iter_plain(feats.cpu(), cb.cpu())] if small else []))
+    # K5 off the CTA grid, with every table clipping (bases 0 and 255) and mixed
+    for n in K5_ROWS:
+        blocks = torch.from_numpy(r.integers(0, 256, (n, 16, 3), dtype=np.uint8))
+        mixed = r.integers(0, 256, (n, 3)).astype(np.int32)
+        mixed[::2] = r.integers(110, 146, (len(mixed[::2]), 3))  # tables 0..6 open
+        for base in (np.zeros_like(mixed), np.full_like(mixed, 255), mixed):
+            base = torch.from_numpy(base)
+            hold(err, "etc1s_inten_errors", k.inten_errors(blocks.to(dev), base.to(dev)),
+                 k.inten_errors_plain(blocks.to(dev), base.to(dev)),
+                 k.inten_errors_plain(blocks, base))
     # the segment sum at every (k, D) of a palette build and at k = 2048, and
     # K6 at 1, 256 and 2048 centroids, over row counts at tile and chunk
     # edges; values over many magnitudes with -0.0 among them
@@ -358,6 +403,7 @@ def etc1s_parity(torch, dev, textures, bb) -> dict:
                  *([k.kmeans_iter_plain(feats, cb)] if small else []))
     torch.cuda.synchronize()
     emit({"phase": "etc1s_kernel_parity", "inputs": list(inputs), "entries": ETC1S_ENTRIES,
+          "inten_errors_rows": K5_ROWS,
           "segment_sum": {"shapes_k_d": SEG_SHAPES, "rows": SEG_ROWS},
           "kmeans_rows": SEG_ROWS, "max_abs_err": err})
     return err
@@ -404,7 +450,8 @@ def etc1s_main_path(torch, textures) -> tuple:
     """`encode_ktx2_etc1s` on one segment at full width: launches, byte
     determinism, every K4-K6 call of the encode against its twin on the
     same inputs, transcoded PSNR, the quality floor's rebuilds, and the
-    CPU port at 1 layer of 256x256. Returns (launches, max_abs_err)."""
+    CPU port at 1 layer of 256x256. Returns (launches, max_abs_err, the
+    blocks and bases of the encode's first K5 call)."""
     from uvol_tpu_torch.codecs.basis import etc1s_cuda as k
     from uvol_tpu_torch.codecs.basis.etc1s_encode import (
         encode_ktx2_etc1s, read_ktx2, transcode_ktx2_etc1s)
@@ -438,6 +485,7 @@ def etc1s_main_path(torch, textures) -> tuple:
             rec["shapes"].append(shapes)
     for name, rec in replayed.items():
         check(rec["calls"] == launches[name], f"{name}: calls differ between two encodes")
+    inten_args = next(args for name, args, _ in calls if name == "etc1s_inten_errors")
     dec = transcode_ktx2_etc1s(read_ktx2(blob))[..., :3]
     check(dec.shape == frames.shape and dec.dtype == np.uint8, "transcoded shape")
     mse = float(((dec.astype(np.float64) - frames) ** 2).mean())
@@ -467,14 +515,17 @@ def etc1s_main_path(torch, textures) -> tuple:
           "cpu_compare": {"size": [ETC1S_CPU_SIDE] * 2, "bytes_equal": same,
                           "cpu_bytes": len(cpu_blob), "cuda_bytes": len(cuda_blob),
                           "cpu_psnr_db": p_cpu, "cuda_psnr_db": p_cuda, "cpu_s": cpu_s}})
-    return launches, err
+    return launches, err, inten_args
 
 
-def etc1s_times(torch, dev, textures, median_cuda_ms) -> tuple:
+def etc1s_times(torch, dev, textures, inten_args, median_cuda_ms) -> tuple:
     """K4-K6 and their twins at the main path's shapes (5 x 1024^2 =
-    327,680 blocks, 256 entries), each output held against its twin's;
-    the palette core on device-resident blocks, the palette build and
-    the segment encode, host-inclusive. Returns (ms, max_abs_err)."""
+    327,680 blocks, 256 entries), each output held against its twin's; K5
+    on `inten_args`, the blocks and bases of a segment encode's own call
+    (its work depends on the bases), and held also on random bases and
+    with every base at 0 and at 255; the palette core on device-resident
+    blocks, the palette build and the segment encode, host-inclusive.
+    Returns (ms, max_abs_err, K5's operations on the timed bases)."""
     from uvol_tpu_torch.codecs.basis import etc1s_cuda as k
     from uvol_tpu_torch.codecs.basis.etc1s_encode import (
         _blocks_of, block_features, build_palettes, encode_ktx2_etc1s, palette_core)
@@ -494,8 +545,13 @@ def etc1s_times(torch, dev, textures, median_cuda_ms) -> tuple:
     seg_idx = torch.from_numpy(r.integers(0, sk, sn).astype(np.int32)).to(dev)
     seg_x = torch.from_numpy(r.integers(-400, 400, (sn, sd)).astype(np.float32)).to(dev)
     ms, err = {}, {}
+    check(tuple(inten_args[0].shape) == tuple(bd.shape), "the encode's K5 call is not full size")
+    for other in (base, torch.zeros_like(base), torch.full_like(base, 255)):
+        hold(err, "etc1s_inten_errors", k.inten_errors(bd, other),
+             k.inten_errors_plain(bd, other))
+    inten_ops, inten_open = inten_errors_ops(torch, inten_args[1])
     for name, args in (("etc1s_assign_endpoints", (bd, table)),
-                       ("etc1s_inten_errors", (bd, base)),
+                       ("etc1s_inten_errors", inten_args),
                        ("etc1s_kmeans_iter", (feats, cb)),
                        ("etc1s_segment_sum", (seg_idx, sk, seg_x))):
         kernel, twin = (getattr(k, fn) for fn in ETC1S_KERNELS[name])
@@ -504,6 +560,18 @@ def etc1s_times(torch, dev, textures, median_cuda_ms) -> tuple:
         ms[name + "_plain"] = median_cuda_ms(lambda: twin(*args), REPS)
         ms[name + "_kernel"], traced[name] = kernel_only_ms(
             torch, lambda: kernel(*args), WRAPPER_KERNELS[name])
+    # K5 alone again with the 50 MB L2 cache overwritten before each call: its
+    # 30 MB of inputs stay in the cache between the repeated calls above,
+    # and do not between the calls of a palette build
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def inten_cold():
+        flush.zero_()
+        return k.inten_errors(*inten_args)
+
+    ms["etc1s_inten_errors_kernel_l2_cold"], _ = kernel_only_ms(
+        torch, inten_cold, WRAPPER_KERNELS["etc1s_inten_errors"])
+    del flush
     # the library's call for the same sums, in no fixed order (so the port
     # does not use it): exact here, the values being small integers
     def library():
@@ -534,9 +602,10 @@ def etc1s_times(torch, dev, textures, median_cuda_ms) -> tuple:
     emit({"phase": "etc1s_times", "blocks": n, "entries": ETC1S_PALETTE, "reps": REPS,
           "segment_sum_shape": SEG_TIMED, "kernels_per_call": per_call,
           "kernel_launches_traced": traced,
+          "inten_errors_open_share": inten_open, "inten_errors_ops_per_block": inten_ops / n,
           "max_abs_err": err, "segment_sum_library_max_abs_err": library_err, "ms": ms,
           "segment_layers_per_s": ETC1S_LAYERS / (ms["etc1s_segment_encode"] / 1e3)})
-    return ms, err
+    return ms, err, inten_ops
 
 
 def main() -> int:
@@ -609,17 +678,24 @@ def main() -> int:
         check(e == 0, f"K1 differs from its plain twin on {name}")
         err["etc1_encode"] = max(err["etc1_encode"], e)
         dec_inputs[name] = (got.cpu(), img.shape[:3])
-    rw = r.integers(0, 2**32, ((PARITY_SIDE // 4) ** 2, 2), dtype=np.uint32)
-    dec_inputs["random_words"] = (torch.from_numpy(rw.view(np.int32)),
-                                  (1, PARITY_SIDE, PARITY_SIDE))
+    for l, h, w in K2_RANDOM_SHAPES:
+        rw = r.integers(0, 2**32, (l * (h // 4) * (w // 4), 2), dtype=np.uint32)
+        dec_inputs[f"random_words_{l}x{h}x{w}"] = (torch.from_numpy(rw.view(np.int32)), (l, h, w))
     for name, (words, (l, h, w)) in dec_inputs.items():
-        got = etc_cuda.decode_etc1_images(words.to(dev), l, h, w).cpu().to(torch.int16)
-        twin_dev = etc_cuda.decode_etc1_images_plain(words.to(dev), l, h, w).cpu()
-        twin_cpu = etc_cuda.decode_etc1_images_plain(words, l, h, w)
-        e = max(int((got - twin_dev.to(torch.int16)).abs().max()),
-                int((got - twin_cpu.to(torch.int16)).abs().max()))
-        check(e == 0, f"K2 differs from its plain twin on {name}")
-        err["etc1_decode"] = max(err["etc1_decode"], e)
+        wd = words.to(dev)
+        # the same words 8 bytes into a 16-byte-aligned buffer: the least
+        # alignment a contiguous [M, 2] int32 slice has
+        shifted = torch.cat([wd[:1], wd])[1:]
+        check(shifted.data_ptr() % 16 == 8, "the shifted words are not 8-byte aligned")
+        twins = [etc_cuda.decode_etc1_images_plain(wd, l, h, w).cpu()]
+        if l * h * w <= PARITY_SIDE * PARITY_SIDE * 4:  # the CPU twin too, where it is quick
+            twins.append(etc_cuda.decode_etc1_images_plain(words, l, h, w))
+        for src in (wd, shifted):
+            got = etc_cuda.decode_etc1_images(src, l, h, w).cpu()
+            for tw in twins:
+                e = int((got.to(torch.int16) - tw.to(torch.int16)).abs().max())
+                check(e == 0, f"K2 differs from its plain twin on {name}")
+                err["etc1_decode"] = max(err["etc1_decode"], e)
     emit({"phase": "kernel_parity", "inputs_k1": list(enc_inputs),
           "inputs_k2": list(dec_inputs), "max_abs_err": err})
     err.update(etc1s_parity(torch, dev, textures, bb))
@@ -686,7 +762,7 @@ def main() -> int:
           "ktx2_bytes": len(tex_blob), "pos_err": pos_err, "step": step,
           "cuda_vs_cpu_max_abs_err": {"positions": geo_err, "uvs": uv_err},
           "texture_psnr_db": psnr})
-    etc1s_launches, main_err = etc1s_main_path(torch, textures)
+    etc1s_launches, main_err, inten_args = etc1s_main_path(torch, textures)
     launches.update(etc1s_launches)
 
     # ---- 5. times (CUDA events, median of REPS after one warmup) -----------------
@@ -741,7 +817,8 @@ def main() -> int:
     fps = {k: F / (ms[k] / 1e3) for k in ("device_chain", "host_encode", "host_decode")}
     emit({"phase": "times", "frames": F, "reps": REPS, "ms": ms, "frames_per_s": fps,
           "kernel_launches_traced": traced})
-    etc1s_ms, times_err = etc1s_times(torch, dev, textures, median_cuda_ms)
+    etc1s_ms, times_err, inten_ops = etc1s_times(
+        torch, dev, textures, inten_args, median_cuda_ms)
     ms.update(etc1s_ms)
     for e in (main_err, times_err):  # the kernels line: the worst of every comparison
         for name, v in e.items():
@@ -803,7 +880,7 @@ def main() -> int:
                                    OPS["etc1s_assign_endpoints"] * ne * e, INT_OPS_PER_S),
         "etc1s_inten_errors": ("etc1s.cu", "codecs/basis/etc1s_pallas.py:217",
                                ne * 48 + ne * 12 + ne * 32,
-                               OPS["etc1s_inten_errors"] * ne, INT_OPS_PER_S),
+                               inten_ops, INT_OPS_PER_S),  # an FFMA counts as an IMAD does
         "etc1s_kmeans_iter": ("etc1s.cu", "codecs/basis/etc1s_pallas.py:310",
                               ne * 16 + e * 16 + ne * 4 + e * 20,
                               OPS["etc1s_kmeans_iter"] * ne * e, F32_FLOP_PER_S),
@@ -813,7 +890,8 @@ def main() -> int:
                               OPS["etc1s_segment_sum"] * sn * sd, F32_FLOP_PER_S),
     }
     attrs = _build.kernel_attrs()
-    check(attrs["etc1_encode_kernel"]["stack_bytes"] == 0, "K1 uses stack memory")
+    for fn in ("etc1_encode_kernel", "etc1_decode_kernel", "inten_errors_kernel"):
+        check(attrs[fn]["stack_bytes"] == 0, f"{fn} uses stack memory")
     rows = []
     for name, (src, replaces, nbytes, ops, rate) in work.items():
         bound_ms, bound_by = bound(nbytes, ops, rate)

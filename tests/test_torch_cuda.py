@@ -257,3 +257,83 @@ def test_etc1s_encode_on_card_matches_cpu_at_256(card):
     first = encode_ktx2_etc1s(frames, device="cuda", **kw)
     assert encode_ktx2_etc1s(frames, device="cuda", **kw) == first
     assert encode_ktx2_etc1s(frames, device="cpu", **kw) == first
+
+
+# ---- K2 and K5 as redesigned ---------------------------------------------------
+
+
+def _hostile_words(n: int, seed: int) -> torch.Tensor:
+    """Random bit patterns: both modes, both flips, every table, differential
+    sums outside 0..31."""
+    rw = np.random.default_rng(seed).integers(0, 2**32, (n, 2), dtype=np.uint32)
+    return torch.from_numpy(rw.view(np.int32))
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 4), (3, 12, 20), (1, 4, 36), (2, 16, 16),
+                                   (2, 1024, 1028), (1, 8, 4 * 300), (4, 1024, 1024)])
+def test_decode_kernel_on_hostile_words_at_every_store_path(card, shape):
+    """One block; widths whose rows are not 16-byte aligned (4-byte
+    stores), one of them two runs wide; widths that are (16-byte stores),
+    one with a short second run."""
+    l, h, w = shape
+    words = _hostile_words(l * (h // 4) * (w // 4), l + h + w)
+    got = etc_cuda.decode_etc1_images(words.to(card), l, h, w)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), etc_cuda.decode_etc1_images_plain(words, l, h, w).numpy())
+
+
+def test_decode_kernel_takes_words_that_are_only_8_byte_aligned(card):
+    l, h, w = 2, 64, 80
+    words = _hostile_words(l * (h // 4) * (w // 4) + 1, 11)
+    shifted = words.to(card)[1:]  # a contiguous slice: 8 bytes off a 16-byte boundary
+    assert shifted.data_ptr() % 16 == 8
+    got = etc_cuda.decode_etc1_images(shifted, l, h, w)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), etc_cuda.decode_etc1_images_plain(words[1:], l, h, w).numpy())
+
+
+@pytest.mark.parametrize("bases", ["zero", "full", "mixed", "one_channel_clips"])
+@pytest.mark.parametrize("n", [1, 255, 257, 70001])
+def test_etc1s_inten_errors_kernel_at_odd_rows_and_pinned_bases(card, n, bases):
+    r = np.random.default_rng(n)
+    blocks = torch.from_numpy(r.integers(0, 256, (n, 16, 3), dtype=np.uint8))
+    base = r.integers(0, 256, (n, 3)).astype(np.int32)
+    if bases == "zero":
+        base[:] = 0
+    elif bases == "full":
+        base[:] = 255
+    elif bases == "one_channel_clips":
+        base = r.integers(110, 146, (n, 3)).astype(np.int32)
+        base[:, 1] = r.integers(0, 256, n)
+    else:
+        base[::2] = r.integers(110, 146, (len(base[::2]), 3))  # tables 0..6 open
+    base = torch.from_numpy(base)
+    before = etc1s_cuda.LAUNCHES["etc1s_inten_errors"]
+    got = etc1s_cuda.inten_errors(blocks.to(card), base.to(card))
+    torch.cuda.synchronize()
+    assert etc1s_cuda.LAUNCHES["etc1s_inten_errors"] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  etc1s_cuda.inten_errors_plain(blocks, base).numpy())
+
+
+def test_etc1s_inten_errors_kernel_takes_blocks_off_a_16_byte_boundary(card):
+    r = np.random.default_rng(12)
+    flat = torch.from_numpy(r.integers(0, 256, 300 * 48 + 4, dtype=np.uint8))
+    base = torch.from_numpy(r.integers(0, 256, (300, 3)).astype(np.int32))
+    blocks = flat.to(card)[4:].view(300, 16, 3)
+    assert blocks.data_ptr() % 16 == 4
+    got = etc1s_cuda.inten_errors(blocks, base.to(card))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        etc1s_cuda.inten_errors_plain(flat[4:].view(300, 16, 3), base).numpy())
+
+
+def test_redesigned_kernels_use_no_stack(card):
+    from uvol_tpu_torch import _build
+
+    attrs = _build.kernel_attrs()
+    for fn in ("etc1_encode_kernel", "etc1_decode_kernel", "inten_errors_kernel"):
+        assert attrs[fn]["stack_bytes"] == 0, (fn, attrs[fn])

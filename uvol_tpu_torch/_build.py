@@ -28,6 +28,8 @@ import threading
 from pathlib import Path
 from typing import List, Optional
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "uvol_tpu_torch"
@@ -41,6 +43,10 @@ _FUNC_ATTRS = ("uvt_etc1_func_attrs", "uvt_etc1s_func_attrs", "uvt_geometry_func
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+
+#: the current stream's handle without a `torch.cuda.Stream` object built
+#: around it, far cheaper than the public lookup; absent from CPU builds
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def find_nvcc() -> str:
@@ -132,6 +138,26 @@ def get_lib() -> ctypes.CDLL:
             lib.uvt_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def launch(fn: str, device: torch.device, *args) -> None:
+    """Call the library's entry point `fn(*args, stream)` on `device`'s
+    current stream; raises if the launch is refused. The caller has
+    checked that `device` is a CUDA device."""
+    lib = _lib or get_lib()
+    call = getattr(lib, fn)  # ctypes keeps the bound function, argtypes set, on the library
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = (_raw_stream(index) if _raw_stream is not None
+              else torch.cuda.current_stream(index).cuda_stream)
+    if index == current:
+        err = call(*args, stream)
+    else:  # the launch needs its device current
+        with torch.cuda.device(index):
+            err = call(*args, stream)
+    if err != 0:
+        msg = lib.uvt_cuda_error_string(err).decode()
+        raise RuntimeError(f"{fn} launch failed: {msg} ({err})")
 
 
 def kernel_attrs() -> dict:

@@ -79,13 +79,7 @@ def _route(t: Tensor) -> bool:
 
 
 def _launch(name: str, fn: str, device: torch.device, *args) -> None:
-    lib = _build.get_lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn)(*args, stream)
-    if err != 0:
-        msg = lib.uvt_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+    _build.launch(fn, device, *args)
     LAUNCHES[name] += 1
 
 
@@ -191,7 +185,8 @@ def inten_errors_plain(blocks: Tensor, base: Tensor) -> Tensor:
 
 
 def inten_errors(blocks: Tensor, base: Tensor) -> Tensor:
-    """K5: blocks [N, 16, 3] uint8, base [N, 3] int32 → [N, 8] int32."""
+    """K5: blocks [N, 16, 3] uint8, base [N, 3] int32 (8-bit colors, 0..255:
+    the kernel's float32 arithmetic is exact there) → [N, 8] int32."""
     _check_blocks(blocks)
     n = blocks.shape[0]
     if base.dtype != torch.int32 or tuple(base.shape) != (n, 3):

@@ -48,14 +48,8 @@ def _check_dims(h: int, w: int) -> None:
         raise ValueError(f"ETC1 needs H and W divisible by 4, got {h}x{w}")
 
 
-def _launch(name: str, fn, src: Tensor, dst: Tensor, l: int, h: int, w: int):
-    lib = _build.get_lib()
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = getattr(lib, fn)(src.data_ptr(), dst.data_ptr(), l, h, w, stream)
-    if err != 0:
-        msg = lib.uvt_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+def _launch(name: str, fn: str, src: Tensor, dst: Tensor, l: int, h: int, w: int) -> None:
+    _build.launch(fn, src.device, src.data_ptr(), dst.data_ptr(), l, h, w)
     LAUNCHES[name] += 1
 
 
@@ -104,6 +98,8 @@ def decode_etc1_images(words: Tensor, l: int, h: int, w: int) -> Tensor:
     if words.device.type != "cuda":
         raise ValueError(f"unsupported device {words.device}")
     words = words.contiguous()
+    if words.data_ptr() % 8:  # the kernel reads a block's word pair as one 8-byte load
+        words = words.clone()
     out = torch.empty((l, h, w, 3), dtype=torch.uint8, device=words.device)
     _launch("etc1_decode", "uvt_etc1_decode", words, out, l, h, w)
     return out

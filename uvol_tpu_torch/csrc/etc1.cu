@@ -39,10 +39,21 @@
 //   - no register array is indexed by a runtime value (the table's
 //     modifiers are bytes of a 64-bit constant), so nothing spills.
 
-// K2 -- one thread per output pixel (16 per block). Each thread decodes
-// its block's word pair and writes its 3 bytes, so neighbouring threads
-// write neighbouring bytes. The kernel is memory-bound: 8 bytes in and 48
-// out per block, ~16 MB in and ~100 MB out for 32 layers of 1024^2.
+// K2 -- one thread per 4x4 block on K1's grid (a CTA per run of up to 256
+// blocks of a block row), bound by bytes: 8 in and 48 out per block, ~16 MB
+// in and ~100 MB out for 32 layers of 1024^2. A thread reads its word pair
+// with one 8-byte load and decodes the header once. Each channel of a
+// subblock has only four values (base +-small, +-large, clamped), so the
+// thread forms those 24 bytes once, four to a register in code order, and a
+// pixel is a byte select: per image row one selector (the row's 2-bit codes,
+// which the wire keeps column-major, gathered from the two halves of word
+// 2) picks the row's 4 reds, 4 greens and 4 blues with one byte permute
+// each, and six more interleave them into the row's 12 bytes as three
+// little-endian words. The run's 4 image rows are staged in shared memory
+// and leave with 16-byte stores where W is a multiple of 16 (every row is
+// then 16-byte aligned), 4-byte stores otherwise (a row's start is always a
+// multiple of 12 bytes); neighbouring threads write neighbouring addresses
+// either way.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,9 +61,6 @@
 #include "func_attrs.cuh"
 
 namespace {
-
-__constant__ int kModSmall[8] = {2, 5, 9, 13, 18, 24, 33, 47};
-__constant__ int kModLarge[8] = {8, 17, 29, 42, 60, 80, 106, 183};
 
 constexpr int kRankMask = 1 << 30;  // above any pass-1 ranking total
 constexpr int kThreads = 256;
@@ -312,44 +320,101 @@ __global__ void etc1_encode_kernel(const uint8_t* __restrict__ img,
   ((int2*)out)[i] = make_int2((int32_t)(f ? word1[1] : word1[0]), (int32_t)(f ? word2[1] : word2[0]));
 }
 
-__global__ void etc1_decode_kernel(const int32_t* __restrict__ words,
-                                   uint8_t* __restrict__ img, int l, int h, int w) {
-  const int64_t npix = (int64_t)l * h * w;
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= npix) return;
-  const int xi = (int)(i % w);
-  const int yi = (int)((i / w) % h);
-  const int64_t layer = i / ((int64_t)h * w);
-  const int nbx = w >> 2, nby = h >> 2;
-  const int64_t blk = (layer * nby + (yi >> 2)) * nbx + (xi >> 2);
-  const uint32_t w1 = (uint32_t)words[2 * blk];
-  const uint32_t w2 = (uint32_t)words[2 * blk + 1];
+// ---- K2 ------------------------------------------------------------------
 
-  const int x = xi & 3, y = yi & 3;
-  const int j = x * 4 + y;
-  const bool in_sub1 = (w1 & 1u) ? (y >= 2) : (x >= 2);
-  const int table = in_sub1 ? (int)((w1 >> 2) & 7u) : (int)((w1 >> 5) & 7u);
-  const int lsb = (int)((w2 >> j) & 1u);
-  const int msb = (int)((w2 >> (j + 16)) & 1u);
-  const int mag = lsb ? kModLarge[table] : kModSmall[table];
-  const int mod = (1 - 2 * msb) * mag;  // code msb = sign
-  const bool diff = (w1 >> 1) & 1u;
+// byte t (0..7) of the 8-byte table hi:lo
+__device__ __forceinline__ int table_byte(uint32_t lo, uint32_t hi, uint32_t t) {
+  return (int)(__byte_perm(lo, hi, t) & 0xffu);
+}
 
-  uint8_t* o = img + i * 3;
-  const int sh5[3] = {27, 19, 11}, sh3[3] = {24, 16, 8};
-  const int sh4a[3] = {28, 20, 12}, sh4b[3] = {24, 16, 8};
+// The four values one channel of a subblock can take, one per byte in code
+// order (code = msb << 1 | lsb: +small, +large, -small, -large).
+__device__ __forceinline__ uint32_t channel_values(int base, int sm, int lg) {
+  return (uint32_t)__viaddmin_s32_relu(base, sm, 255) |
+         (uint32_t)__viaddmin_s32_relu(base, lg, 255) << 8 |
+         (uint32_t)__viaddmin_s32_relu(base, -sm, 255) << 16 |
+         (uint32_t)__viaddmin_s32_relu(base, -lg, 255) << 24;
+}
+
+// One CTA per run of up to kThreads blocks of one block row (K1's grid),
+// one thread per block. words must be 8-byte aligned and img 4-byte
+// aligned; the 16-byte stores are taken when img is 16-byte aligned and W
+// a multiple of 16.
+__global__ void __launch_bounds__(kThreads)
+etc1_decode_kernel(const int32_t* __restrict__ words, uint8_t* __restrict__ img, int l, int h,
+                   int w) {
+  __shared__ __align__(16) uint32_t s_rows[4][kThreads * 3];
+  const int nbx = w >> 2;
+  const int runs = (nbx + kThreads - 1) / kThreads;
+  const int64_t brow = blockIdx.x / runs;  // layer * nby + by
+  const int x0 = (int)(blockIdx.x % runs) * kThreads;
+  const int nbw = min(kThreads, nbx - x0);
+  const int t = threadIdx.x;
+  if (t < nbw) {
+    const int2 pair = ((const int2*)words)[brow * nbx + x0 + t];
+    const uint32_t w1 = (uint32_t)pair.x, w2 = (uint32_t)pair.y;
+    const bool flip = w1 & 1u, diff = w1 & 2u;
+    const uint32_t t0 = (w1 >> 5) & 7u, t1 = (w1 >> 2) & 7u;
+    const int sm0 = table_byte(0x0D090502u, 0x2F211812u, t0);
+    const int lg0 = table_byte(0x2A1D1108u, 0xB76A503Cu, t0);
+    const int sm1 = table_byte(0x0D090502u, 0x2F211812u, t1);
+    const int lg1 = table_byte(0x2A1D1108u, 0xB76A503Cu, t1);
+    // per channel: the values of the subblock left of / above the split in
+    // `a`, right of / below it in `b`, for the top and the bottom two rows
+    uint32_t a_top[3], b_top[3], a_bot[3], b_bot[3];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    int base;
-    if (diff) {
-      const int m0 = (int)((w1 >> sh5[c]) & 31u);
-      const int draw = (int)((w1 >> sh3[c]) & 7u);
-      const int dd = draw >= 4 ? draw - 8 : draw;
-      base = in_sub1 ? extend5(min(max(m0 + dd, 0), 31)) : extend5(m0);
-    } else {
-      base = extend4((int)((w1 >> (in_sub1 ? sh4b[c] : sh4a[c])) & 15u));
+    for (int c = 0; c < 3; ++c) {
+      const int byte = (int)((w1 >> (24 - 8 * c)) & 0xffu);
+      int base0, base1;
+      if (diff) {  // 5-bit color and a signed 3-bit delta, the sum clipped to 0..31
+        const int m0 = byte >> 3;
+        const int dd = ((byte & 7) ^ 4) - 4;
+        base0 = extend5(m0);
+        base1 = extend5(min(max(m0 + dd, 0), 31));
+      } else {  // two 4-bit colors
+        base0 = extend4(byte >> 4);
+        base1 = extend4(byte & 15);
+      }
+      const uint32_t v0 = channel_values(base0, sm0, lg0);
+      const uint32_t v1 = channel_values(base1, sm1, lg1);
+      // flip 0: left/right 2-column halves; flip 1: top/bottom 2-row halves
+      a_top[c] = v0;
+      b_top[c] = flip ? v0 : v1;
+      a_bot[c] = flip ? v1 : v0;
+      b_bot[c] = v1;
     }
-    o[c] = (uint8_t)clamp255(base + mod);
+#pragma unroll
+    for (int y = 0; y < 4; ++y) {
+      // pixel (x, y) has its code's lsb at bit x*4 + y of word 2 and its
+      // msb 16 above: nibble x of the selector is the code, +4 for x >= 2
+      // (the second operand of the permute)
+      const uint32_t sel = ((w2 >> y) & 0x1111u) | ((w2 >> (15 + y)) & 0x2222u) | 0x4400u;
+      const uint32_t* a = y < 2 ? a_top : a_bot;
+      const uint32_t* b = y < 2 ? b_top : b_bot;
+      const uint32_t r4 = __byte_perm(a[0], b[0], sel);  // r0 r1 r2 r3
+      const uint32_t g4 = __byte_perm(a[1], b[1], sel);
+      const uint32_t b4 = __byte_perm(a[2], b[2], sel);
+      // r0 g0 b0 r1 | g1 b1 r2 g2 | b2 r3 g3 b3, little-endian
+      s_rows[y][3 * t + 0] = __byte_perm(__byte_perm(r4, g4, 0x1040), b4, 0x3410);
+      s_rows[y][3 * t + 1] = __byte_perm(__byte_perm(g4, b4, 0x2051), r4, 0x3610);
+      s_rows[y][3 * t + 2] = __byte_perm(__byte_perm(b4, r4, 0x3072), g4, 0x3710);
+    }
+  }
+  __syncthreads();
+  uint8_t* dst = img + (brow * 4 * w + (int64_t)x0 * 4) * 3;  // row 0 of the run
+  const int64_t pitch = (int64_t)w * 3;
+  if ((w & 15) == 0 && ((uintptr_t)img & 15) == 0) {
+    // nbw is a multiple of 4 here: whole 16-byte pieces, 64 threads a row
+    const int y = t >> 6;
+    uint4* d4 = (uint4*)(dst + y * pitch);
+    const uint4* s4 = (const uint4*)s_rows[y];
+    for (int i = t & 63; i < nbw * 3 / 4; i += kThreads / 4) d4[i] = s4[i];
+  } else {
+#pragma unroll
+    for (int y = 0; y < 4; ++y) {
+      uint32_t* d1 = (uint32_t*)(dst + y * pitch);
+      for (int i = t; i < nbw * 3; i += kThreads) d1[i] = s_rows[y][i];
+    }
   }
 }
 
@@ -367,14 +432,15 @@ int uvt_etc1_encode(const void* img, void* out, int l, int h, int w, void* strea
   return (int)cudaGetLastError();
 }
 
-// words: [l*(h/4)*(w/4), 2] int32; img: [l, h, w, 3] uint8.
+// words: [l*(h/4)*(w/4), 2] int32, 8-byte aligned; img: [l, h, w, 3] uint8,
+// 4-byte aligned.
 int uvt_etc1_decode(const void* words, void* img, int l, int h, int w, void* stream) {
-  const int64_t n = (int64_t)l * h * w;
-  if (n > 0) {
-    const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
-    etc1_decode_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  if (((uintptr_t)words & 7) || ((uintptr_t)img & 3)) return (int)cudaErrorMisalignedAddress;
+  const int64_t runs = (w / 4 + kThreads - 1) / kThreads;
+  const int64_t grid = runs * l * (h / 4);
+  if (grid > 0)
+    etc1_decode_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
         (const int32_t*)words, (uint8_t*)img, l, h, w);
-  }
   return (int)cudaGetLastError();
 }
 

@@ -15,8 +15,9 @@
 // 128-lane endpoint padding have no counterpart here.
 //
 // K4 and K5 are exact integer arithmetic, as the TPU kernels are by
-// construction (every f32 term there is an integer below 2^24): int32
-// throughout, argmin ties to the first minimum with a strict `<`.
+// construction (every f32 term there is an integer below 2^24): K4 in
+// int32, argmin ties to the first minimum with a strict `<`; K5, like the
+// TPU kernel, in float32 on those integers.
 //
 // K4 -- one thread per block, 48 pixel values in registers. The endpoint
 // table ([E, 20] int32: per code j the row (-2*me_r, -2*me_g, -2*me_b, q),
@@ -26,8 +27,29 @@
 // per (block, endpoint): ~37 G ops for 327,680 blocks x 256 endpoints,
 // bound by integer ALU work.
 //
-// K5 -- one thread per block, the 8x4 modifier table in __constant__.
-// ~4k integer ops per block; ALU-bound as K4, at 1/60 of its work.
+// K5 -- one thread per block, float32 where every value is an integer below
+// 2^24 (|term| <= 3*255^2 + 6*255^2, a block's sum 16 times that), so the
+// arithmetic is exact and an FFMA does the work of an IMAD at twice the
+// rate. A CTA stages a tile of 128 blocks (48 bytes each) and their
+// bases in shared memory with coalesced 16-byte copies; a thread takes its
+// block from there with three conflict-free 16-byte reads and keeps, per pixel,
+// D = 2*(base - pixel) per channel, S = D_r + D_g + D_b and A = |S|. A code
+// m that clips no channel of the base (base_c + m within 0..255) has
+// me = (m, m, m) and the error 3m^2 + m*S: one FFMA where the per-channel
+// form |me|^2 + me.D, me_c = clamp(base_c + m) - base_c, takes three; a
+// pair +-m with both open has the least 3m^2 - m*A, one FFMA and no
+// minimum. Whether a code is open depends on the base only, so it is
+// decided once per table and code, and a warp takes a code's short form
+// only when all its blocks may (no lane diverges): 4 instructions per
+// (pixel, table) with all four codes open, 16 with none, tables 6 and 7
+// (l = 106 and 183) clipping for nearly every base. The loop over the
+// tables stays rolled (the four forms of a pair, twice, are its body), and
+// the block's 8 sums leave as two 16-byte stores. The CTAs are persistent
+// (4 per SM) and copy the next tile asynchronously while they work on this
+// one: with loads started only between tiles, inputs that the L2 cache does
+// not hold (between the calls of a palette build, or any N above ~500,000
+// blocks) arrived far below the memory rate. Bound: operations on
+// bases near 0 or 255, bytes (92 per block) on mid-range ones.
 //
 // K6 -- f32, mirroring the TPU kernel's op order: dist = c2[k], then
 // + f[j] * (-2*cb[k,j]) for j = 0..3, each step rounded (__fadd_rn /
@@ -66,6 +88,7 @@
 // index and values read once, the sums written once); counts are sums of
 // 1.0, exact below 2^24.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,63 +96,186 @@
 
 namespace {
 
-// uvol_tpu.codecs.basis.transcoder.INTEN_TABLES, code order
-__constant__ int kInten[8][4] = {
-    {-8, -2, 2, 8},       {-17, -5, 5, 17},     {-29, -9, 9, 29},
-    {-42, -13, 13, 42},   {-60, -18, 18, 60},   {-80, -24, 24, 80},
-    {-106, -33, 33, 106}, {-183, -47, 47, 183},
-};
+// uvol_tpu.codecs.basis.transcoder.INTEN_TABLES: table t is (-l, -s, s, l)
+__constant__ float kIntenSmall[8] = {2.f, 5.f, 9.f, 13.f, 18.f, 24.f, 33.f, 47.f};
+__constant__ float kIntenLarge[8] = {8.f, 17.f, 29.f, 42.f, 60.f, 80.f, 106.f, 183.f};
 
 constexpr int kThreads = 256;
+constexpr int kIntenThreads = 128;  // K5: blocks (threads) per tile
+constexpr int kIntenCtasPerSm = 4;  // K5: resident CTAs per SM (up to 128 registers a thread)
 constexpr int kEpChunk = 256;   // endpoints per shared-memory chunk: 20 KB
 constexpr int kSegTile = 64;    // rows per fixed-order partial sum
 constexpr int kSegMaxK = 2048;  // most segments (K6: centroids) a sum takes
 constexpr int kKmCols = 5;      // K6's 4 features ++ 1.0 (the count)
 
-__device__ __forceinline__ int clamp255(int v) { return min(max(v, 0), 255); }
-
 // ---- K5 ---------------------------------------------------------------
 
-__global__ void inten_errors_kernel(const uint8_t* __restrict__ blocks,
-                                    const int32_t* __restrict__ base,
-                                    int32_t* __restrict__ out, int n) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int b[3];
+// The error of a code that clips: k + a.D with a_c = clamp(base_c + m) -
+// base_c (lo = -base, hi = 255 - base) and k = |a|^2.
+struct ClippedCode {
+  float k, a[3];
+};
+
+__device__ __forceinline__ ClippedCode clipped_code(float m, const float (&lo)[3],
+                                                    const float (&hi)[3]) {
+  ClippedCode f;
 #pragma unroll
-  for (int c = 0; c < 3; ++c) b[c] = base[i * 3 + c];
-  int d[16][3];
-  const uint8_t* px = blocks + i * 48;
+  for (int c = 0; c < 3; ++c) f.a[c] = fminf(fmaxf(m, lo[c]), hi[c]);
+  f.k = __fmaf_rn(f.a[2], f.a[2], __fmaf_rn(f.a[1], f.a[1], __fmul_rn(f.a[0], f.a[0])));
+  return f;
+}
+
+// How a pair of codes +-m is scored: by which of the two clips no channel
+// of any base of the warp.
+enum PairForm { kBothOpen, kPlusOpen, kMinusOpen, kNoneOpen };
+
+// least[p] = the least of the errors of codes +m and -m at pixel p. D, S, A
+// as in the kernel's note.
+template <PairForm kForm>
+__device__ __forceinline__ void pair_least(float m, const float (&D)[16][3],
+                                           const float (&S)[16], const float (&A)[16],
+                                           const float (&lo)[3], const float (&hi)[3],
+                                           float (&least)[16]) {
+  const float q = __fmul_rn(__fmul_rn(3.f, m), m);
+  if (kForm == kBothOpen) {
 #pragma unroll
-  for (int p = 0; p < 16; ++p)
+    for (int p = 0; p < 16; ++p) least[p] = __fmaf_rn(A[p], -m, q);
+    return;
+  }
+  ClippedCode plus, minus;
+  if (kForm != kPlusOpen) plus = clipped_code(m, lo, hi);
+  if (kForm != kMinusOpen) minus = clipped_code(-m, lo, hi);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) d[p][c] = (int)px[p * 3 + c] - b[c];
-#pragma unroll 1
-  for (int t = 0; t < 8; ++t) {
-    int me[4][3], me2[4];
+  for (int p = 0; p < 16; ++p) {
+    const float ep =
+        kForm == kPlusOpen
+            ? __fmaf_rn(S[p], m, q)
+            : __fmaf_rn(plus.a[2], D[p][2],
+                        __fmaf_rn(plus.a[1], D[p][1], __fmaf_rn(plus.a[0], D[p][0], plus.k)));
+    const float em =
+        kForm == kMinusOpen
+            ? __fmaf_rn(S[p], -m, q)
+            : __fmaf_rn(minus.a[2], D[p][2],
+                        __fmaf_rn(minus.a[1], D[p][1], __fmaf_rn(minus.a[0], D[p][0], minus.k)));
+    least[p] = fminf(ep, em);
+  }
+}
+
+// pair_least in the form the warp's bases allow: +m is open for a block
+// when bmax <= 255 - m, -m when bmin >= m.
+__device__ __forceinline__ void pair_least_any(float m, float bmin, float bmax,
+                                               const float (&D)[16][3], const float (&S)[16],
+                                               const float (&A)[16], const float (&lo)[3],
+                                               const float (&hi)[3], float (&least)[16]) {
+  const bool plus = __all_sync(0xffffffffu, bmax <= 255.f - m);
+  const bool minus = __all_sync(0xffffffffu, bmin >= m);
+  if (plus && minus)
+    pair_least<kBothOpen>(m, D, S, A, lo, hi, least);
+  else if (plus)
+    pair_least<kPlusOpen>(m, D, S, A, lo, hi, least);
+  else if (minus)
+    pair_least<kMinusOpen>(m, D, S, A, lo, hi, least);
+  else
+    pair_least<kNoneOpen>(m, D, S, A, lo, hi, least);
+}
+
+// Starts the copy of tile `tile` (kIntenThreads blocks and their bases)
+// into shared memory: asynchronous 16-byte pieces where the tile's bytes
+// are 16-byte aligned, plain byte loads otherwise.
+__device__ __forceinline__ void stage_inten_tile(const uint8_t* __restrict__ blocks,
+                                                 const int32_t* __restrict__ base, int n,
+                                                 int tile, uint32_t* s_px, int32_t* s_base) {
+  const int64_t blk0 = (int64_t)tile * kIntenThreads;
+  const int cnt = (int)min((int64_t)kIntenThreads, n - blk0);
+  const int tid = threadIdx.x;
+  const uint8_t* src = blocks + blk0 * 48;
+  if (((uintptr_t)src & 15) == 0) {
+    for (int i = tid; i < cnt * 3; i += kIntenThreads)
+      __pipeline_memcpy_async((uint4*)s_px + i, (const uint4*)src + i, 16);
+  } else {
+    for (int i = tid; i < cnt * 48; i += kIntenThreads) ((uint8_t*)s_px)[i] = src[i];
+  }
+  for (int i = tid; i < cnt * 3; i += kIntenThreads)
+    __pipeline_memcpy_async(s_base + i, base + blk0 * 3 + i, 4);
+}
+
+// One thread per block, a tile of kIntenThreads blocks at a time; a CTA
+// walks the tiles blockIdx.x, + gridDim.x, ... and copies the next tile into
+// the other half of its shared memory while it works on this one, so the
+// loads of a tile hide behind the arithmetic of the one before. base holds
+// 8-bit colors (0..255): the float32 arithmetic is exact there. out must
+// be 16-byte aligned.
+__global__ void __launch_bounds__(kIntenThreads, kIntenCtasPerSm)
+inten_errors_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restrict__ base,
+                    int32_t* __restrict__ out, int n) {
+  __shared__ __align__(16) uint32_t s_px[2][kIntenThreads * 12];
+  __shared__ __align__(16) int32_t s_base[2][kIntenThreads * 3];
+  __shared__ __align__(16) int32_t s_sums[kIntenThreads * 8];
+  const int tiles = (n + kIntenThreads - 1) / kIntenThreads;
+  const int tid = threadIdx.x;
+  int32_t* sums = s_sums + 8 * tid;  // this thread's own: no barrier guards it
+  stage_inten_tile(blocks, base, n, blockIdx.x, s_px[0], s_base[0]);
+  __pipeline_commit();
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, buf ^= 1) {
+    if (tile + (int)gridDim.x < tiles)
+      stage_inten_tile(blocks, base, n, tile + gridDim.x, s_px[buf ^ 1], s_base[buf ^ 1]);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);  // all but the copy just started: this tile has landed
+    __syncthreads();
+    const int64_t blk0 = (int64_t)tile * kIntenThreads;
+    // a lane past n works on black pixels under a mid-gray base (every code
+    // but +-183 open) and writes nothing: every lane of a warp must reach
+    // the votes
+    const bool live = blk0 + tid < n;
+    float b[3], lo[3], hi[3], b2[3];
 #pragma unroll
-    for (int code = 0; code < 4; ++code) {
-      me2[code] = 0;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        me[code][c] = clamp255(b[c] + kInten[t][code]) - b[c];
-        me2[code] += me[code][c] * me[code][c];
-      }
+    for (int c = 0; c < 3; ++c) {
+      b[c] = live ? (float)s_base[buf][3 * tid + c] : 128.f;
+      lo[c] = -b[c];
+      hi[c] = 255.f - b[c];
+      b2[c] = __fadd_rn(__fmul_rn(2.f, b[c]), 16777216.f);
     }
-    int acc = 0;
+    uint32_t wd[12];  // the block's 48 bytes: pixel k / 3, channel k % 3 at byte k
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const uint4 q = live ? ((const uint4*)s_px[buf])[3 * tid + j] : make_uint4(0u, 0u, 0u, 0u);
+      wd[4 * j + 0] = q.x;
+      wd[4 * j + 1] = q.y;
+      wd[4 * j + 2] = q.z;
+      wd[4 * j + 3] = q.w;
+    }
+    __syncthreads();  // this half is read: the next pass copies into it
+    // a byte v becomes the float 2^23 + v by a byte permute into 2^23's low
+    // mantissa byte (no integer conversion); D = 2*base + 2^24 - 2*(2^23 + v),
+    // every step exact (even integers below 2^25)
+    float D[16][3], S[16], A[16];
+#pragma unroll
+    for (int k = 0; k < 48; ++k) {
+      const float v = __uint_as_float(__byte_perm(wd[k >> 2], 0x4B000000u, 0x7440u | (k & 3)));
+      D[k / 3][k % 3] = __fmaf_rn(v, -2.f, b2[k % 3]);
+    }
 #pragma unroll
     for (int p = 0; p < 16; ++p) {
-      int best = 0;
-#pragma unroll
-      for (int code = 0; code < 4; ++code) {
-        const int cand =
-            me2[code] - 2 * (d[p][0] * me[code][0] + d[p][1] * me[code][1] +
-                             d[p][2] * me[code][2]);
-        best = code == 0 ? cand : min(best, cand);
-      }
-      acc += best;
+      S[p] = __fadd_rn(__fadd_rn(D[p][0], D[p][1]), D[p][2]);
+      A[p] = fabsf(S[p]);
     }
-    out[i * 8 + t] = acc;
+    const float bmin = fminf(fminf(b[0], b[1]), b[2]), bmax = fmaxf(fmaxf(b[0], b[1]), b[2]);
+#pragma unroll 1
+    for (int t = 0; t < 8; ++t) {
+      float small[16], large[16];
+      pair_least_any(kIntenSmall[t], bmin, bmax, D, S, A, lo, hi, small);
+      pair_least_any(kIntenLarge[t], bmin, bmax, D, S, A, lo, hi, large);
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};  // four chains: the adds need not wait on each other
+#pragma unroll
+      for (int p = 0; p < 16; ++p) acc[p & 3] = __fadd_rn(acc[p & 3], fminf(small[p], large[p]));
+      sums[t] = __float2int_rn(__fadd_rn(__fadd_rn(acc[0], acc[1]), __fadd_rn(acc[2], acc[3])));
+    }
+    if (live) {
+      int4* o = (int4*)out + (blk0 + tid) * 2;
+      o[0] = ((const int4*)sums)[0];
+      o[1] = ((const int4*)sums)[1];
+    }
   }
 }
 
@@ -500,12 +646,25 @@ cudaError_t launch_tree(const float* part, int m, int64_t e, float* out, cudaStr
 
 extern "C" {
 
-// blocks: [n, 16, 3] uint8; base: [n, 3] int32; out: [n, 8] int32.
+// blocks: [n, 16, 3] uint8; base: [n, 3] int32 (8-bit colors); out: [n, 8] int32,
+// 16-byte aligned.
 int uvt_etc1s_inten_errors(const void* blocks, const void* base, void* out, int n,
                            void* stream) {
-  if (n > 0)
-    inten_errors_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+  if ((uintptr_t)out & 15) return (int)cudaErrorMisalignedAddress;
+  if (n > 0) {
+    static int sms = 0;  // of the first device asked for: it only caps the grid
+    if (sms == 0) {
+      int device = 0;
+      cudaError_t err = cudaGetDevice(&device);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const int tiles = (n + kIntenThreads - 1) / kIntenThreads;
+    inten_errors_kernel<<<min(tiles, kIntenCtasPerSm * sms), kIntenThreads, 0,
+                          (cudaStream_t)stream>>>(
         (const uint8_t*)blocks, (const int32_t*)base, (int32_t*)out, n);
+  }
   return (int)cudaGetLastError();
 }
 
