@@ -6,13 +6,18 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from `uvol_tpu_torch/csrc/` (nvcc, sm_90a,
-one process per source), holds each kernel (K1-K6 and the fixed-order
-segment sum) bit-for-bit against its plain PyTorch twin (K2 also on
+one process per source), holds each kernel (K1-K6, the fixed-order
+segment sum and the geometry stage's minimum/maximum) bit-for-bit against
+its plain PyTorch twin (the geometry stage on ragged masks, a frame of one
+vertex, of equal values, without a valid vertex, rows whose minimum is both
+zeros, vertex counts on and off the 16-byte grid and a batch 4 bytes off
+it; the segment sum and K6 also above the 2^24 rows of one launch; K2 also on
 random words at widths off its 16-byte store path and from words that are
 only 8-byte aligned, K5 also off its CTA grid with every base at 0 and at
 255), drives the
 flagship codec chain at full width (32 frames x 26,145 vertices, 32
-layers of 1024x1024; the geometry encode launches K3 twice) and the
+layers of 1024x1024; the geometry encode's device stage is 4 kernels: the
+minimum/maximum and K3, for the positions and for the UVs) and the
 ETC1S/BasisLZ segment encoder at the encoder CLI's segment (5 layers of
 1024x1024, 256/256 palettes) through the codecs' public entry points,
 holds every K4-K6 and segment-sum call that a segment encode makes
@@ -78,6 +83,7 @@ WRAPPER_KERNELS = {
     "etc1_encode": ("etc1_encode_kernel",),
     "etc1_decode": ("etc1_decode_kernel",),
     "quantize_delta_zigzag": ("quantize_delta_zigzag_kernel",),
+    "geometry_minmax": ("geometry_minmax_kernel",),
     "etc1s_assign_endpoints": ("assign_endpoints_kernel",),
     "etc1s_inten_errors": ("inten_errors_kernel",),
     "etc1s_kmeans_iter": ("kmeans_chunk_kernel", "seg_sum_tree_kernel"),
@@ -91,8 +97,16 @@ SEG_SHAPES = tuple((1 << i, d) for d in (9, 33) for i in range(9)) + (
 #: row counts held at parity: tile and chunk edges, one N off the chunk grid
 SEG_ROWS = (1, 63, 64, 65, 1025, 20000, 70001)
 SEG_TIMED = (327680, 256, 64)  # sel_update's shape on the main path: N, k, D
-#: K3's kernel name in a profiler trace (csrc/geometry.cu)
+#: rows above the 2^24 of one launch: the segment sum and K6 in two chunks
+SEG_ROWS_CHUNKED = (1 << 24) + 1025
+#: K3's and the minimum/maximum's kernel names in a profiler trace (csrc/geometry.cu)
 K3_KERNEL_NAME = WRAPPER_KERNELS["quantize_delta_zigzag"][0]
+MINMAX_KERNEL_NAME = WRAPPER_KERNELS["geometry_minmax"][0]
+#: the geometry stage's two kernels, and the device kernels of one `encode_device`
+STAGE_KERNEL_NAMES = (MINMAX_KERNEL_NAME, K3_KERNEL_NAME)
+ENCODE_DEVICE_KERNELS = 4
+TRACE_ATTEMPTS = 3  # profiler traces taken before a kernel counts as never seen
+TRACES_RETAKEN = []  # the kernels missing from each trace that was taken again
 K3_PROFILED_LAUNCHES = 50  # calls timed back to back, and traced for K3 alone
 
 # The bound of a kernel: max(bytes / memory rate, operations / peak rate).
@@ -115,7 +129,9 @@ OPS = {
     # per pixel: a block is ~130 instructions (header, 24 clamped values,
     # per row a selector and 9 byte permutes), counted from the source
     "etc1_decode": 8,
-    "quantize_delta_zigzag": 10,  # per element: 2 x (fma, floor, cvt), sub, zigzag
+    # per vertex: mask select, sub, fma, floor, cvt, delta, 3 for the zigzag, a shuffle
+    "quantize_delta_zigzag": 10,
+    "geometry_minmax": 4,  # per vertex: two selects, min, max
     "etc1s_assign_endpoints": 256,  # per (block, endpoint): 16 px x 4 codes x (3 IMAD + min)
     # per (pixel, table) at most: 4 codes x 3 FFMA, 3 min, an add; 4 with
     # every code open. Counted code by code on the timed bases by
@@ -146,6 +162,19 @@ def hold(err: dict, name: str, got, *twins) -> None:
             e = float((g.cpu().double() - t.cpu().double()).abs().max())
             check(e == 0, f"{name} differs from its plain twin")
             err[name] = max(err.get(name, 0), e)
+
+
+def hold_bits(torch, err: dict, name: str, got, *twins) -> None:
+    """`hold`, and the float32 outputs equal bit for bit (the sign of a
+    zero included)."""
+    hold(err, name, got, *twins)
+    got = got if isinstance(got, tuple) else (got,)
+    for tw in twins:
+        tw = tw if isinstance(tw, tuple) else (tw,)
+        for g, t in zip(got, tw, strict=True):
+            if g.dtype == torch.float32:
+                check(torch.equal(g.cpu().view(torch.int32), t.cpu().view(torch.int32)),
+                      f"{name}: bits differ from its plain twin's")
 
 
 @contextlib.contextmanager
@@ -233,13 +262,70 @@ def boundary_offsets(inv: float, max_q: int) -> np.ndarray:
     return out[(out >= 0) & (out * inv <= max_q)]
 
 
+def stage_inputs(torch, positions, uvs) -> dict:
+    """name -> (planar x [F, C, N], mask [F, N], bits) for the geometry
+    stage: random batches with ragged masks at vertex counts on and off
+    the 16-byte grid, a frame of one vertex, a frame of equal values
+    (range 0 -> 1), a frame without a valid vertex, rows whose minimum is
+    both zeros in both orders, and the bench batch."""
+    r = np.random.default_rng(5)
+    inputs = {}
+    for f, c, n in ((1, 3, 1), (3, 2, 513), (4, 3, 4099), (3, 3, 4096), (2, 2, N)):
+        x = (r.normal(size=(f, c, n)) * 7).astype(np.float32)
+        mask = np.arange(n)[None, :] < r.integers(1, n + 1, f)[:, None]
+        inputs[f"random_{f}x{c}x{n}"] = (x, mask, 11)
+    f, c, n = 4, 3, 2051
+    x = (np.abs(r.normal(size=(f, c, n))) + 1).astype(np.float32)
+    x[0, 0, [0, n - 1]] = 0.0, -0.0  # both zeros are the minimum, either first
+    x[0, 1, [7, 1030]] = -0.0, 0.0
+    x[0, 2, [7, 1030]] = 0.0, 0.0
+    x[1] = 2.75  # equal values
+    x[2, :, 5:] = -1.0  # padded vertices below the valid ones
+    counts = np.array([n, n, 5, 0])  # frame 3 has no valid vertex
+    x[2, :, :5] = -0.0  # a frame whose valid values are all -0.0
+    inputs["corners_4x3x2051"] = (x, np.arange(n)[None, :] < counts[:, None], 10)
+    full = np.ones((F, N), bool)
+    inputs["bench_positions"] = (np.ascontiguousarray(positions.transpose(0, 2, 1)), full, 11)
+    inputs["bench_uvs"] = (np.ascontiguousarray(uvs.transpose(0, 2, 1)), full, 10)
+    return {k: (torch.from_numpy(x), torch.from_numpy(m), b) for k, (x, m, b) in inputs.items()}
+
+
 def k3_parity(torch, dev, positions, uvs) -> dict:
-    """K3 against its plain twin on the card (and on the CPU): random
-    batches, rounding-boundary offsets (their quantized values also held
-    to one fused multiply-add), and the full positions and UVs of the
-    bench batch as the geometry encode gives them."""
-    from uvol_tpu_torch.models.sequence import quantize_offsets
+    """K3 and the minimum/maximum against their plain twins on the card
+    (and on the CPU). The stage entry and its two halves on
+    `stage_inputs`, each also from a batch 4 bytes off a 16-byte boundary
+    (K3's scalar loads and stores): symbols, minimum and range bit for
+    bit. K3 with its offsets given, as before: random batches,
+    rounding-boundary offsets (their quantized values also held to one
+    fused multiply-add), and the full positions and UVs of the bench batch
+    as the geometry encode gave them."""
+    from uvol_tpu_torch.ops.pallas_kernels import quantize_offsets
     from uvol_tpu_torch.ops import pallas_kernels as pk
+
+    err, shapes = {}, {}
+    for name, (x, mask, bits) in stage_inputs(torch, positions, uvs).items():
+        f, c, n = x.shape
+        shifted = torch.zeros(x.numel() + 1, device=dev)
+        shifted[1:] = x.reshape(-1).to(dev)
+        shifted = shifted[1:].view(f, c, n)
+        check(shifted.data_ptr() % 16 == 4, "the shifted batch is not 4 bytes off the grid")
+        md = mask.to(dev)
+        small = x.numel() <= 1 << 20  # the CPU twin too, where it is quick
+        twins = [pk.geometry_quantize_stage_plain(x.to(dev), md, bits)]
+        twins += [pk.geometry_quantize_stage_plain(x, mask, bits)] if small else []
+        for xd in (x.to(dev), shifted):
+            syms, mn, rng = pk.geometry_quantize_stage(xd, md, bits)
+            hold_bits(torch, err, "quantize_delta_zigzag", (syms, rng),
+                      *((t[0], t[2]) for t in twins))
+            hold_bits(torch, err, "geometry_minmax", mn, *(t[1] for t in twins))
+            # the two halves through their own entries
+            bounds = pk.geometry_minmax(xd, md)
+            hold_bits(torch, err, "geometry_minmax", bounds, pk.geometry_minmax_plain(xd, md),
+                      *([pk.geometry_minmax_plain(x, mask)] if small else []))
+            hold_bits(torch, err, "quantize_delta_zigzag",
+                      pk.quantize_from_bounds(xd, md, *bounds, bits),
+                      pk.quantize_from_bounds_plain(xd, md, *bounds, bits), (syms, rng))
+        shapes[name] = [f, c, n]
 
     r = np.random.default_rng(4)
     inputs = {}
@@ -257,13 +343,13 @@ def k3_parity(torch, dev, positions, uvs) -> dict:
     for name, a in (("bench_positions", positions), ("bench_uvs", uvs)):
         planar = torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1))).to(dev)
         inputs[name] = quantize_offsets(planar, 11 if a.shape[-1] == 3 else 10, mask)[:2]
-    err, shapes = {}, {}
+    given = {}
     for name, (xm, inv) in inputs.items():
         got = pk.fused_quantize_delta_zigzag(xm.to(dev), inv.to(dev))
         hold(err, "quantize_delta_zigzag", got,
              pk.fused_quantize_delta_zigzag_plain(xm.to(dev), inv.to(dev)),
              pk.fused_quantize_delta_zigzag_plain(xm.cpu(), inv.cpu()))
-        shapes[name] = list(xm.shape)
+        given[name] = list(xm.shape)
     # the boundary rows' quantized values are the fused multiply-add's
     got = pk.fused_quantize_delta_zigzag(*(t.to(dev) for t in inputs["boundary"]))
     zz = got.cpu().numpy().view(np.uint32).astype(np.int64)
@@ -272,8 +358,8 @@ def k3_parity(torch, dev, positions, uvs) -> dict:
         want = np.floor((row.astype(np.float64) * np.float64(invs[i]) + 0.5).astype(np.float32))
         check(bool((q[i, 0, : len(row)] == want).all()), "K3 does not round as one FMA")
     torch.cuda.synchronize()
-    emit({"phase": "k3_parity", "shapes": shapes, "boundary_rows": [len(x) for x in rows],
-          "max_abs_err": err})
+    emit({"phase": "k3_parity", "stage_shapes": shapes, "offsets_given_shapes": given,
+          "boundary_rows": [len(x) for x in rows], "max_abs_err": err})
     return err
 
 
@@ -319,12 +405,13 @@ def boundary_blocks() -> np.ndarray:
     return np.concatenate([b, flat])
 
 
-def check_full_f32(torch) -> None:
+def check_full_f32() -> None:
     """The port runs its f32 matmuls in full f32 (TF32 off): the ETC1S
-    selector errors are integer sums below 2^24 that TF32 would round."""
-    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are on")
-    check(torch.backends.cudnn.allow_tf32 is False, "TF32 convolutions are on")
-    check(torch.get_float32_matmul_precision() == "highest", "f32 matmul precision")
+    selector errors are integer sums below 2^24 that TF32 would round.
+    The palette core makes the same check before every build."""
+    from uvol_tpu_torch._device import require_full_f32
+
+    require_full_f32()
 
 
 def etc1s_parity(torch, dev, textures, bb) -> dict:
@@ -401,11 +488,29 @@ def etc1s_parity(torch, dev, textures, bb) -> dict:
             hold(err, "etc1s_kmeans_iter", k.kmeans_iter(feats.to(dev), cb.to(dev)),
                  k.kmeans_iter_plain(feats.to(dev), cb.to(dev)),
                  *([k.kmeans_iter_plain(feats, cb)] if small else []))
+    # above the rows of one launch: one launch per chunk of 2^24 rows, the chunk
+    # results added in the twin's order
+    n = SEG_ROWS_CHUNKED
+    check(n > k.SEG_MAX_ROWS, "SEG_ROWS_CHUNKED is within one launch")
+    idx = torch.from_numpy(r.integers(0, 16, n).astype(np.int32)).to(dev)
+    feats = torch.from_numpy(r.random((n, 4), dtype=np.float32) * 255).to(dev)
+    before = dict(k.LAUNCHES)
+    got = k.segment_sum(idx, 16, feats)
+    tw = k.segment_sum_plain(idx, 16, feats)
+    hold(err, "etc1s_segment_sum", got, tw)
+    check(torch.equal(got.view(torch.int32), tw.view(torch.int32)),
+          "segment sum bits differ from its twin's above 2^24 rows")
+    cb = feats[torch.from_numpy(r.integers(0, n, 16)).to(dev)] + 0.5
+    hold(err, "etc1s_kmeans_iter", k.kmeans_iter(feats, cb), k.kmeans_iter_plain(feats, cb))
+    for name in ("etc1s_segment_sum", "etc1s_kmeans_iter"):
+        check(k.LAUNCHES[name] == before[name] + 2, f"{name}: not one launch per chunk of rows")
+    del idx, feats, got, tw
     torch.cuda.synchronize()
     emit({"phase": "etc1s_kernel_parity", "inputs": list(inputs), "entries": ETC1S_ENTRIES,
           "inten_errors_rows": K5_ROWS,
           "segment_sum": {"shapes_k_d": SEG_SHAPES, "rows": SEG_ROWS},
-          "kmeans_rows": SEG_ROWS, "max_abs_err": err})
+          "kmeans_rows": SEG_ROWS, "rows_above_one_launch": SEG_ROWS_CHUNKED,
+          "max_abs_err": err})
     return err
 
 
@@ -414,33 +519,47 @@ def kernel_only_ms(torch, fn, names, reps: int = REPS) -> tuple:
     per call of fn (profiler), after one untraced call: the kernels alone,
     without the wrapper's host work. Each kernel's mean over the launches
     the trace holds, so a launch the profiler drops does not count as a
-    zero."""
+    zero; a trace that holds none of a kernel's launches is taken again
+    (`TRACE_ATTEMPTS` times in all), and `TRACES_RETAKEN` counts those."""
     from uvol_tpu_torch.utils.timing import device_trace
 
     fn()
-    with device_trace() as prof:
-        for _ in range(reps):
-            fn()
-    times = {n: [] for n in names}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for n in names:
-                if n in e.name:
-                    times[n].append(e.time_range.elapsed_us() / 1e3)
+    for attempt in range(TRACE_ATTEMPTS):
+        with device_trace() as prof:
+            for _ in range(reps):
+                fn()
+        times = {n: [] for n in names}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                for n in names:
+                    if n in e.name:
+                        times[n].append(e.time_range.elapsed_us() / 1e3)
+        if all(times.values()):
+            break
+        TRACES_RETAKEN.append([n for n, t in times.items() if not t])
+        emit({"phase": "trace_retaken", "attempt": attempt + 1, "missing": TRACES_RETAKEN[-1]})
     check(all(times.values()), f"the profiler saw none of {[n for n, t in times.items() if not t]}")
     return sum(float(np.mean(t)) for t in times.values()), {n: len(t) for n, t in times.items()}
 
 
 def launches_per_call(torch, fn, names) -> int:
     """Device kernels one call of fn runs, from a profiler trace; fails
-    if the trace holds a device event of another name."""
+    if the trace holds a device event of another name. A trace without
+    any device event (fn always launches) is taken again like
+    `kernel_only_ms`'s, `TRACE_ATTEMPTS` times in all."""
     from uvol_tpu_torch.utils.timing import device_trace
 
     fn()
-    with device_trace() as prof:
-        fn()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    for attempt in range(TRACE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with device_trace() as prof:
+            fn()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+        TRACES_RETAKEN.append(list(names))
+        emit({"phase": "trace_retaken", "attempt": attempt + 1, "missing": TRACES_RETAKEN[-1]})
     check(all(any(n in kn for n in names) for kn in kernels),
           f"unexpected device events: {[kn[:60] for kn in kernels]}")
     return len(kernels)
@@ -630,14 +749,14 @@ def main() -> int:
     )
     from uvol_tpu_torch.codecs.basis.etc1s_encode import encode_ktx2_etc1s
     from uvol_tpu_torch._device import true_div
-    from uvol_tpu_torch.models.sequence import quantize_offsets
+    from uvol_tpu_torch.ops.pallas_kernels import quantize_offsets
     from uvol_tpu_torch.ops import pallas_kernels as pk
     from uvol_tpu_torch.utils.timing import (
         cuda_timer, device_time_ms, device_trace, median_cuda_ms)
 
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
-    check_full_f32(torch)
+    check_full_f32()
 
     # ---- 1. environment ------------------------------------------------------
     smi = nvidia_smi_line()
@@ -722,8 +841,9 @@ def main() -> int:
     launches = {**etc_cuda.LAUNCHES, **pk.LAUNCHES}
     for k, v in launches.items():
         check(v >= 1, f"main path never launched {k}")
-    # one geometry encode: K3 on the positions, then on the UVs
-    check(launches["quantize_delta_zigzag"] == 2, "the geometry encode did not launch K3 twice")
+    # one geometry encode: the minimum/maximum and K3 on the positions, then on the UVs
+    for k in ("geometry_minmax", "quantize_delta_zigzag"):
+        check(launches[k] == 2, f"the geometry encode did not launch {k} twice")
 
     # geometry: bytes equal to the CPU codec's, error within one step
     geo_cpu = GeometrySequenceCodec(position_bits=11, uv_bits=10, device="cpu")
@@ -757,8 +877,17 @@ def main() -> int:
     mse = float(((tex_dec.float() - tex_dev.float()) ** 2).mean())
     psnr = 10 * np.log10(255.0**2 / mse)
     check(psnr > 30.0, f"texture PSNR {psnr:.2f} dB")
+    # the device stage of one geometry encode is those 4 kernels and nothing else
+    dev_pos = torch.from_numpy(positions.transpose(0, 2, 1).copy()).to(dev)
+    dev_uv = torch.from_numpy(uvs.transpose(0, 2, 1).copy()).to(dev)
+    dev_mask = torch.ones((F, N), dtype=torch.bool, device=dev)
+    stage_kernels = launches_per_call(
+        torch, lambda: encode_device(dev_pos, dev_uv, dev_mask, 11, 10), STAGE_KERNEL_NAMES)
+    check(stage_kernels == ENCODE_DEVICE_KERNELS,
+          f"encode_device ran {stage_kernels} device kernels, not {ENCODE_DEVICE_KERNELS}")
     emit({"phase": "main_path", "frames": F, "vertices": N, "layers": F,
-          "size": [H, W], "launches": launches, "uvtg_bytes": sum(map(len, blobs)),
+          "size": [H, W], "launches": launches, "encode_device_kernels": stage_kernels,
+          "uvtg_bytes": sum(map(len, blobs)),
           "ktx2_bytes": len(tex_blob), "pos_err": pos_err, "step": step,
           "cuda_vs_cpu_max_abs_err": {"positions": geo_err, "uvs": uv_err},
           "texture_psnr_db": psnr})
@@ -782,9 +911,6 @@ def main() -> int:
     ms["etc1_decode_kernel"], traced["etc1_decode"] = kernel_only_ms(
         torch, lambda: etc_cuda.decode_etc1_images(words, F, H, W),
         WRAPPER_KERNELS["etc1_decode"])
-    dev_pos = torch.from_numpy(positions.transpose(0, 2, 1).copy()).to(dev)
-    dev_uv = torch.from_numpy(uvs.transpose(0, 2, 1).copy()).to(dev)
-    dev_mask = torch.ones((F, N), dtype=torch.bool, device=dev)
 
     def device_chain():
         out = encode_device(dev_pos, dev_uv, dev_mask, 11, 10)
@@ -795,22 +921,48 @@ def main() -> int:
         )
         return pos2, uv2, etc_cuda.decode_etc1_images(w, F, H, W)
 
-    # K3 at the geometry encode's shapes: a call (CUDA events, launch
-    # included), a call in a loop of back-to-back launches, and the kernel
-    # alone (profiler device time per launch)
+    # the geometry stage at the geometry encode's shapes, positions and UVs:
+    # the stage, its two halves, and K3 with its offsets given (the old
+    # figures' names). Each a call (CUDA events, launch included), a call
+    # in a loop of back-to-back launches, and the kernels alone (profiler
+    # device time per launch)
     for part, a, bits in (("", dev_pos, 11), ("_uv", dev_uv, 10)):
         xm, inv = quantize_offsets(a, bits, dev_mask)[:2]
-        ms[f"quantize_delta_zigzag{part}"] = median_cuda_ms(
-            lambda: pk.fused_quantize_delta_zigzag(xm, inv), REPS)
-        ms[f"quantize_delta_zigzag{part}_plain"] = median_cuda_ms(
-            lambda: pk.fused_quantize_delta_zigzag_plain(xm, inv), REPS)
-        with cuda_timer() as t:
-            for _ in range(K3_PROFILED_LAUNCHES):
-                pk.fused_quantize_delta_zigzag(xm, inv)
-        ms[f"quantize_delta_zigzag{part}_in_loop"] = t.ms / K3_PROFILED_LAUNCHES
-        ms[f"quantize_delta_zigzag{part}_kernel"], traced[f"quantize_delta_zigzag{part}"] = (
-            kernel_only_ms(torch, lambda: pk.fused_quantize_delta_zigzag(xm, inv),
-                           WRAPPER_KERNELS["quantize_delta_zigzag"], K3_PROFILED_LAUNCHES))
+        bounds = pk.geometry_minmax(a, dev_mask)
+        for key, fn, twin, names in (
+            ("quantize_delta_zigzag", lambda: pk.fused_quantize_delta_zigzag(xm, inv),
+             lambda: pk.fused_quantize_delta_zigzag_plain(xm, inv), (K3_KERNEL_NAME,)),
+            ("geometry_stage", lambda: pk.geometry_quantize_stage(a, dev_mask, bits),
+             lambda: pk.geometry_quantize_stage_plain(a, dev_mask, bits), STAGE_KERNEL_NAMES),
+            ("geometry_minmax", lambda: pk.geometry_minmax(a, dev_mask),
+             lambda: pk.geometry_minmax_plain(a, dev_mask), (MINMAX_KERNEL_NAME,)),
+            ("quantize_from_bounds", lambda: pk.quantize_from_bounds(a, dev_mask, *bounds, bits),
+             lambda: pk.quantize_from_bounds_plain(a, dev_mask, *bounds, bits),
+             (K3_KERNEL_NAME,)),
+        ):
+            ms[f"{key}{part}"] = median_cuda_ms(fn, REPS)
+            ms[f"{key}{part}_plain"] = median_cuda_ms(twin, REPS)
+            with cuda_timer() as t:
+                for _ in range(K3_PROFILED_LAUNCHES):
+                    fn()
+            ms[f"{key}{part}_in_loop"] = t.ms / K3_PROFILED_LAUNCHES
+            ms[f"{key}{part}_kernel"], traced[f"{key}{part}"] = kernel_only_ms(
+                torch, fn, names, K3_PROFILED_LAUNCHES)
+    # the stage's kernels on the positions with the 50 MB L2 cache overwritten
+    # before each call (K3 then finds what the minimum/maximum just read), and
+    # what the event pair around an empty call reads: the floor under every
+    # per-call figure
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def stage_cold():
+        flush.zero_()
+        return pk.geometry_quantize_stage(dev_pos, dev_mask, 11)
+
+    for key, name in (("geometry_minmax", MINMAX_KERNEL_NAME),
+                      ("quantize_from_bounds", K3_KERNEL_NAME)):
+        ms[f"{key}_kernel_l2_cold"], _ = kernel_only_ms(torch, stage_cold, (name,))
+    del flush
+    ms["event_pair_floor"] = median_cuda_ms(lambda: None, REPS)
     ms["device_chain"] = median_cuda_ms(device_chain, REPS)
     ms["host_encode"] = median_cuda_ms(encode_all, REPS)
     ms["host_decode"] = median_cuda_ms(lambda: decode_all(blobs, tex_blob), REPS)
@@ -838,18 +990,25 @@ def main() -> int:
     }
     profile = {}
     for name, fn in stages.items():
-        with device_trace() as prof:
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) * 1e3
-        by_name = device_time_ms(prof)
-        kinds = {"h2d": 0.0, "d2h": 0.0, "k3_kernel": 0.0, "etc1_kernels": 0.0,
-                 "etc1s_kernels": 0.0, "other": 0.0}
+        for attempt in range(TRACE_ATTEMPTS):
+            with device_trace() as prof:
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t) * 1e3
+            by_name = device_time_ms(prof)
+            if by_name:
+                break
+            TRACES_RETAKEN.append([name])
+            emit({"phase": "trace_retaken", "attempt": attempt + 1, "missing": [name]})
+        check(by_name, f"the profiler saw no device event of {name}")
+        kinds = {"h2d": 0.0, "d2h": 0.0, "k3_kernel": 0.0, "minmax_kernel": 0.0,
+                 "etc1_kernels": 0.0, "etc1s_kernels": 0.0, "other": 0.0}
         for k, v in by_name.items():
             kind = ("h2d" if k.startswith("Memcpy HtoD") else
                     "d2h" if k.startswith("Memcpy DtoH") else
                     "k3_kernel" if K3_KERNEL_NAME in k else
+                    "minmax_kernel" if MINMAX_KERNEL_NAME in k else
                     "etc1_kernels" if "etc1_" in k else
                     "etc1s_kernels" if any(kn in k for kn in ETC1S_KERNEL_NAMES) else "other")
             kinds[kind] += v
@@ -859,7 +1018,8 @@ def main() -> int:
             "wall_ms": wall, "device_ms": kinds, "device_busy_share": busy / wall,
             "host_ms": wall - busy, "top": [[k[:80], v] for k, v in top],
         }
-    emit({"phase": "profile", "stages": profile, "total_s": time.perf_counter() - t_start})
+    emit({"phase": "profile", "stages": profile, "traces_retaken": TRACES_RETAKEN,
+          "total_s": time.perf_counter() - t_start})
 
     # ---- 7. the kernels line: main-path launches, parity, times, bounds -------
     nb = F * (H // 4) * (W // 4)  # K1/K2: 32 layers of 1024^2
@@ -872,9 +1032,15 @@ def main() -> int:
                         OPS["etc1_encode"] * nb, INT_OPS_PER_S),
         "etc1_decode": ("etc1.cu", "codecs/basis/etc_pallas.py:350", nb * 8 + nb * 48,
                         OPS["etc1_decode"] * nb * 16, INT_OPS_PER_S),
+        # K3 as the main path calls it: the attributes, the mask and the bounds in,
+        # the symbols and the range out
         "quantize_delta_zigzag": ("geometry.cu", "ops/pallas_kernels.py:68",
-                                  nq * 4 + F * 4 + nq * 4,
+                                  nq * 4 + F * N + 2 * F * 3 * 4 + nq * 4 + F * 4,
                                   OPS["quantize_delta_zigzag"] * nq, INT_OPS_PER_S),
+        # the reference's masked minimum and maximum are XLA reductions, not a Pallas site
+        "geometry_minmax": ("geometry.cu", "models/sequence.py:146-151",
+                            nq * 4 + F * N + 2 * F * 3 * 4,
+                            OPS["geometry_minmax"] * nq, INT_OPS_PER_S),
         "etc1s_assign_endpoints": ("etc1s.cu", "codecs/basis/etc1s_pallas.py:149",
                                    ne * 48 + e * 80 + ne * 4,
                                    OPS["etc1s_assign_endpoints"] * ne * e, INT_OPS_PER_S),
@@ -890,23 +1056,27 @@ def main() -> int:
                               OPS["etc1s_segment_sum"] * sn * sd, F32_FLOP_PER_S),
     }
     attrs = _build.kernel_attrs()
-    for fn in ("etc1_encode_kernel", "etc1_decode_kernel", "inten_errors_kernel"):
+    for fn in ("etc1_encode_kernel", "etc1_decode_kernel", "inten_errors_kernel",
+               *STAGE_KERNEL_NAMES):
         check(attrs[fn]["stack_bytes"] == 0, f"{fn} uses stack memory")
+    # K3's times are those of the call the main path makes (offsets taken in)
+    timed_as = {"quantize_delta_zigzag": "quantize_from_bounds"}
     rows = []
     for name, (src, replaces, nbytes, ops, rate) in work.items():
         bound_ms, bound_by = bound(nbytes, ops, rate)
+        timed = timed_as.get(name, name)
         rows.append({
             "name": name, "route": "cuda", "source": f"uvol_tpu_torch/csrc/{src}",
             "replaces": f"uvol_tpu/{replaces}", "launches": launches[name],
-            "max_abs_err": err[name], "ms": ms[name], "plain_ms": ms[name + "_plain"],
+            "max_abs_err": err[name], "ms": ms[timed], "plain_ms": ms[timed + "_plain"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             # index_add_ for the segment sum; no single PyTorch call computes
-            # any of the other six
+            # any of the others (none takes a mask, or sums in a fixed order)
             "library_ms": ms.get(name + "_library"),
-            "kernel_ms": ms[name + "_kernel"],
+            "kernel_ms": ms[timed + "_kernel"],
             "kernel_attrs": {fn: attrs[fn] for fn in WRAPPER_KERNELS[name]},
         })
-    check_full_f32(torch)
+    check_full_f32()
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": rows})
     check_no_jax_loaded()

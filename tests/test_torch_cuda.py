@@ -114,7 +114,7 @@ def _offsets(f: int, c: int, n: int, seed: int):
     r = np.random.default_rng(seed)
     x = torch.from_numpy((r.normal(size=(f, c, n)) * 3).astype(np.float32))
     mask = torch.from_numpy(np.arange(n)[None, :] < np.array([n] + [n - 5] * (f - 1))[:, None])
-    xm, inv, _, _ = tseq.quantize_offsets(x, 11, mask)
+    xm, inv, _, _ = pallas_kernels.quantize_offsets(x, 11, mask)
     half = ((np.arange(n) % 2047 + 0.5) / np.float64(inv[0])).astype(np.float32)
     steps = (np.arange(n) % 3 - 1).astype(np.int32)
     xm[0, 0] = torch.from_numpy((half.view(np.int32) + steps).view(np.float32))
@@ -139,10 +139,62 @@ def test_geometry_codec_on_card_matches_cpu(card):
     counts = np.array([5000, 4000, 4999])
     faces = [r.integers(0, 4000, (3000, 3)).astype(np.int32) for _ in range(3)]
     fs = tseq.GeometryFrameSet(pos, uv, counts, faces)
-    before = pallas_kernels.LAUNCHES["quantize_delta_zigzag"]
+    before = dict(pallas_kernels.LAUNCHES)
     blobs = tseq.GeometrySequenceCodec(device="cuda").encode(fs)
-    assert pallas_kernels.LAUNCHES["quantize_delta_zigzag"] == before + 2
+    assert pallas_kernels.LAUNCHES == {k: v + 2 for k, v in before.items()}
     assert blobs == tseq.GeometrySequenceCodec(device="cpu").encode(fs)
+
+
+def _stage_inputs(f: int, c: int, n: int, seed: int):
+    """A planar batch with ragged counts (one frame full, one of a single
+    vertex), a frame of equal values, and rows whose minimum is both
+    zeros, in both orders."""
+    r = np.random.default_rng(seed)
+    x = (r.normal(size=(f, c, n)) * 11).astype(np.float32)
+    counts = r.integers(1, n + 1, f)
+    counts[0] = n
+    if f > 1:
+        counts[1] = 1
+    if f > 2:
+        x[2] = 1.5
+    if n >= 3:
+        x[0] = np.abs(x[0]) + 1
+        x[0, 0, [0, n - 1]] = 0.0, -0.0
+        x[0, 1, [0, n - 1]] = -0.0, 0.0
+    return torch.from_numpy(x), torch.from_numpy(np.arange(n)[None, :] < counts[:, None])
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("f,c,n", [(1, 3, 1), (3, 2, 5), (3, 3, 1023), (4, 2, 1024), (3, 3, 1025),
+                                   (4, 3, 26145), (32, 2, 26145), (2, 3, 26144)])
+def test_geometry_stage_kernels_match_twin(card, f, c, n, offset):
+    """syms, min and range bit for bit (the sign of a zero minimum too),
+    two launches; `offset` 1 puts the batch 4 bytes off a 16-byte boundary
+    (K3's scalar loads and stores)."""
+    x, mask = _stage_inputs(f, c, n, seed=n + f + c)
+    flat = torch.zeros(x.numel() + offset)
+    flat[offset:] = x.reshape(-1)
+    xd = flat.to(card)[offset:].view(f, c, n)
+    assert xd.data_ptr() % 16 == 4 * offset
+    before = dict(pallas_kernels.LAUNCHES)
+    got = pallas_kernels.geometry_quantize_stage(xd, mask.to(card), 11)
+    torch.cuda.synchronize()
+    assert pallas_kernels.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    twins = (pallas_kernels.geometry_quantize_stage_plain(x, mask, 11),
+             pallas_kernels.geometry_quantize_stage_plain(xd, mask.to(card), 11))
+    for want in twins:
+        for g, w, name in zip(got, want, ("syms", "min", "range")):
+            np.testing.assert_array_equal(g.cpu().numpy().view(np.int32),
+                                          w.cpu().numpy().view(np.int32), err_msg=name)
+
+
+def test_geometry_stage_kernels_on_a_frame_without_a_valid_vertex(card):
+    x, mask = _stage_inputs(3, 3, 700, seed=2)
+    mask[1] = False
+    got = pallas_kernels.geometry_quantize_stage(x.to(card), mask.to(card), 10)
+    torch.cuda.synchronize()
+    for g, w in zip(got, pallas_kernels.geometry_quantize_stage_plain(x, mask, 10)):
+        np.testing.assert_array_equal(g.cpu().numpy().view(np.int32), w.numpy().view(np.int32))
 
 
 # ---- ETC1S palette-build kernels K4-K6 ------------------------------------
@@ -331,9 +383,47 @@ def test_etc1s_inten_errors_kernel_takes_blocks_off_a_16_byte_boundary(card):
         etc1s_cuda.inten_errors_plain(flat[4:].view(300, 16, 3), base).numpy())
 
 
+# ---- above the row limit ------------------------------------------------------------
+
+
+def test_segment_sum_and_kmeans_above_the_row_limit_match_twins(card, monkeypatch):
+    """The limit passed down small: the card sums chunks of so many rows
+    and adds them in the twin's order, bit for bit."""
+    monkeypatch.setattr(etc1s_cuda, "SEG_MAX_ROWS", 2048)
+    idx, x = _seg_inputs(7001, 256, 9, 5)
+    before = etc1s_cuda.LAUNCHES["etc1s_segment_sum"]
+    got = etc1s_cuda.segment_sum(idx.to(card), 256, x.to(card))
+    torch.cuda.synchronize()
+    assert etc1s_cuda.LAUNCHES["etc1s_segment_sum"] == before + 4  # one per chunk
+    want = etc1s_cuda.segment_sum_plain(idx, 256, x)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.int32), want.numpy().view(np.int32))
+    r = np.random.default_rng(8)
+    feats = torch.from_numpy((r.random((7001, 4)) * 255).astype(np.float32))
+    cb = feats[torch.from_numpy(r.integers(0, 7001, 64))] + 0.5
+    got = etc1s_cuda.kmeans_iter(feats.to(card), cb.to(card))
+    torch.cuda.synchronize()
+    for g, w in zip(got, etc1s_cuda.kmeans_iter_plain(feats, cb)):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+def test_palette_core_on_card_refuses_tf32(card):
+    from uvol_tpu_torch.codecs.basis.etc1s_encode import palette_core
+
+    blocks = torch.from_numpy(_blocks()[:256].reshape(256, 16, 3)).to(card)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            palette_core(blocks, 16, 16, 2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+    assert len(palette_core(blocks, 16, 16, 2)) == 5
+
+
 def test_redesigned_kernels_use_no_stack(card):
     from uvol_tpu_torch import _build
 
     attrs = _build.kernel_attrs()
-    for fn in ("etc1_encode_kernel", "etc1_decode_kernel", "inten_errors_kernel"):
+    for fn in ("etc1_encode_kernel", "etc1_decode_kernel", "inten_errors_kernel",
+               "geometry_minmax_kernel", "quantize_delta_zigzag_kernel"):
         assert attrs[fn]["stack_bytes"] == 0, (fn, attrs[fn])

@@ -165,6 +165,113 @@ def test_segment_sum_takes_its_documented_order(n):
     np.testing.assert_array_equal(got.numpy(), tiles[0])
 
 
+def _order_inputs(n: int, k: int, d: int, seed: int):
+    """Values over many magnitudes, so every change of order shows."""
+    r = np.random.default_rng(seed)
+    idx = torch.from_numpy(r.integers(0, k, n))
+    x = r.normal(size=(n, d)) * 10.0 ** r.integers(-3, 8, (n, d))
+    x[r.random((n, d)) < 0.1] = -0.0
+    return idx, torch.from_numpy(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("n,rows", [(1000, 128), (1000, 999), (1025, 512), (257, 64), (130, 1)])
+def test_segment_sum_above_the_row_limit_adds_chunk_sums_in_order(n, rows):
+    """Above the limit the sum is ((S0 + S1) + S2) + ... over consecutive
+    chunks of `rows` rows, each chunk summed as a whole input is; the
+    limit is passed down small. Bits, signed zeros included."""
+    k, d = 5, 3
+    idx, x = _order_inputs(n, k, d, n + rows)
+    got = kern.segment_sum_plain(idx, k, x, _chunk_rows=rows)
+    acc = None
+    for a in range(0, n, rows):
+        part = kern.segment_sum_plain(idx[a:a + rows], k, x[a:a + rows])
+        acc = part if acc is None else acc + part
+    np.testing.assert_array_equal(got.numpy().view(np.int32), acc.numpy().view(np.int32))
+
+
+def test_segment_sum_chunk_order_is_another_order_than_the_whole_sum():
+    """(2^24 + 1) + 1 = 2^24 across the chunk seam at row 96, where the
+    whole sum adds 2^24 + (1 + 1): the row limit decides the bits."""
+    x = torch.zeros((128, 1))
+    x[0], x[64], x[96] = 2.0 ** 24, 1.0, 1.0
+    idx = torch.zeros(128, dtype=torch.int64)
+    assert float(kern.segment_sum_plain(idx, 1, x)) == 2.0 ** 24 + 2
+    assert float(kern.segment_sum_plain(idx, 1, x, _chunk_rows=96)) == 2.0 ** 24
+
+
+@pytest.mark.parametrize("n,rows", [(64, 64), (1000, 1000), (1000, 1 << 24)])
+def test_segment_sum_at_or_below_the_row_limit_is_unchanged(n, rows):
+    idx, x = _order_inputs(n, 5, 3, n)
+    np.testing.assert_array_equal(
+        kern.segment_sum_plain(idx, 5, x, _chunk_rows=rows).numpy().view(np.int32),
+        kern.segment_sum_plain(idx, 5, x).numpy().view(np.int32))
+
+
+def test_kmeans_iter_above_the_row_limit_sums_its_chunks_in_the_same_order(monkeypatch):
+    """K6's twin sums through the segment sum, so above the limit its sums
+    and counts are the chunk sums added in order; its assignments do not
+    depend on the limit."""
+    r = np.random.default_rng(21)
+    feats = torch.from_numpy((r.random((700, 4)) * 255 * 10.0 ** r.integers(-2, 3, (700, 4)))
+                             .astype(np.float32))
+    cb = feats[torch.from_numpy(r.integers(0, 700, 6))] + 0.5
+    whole = kern.kmeans_iter(feats, cb)
+    monkeypatch.setattr(kern, "SEG_MAX_ROWS", 250)
+    sums, counts, assign = kern.kmeans_iter(feats, cb)
+    assert torch.equal(assign, whole[2])
+    ones = torch.cat([feats, feats.new_ones((700, 1))], 1)
+    acc = None
+    for a in range(0, 700, 250):
+        part = kern.segment_sum_plain(assign[a:a + 250], 6, ones[a:a + 250])
+        acc = part if acc is None else acc + part
+    assert torch.equal(sums, acc[:, :4]) and torch.equal(counts, acc[:, 4])
+    assert torch.equal(counts, whole[1]) and not torch.equal(sums, whole[0])
+
+
+def test_row_chunks_cover_the_rows_once():
+    assert kern._row_chunks(10, 4) == [(0, 4), (4, 8), (8, 10)]
+    assert kern._row_chunks(8, 4) == [(0, 4), (4, 8)]
+    assert kern._row_chunks((1 << 24) + 1, 1 << 24) == [(0, 1 << 24), (1 << 24, (1 << 24) + 1)]
+
+
+def test_palette_core_refuses_tf32():
+    """The selector errors are exact only in full float32: a caller that
+    switched TF32 on after the import gets an error, not other argmins."""
+    from uvol_tpu_torch._device import require_full_f32
+
+    blocks = torch.from_numpy(_blocks(64, 1))
+    require_full_f32()
+    try:
+        torch.set_float32_matmul_precision("high")
+        with pytest.raises(RuntimeError, match="allow_tf32|float32_matmul_precision"):
+            require_full_f32()
+        with pytest.raises(RuntimeError, match="allow_tf32|float32_matmul_precision"):
+            tenc.palette_core(blocks, 8, 8, 2)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="cudnn.allow_tf32"):
+            require_full_f32()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    require_full_f32()
+    assert len(tenc.palette_core(blocks, 8, 8, 2)) == 5
+
+
+@pytest.mark.parametrize("arg", ["num_endpoints", "num_selectors"])
+def test_build_palettes_names_the_entry_limit_at_its_top(arg, monkeypatch):
+    """More entries than the kernels take: refused before any work, with
+    the limit and the argument named."""
+    frames = np.zeros((1, 192, 192, 3), np.uint8)  # 2,304 blocks
+    monkeypatch.setattr(tenc, "palette_core", lambda *a, **k: pytest.fail("work was started"))
+    kw = {"num_endpoints": 64, "num_selectors": 64, arg: kern.SEG_MAX_K + 1}
+    with pytest.raises(ValueError, match=rf"{arg}=2049 exceeds the 2048"):
+        tenc.build_palettes(frames, device="cpu", **kw)
+    with pytest.raises(ValueError, match=rf"{arg}=2049 exceeds the 2048"):
+        tenc.encode_ktx2_etc1s(frames, device="cpu", delta_window=0, **kw)
+
+
 def test_kernel_wrappers_refuse_other_devices_and_layouts():
     meta = torch.empty((4, 16, 3), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="device"):

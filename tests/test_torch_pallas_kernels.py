@@ -1,11 +1,15 @@
-"""K3, the fused quantize + delta + zigzag, against the JAX package (CPU).
+"""K3, the fused quantize + delta + zigzag, and the geometry encode's whole
+device stage (`geometry_quantize_stage`) against the JAX package (CPU).
 
 The port's plain twin (`fused_quantize_delta_zigzag_plain`, what a CPU
 tensor runs) is held against the Pallas kernel in interpret mode, as
 tests/test_pallas_parity.py runs it, and against the symbols of the JAX
 codec's own device stage (`GeometrySequenceCodec._encode_device`). The
 symbols are integers: the tolerance is 0. The CUDA kernel is held against
-the twin on the card (tests/test_torch_cuda.py, chip_smoke.py).
+the twin on the card (tests/test_torch_cuda.py, chip_smoke.py). The
+stage's twin (symbols, per-row minimum, per-frame range) is held bit for
+bit against the JAX codec's `_syms`, the sign of a zero minimum included:
+the minimum is written onto the wire as its bits.
 
 XLA on the CPU compiles `floor(xm * inv + 0.5)` into one fused
 multiply-add: always in the Pallas kernel, and in the codec's loop too
@@ -65,7 +69,7 @@ def _planar(f, c, n, seed):
     counts = np.maximum(1, n - r.integers(0, max(1, n // 3), f))
     counts[0] = n
     mask = np.arange(n)[None, :] < counts[:, None]
-    xm, inv, _, _ = tseq.quantize_offsets(
+    xm, inv, _, _ = pk.quantize_offsets(
         torch.from_numpy(x), 11, torch.from_numpy(mask))
     return xm.numpy(), inv.numpy(), counts
 
@@ -178,7 +182,7 @@ def test_twin_symbols_match_jax_codec_device_stage(f, boundary):
         ok = g == w
         ok[0] |= _split_positions(arr[0], inv[0]) if boundary else False
         assert ok.all(), (k, np.argwhere(~ok)[:5])
-        xm = tseq.quantize_offsets(torch.from_numpy(arr), bits, torch.from_numpy(mask))[0]
+        xm = pk.quantize_offsets(torch.from_numpy(arr), bits, torch.from_numpy(mask))[0]
         np.testing.assert_array_equal(g, _jax_k3(xm.numpy(), inv), err_msg=k)
     if boundary and f == 1:
         np.testing.assert_array_equal(got["uv_syms"].numpy().view(np.uint32),
@@ -198,3 +202,102 @@ def test_wrapper_checks_and_counts_no_cpu_launch():
     with pytest.raises(ValueError, match="device"):
         pk.fused_quantize_delta_zigzag(torch.zeros((2, 3, 4), device="meta"),
                                        torch.ones(2, device="meta"))
+
+
+# ---- the whole stage: minimum/maximum, range, offsets, K3 -----------------------
+
+
+def _stage_batch(kind: str):
+    """Planar positions [F, 3, N], UVs [F, 2, N] and mask [F, N] for one
+    of the stage's corner cases."""
+    r = np.random.default_rng(sorted(STAGE_CASES).index(kind))
+    f, n = 4, 1500
+    pos = (r.normal(size=(f, 3, n)) * 9).astype(np.float32)
+    uv = r.uniform(size=(f, 2, n)).astype(np.float32)
+    counts = np.array([n, n - 1, n // 3, 17])
+    if kind == "count_one":
+        counts = np.array([1, n, 1, 2])
+    elif kind == "equal_values":  # a frame of one point: range 0 -> 1
+        pos[1], uv[1] = 2.75, 0.5
+        pos[2, :, : counts[2]] = -1.0  # equal on the valid vertices only
+    elif kind.startswith("zeros"):
+        # the minimum of a row is zero, and the row holds both zeros; the
+        # other valid values are positive, the padded ones are not
+        pos, uv = np.abs(pos) + 0.5, np.abs(uv) + 0.5
+        first, second = (0.0, -0.0) if kind == "zeros_plus_first" else (-0.0, 0.0)
+        for arr in (pos, uv):
+            for i, cnt in enumerate(counts):
+                a, b = sorted(r.choice(cnt, 2, replace=False))
+                arr[i, :, a], arr[i, :, b] = first, second
+                arr[i, 1, a] = arr[i, 1, b] = first  # one sign only in component 1
+                arr[i, :, cnt:] = -3.0
+    mask = np.arange(n)[None, :] < counts[:, None]
+    return pos, uv, mask
+
+
+STAGE_CASES = ("ragged", "count_one", "equal_values", "zeros_plus_first", "zeros_minus_first")
+
+
+@pytest.mark.parametrize("kind", STAGE_CASES)
+def test_stage_twin_matches_jax_codec_syms_bit_for_bit(kind):
+    """syms, min and range of the stage's twin equal the JAX codec's
+    `_syms`, as its `_encode_device` runs it: tolerance 0, compared as
+    bits (a zero minimum is -0.0 wherever the row holds one)."""
+    pos, uv, mask = _stage_batch(kind)
+    jc = jseq.GeometrySequenceCodec(position_bits=11, uv_bits=10)
+    want = jc._encode_device(jnp.asarray(pos), jnp.asarray(uv), jnp.asarray(mask))
+    for name, arr, bits in (("pos", pos, 11), ("uv", uv, 10)):
+        syms, mn, rng = pk.geometry_quantize_stage(
+            torch.from_numpy(arr), torch.from_numpy(mask), bits)
+        assert syms.dtype == torch.int32
+        for got, key in ((syms, "_syms"), (mn, "_min"), (rng, "_range")):
+            w = np.asarray(want[name + key])
+            np.testing.assert_array_equal(got.numpy().view(np.uint32), w.view(np.uint32),
+                                          err_msg=f"{kind} {name}{key}")
+    if kind.startswith("zeros"):
+        mn = pk.geometry_quantize_stage(torch.from_numpy(pos), torch.from_numpy(mask), 11)[1]
+        assert np.signbit(mn.numpy()[:, [0, 2]]).all()  # both zeros in the row: -0.0
+        assert (np.signbit(mn.numpy()[:, 1]) == (kind == "zeros_minus_first")).all()
+    if kind == "equal_values":
+        rng = pk.geometry_quantize_stage(torch.from_numpy(pos), torch.from_numpy(mask), 11)[2]
+        np.testing.assert_array_equal(rng.numpy()[1:3], [1.0, 1.0])
+
+
+def test_stage_twin_is_quantize_offsets_then_k3_twin():
+    pos, _, mask = _stage_batch("ragged")
+    xt, m = torch.from_numpy(pos), torch.from_numpy(mask)
+    xm, inv, mn, rng = pk.quantize_offsets(xt, 11, m)
+    syms, mn2, rng2 = pk.geometry_quantize_stage_plain(xt, m, 11)
+    assert torch.equal(syms, pk.fused_quantize_delta_zigzag_plain(xm, inv))
+    assert torch.equal(mn, mn2) and torch.equal(rng, rng2)
+    got = tseq.encode_device(xt, None, m, 11, 10)  # the codec's stage is this entry
+    assert torch.equal(got["pos_syms"], syms) and torch.equal(got["pos_min"], mn)
+
+
+def test_stage_gives_float_max_for_a_frame_without_a_valid_vertex():
+    pos, _, mask = _stage_batch("ragged")
+    mask[2] = False
+    syms, mn, rng = pk.geometry_quantize_stage(torch.from_numpy(pos), torch.from_numpy(mask), 11)
+    big = np.finfo(np.float32).max
+    np.testing.assert_array_equal(mn.numpy()[2], [big] * 3)
+    assert rng.numpy()[2] == 1.0 and not syms[2].any()
+
+
+def test_stage_wrapper_checks_and_counts_no_cpu_launch():
+    pos, _, mask = _stage_batch("ragged")
+    xt, m = torch.from_numpy(pos), torch.from_numpy(mask)
+    before = dict(pk.LAUNCHES)
+    pk.geometry_quantize_stage(xt, m, 11)
+    assert pk.LAUNCHES == before and set(before) == {"geometry_minmax", "quantize_delta_zigzag"}
+    with pytest.raises(ValueError, match="float32"):
+        pk.geometry_quantize_stage(xt.double(), m, 11)
+    with pytest.raises(ValueError, match="mask"):
+        pk.geometry_quantize_stage(xt, m[:, :-1], 11)
+    with pytest.raises(ValueError, match="mask"):
+        pk.geometry_quantize_stage(xt, m.to(torch.uint8), 11)
+    with pytest.raises(ValueError, match="bits"):
+        pk.geometry_quantize_stage(xt, m, 31)
+    with pytest.raises(ValueError, match="device"):
+        pk.geometry_quantize_stage(xt.to("meta"), m.to("meta"), 11)
+    f0 = pk.geometry_quantize_stage(xt[:0], m[:0], 11)  # an empty batch
+    assert [tuple(t.shape) for t in f0] == [(0, 3, 1500), (0, 3), (0,)]

@@ -42,6 +42,59 @@ def test_quantize_matches_jax(masked, bits):
     np.testing.assert_array_equal(out.range_value.numpy(), np.asarray(ref.range_value))
 
 
+def test_quantize_with_a_given_transform_matches_jax():
+    """`min_value=`/`range_value=` skip the transform, as in the reference
+    (the inputs of tests/test_pallas_parity.py's K3 test): tolerance 0."""
+    r = np.random.default_rng(0)
+    f, n, c = 3, 1300, 3
+    x = (r.normal(size=(f, n, c)) * 50).astype(np.float32)
+    mask = np.arange(n)[None, :] < np.array([1300, 900, 1111])[:, None]
+    mn, rng = jq.compute_quantization_transform(jnp.asarray(x), jnp.asarray(mask))
+    ref = jq.quantize(jnp.asarray(x), 11, mask=jnp.asarray(mask), min_value=mn, range_value=rng)
+    tmn, trng = tq.compute_quantization_transform(torch.from_numpy(x), torch.from_numpy(mask))
+    np.testing.assert_array_equal(tmn.numpy(), np.asarray(mn))
+    np.testing.assert_array_equal(trng.numpy(), np.asarray(rng))
+    out = tq.quantize(torch.from_numpy(x), 11, mask=torch.from_numpy(mask),
+                      min_value=tmn, range_value=trng)
+    np.testing.assert_array_equal(out.values.numpy(), np.asarray(ref.values))
+    assert out.min_value is tmn and out.range_value is trng
+    # a transform that is not the data's own: another frame's, and half the range
+    other_mn, other_rng = np.asarray(mn)[::-1].copy(), np.asarray(rng) * np.float32(0.5)
+    ref = jq.quantize(jnp.asarray(x), 10, mask=jnp.asarray(mask),
+                      min_value=jnp.asarray(other_mn), range_value=jnp.asarray(other_rng))
+    out = tq.quantize(torch.from_numpy(x), 10, mask=torch.from_numpy(mask),
+                      min_value=torch.from_numpy(other_mn),
+                      range_value=torch.from_numpy(other_rng))
+    np.testing.assert_array_equal(out.values.numpy(), np.asarray(ref.values))
+    # one of the two alone is ignored, as in the reference
+    alone = tq.quantize(torch.from_numpy(x), 11, mask=torch.from_numpy(mask),
+                        min_value=torch.from_numpy(other_mn))
+    np.testing.assert_array_equal(alone.min_value.numpy(), np.asarray(mn))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("minus_first", [False, True])
+def test_zero_minimum_takes_the_sign_the_reference_gives_it(masked, minus_first):
+    """A row whose minimum is zero and which holds both zeros: XLA's
+    minimum is -0.0 whatever their order, and the port's follows it (the
+    minimum is written to the wire as bits)."""
+    r = np.random.default_rng(9)
+    x = (np.abs(r.normal(size=(3, 400, 3))) + 1).astype(np.float32)
+    a, b = (-0.0, 0.0) if minus_first else (0.0, -0.0)
+    x[:, 5, :], x[:, 250, :] = a, b
+    x[:, 5, 1] = x[:, 250, 1] = 0.0  # +0.0 only in component 1
+    mask = np.arange(400)[None, :] < np.array([400, 300, 251])[:, None]
+    if masked:
+        x[1, 300:], x[2, 251:] = -5.0, -0.0  # padded rows count for nothing
+    jm = jnp.asarray(mask) if masked else None
+    tm = torch.from_numpy(mask) if masked else None
+    mn, rng = jq.compute_quantization_transform(jnp.asarray(x), jm)
+    tmn, trng = tq.compute_quantization_transform(torch.from_numpy(x), tm)
+    np.testing.assert_array_equal(tmn.numpy().view(np.uint32), np.asarray(mn).view(np.uint32))
+    np.testing.assert_array_equal(trng.numpy(), np.asarray(rng))
+    assert np.signbit(tmn.numpy()[:, [0, 2]]).all() and not np.signbit(tmn.numpy()[:, 1]).any()
+
+
 def test_degenerate_frame_range_is_one():
     x = np.ones((2, 5, 3), np.float32)
     _, rng = tq.compute_quantization_transform(torch.from_numpy(x))

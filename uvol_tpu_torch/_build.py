@@ -126,7 +126,8 @@ def get_lib() -> ctypes.CDLL:
                 "uvt_etc1s_assign_endpoints": [vp, vp, vp, ci, ci, vp],
                 "uvt_etc1s_kmeans_iter": [vp, vp, ci, ci, vp, vp, vp, vp],
                 "uvt_etc1s_segment_sum": [vp, vp, ci, ci, ci, vp, vp, vp],
-                "uvt_quantize_delta_zigzag": [vp, vp, vp, ci, ci, ci, vp],
+                "uvt_geometry_minmax": [vp, vp, vp, vp, ci, ci, ci, vp],
+                "uvt_quantize_delta_zigzag": [vp, vp, vp, vp, vp, ci, vp, vp, ci, ci, ci, vp],
             }
             attrs = [ci, ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_char_p)]
             signatures.update({fn: attrs for fn in _FUNC_ATTRS})

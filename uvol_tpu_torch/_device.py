@@ -8,7 +8,9 @@ points run on the card unless the caller names the CPU.
 
 Importing this module pins float32 matmuls and convolutions to full
 precision: the reference runs its matmuls at `Precision.HIGHEST`, and on
-Hopper both TF32 paths would keep only ~3 decimal digits.
+Hopper both TF32 paths would keep only ~3 decimal digits. A caller can
+switch them back on afterwards, so code that relies on exact float32
+products calls `require_full_f32()` first.
 
 Divisions with a Python-number operand go through `true_div`: PyTorch
 computes `scalar / tensor` as `reciprocal(tensor) * scalar`, and on CUDA
@@ -44,6 +46,23 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r}")
     return dev
+
+
+def require_full_f32() -> None:
+    """Raise unless float32 matmuls and convolutions still run in full
+    float32 (the three switches this module sets at import). Host reads
+    only: nothing is synchronised."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 is True: the port's float32 "
+                           "products must be exact (set it to False)")
+    if torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("torch.backends.cudnn.allow_tf32 is True: the port runs float32 "
+                           "in full precision (set it to False)")
+    precision = torch.get_float32_matmul_precision()
+    if precision != "highest":
+        raise RuntimeError(f"torch.get_float32_matmul_precision() is {precision!r}: the port's "
+                           "float32 products must be exact "
+                           "(torch.set_float32_matmul_precision('highest'))")
 
 
 def true_div(a, b) -> Tensor:

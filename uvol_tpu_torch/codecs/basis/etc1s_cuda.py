@@ -15,6 +15,12 @@ tensor decides the route:
 Each wrapper call that launches adds one to `LAUNCHES[name]` (K6 and
 `segment_sum` are two kernels each); twin calls are not counted.
 
+The kernels take at most `SEG_MAX_ROWS` rows a launch. Above that,
+`segment_sum` and `kmeans_iter` (kernel and twin alike) sum consecutive
+chunks of `SEG_MAX_ROWS` rows and add the chunk results in order, first
+to last; at or below it nothing is chunked. `SEG_MAX_K` segments or
+centroids is the limit of both routes.
+
 K4 and K5 are exact integer arithmetic (the TPU kernels' f32 terms are
 all integers below 2^24), so kernel, twin and TPU kernel agree bit for
 bit, argmin ties included (first minimum). K6 is f32: its distances keep
@@ -31,7 +37,8 @@ upload the palette build makes once per segment.
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Iterable, List, Optional, Tuple
 
 import torch
 
@@ -58,7 +65,8 @@ SEG_TILE = 64
 SEG_CHUNK_TILES = 16
 #: most segments the kernel takes (its shared-memory map); K6's centroids
 SEG_MAX_K = KMEANS_MAX_K = 2048
-#: most rows the kernel takes (pass 2 reduces at most 64 x 256 chunk partials)
+#: most rows one launch takes (pass 2 reduces at most 64 x 256 chunk
+#: partials); longer inputs are summed in chunks of this many rows
 SEG_MAX_ROWS = 1 << 24
 #: elements per temporary of the plain twins
 _TWIN_ELEMS = 1 << 24
@@ -67,6 +75,14 @@ _TWIN_ELEMS = 1 << 24
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def inten_tables(device: torch.device) -> Tensor:
+    """`INTEN_TABLES` as an [8, 4] int32 tensor on `device`, uploaded once
+    per device (an upload per use would be a blocking copy each); read
+    only."""
+    return torch.tensor(INTEN_TABLES, dtype=torch.int32, device=device)
 
 
 def _route(t: Tensor) -> bool:
@@ -81,6 +97,20 @@ def _route(t: Tensor) -> bool:
 def _launch(name: str, fn: str, device: torch.device, *args) -> None:
     _build.launch(fn, device, *args)
     LAUNCHES[name] += 1
+
+
+def _row_chunks(n: int, rows: int) -> List[Tuple[int, int]]:
+    """[start, stop) of the consecutive chunks of at most `rows` rows."""
+    return [(a, min(a + rows, n)) for a in range(0, n, rows)]
+
+
+def _add_in_order(parts: Iterable[Tensor]) -> Tensor:
+    """((p0 + p1) + p2) + ...: the one order in which chunk results are
+    added, on both routes. Each part must be a tensor of its own."""
+    acc = None
+    for p in parts:
+        acc = p if acc is None else acc + p
+    return acc
 
 
 def _aligned(t: Tensor) -> Tensor:
@@ -101,10 +131,15 @@ def _check_blocks(blocks: Tensor) -> None:
 # ---------------------------------------------------------------------------
 
 
-def segment_sum_plain(idx: Tensor, k: int, x: Tensor) -> Tensor:
+def segment_sum_plain(idx: Tensor, k: int, x: Tensor,
+                      _chunk_rows: Optional[int] = None) -> Tensor:
     """Plain twin of the segment-sum kernel: `out[s] = sum of x[i] over
     idx[i] == s`, x [N, D] f32, idx [N] in [0, k) → [k, D] f32, in one
     order on every device and every run.
+
+    Above `SEG_MAX_ROWS` rows (`_chunk_rows`, for the tests of that order)
+    the sum is that of consecutive chunks of so many rows, each summed as
+    below, added in order (`_add_in_order`).
 
     Rows are added in order within consecutive tiles of `SEG_TILE` rows,
     starting from 0.0; the tile partials are then added pairwise, level
@@ -113,6 +148,10 @@ def segment_sum_plain(idx: Tensor, k: int, x: Tensor) -> Tensor:
     run to run, and the cluster error sums (far above 2^24) would then
     flip argmins between runs."""
     n, d = x.shape
+    rows = SEG_MAX_ROWS if _chunk_rows is None else _chunk_rows
+    if n > rows:
+        return _add_in_order(segment_sum_plain(idx[a:b], k, x[a:b])
+                             for a, b in _row_chunks(n, rows))
     nt = max(1, -(-n // SEG_TILE))
     pad = nt * SEG_TILE - n
     idx = idx.to(torch.int64)
@@ -139,8 +178,8 @@ def segment_sum(idx: Tensor, k: int, x: Tensor) -> Tensor:
     in [0, k), k <= SEG_MAX_K, x [N, D] f32 → [k, D] f32. A CUDA tensor
     launches the kernel of `csrc/etc1s.cu` (pass 1 over chunks of
     `SEG_CHUNK_TILES` tiles, pass 2 over the chunk partials: two
-    launches whatever N), a CPU tensor takes the twin; both give the same
-    bits."""
+    launches up to `SEG_MAX_ROWS` rows, two per chunk of so many rows
+    above), a CPU tensor takes the twin; both give the same bits."""
     if x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] < 1:
         raise ValueError(f"expected [N, D] float32 values, got {tuple(x.shape)} {x.dtype}")
     if idx.ndim != 1 or idx.shape[0] != x.shape[0]:
@@ -149,11 +188,17 @@ def segment_sum(idx: Tensor, k: int, x: Tensor) -> Tensor:
         raise ValueError(f"segment_sum takes 1 <= k <= {SEG_MAX_K}, got {k}")
     if not _route(x):
         return segment_sum_plain(idx, k, x)
-    n, d = x.shape
-    if n > SEG_MAX_ROWS:
-        raise ValueError(f"segment_sum takes at most {SEG_MAX_ROWS} rows on the card, got {n}")
     x = x.contiguous()
     idx = idx.to(device=x.device, dtype=torch.int32).contiguous()
+    n = x.shape[0]
+    return _add_in_order(_segment_sum_launch(idx[a:b], k, x[a:b])
+                         for a, b in _row_chunks(max(n, 1), SEG_MAX_ROWS))
+
+
+def _segment_sum_launch(idx: Tensor, k: int, x: Tensor) -> Tensor:
+    """One launch of the segment-sum kernels: idx [N] int32, x [N, D] f32,
+    contiguous, N <= SEG_MAX_ROWS."""
+    n, d = x.shape
     chunks = max(1, -(-n // (SEG_TILE * SEG_CHUNK_TILES)))
     part = torch.empty((chunks, k, d), dtype=torch.float32, device=x.device)
     out = torch.empty((k, d), dtype=torch.float32, device=x.device)
@@ -213,7 +258,7 @@ def endpoint_table(base: Tensor, inten: Tensor) -> Tensor:
     (-2*base_r, -2*base_g, -2*base_b, 16*|base|^2). The rows of
     `etc1s_pallas.endpoint_const_rows`, transposed, as integers."""
     b = base.to(torch.int32)
-    mods = torch.tensor(INTEN_TABLES, dtype=torch.int32, device=b.device)[inten.long()]
+    mods = inten_tables(b.device)[inten.long()]
     me = torch.clamp(b[:, None, :] + mods[:, :, None], 0, 255) - b[:, None, :]  # [E,4,3]
     q = 2 * (b[:, None, :] * me).sum(-1) + (me * me).sum(-1)  # [E, 4]
     codes = torch.cat([-2 * me, q[:, :, None]], 2).reshape(-1, 16)
@@ -299,7 +344,9 @@ def kmeans_iter_plain(feats: Tensor, cb: Tensor) -> Tuple[Tensor, Tensor, Tensor
 
 def kmeans_iter(feats: Tensor, cb: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """K6: feats [N, 4] f32, cb [K, 4] f32 (K <= 2048) → (sums [K, 4],
-    counts [K], assign [N] int32)."""
+    counts [K], assign [N] int32).
+    Above `SEG_MAX_ROWS` rows: one launch per chunk of so many rows, the
+    sums and counts added in order as `segment_sum` adds them."""
     if feats.dtype != torch.float32 or feats.ndim != 2 or feats.shape[1] != 4:
         raise ValueError(f"expected [N, 4] float32 feats, got {tuple(feats.shape)} {feats.dtype}")
     if cb.ndim != 2 or cb.shape[1] != 4 or not 0 < cb.shape[0] <= KMEANS_MAX_K:
@@ -309,16 +356,24 @@ def kmeans_iter(feats: Tensor, cb: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
         raise ValueError("kmeans_iter needs at least one row")
     if not _route(feats):
         return kmeans_iter_plain(feats, cb)
+    n, dev = feats.shape[0], feats.device
+    feats = feats.contiguous()
+    cb = _aligned(cb.to(device=dev, dtype=torch.float32).contiguous())
+    assign = torch.empty(n, dtype=torch.int32, device=dev)
+    sums = _add_in_order(_kmeans_launch(feats[a:b], cb, assign[a:b])
+                         for a, b in _row_chunks(n, SEG_MAX_ROWS))
+    return sums[:, :4], sums[:, 4], assign
+
+
+def _kmeans_launch(feats: Tensor, cb: Tensor, assign: Tensor) -> Tensor:
+    """One launch of K6 on feats [N, 4] (N <= SEG_MAX_ROWS), writing
+    `assign` [N]; returns sums [K, 5] (features, then the count)."""
     n, k = feats.shape[0], cb.shape[0]
-    if n > SEG_MAX_ROWS:
-        raise ValueError(f"kmeans_iter takes at most {SEG_MAX_ROWS} rows on the card, got {n}")
-    feats = _aligned(feats.contiguous())
-    cb = _aligned(cb.to(device=feats.device, dtype=torch.float32).contiguous())
+    feats = _aligned(feats)
     chunks = -(-n // (SEG_TILE * SEG_CHUNK_TILES))
     part = torch.empty((chunks, k, 5), dtype=torch.float32, device=feats.device)
     sums = torch.empty((k, 5), dtype=torch.float32, device=feats.device)
-    assign = torch.empty(n, dtype=torch.int32, device=feats.device)
     _launch("etc1s_kmeans_iter", "uvt_etc1s_kmeans_iter", feats.device,
             feats.data_ptr(), cb.data_ptr(), n, k, part.data_ptr(),
             sums.data_ptr(), assign.data_ptr())
-    return sums[:, :4], sums[:, 4], assign
+    return sums

@@ -67,7 +67,7 @@ from uvol_tpu_torch.containers.ktx2 import (  # read_ktx2: the decode side's rea
     read_ktx2,
     write_ktx2,
 )
-from uvol_tpu_torch._device import DeviceLike, resolve_device
+from uvol_tpu_torch._device import DeviceLike, require_full_f32, resolve_device
 from uvol_tpu_torch.codecs.basis import etc1s_cuda as kern
 
 Tensor = torch.Tensor
@@ -178,13 +178,18 @@ def palette_core(
 
     blocks: [N, 16, 3] uint8 on the device that runs the build. Returns
     int32 tensors (base5 [E, 3], inten [E], sel_cb [S, 16], assign [N],
-    sel_assign [N]). Requires N >= max(E, S)."""
+    sel_assign [N]). Requires N >= max(E, S).
+
+    The selector errors and the pair refine are float32 products of
+    integers below 2^24, exact only in full float32: raises if TF32 has
+    been switched on (`_device.require_full_f32`)."""
+    require_full_f32()
     n = blocks.shape[0]
     dev = blocks.device
     e_n, s_n = num_endpoints, num_selectors
     px = blocks.to(torch.int32)
     pxf = blocks.to(torch.float32)
-    mods_e = torch.tensor(kern.INTEN_TABLES, dtype=torch.int32, device=dev)  # [8, 4]
+    mods_e = kern.inten_tables(dev)  # [8, 4]
 
     # ---- endpoint clustering in (mean color, contrast) space ------------
     feats = block_features(blocks)
@@ -328,6 +333,11 @@ def build_palettes(
     n = blocks.shape[0]
     num_endpoints = min(num_endpoints, n)
     num_selectors = min(num_selectors, n)
+    for arg, v in (("num_endpoints", num_endpoints), ("num_selectors", num_selectors)):
+        if v > kern.SEG_MAX_K:
+            raise ValueError(f"build_palettes: {arg}={v} exceeds the {kern.SEG_MAX_K} entries "
+                             "a palette may have (etc1s_cuda.SEG_MAX_K: the segments the "
+                             "segment-sum kernel and the centroids K6 take)")
     if delta_window > 0 and num_endpoints >= 512:
         raise NotImplementedError(
             "build_palettes: the delta-aware stage (delta_window > 0 with "
@@ -437,7 +447,7 @@ def _rdo_refine(dev_blocks: Tensor, dev_assign: Tensor, dev_sel_assign: Tensor,
     px = dev_blocks.reshape(f, nb, 16, 3).to(torch.int32)
     c5 = torch.from_numpy(pal.color5.astype(np.int32)).to(dev)
     base = (c5 << 3) | (c5 >> 2)
-    mods = torch.tensor(kern.INTEN_TABLES, dtype=torch.int32, device=dev)[
+    mods = kern.inten_tables(dev)[
         torch.from_numpy(pal.inten.astype(np.int64)).to(dev)]
     sel_cb = torch.from_numpy(pal.selectors.astype(np.int64)).to(dev)
     eps_in = dev_assign.reshape(f, nb).long()

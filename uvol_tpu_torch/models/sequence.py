@@ -1,9 +1,9 @@
 """Frame-sequence codecs (PyTorch) — counterpart of `uvol_tpu/models/sequence.py`.
 
   - GeometrySequenceCodec: [F, N, 3/2] attribute batches → quantize →
-    delta → zigzag on the device in the planar [F, C, N] layout (the
-    min/range reduction in plain torch, then the fused kernel K3 of
-    `ops.pallas_kernels`, or its plain twin on the CPU), rANS per frame
+    delta → zigzag on the device in the planar [F, C, N] layout
+    (`ops.pallas_kernels.geometry_quantize_stage`: two kernels per
+    attribute on the card, the plain twin on the CPU), rANS per frame
     on the host, `.uvtg` framing. Decode runs host rANS, then cumsum →
     dequantize on the device (plain torch).
   - TextureSequenceCodec: [L, H, W, 3] uint8 layers → ETC1 words
@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from uvol_tpu_torch import native
-from uvol_tpu_torch._device import DeviceLike, resolve_device, synchronize, true_div
+from uvol_tpu_torch._device import DeviceLike, resolve_device, synchronize
 from uvol_tpu_torch.codecs.basis.etc import pack_etc1_payload, unpack_etc1_payload
 from uvol_tpu_torch.codecs.basis.etc_cuda import (
     decode_etc1_images,
@@ -45,10 +45,9 @@ from uvol_tpu_torch.containers.ktx2 import (  # read_ktx2: the decode side's rea
     write_ktx2,
 )
 from uvol_tpu_torch.native import zstd
-from uvol_tpu_torch.ops.pallas_kernels import fused_quantize_delta_zigzag
+from uvol_tpu_torch.ops.pallas_kernels import geometry_quantize_stage
 from uvol_tpu_torch.ops.prediction import delta_decode
 from uvol_tpu_torch.ops.quantize import (
-    compute_quantization_transform,
     dequantize_scaled,
     symbols_from_numpy,
     symbols_to_numpy,
@@ -101,16 +100,6 @@ def bucket_frames_by_count(counts, max_waste: float = 0.25):
     return buckets
 
 
-def quantize_offsets(xt: Tensor, bits: int, mask: Tensor):
-    """What K3 takes, from a planar [F, C, N] batch and its [F, N] mask:
-    (xm [F, C, N], inv [F], min [F, C], range [F]), with xm = x - min on
-    valid rows and 0 on padded ones, and inv = (2^bits - 1) / range."""
-    mn, rng = compute_quantization_transform(xt.transpose(1, 2), mask)
-    inv = true_div(float((1 << bits) - 1), rng)
-    xm = torch.where(mask[:, None, :], xt - mn[..., None], 0.0)
-    return xm, inv, mn, rng
-
-
 def _syms(xt: Tensor, bits: int, mask: Tensor):
     """Quantize + delta + zigzag in the planar [F, C, N] layout; returns
     (syms [F, C, N] int32 bit patterns, min [F, C], range [F]).
@@ -121,8 +110,7 @@ def _syms(xt: Tensor, bits: int, mask: Tensor):
     `x * (1 / (range / max_q))`. A padded row
     quantizes to 0, so the symbol at n = count is zigzag(-q[count - 1]);
     the host keeps only `[:count]`."""
-    xm, inv, mn, rng = quantize_offsets(xt, bits, mask)
-    return fused_quantize_delta_zigzag(xm, inv), mn, rng
+    return geometry_quantize_stage(xt, mask, bits)
 
 
 def encode_device(pos: Tensor, uv: Optional[Tensor], mask: Tensor,

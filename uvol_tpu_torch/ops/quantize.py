@@ -34,14 +34,16 @@ class QuantizedAttr(NamedTuple):
     range_value: Tensor  # [...] float32 scalar per frame (max component range)
 
 
-def compute_quantization_transform(
-    x: Tensor, mask: Optional[Tensor] = None
-) -> Tuple[Tensor, Tensor]:
-    """Per-frame min and max-range over valid rows.
+def masked_min_max(x: Tensor, mask: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Per-frame minimum and maximum over valid rows: `x` [..., N, D],
+    `mask` [..., N] bool → (min [..., D], max [..., D]). A padded row
+    counts as +-float max, so a frame without a valid row gives those.
 
-    `x`: [..., N, D]; `mask`: [..., N] bool. Returns (min [..., D],
-    range [...]); range is the largest per-component extent, and a
-    degenerate frame's range 0 becomes 1."""
+    The minimum goes onto the wire as its bits, so the sign of a zero
+    extreme is fixed: -0.0 < +0.0, as XLA orders them in the reference.
+    `torch.amin`/`amax` return whichever zero they met first or last."""
+    zero, minus = x == 0, torch.signbit(x)
+    neg_zero, pos_zero = zero & minus, zero & ~minus
     if mask is None:
         mn = x.amin(dim=-2)
         mx = x.amax(dim=-2)
@@ -50,15 +52,39 @@ def compute_quantization_transform(
         m = mask[..., None]
         mn = torch.where(m, x, big).amin(dim=-2)
         mx = torch.where(m, x, -big).amax(dim=-2)
+        neg_zero, pos_zero = neg_zero & m, pos_zero & m
+    mn = torch.where((mn == 0) & neg_zero.any(dim=-2), -0.0, mn)
+    mx = torch.where((mx == 0) & pos_zero.any(dim=-2), 0.0, mx)
+    return mn, mx
+
+
+def quantization_range(mn: Tensor, mx: Tensor) -> Tensor:
+    """[..., D] bounds → [...] range: the largest per-component extent;
+    a degenerate frame's range <= 0 becomes 1."""
     rng = (mx - mn).amax(dim=-1)
-    rng = torch.where(rng <= 0, torch.ones_like(rng), rng)
-    return mn, rng
+    return torch.where(rng <= 0, torch.ones_like(rng), rng)
 
 
-def quantize(x: Tensor, qbits: int, *, mask: Optional[Tensor] = None) -> QuantizedAttr:
+def compute_quantization_transform(
+    x: Tensor, mask: Optional[Tensor] = None
+) -> Tuple[Tensor, Tensor]:
+    """Per-frame min and max-range over valid rows.
+
+    `x`: [..., N, D]; `mask`: [..., N] bool. Returns (min [..., D],
+    range [...]): `masked_min_max`, then `quantization_range`."""
+    mn, mx = masked_min_max(x, mask)
+    return mn, quantization_range(mn, mx)
+
+
+def quantize(x: Tensor, qbits: int, *, mask: Optional[Tensor] = None,
+             min_value: Optional[Tensor] = None,
+             range_value: Optional[Tensor] = None) -> QuantizedAttr:
     """q = clip(floor((v - min) * (1 / delta) + 0.5), 0, 2^qbits - 1) with
-    delta = range / (2^qbits - 1); rows outside `mask` are 0."""
-    min_value, range_value = compute_quantization_transform(x, mask)
+    delta = range / (2^qbits - 1); rows outside `mask` are 0. With both
+    `min_value` [..., D] and `range_value` [...] given, that transform is
+    used and none is computed."""
+    if min_value is None or range_value is None:
+        min_value, range_value = compute_quantization_transform(x, mask)
     max_q = (1 << qbits) - 1
     delta = true_div(range_value, max_q)
     inv = true_div(1.0, delta)[..., None, None]
