@@ -425,5 +425,82 @@ def test_redesigned_kernels_use_no_stack(card):
 
     attrs = _build.kernel_attrs()
     for fn in ("etc1_encode_kernel", "etc1_decode_kernel", "inten_errors_kernel",
-               "geometry_minmax_kernel", "quantize_delta_zigzag_kernel"):
+               "geometry_minmax_kernel", "quantize_delta_zigzag_kernel", "rate_sweep_kernel"):
         assert attrs[fn]["stack_bytes"] == 0, (fn, attrs[fn])
+
+
+# ---- K7: the rate sweep's column scan ------------------------------------------
+
+
+def _sweep_frame(nby: int, nbx: int, e: int, lam: float, seed: int):
+    """One frame for K7: integer errors within one lambda of each other in
+    a block (the left, ABOVE and CR prices decide; with lam 0, errors in
+    0..2 and ties everywhere), random incoming and previous entries,
+    has_prev mixed."""
+    from uvol_tpu_torch.codecs.basis.etc1s_encode import sweep_bits_table
+
+    r = np.random.default_rng(seed)
+    nb = nby * nbx
+    base = r.integers(0, 3_000_000, (nb, 1))
+    err = (base + r.integers(0, int(lam) + 3, (nb, e))).astype(np.float32)
+    e_prev = (base[:, 0] + r.integers(0, int(2 * lam) + 3, nb)).astype(np.float32)
+    ep_in, prev_ep = (r.integers(0, e, nb).astype(np.int32) for _ in range(2))
+    return tuple(torch.from_numpy(x) for x in (err, sweep_bits_table(e), ep_in, prev_ep,
+                                               e_prev, r.random(nb) < 0.5))
+
+
+@pytest.mark.parametrize("nby", [1, 257])
+@pytest.mark.parametrize("nbx", [1, 3, 256])
+@pytest.mark.parametrize("e", [512, 1024, 2048])
+def test_rate_sweep_kernel_matches_twin(card, e, nbx, nby):
+    """New entries and CR flags bit for bit, one launch per frame; over
+    the frame some block takes its ABOVE entry (neither its left one nor
+    the next), some CR and some not (where nbx > 1)."""
+    args = _sweep_frame(nby, nbx, e, 60.0, e + nbx + nby)
+    on_card = tuple(a.to(card) for a in args)
+    before = etc1s_cuda.LAUNCHES["etc1s_rate_sweep"]
+    got = etc1s_cuda.rate_sweep_cols(*on_card, 60.0, nbx)
+    torch.cuda.synchronize()
+    assert etc1s_cuda.LAUNCHES["etc1s_rate_sweep"] == before + 1
+    small = nby * nbx * e <= 1 << 20
+    twin = etc1s_cuda.rate_sweep_cols_plain(*(args if small else on_card), 60.0, nbx)
+    for g, w in zip(got, twin):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+    new_ep, cr = (t.cpu().numpy().reshape(nby, nbx) for t in got)
+    if nbx > 1 and nby > 1:
+        ep_in = args[2].numpy().reshape(nby, nbx)
+        above = np.concatenate([ep_in[:1], ep_in[:-1]])[:, 1:]
+        left = new_ep[:, :-1]
+        took_above = (~cr[:, 1:]) & (new_ep[:, 1:] == above) & (above != left) & (
+            (above - left) % e != 1)
+        assert took_above.any() and cr.any() and not cr.all()
+
+
+@pytest.mark.parametrize("e", [512, 2048])
+def test_rate_sweep_kernel_breaks_ties_to_the_first_entry(card, e):
+    """lam 0: every cost is its error, in 0..2, so nearly every row ties;
+    the first minimum wins on the card as in the twin."""
+    args = _sweep_frame(257, 3, e, 0.0, e)
+    got = etc1s_cuda.rate_sweep_cols(*(a.to(card) for a in args), 0.0, 3)
+    torch.cuda.synchronize()
+    for g, w in zip(got, etc1s_cuda.rate_sweep_cols_plain(*args, 0.0, 3)):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+def test_etc1s_delta_encode_on_card_matches_cpu(card):
+    """The delta-aware stage at 512/512 on 2 x 64x64: the card's bytes
+    equal the CPU port's, with K7 once per frame of each of 3 sweeps."""
+    from uvol_tpu_torch.codecs.basis.etc1s_encode import encode_ktx2_etc1s
+
+    yy, xx = np.mgrid[0:64, 0:64]
+    r = np.random.default_rng(3)
+    frames = np.stack([np.clip(np.stack([(xx * 4 + i * 8) % 256, (yy * 4) % 256,
+                                         ((xx + yy) * 2) % 256], -1)
+                               + r.integers(-6, 7, (64, 64, 3)), 0, 255)
+                       for i in range(2)]).astype(np.uint8)
+    kw = dict(num_endpoints=512, num_selectors=512)
+    etc1s_cuda.reset_launches()
+    got = encode_ktx2_etc1s(frames, device="cuda", **kw)
+    sweeps = etc1s_cuda.LAUNCHES["etc1s_rate_sweep"]
+    assert sweeps > 0 and sweeps % (3 * 2) == 0
+    assert got == encode_ktx2_etc1s(frames, device="cpu", **kw)

@@ -17,10 +17,15 @@ computes `scalar / tensor` as `reciprocal(tensor) * scalar`, and on CUDA
 `tensor / python_scalar` as a multiply by the scalar's reciprocal.
 Either can be one ulp off the IEEE quotient the reference takes, which
 moves a floor/round boundary and changes the bytes.
+
+A multiply that feeds an add is one fused multiply-add in what XLA
+compiles the reference into on the CPU (and `__fmaf_rn` in the kernels):
+`fma_f32` rounds `a * b + c` once, as both do.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Union
 
 import torch
@@ -80,3 +85,26 @@ def synchronize(device: Optional[torch.device]) -> None:
     """Wait for queued work on `device` (no-op on the CPU)."""
     if device is not None and device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def f32(x: float) -> float:
+    """The Python number x rounded to float32: what the reference's jitted
+    functions receive for a Python-float argument."""
+    return torch.tensor(float(x), dtype=torch.float32).item()
+
+
+def fma_f32(a, b, c) -> Tensor:
+    """`a * b + c` rounded once to float32. Operands are float32 tensors or
+    Python numbers (taken as float32 first, `f32`); at least one is a
+    tensor. The product of two float32 is exact in float64; the sum is
+    rounded to odd there (TwoSum gives its error exactly, and an inexact
+    sum with an even last bit moves one ulp toward the exact one), so the
+    rounding to float32 that follows is the one correct rounding."""
+    a, b, c = (x.double() if isinstance(x, Tensor) else f32(x) for x in (a, b, c))
+    p = a * b
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    inf = torch.full_like(s, math.inf)
+    odd = torch.nextafter(s, torch.where(err > 0, inf, -inf))
+    return torch.where((err != 0) & (s.view(torch.int64) % 2 == 0), odd, s).float()

@@ -3,8 +3,10 @@
 `assign_endpoints` (K4), `inten_errors` (K5) and `kmeans_iter` (K6) are
 the three hot stages of the palette build (`etc1s_encode.palette_core`);
 `segment_sum` is the fixed-order segment sum that the build takes for
-every per-cluster reduction, the port's `_seg_reduce`. The device of the
-tensor decides the route:
+every per-cluster reduction, the port's `_seg_reduce`; `rate_sweep_cols`
+(K7) is the column scan of the delta-aware stage's rate sweep
+(`etc1s_encode.rate_sweep_assignments`), one launch per frame. The
+device of the tensor decides the route:
 
   - a CUDA tensor launches the hand-written kernels of `csrc/etc1s.cu`,
     built by `_build` at first use; a build or launch failure raises,
@@ -20,6 +22,10 @@ The kernels take at most `SEG_MAX_ROWS` rows a launch. Above that,
 chunks of `SEG_MAX_ROWS` rows and add the chunk results in order, first
 to last; at or below it nothing is chunked. `SEG_MAX_K` segments or
 centroids is the limit of both routes.
+
+K7 prices with one fused multiply-add per entry, as XLA compiles the
+reference's scan on the CPU; its twin rounds the same FMA once
+(`_device.fma_f32`), so kernel and twin agree bit for bit.
 
 K4 and K5 are exact integer arithmetic (the TPU kernels' f32 terms are
 all integers below 2^24), so kernel, twin and TPU kernel agree bit for
@@ -43,6 +49,7 @@ from typing import Iterable, List, Optional, Tuple
 import torch
 
 from uvol_tpu_torch import _build
+from uvol_tpu_torch._device import f32, fma_f32
 from uvol_tpu_torch.codecs.basis.transcoder import INTEN_TABLES as _INTEN_TABLES
 
 Tensor = torch.Tensor
@@ -53,6 +60,7 @@ LAUNCHES = {
     "etc1s_inten_errors": 0,
     "etc1s_kmeans_iter": 0,
     "etc1s_segment_sum": 0,
+    "etc1s_rate_sweep": 0,
 }
 
 #: the ETC1S intensity modifiers [8 tables, 4 codes]; `csrc/etc1s.cu`
@@ -377,3 +385,81 @@ def _kmeans_launch(feats: Tensor, cb: Tensor, assign: Tensor) -> Tensor:
             feats.data_ptr(), cb.data_ptr(), n, k, part.data_ptr(),
             sums.data_ptr(), assign.data_ptr())
     return sums
+
+
+# ---------------------------------------------------------------------------
+# K7: the rate sweep's column scan
+# ---------------------------------------------------------------------------
+
+#: the sweep's price in bits of an entry equal to the block above's, at most
+SWEEP_ABOVE_BITS = f32(1.4)
+#: the CR cost of a block whose frame has no previous one
+SWEEP_NO_CR = f32(3.0e38)
+
+
+def rate_sweep_cols_plain(err: Tensor, bits: Tensor, ep_in: Tensor, prev_ep: Tensor,
+                          e_prev: Tensor, has_prev: Tensor, lam: float,
+                          nbx: int) -> Tuple[Tensor, Tensor]:
+    """Plain twin of K7, the reference's column scan (`_rate_sweep_fn`'s
+    `col_step`) as a loop over the block columns; the rows go together.
+
+    err [nb, E] f32 (nb = nby * nbx, rows of blocks in raster order),
+    bits [E] f32 (`etc1s_encode.sweep_bits_table`), ep_in and prev_ep [nb]
+    int32, e_prev [nb] f32, has_prev [nb] bool, lam the bits' weight →
+    (new_ep [nb] int32, use_cr [nb] bool). Block (r, c) prices entry e at
+    fma(lam, b, err) with b = bits[(e - left) mod E], left the new entry of
+    (r, c - 1) (column 0: its own incoming one), and b at most
+    `SWEEP_ABOVE_BITS` for the incoming entry of (r - 1, c) (row 0: its
+    own); the first minimum wins unless e_prev + lam / 2 (where has_prev)
+    is no more: then CR, prev_ep."""
+    nb, e = err.shape
+    nby = nb // nbx
+    lam = f32(lam)
+    half = f32(lam * 0.5)  # exact
+    ep = ep_in.long().reshape(nby, nbx)
+    above = torch.cat([ep[:1], ep[:-1]])
+    pe, epv, hp = (t.reshape(nby, nbx) for t in (prev_ep.long(), e_prev, has_prev))
+    cols = err.reshape(nby, nbx, e)
+    iota = torch.arange(e, device=err.device)[None, :]
+    left = ep[:, 0]
+    new_ep, use_cr = [], []
+    for c in range(nbx):
+        b = bits[(iota - left[:, None]) % e]  # [nby, E]
+        b = torch.where(iota == above[:, c:c + 1], torch.clamp(b, max=SWEEP_ABOVE_BITS), b)
+        cost = fma_f32(lam, b, cols[:, c])
+        ep_rd = torch.argmin(cost, 1)
+        cost_cr = torch.where(hp[:, c], epv[:, c] + half, SWEEP_NO_CR)
+        cr = cost_cr <= cost.gather(1, ep_rd[:, None])[:, 0]
+        left = torch.where(cr, pe[:, c], ep_rd)
+        new_ep.append(left)
+        use_cr.append(cr)
+    return (torch.stack(new_ep, 1).reshape(nb).to(torch.int32),
+            torch.stack(use_cr, 1).reshape(nb))
+
+
+def rate_sweep_cols(err: Tensor, bits: Tensor, ep_in: Tensor, prev_ep: Tensor,
+                    e_prev: Tensor, has_prev: Tensor, lam: float,
+                    nbx: int) -> Tuple[Tensor, Tensor]:
+    """K7 on one frame, arguments and results as `rate_sweep_cols_plain`
+    (E <= `SEG_MAX_K`); one launch of nby CTAs."""
+    if err.dtype != torch.float32 or err.ndim != 2 or not 0 < err.shape[1] <= SEG_MAX_K:
+        raise ValueError(f"expected [nb, E <= {SEG_MAX_K}] float32 errors, "
+                         f"got {tuple(err.shape)} {err.dtype}")
+    nb, e = err.shape
+    if nbx <= 0 or nb % nbx:
+        raise ValueError(f"{nb} blocks are not rows of {nbx}")
+    if bits.dtype != torch.float32 or tuple(bits.shape) != (e,):
+        raise ValueError(f"expected [{e}] float32 bits, got {tuple(bits.shape)} {bits.dtype}")
+    for name, t, dt in (("ep_in", ep_in, torch.int32), ("prev_ep", prev_ep, torch.int32),
+                        ("e_prev", e_prev, torch.float32), ("has_prev", has_prev, torch.bool)):
+        if t.dtype != dt or tuple(t.shape) != (nb,):
+            raise ValueError(f"expected [{nb}] {dt} {name}, got {tuple(t.shape)} {t.dtype}")
+    if not _route(err):
+        return rate_sweep_cols_plain(err, bits, ep_in, prev_ep, e_prev, has_prev, lam, nbx)
+    args = [t.contiguous() for t in (err, bits, ep_in, prev_ep, e_prev, has_prev)]
+    new_ep = torch.empty(nb, dtype=torch.int32, device=err.device)
+    use_cr = torch.empty(nb, dtype=torch.bool, device=err.device)
+    _launch("etc1s_rate_sweep", "uvt_etc1s_rate_sweep", err.device,
+            *(t.data_ptr() for t in args), f32(lam), nb // nbx, nbx, e,
+            new_ep.data_ptr(), use_cr.data_ptr())
+    return new_ep, use_cr

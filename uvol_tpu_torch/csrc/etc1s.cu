@@ -1,4 +1,5 @@
-// ETC1S palette-build kernels K4, K5 and K6 for Hopper (sm_90a).
+// ETC1S palette-build kernels K4, K5 and K6, and the rate sweep's column
+// scan K7, for Hopper (sm_90a).
 //
 // Replace the Pallas TPU kernels of uvol_tpu/codecs/basis/etc1s_pallas.py:
 //   K4  `_assign_kernel` (assign_endpoints_pallas): per block, the exact
@@ -87,9 +88,27 @@
 // identity here too, and signed zeros match. Bound: bytes (each row's
 // index and values read once, the sums written once); counts are sums of
 // 1.0, exact below 2^24.
+//
+// K7 -- the column scan of the delta-aware stage's rate sweep
+// (`_rate_sweep_fn`'s `col_step`, uvol_tpu/codecs/basis/etc1s_encode.py:
+// 1267-1319, a lax.scan that XLA runs, not a Pallas site). Per frame, each
+// block prices every palette entry e: cost = fma(lam, bits[dm], err[b, e])
+// with dm = (e - left) mod E, left the FINAL choice of the block to its
+// left, and bits[dm] lowered to at most 1.4 for the entry of the block
+// above (its incoming assignment; row 0 takes its own); the first
+// minimum wins, unless conditional replenishment costs no more
+// (e_prev + lam / 2 where the frame has a previous one). Columns depend on
+// each other, rows do not: one CTA of 256 threads per block row walks the
+// columns; the bits table sits in shared memory, a thread prices entries
+// tid, tid + 256, ... (the next column's errors load while this column
+// reduces), a warp-shuffle then shared-memory argmin over (cost, entry)
+// keeps the first minimum, and thread 0 makes the CR decision and hands
+// the new left entry on. The FMA is __fmaf_rn, as XLA contracts it on the
+// CPU. Bound: bytes, the [nb, E] float32 error tile read once.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "func_attrs.cuh"
@@ -628,6 +647,104 @@ __global__ void kmeans_chunk_kernel(const float4* __restrict__ feats,
   chunk_sums(s, kPitchLog, kKmCols, k, part + (int64_t)blockIdx.x * k * kKmCols, kKmCols);
 }
 
+// ---- K7 -------------------------------------------------------------------
+
+constexpr int kSweepThreads = 256;
+constexpr int kSweepPer = kSegMaxK / kSweepThreads;  // entries a thread prices, at most
+constexpr int kSweepWarps = kSweepThreads / 32;
+constexpr float kSweepAboveBits = 1.4f;  // the price of matching the block above
+constexpr float kSweepNoCr = 3.0e38f;    // the CR cost of a block without a previous frame
+
+// (c, e) becomes (oc, oe) when that is a lower cost, or the same cost at a
+// lower entry: the first minimum.
+__device__ __forceinline__ void take_least(float& c, int& e, float oc, int oe) {
+  if (oc < c || (oc == c && oe < e)) {
+    c = oc;
+    e = oe;
+  }
+}
+
+// One CTA per block row. err: [nby * nbx, e] float32; bits: [e]; ep_in,
+// prev_ep: [nby * nbx] int32; e_prev: [nby * nbx] float32; has_prev:
+// [nby * nbx] bytes (0/1). Writes new_ep and use_cr (0/1).
+__global__ void __launch_bounds__(kSweepThreads)
+rate_sweep_kernel(const float* __restrict__ err, const float* __restrict__ bits,
+                  const int32_t* __restrict__ ep_in, const int32_t* __restrict__ prev_ep,
+                  const float* __restrict__ e_prev, const uint8_t* __restrict__ has_prev,
+                  float lam, int nbx, int e, int32_t* __restrict__ new_ep,
+                  uint8_t* __restrict__ use_cr) {
+  __shared__ float s_bits[kSegMaxK];
+  __shared__ float s_cost[kSweepWarps];
+  __shared__ int s_entry[kSweepWarps];
+  __shared__ int s_left;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t row0 = (int64_t)blockIdx.x * nbx;                   // the row's first block
+  const int64_t above0 = blockIdx.x > 0 ? row0 - nbx : row0;        // row 0 is its own above
+  for (int k = tid; k < e; k += kSweepThreads) s_bits[k] = bits[k];
+  const float half_lam = __fmul_rn(lam, 0.5f);
+  float next[kSweepPer];
+#pragma unroll
+  for (int j = 0; j < kSweepPer; ++j) {
+    const int k = tid + j * kSweepThreads;
+    next[j] = k < e ? err[row0 * e + k] : 0.f;
+  }
+  int left = ep_in[row0];  // column 0 prices against its own incoming entry
+  __syncthreads();
+  for (int c = 0; c < nbx; ++c) {
+    float cur[kSweepPer];
+#pragma unroll
+    for (int j = 0; j < kSweepPer; ++j) cur[j] = next[j];
+    if (c + 1 < nbx) {
+      const float* nrow = err + (row0 + c + 1) * e;
+#pragma unroll
+      for (int j = 0; j < kSweepPer; ++j) {
+        const int k = tid + j * kSweepThreads;
+        if (k < e) next[j] = nrow[k];
+      }
+    }
+    const int above = ep_in[above0 + c];
+    int base = left % e;  // dm = (k - left) mod e, the floor modulo
+    if (base < 0) base += e;
+    float best = INFINITY;
+    int best_e = 0x7fffffff;
+#pragma unroll
+    for (int j = 0; j < kSweepPer; ++j) {
+      const int k = tid + j * kSweepThreads;
+      if (k < e) {
+        const int dm = k >= base ? k - base : k - base + e;
+        float b = s_bits[dm];
+        if (k == above) b = fminf(b, kSweepAboveBits);
+        const float cost = __fmaf_rn(lam, b, cur[j]);
+        if (cost < best) {  // entries ascend: the thread's first minimum
+          best = cost;
+          best_e = k;
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      take_least(best, best_e, __shfl_xor_sync(0xffffffffu, best, off),
+                 __shfl_xor_sync(0xffffffffu, best_e, off));
+    if (lane == 0) {
+      s_cost[warp] = best;
+      s_entry[warp] = best_e;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      for (int w = 1; w < kSweepWarps; ++w) take_least(best, best_e, s_cost[w], s_entry[w]);
+      const int64_t i = row0 + c;
+      const float cost_cr = has_prev[i] ? __fadd_rn(e_prev[i], half_lam) : kSweepNoCr;
+      const bool cr = cost_cr <= best;
+      const int chosen = cr ? prev_ep[i] : best_e;
+      new_ep[i] = chosen;
+      use_cr[i] = cr;
+      s_left = chosen;
+    }
+    __syncthreads();
+    left = s_left;
+  }
+}
+
 unsigned grid_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 int chunks_for(int n) { return n > 0 ? (n + kChunkRows - 1) / kChunkRows : 1; }
@@ -716,11 +833,26 @@ int uvt_etc1s_kmeans_iter(const void* feats, const void* cb, int n, int k, void*
   return (int)launch_tree((const float*)part, m, (int64_t)k * kKmCols, (float*)sums, s);
 }
 
+// K7 on one frame. err: [nby * nbx, e] f32 (e <= 2048); bits: [e] f32; ep_in, prev_ep:
+// [nby * nbx] int32; e_prev: [nby * nbx] f32; has_prev: [nby * nbx] bytes; new_ep: [nby * nbx]
+// int32; use_cr: [nby * nbx] bytes. One launch of nby CTAs.
+int uvt_etc1s_rate_sweep(const void* err, const void* bits, const void* ep_in, const void* prev_ep,
+                         const void* e_prev, const void* has_prev, float lam, int nby, int nbx,
+                         int e, void* new_ep, void* use_cr, void* stream) {
+  if (nby < 0 || nbx < 0 || e <= 0 || e > kSegMaxK) return (int)cudaErrorInvalidValue;
+  if (nby > 0 && nbx > 0)
+    rate_sweep_kernel<<<(unsigned)nby, kSweepThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)err, (const float*)bits, (const int32_t*)ep_in, (const int32_t*)prev_ep,
+        (const float*)e_prev, (const uint8_t*)has_prev, lam, nbx, e, (int32_t*)new_ep,
+        (uint8_t*)use_cr);
+  return (int)cudaGetLastError();
+}
+
 int uvt_etc1s_func_attrs(int which, int* out, const char** name) {
   static const KernelRef ks[] = {
       UVT_KERNEL(inten_errors_kernel), UVT_KERNEL(assign_endpoints_kernel),
       UVT_KERNEL(kmeans_chunk_kernel), UVT_KERNEL(seg_sum_chunk_kernel),
-      UVT_KERNEL(seg_sum_tree_kernel)};
+      UVT_KERNEL(seg_sum_tree_kernel), UVT_KERNEL(rate_sweep_kernel)};
   return fill_func_attrs(ks, which, out, name);
 }
 
