@@ -20,10 +20,12 @@ layers of 1024x1024; the geometry encode's device stage is 4 kernels: the
 minimum/maximum and K3, for the positions and for the UVs) and the
 ETC1S/BasisLZ segment encoder at the encoder CLI's segment (5 layers of
 1024x1024) at 256/256 palettes and at the CLI's default 1024/1024, whose
-delta-aware stage runs K7 once per frame of each rate sweep, through the
+delta-aware stage runs K7 (a whole frame of the rate sweep: error product,
+column scan and CR snap) once per frame of each sweep, through the
 codecs' public entry points, holds every K4-K7 and segment-sum call that
-a segment encode makes against the plain twin on the same inputs, checks
-the bytes against the
+a segment encode makes against the plain twin on the same inputs, shows
+one sweep frame to be one device kernel and a sweep to allocate no
+[blocks, entries] error tile, checks the bytes against the
 CPU codecs, counts the kernels one K6 or segment-sum call launches
 (fixed, whatever N), times kernels and chains with CUDA events and the
 kernels alone with the profiler, and traces one pass of each codec
@@ -46,6 +48,7 @@ non-zero before printing anything on stdout.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import subprocess
 import sys
@@ -76,14 +79,14 @@ ETC1S_REPS = 3  # timed segment encodes (median), after the warmup
 #: K4-K6 and segment-sum kernel names in a profiler trace (csrc/etc1s.cu)
 ETC1S_KERNEL_NAMES = ("assign_endpoints_kernel", "inten_errors_kernel",
                       "kmeans_chunk_kernel", "seg_sum_chunk_kernel", "seg_sum_tree_kernel",
-                      "rate_sweep_kernel")
+                      "rate_sweep_frame_kernel")
 #: K4-K7 and the segment sum: launch-count name -> (wrapper, plain twin) in etc1s_cuda
 ETC1S_KERNELS = {
     "etc1s_assign_endpoints": ("assign_endpoints", "assign_endpoints_plain"),
     "etc1s_inten_errors": ("inten_errors", "inten_errors_plain"),
     "etc1s_kmeans_iter": ("kmeans_iter", "kmeans_iter_plain"),
     "etc1s_segment_sum": ("segment_sum", "segment_sum_plain"),
-    "etc1s_rate_sweep": ("rate_sweep_cols", "rate_sweep_cols_plain"),
+    "etc1s_rate_sweep": ("rate_sweep_frame", "rate_sweep_frame_plain"),
 }
 #: the palette-build kernels every ETC1S encode launches (K7 only on the delta path)
 ETC1S_BUILD_KERNELS = ("etc1s_assign_endpoints", "etc1s_inten_errors", "etc1s_kmeans_iter",
@@ -98,7 +101,7 @@ WRAPPER_KERNELS = {
     "etc1s_inten_errors": ("inten_errors_kernel",),
     "etc1s_kmeans_iter": ("kmeans_chunk_kernel", "seg_sum_tree_kernel"),
     "etc1s_segment_sum": ("seg_sum_chunk_kernel", "seg_sum_tree_kernel"),
-    "etc1s_rate_sweep": ("rate_sweep_kernel",),
+    "etc1s_rate_sweep": ("rate_sweep_frame_kernel",),
 }
 #: the segment sums of one palette build at 256/256 (etc1s_encode.py): (k, D)
 #: of the bisections (endpoints D = 9, selectors D = 33, k doubling to 256),
@@ -111,8 +114,22 @@ SEG_TIMED = (327680, 256, 64)  # sel_update's shape on the main path: N, k, D
 #: rows above the 2^24 of one launch: the segment sum and K6 in two chunks
 SEG_ROWS_CHUNKED = (1 << 24) + 1025
 #: K7 on random frames (block rows, block columns, entries): one column, one
-#: grid row of 256, rows past a multiple of 256, the largest palette
-K7_SHAPES = ((257, 3, 512), (1, 256, 1024), (257, 1, 2048), (16, 256, 2048))
+#: grid row of 256, rows past a multiple of 256, a row of two column passes,
+#: the largest palette, a palette under one warp's 32 entries
+K7_SHAPES = ((257, 3, 512), (1, 256, 1024), (257, 1, 2048), (16, 256, 2048), (3, 300, 17),
+             (64, 64, 31))
+#: each K7 shape's frames: (lam, palette with duplicate entries, has a previous
+#: frame, which blocks are on the uniform selector row)
+K7_FRAMES = ((60.0, False, True, "mixed"), (0.0, True, True, "mixed"),
+             (60.0, False, False, "mixed"), (60.0, True, True, "all"), (60.0, False, True, "none"))
+#: most device kernels one frame of the rate sweep may run (K7 runs it in one)
+SWEEP_FRAME_KERNELS_MAX = 5
+#: the rate sweep at 1024/1024 on the smoke segment in the tree before K7 took
+#: the whole frame (error product, scan and CR snap in plain torch around a
+#: scan-only K7): device kernels per frame of one `rate_sweep_assignments`
+#: pass and its peak memory in bytes, from examples/torch_etc1s_segment_times.py
+#: on that tree (NVIDIA H100 80GB HBM3, 700 W)
+SWEEP_BEFORE = {"pass_kernels_per_frame": 91.0, "pass_peak_bytes": 645410816}
 #: K3's and the minimum/maximum's kernel names in a profiler trace (csrc/geometry.cu)
 K3_KERNEL_NAME = WRAPPER_KERNELS["quantize_delta_zigzag"][0]
 MINMAX_KERNEL_NAME = WRAPPER_KERNELS["geometry_minmax"][0]
@@ -164,9 +181,11 @@ OPS = {
     "etc1s_inten_errors": 16,
     "etc1s_kmeans_iter": 8,  # FLOP per (row, centroid): 4 x (mul, add)
     "etc1s_segment_sum": 1,  # FLOP per value: one add
-    # per (block, entry): the table index, the ABOVE test, the FMA and the
-    # running minimum's compare and select
-    "etc1s_rate_sweep": 6,
+    # per (block, entry) of the fused stage: the error (4 IMAD for the counts,
+    # 6 __dp2a for the 12 color products, 1 IMAD, the conversion), the table
+    # index (2) and its load, the ABOVE test (2), the FMA and the running
+    # minimum's compare and 2 selects (csrc/etc1s.cu, K7)
+    "etc1s_rate_sweep": 21,
 }
 
 
@@ -233,20 +252,43 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def sweep_frame(torch, r, nby: int, nbx: int, e: int, lam: float) -> tuple:
-    """K7's arguments for one random frame: integer errors within one
-    lambda of each other in a block (so the left, ABOVE and CR prices
-    decide; with lam 0 in 0..2, ties everywhere), random incoming and
-    previous entries, has_prev mixed."""
+def sweep_frame(torch, r, nby: int, nbx: int, e: int, dup: bool, prev: bool, flat: str) -> tuple:
+    """K7's arguments for one random frame, before s0_index: blocks decoded
+    from random (entry, selector) pairs plus noise; a palette of e entries
+    (with `dup`, its second half repeats its first: ties); 8 selector rows,
+    row 0 uniform (s0_index 0) and "mixed", "all" or "none" of the blocks on
+    it; random incoming entries; with `prev`, a previous pair that is the
+    true one for half the blocks (so CR and the snap compete)."""
+    from uvol_tpu_torch.codecs.basis.etc1s_cuda import INTEN_TABLES
     from uvol_tpu_torch.codecs.basis.etc1s_encode import sweep_bits_table
 
     nb = nby * nbx
-    base = r.integers(0, 3_000_000, (nb, 1))
-    err = (base + r.integers(0, int(lam) + 3, (nb, e))).astype(np.float32)
-    e_prev = (base[:, 0] + r.integers(0, int(2 * lam) + 3, nb)).astype(np.float32)
-    ints = [r.integers(0, e, nb).astype(np.int32) for _ in range(2)]
-    return (*(torch.from_numpy(x) for x in (err, sweep_bits_table(e), *ints, e_prev,
-                                            r.random(nb) < 0.5)), lam, nbx)
+    c5 = r.integers(0, 32, (e, 3))
+    inten = r.integers(0, 8, e)
+    if dup and e > 1:
+        c5[e - e // 2:], inten[e - e // 2:] = c5[:e // 2], inten[:e // 2]
+    base = ((c5 << 3) | (c5 >> 2)).astype(np.int32)
+    mods = np.array(INTEN_TABLES, np.int32)[inten]
+    sel_cb = r.integers(0, 4, (8, 16)).astype(np.int32)
+    sel_cb[0] = 2
+    lo, hi = {"mixed": (0, 8), "all": (0, 1), "none": (1, 8)}[flat]
+    true_ep, true_sel = r.integers(0, e, nb), r.integers(lo, hi, nb)
+    col = np.clip(base[true_ep][:, None, :]
+                  + mods[true_ep][np.arange(nb)[:, None], sel_cb[true_sel]][:, :, None], 0, 255)
+    blocks = np.clip(col + r.integers(-3, 4, col.shape), 0, 255).astype(np.uint8)
+    ep = np.where(r.random(nb) < 0.3, true_ep, r.integers(0, e, nb)).astype(np.int32)
+    half = r.random(nb) < 0.5
+    pair = (np.where(half, true_ep, r.integers(0, e, nb)).astype(np.int32),
+            np.where(half, true_sel, r.integers(lo, hi, nb)).astype(np.int32))
+    t = torch.from_numpy
+    return (t(blocks), t(base), t(mods), t(sel_cb), t(sweep_bits_table(e)), t(ep),
+            t(true_sel.astype(np.int32)), (t(pair[0]), t(pair[1])) if prev else None)
+
+
+def to_device(args: tuple, dev) -> tuple:
+    """args with every tensor, also inside a nested tuple, moved to dev."""
+    return tuple(to_device(a, dev) if isinstance(a, tuple) else a.to(dev) if hasattr(a, "to")
+                 else a for a in args)
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple:
@@ -550,23 +592,24 @@ def etc1s_parity(torch, dev, textures, bb) -> dict:
     for name in ("etc1s_segment_sum", "etc1s_kmeans_iter"):
         check(k.LAUNCHES[name] == before[name] + 2, f"{name}: not one launch per chunk of rows")
     del idx, feats, got, tw
-    # K7 on random frames, at lambda 60 and at 0 (every cost a tie): one launch
-    # each, new entries and CR flags bit for bit
+    # K7 on random frames: ties (duplicate entries at lambda 0), with and
+    # without a previous frame, all blocks flat and none; one launch each,
+    # new entries and selectors bit for bit
     for nby, nbx, e in K7_SHAPES:
-        for lam in (60.0, 0.0):
-            args = sweep_frame(torch, r, nby, nbx, e, lam)
-            on_dev = tuple(a.to(dev) if hasattr(a, "to") else a for a in args)
+        for lam, dup, prev, flat in K7_FRAMES:
+            args = sweep_frame(torch, r, nby, nbx, e, dup, prev, flat) + (0, lam, 1.5, nbx)
+            on_dev = to_device(args, dev)
             before = k.LAUNCHES["etc1s_rate_sweep"]
-            got = k.rate_sweep_cols(*on_dev)
+            got = k.rate_sweep_frame(*on_dev)
             check(k.LAUNCHES["etc1s_rate_sweep"] == before + 1, "K7: not one launch per frame")
-            hold_bits(torch, err, "etc1s_rate_sweep", got, k.rate_sweep_cols_plain(*on_dev),
-                      *([k.rate_sweep_cols_plain(*args)] if nby * nbx * e <= 1 << 20 else []))
+            hold(err, "etc1s_rate_sweep", got, k.rate_sweep_frame_plain(*on_dev),
+                 *([k.rate_sweep_frame_plain(*args)] if nby * nbx * e <= 1 << 20 else []))
     torch.cuda.synchronize()
     emit({"phase": "etc1s_kernel_parity", "inputs": list(inputs), "entries": ETC1S_ENTRIES,
           "inten_errors_rows": K5_ROWS,
           "segment_sum": {"shapes_k_d": SEG_SHAPES, "rows": SEG_ROWS},
           "kmeans_rows": SEG_ROWS, "rows_above_one_launch": SEG_ROWS_CHUNKED,
-          "rate_sweep_shapes": K7_SHAPES, "max_abs_err": err})
+          "rate_sweep_shapes": K7_SHAPES, "rate_sweep_frames": K7_FRAMES, "max_abs_err": err})
     return err
 
 
@@ -833,6 +876,68 @@ def timed_calls(torch, module, names):
             setattr(module, n, fn)
 
 
+def sweep_pass(torch, dev, frames, e_n: int, frame_args: tuple, median_cuda_ms) -> dict:
+    """The device side of the rate sweep at 1024/1024 on the smoke segment:
+    the device kernels of one sweep frame (one `etc1s_cuda.rate_sweep_frame`
+    call as `rate_sweep_assignments` makes it, at most
+    `SWEEP_FRAME_KERNELS_MAX`), and over one `rate_sweep_assignments` pass
+    on the segment's built palette its device kernels per frame, its peak
+    memory above what was allocated before it (which must stay under one
+    [nb, E] float32 tile) and its time; each beside the figure of the tree
+    before K7 took the whole frame (`SWEEP_BEFORE`).
+
+    K7's launches are counted by its wrapper (`LAUNCHES`), every other
+    device kernel from a padded trace of the same calls: on the H100
+    machine the profiler dropped one of three K7 events in each of five
+    traces in a row, so a trace decides only what else runs."""
+    from uvol_tpu_torch.codecs.basis import etc1s_cuda as k
+    from uvol_tpu_torch.codecs.basis import etc1s_encode as enc
+
+    name = WRAPPER_KERNELS["etc1s_rate_sweep"][0]
+
+    def kernels(fn, calls: int) -> dict:
+        fn()
+        torch.cuda.synchronize()
+        before = k.LAUNCHES["etc1s_rate_sweep"]
+        with padded_trace(torch) as prof:
+            for _ in range(calls):
+                fn()
+        seen = [e.name for e in device_events(torch, prof) if not e.name.startswith("Mem")]
+        launched = k.LAUNCHES["etc1s_rate_sweep"] - before
+        others = [kn for kn in seen if name not in kn]
+        return {"per_call": (launched + len(others)) / calls, "k7_launches": launched,
+                "k7_events_traced": len(seen) - len(others),
+                "names": sorted({kn[:60] for kn in seen})}
+
+    frame = kernels(lambda: k.rate_sweep_frame(*frame_args), LAUNCH_COUNT_CALLS)
+    check(frame["k7_launches"] == LAUNCH_COUNT_CALLS, "K7: not one launch per sweep frame")
+    check(frame["per_call"] <= SWEEP_FRAME_KERNELS_MAX,
+          f"one sweep frame ran {frame['per_call']} device kernels")
+    nby, nbx = frames.shape[1] // 4, frames.shape[2] // 4
+    dev_blocks = torch.from_numpy(enc._blocks_of(frames)).to(dev)
+    pal = enc.build_palettes(frames, e_n, e_n, delta_window=16, device=DEVICE)
+
+    def one_pass():
+        enc.rate_sweep_assignments(copy.deepcopy(pal), nby, nbx, dev_blocks=dev_blocks,
+                                   lam_bits=60.0, lam_cr=1.5)
+
+    one_pass()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    one_pass()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    tile = nby * nbx * e_n * 4
+    check(peak < tile, f"a sweep's peak memory {peak} bytes reaches an [nb, E] float32 tile")
+    whole = kernels(one_pass, 1)
+    check(whole["k7_launches"] == len(frames), "K7: not one launch per frame of a sweep")
+    return {"frame_kernels": frame["per_call"], "frame_trace": frame,
+            "pass_kernels_per_frame": whole["per_call"] / len(frames), "pass_trace": whole,
+            "pass_peak_bytes": peak, "tile_bytes": tile, "before": SWEEP_BEFORE,
+            "ms": median_cuda_ms(one_pass, REPS)}
+
+
 def etc1s_delta_path(torch, dev, textures, median_cuda_ms) -> tuple:
     """`encode_ktx2_etc1s` on the segment (5 x 1024^2) at the encoder CLI's
     1024/1024 palettes and the defaults' delta window and lambda: launches
@@ -866,16 +971,14 @@ def etc1s_delta_path(torch, dev, textures, median_cuda_ms) -> tuple:
     err = {}
     replayed = {name: 0 for name in ETC1S_KERNELS}
     for name, args, out in calls:
-        twin = getattr(k, ETC1S_KERNELS[name][1])
-        if name == "etc1s_rate_sweep":  # new entries and CR flags: bit for bit
-            hold_bits(torch, err, name, out, twin(*args))
-        else:
-            hold(err, name, out, twin(*args))
+        hold(err, name, out, getattr(k, ETC1S_KERNELS[name][1])(*args))
         replayed[name] += 1
     check(replayed == launches, f"calls differ between two encodes: {replayed}")
-    sweep_args = next(args for name, args, _ in calls if name == "etc1s_rate_sweep")
-    check(tuple(sweep_args[0].shape) == ((H // 4) * (W // 4),
-                                         min(ETC1S_DELTA_PALETTE, frames.size // 48)),
+    # a frame of the encode with a previous one (e_prev and the snap run)
+    sweep_args = next(args for name, args, _ in calls
+                      if name == "etc1s_rate_sweep" and args[7] is not None)
+    e_n = min(ETC1S_DELTA_PALETTE, frames.size // 48)
+    check(tuple(sweep_args[0].shape) == ((H // 4) * (W // 4), 16, 3) and len(sweep_args[1]) == e_n,
           "the encode's K7 call is not one full frame")
     dec = enc.transcode_ktx2_etc1s(enc.read_ktx2(blob))[..., :3]
     check(dec.shape == frames.shape and dec.dtype == np.uint8, "transcoded shape")
@@ -912,11 +1015,18 @@ def etc1s_delta_path(torch, dev, textures, median_cuda_ms) -> tuple:
         enc.encode_ktx2_etc1s(frames, device=DEVICE, **kw)
         torch.cuda.synchronize()
         split["segment_encode"] = (time.perf_counter() - t) * 1e3
-    ms["etc1s_rate_sweep"] = median_cuda_ms(lambda: k.rate_sweep_cols(*sweep_args), REPS)
+    ms["etc1s_rate_sweep"] = median_cuda_ms(lambda: k.rate_sweep_frame(*sweep_args), REPS)
     ms["etc1s_rate_sweep_plain"] = median_cuda_ms(
-        lambda: k.rate_sweep_cols_plain(*sweep_args), REPS)
+        lambda: k.rate_sweep_frame_plain(*sweep_args), REPS)
     ms["etc1s_rate_sweep_kernel"], traced = kernel_only_ms(
-        torch, lambda: k.rate_sweep_cols(*sweep_args), WRAPPER_KERNELS["etc1s_rate_sweep"])
+        torch, lambda: k.rate_sweep_frame(*sweep_args), WRAPPER_KERNELS["etc1s_rate_sweep"])
+    # the one piece of the stage a library call computes: the error product
+    # [nb, 16] x [16, E] at full float32, on the same frame
+    _, feat, mat = k.sweep_features(*sweep_args[:4], sweep_args[6])
+    ms["etc1s_rate_sweep_library"] = median_cuda_ms(lambda: feat @ mat.T, REPS)
+    del feat, mat
+    sweep = sweep_pass(torch, dev, frames, e_n, sweep_args, median_cuda_ms)
+    ms["etc1s_rate_sweep_pass"] = sweep.pop("ms")
     emit({"phase": "etc1s_delta_path", "layers": ETC1S_LAYERS, "size": [H, W],
           "palette": ETC1S_DELTA_PALETTE, "launches": launches, "lam_ladder_builds": builds,
           "delta_builds": delta_builds, "ktx2_bytes": len(blob), "transcoded_psnr_db": psnr,
@@ -926,6 +1036,7 @@ def etc1s_delta_path(torch, dev, textures, median_cuda_ms) -> tuple:
                           "cpu_bytes": len(cpu_blob), "cuda_bytes": len(cuda_blob),
                           "cpu_psnr_db": p_cpu, "cuda_psnr_db": p_cuda, "cpu_s": cpu_s},
           "ms": ms, "delta_stage_ms": split, "rate_sweep_launches_traced": traced,
+          "rate_sweep": sweep,
           "segment_layers_per_s": ETC1S_LAYERS / (ms["etc1s_delta_segment_encode"] / 1e3)})
     return launches, err, ms
 
@@ -1241,6 +1352,7 @@ def main() -> int:
     e = ETC1S_PALETTE
     sn, sk, sd = SEG_TIMED
     nr, er = (H // 4) * (W // 4), ETC1S_DELTA_PALETTE  # K7: one frame at 1024 entries
+    sweep_rows = ETC1S_DELTA_PALETTE  # its selector rows
     work = {  # name: (source, replaces, bytes moved once, operations, their rate)
         "etc1_encode": ("etc1.cu", "codecs/basis/etc_pallas.py:230", nb * 48 + nb * 8,
                         OPS["etc1_encode"] * nb, INT_OPS_PER_S),
@@ -1268,15 +1380,17 @@ def main() -> int:
         "etc1s_segment_sum": ("etc1s.cu", "codecs/basis/etc1s_encode.py:103",
                               sn * (sd + 1) * 4 + sk * sd * 4,
                               OPS["etc1s_segment_sum"] * sn * sd, F32_FLOP_PER_S),
-        # the reference's column scan is an XLA lax.scan, not a Pallas site: the
-        # [nb, E] errors, the table and 3 per-block vectors and the mask in, 2 out
-        "etc1s_rate_sweep": ("etc1s.cu", "codecs/basis/etc1s_encode.py:1267",
-                             nr * er * 4 + er * 4 + nr * (3 * 4 + 1) + nr * (4 + 1),
+        # the reference's frame body is XLA (a product and a lax.scan), not a
+        # Pallas site: the blocks, the palette (colors, modifiers, bits, the
+        # selector rows) and 4 assignment vectors in, 2 out; no [nb, E] tile
+        "etc1s_rate_sweep": ("etc1s.cu", "codecs/basis/etc1s_encode.py:1211",
+                             nr * 48 + er * (12 + 16 + 4) + sweep_rows * 64 + nr * 4 * 4
+                             + nr * 2 * 4,
                              OPS["etc1s_rate_sweep"] * nr * er, INT_OPS_PER_S),
     }
     attrs = _build.kernel_attrs()
     for fn in ("etc1_encode_kernel", "etc1_decode_kernel", "inten_errors_kernel",
-               *STAGE_KERNEL_NAMES):
+               "rate_sweep_frame_kernel", *STAGE_KERNEL_NAMES):
         check(attrs[fn]["stack_bytes"] == 0, f"{fn} uses stack memory")
     # K3's times are those of the call the main path makes (offsets taken in)
     timed_as = {"quantize_delta_zigzag": "quantize_from_bounds"}
@@ -1289,9 +1403,11 @@ def main() -> int:
             "replaces": f"uvol_tpu/{replaces}", "launches": launches[name],
             "max_abs_err": err[name], "ms": ms[timed], "plain_ms": ms[timed + "_plain"],
             "bound_ms": bound_ms, "bound_by": bound_by,
-            # index_add_ for the segment sum; no single PyTorch call computes
-            # any of the others (none takes a mask, sums in a fixed order or
-            # scans a column at a time)
+            # index_add_ for the segment sum; for K7 the error product
+            # `feat @ mat.T`, the one piece of its stage a library call
+            # computes; no single PyTorch call computes any of the others
+            # (none takes a mask, sums in a fixed order or scans a column at
+            # a time)
             "library_ms": ms.get(name + "_library"),
             "kernel_ms": ms[timed + "_kernel"],
             "kernel_attrs": {fn: attrs[fn] for fn in WRAPPER_KERNELS[name]},

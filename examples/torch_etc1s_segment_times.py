@@ -10,12 +10,17 @@ warmup, on the host clock around work that ends in
 `torch.cuda.synchronize()`: the palette core on device-resident blocks,
 `build_palettes` and `encode_ktx2_etc1s` at 256/256 palettes, and, where
 the tree has the delta-aware stage, `encode_ktx2_etc1s` at the encoder
-CLI's 1024/1024. Prints the card's nvidia-smi name/power-limit line, then
-one JSON object (ms; null where the tree raises NotImplementedError).
+CLI's 1024/1024 and one `rate_sweep_assignments` pass on the segment's
+1024/1024 palette: its time, its peak memory above what was allocated
+before it (`torch.cuda.max_memory_allocated`), and its device kernels per
+frame (one `torch.profiler` trace, copies left out). Prints the card's
+nvidia-smi name/power-limit line, then one JSON object (ms; null where the
+tree raises NotImplementedError).
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
@@ -74,6 +79,29 @@ def main(argv) -> int:
             frames, num_endpoints=1024, num_selectors=1024, device="cuda"))
     except NotImplementedError:
         out["segment_encode_1024"] = None
+        print(json.dumps(out), flush=True)
+        return 0
+    nby = nbx = SIDE // 4
+    pal = enc.build_palettes(frames, 1024, 1024, delta_window=16, device="cuda")
+
+    def sweep():
+        enc.rate_sweep_assignments(copy.deepcopy(pal), nby, nbx, dev_blocks=blocks,
+                                   lam_bits=60.0, lam_cr=1.5)
+
+    out["sweep_1024"] = median_ms(sweep)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    sweep()
+    torch.cuda.synchronize()
+    out["sweep_1024_peak_bytes"] = torch.cuda.max_memory_allocated() - held
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        sweep()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("Mem")]
+    out["sweep_1024_kernels_per_frame"] = len(kernels) / LAYERS
     print(json.dumps(out), flush=True)
     return 0
 

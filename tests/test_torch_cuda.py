@@ -425,71 +425,93 @@ def test_redesigned_kernels_use_no_stack(card):
 
     attrs = _build.kernel_attrs()
     for fn in ("etc1_encode_kernel", "etc1_decode_kernel", "inten_errors_kernel",
-               "geometry_minmax_kernel", "quantize_delta_zigzag_kernel", "rate_sweep_kernel"):
+               "geometry_minmax_kernel", "quantize_delta_zigzag_kernel", "rate_sweep_frame_kernel"):
         assert attrs[fn]["stack_bytes"] == 0, (fn, attrs[fn])
 
 
-# ---- K7: the rate sweep's column scan ------------------------------------------
+# ---- K7: the rate sweep's frame stage ------------------------------------------
 
 
-def _sweep_frame(nby: int, nbx: int, e: int, lam: float, seed: int):
-    """One frame for K7: integer errors within one lambda of each other in
-    a block (the left, ABOVE and CR prices decide; with lam 0, errors in
-    0..2 and ties everywhere), random incoming and previous entries,
-    has_prev mixed."""
+def _sweep_frame(nby: int, nbx: int, e: int, seed: int, dup: bool = False, prev: bool = True):
+    """One frame for K7: blocks decoded from random (entry, selector) pairs
+    plus noise, a palette of e entries (with `dup`, its second half repeats
+    its first: ties), 8 selector rows (row 0 uniform, the flat blocks'),
+    random incoming entries, and a previous pair that is the true one for
+    half the blocks (CR competes there). Returns the wrapper's arguments
+    before s0_index = 0, as CPU tensors."""
     from uvol_tpu_torch.codecs.basis.etc1s_encode import sweep_bits_table
 
     r = np.random.default_rng(seed)
     nb = nby * nbx
-    base = r.integers(0, 3_000_000, (nb, 1))
-    err = (base + r.integers(0, int(lam) + 3, (nb, e))).astype(np.float32)
-    e_prev = (base[:, 0] + r.integers(0, int(2 * lam) + 3, nb)).astype(np.float32)
-    ep_in, prev_ep = (r.integers(0, e, nb).astype(np.int32) for _ in range(2))
-    return tuple(torch.from_numpy(x) for x in (err, sweep_bits_table(e), ep_in, prev_ep,
-                                               e_prev, r.random(nb) < 0.5))
+    c5 = r.integers(0, 32, (e, 3))
+    inten = r.integers(0, 8, e)
+    if dup and e > 1:
+        c5[e - e // 2:], inten[e - e // 2:] = c5[:e // 2], inten[:e // 2]
+    base = ((c5 << 3) | (c5 >> 2)).astype(np.int32)
+    mods = np.array(etc1s_cuda.INTEN_TABLES, np.int32)[inten]
+    sel_cb = r.integers(0, 4, (8, 16)).astype(np.int32)
+    sel_cb[0] = 2
+    true_ep, true_sel = r.integers(0, e, nb), r.integers(0, 8, nb)
+    col = np.clip(base[true_ep][:, None, :]
+                  + mods[true_ep][np.arange(nb)[:, None], sel_cb[true_sel]][:, :, None], 0, 255)
+    blocks = np.clip(col + r.integers(-3, 4, col.shape), 0, 255).astype(np.uint8)
+    ep = np.where(r.random(nb) < 0.3, true_ep, r.integers(0, e, nb)).astype(np.int32)
+    half = r.random(nb) < 0.5
+    pair = (np.where(half, true_ep, r.integers(0, e, nb)).astype(np.int32),
+            np.where(half, true_sel, r.integers(0, 8, nb)).astype(np.int32))
+    t = torch.from_numpy
+    return (t(blocks), t(base), t(mods), t(sel_cb), t(sweep_bits_table(e)), t(ep),
+            t(true_sel.astype(np.int32)), (t(pair[0]), t(pair[1])) if prev else None)
 
 
-@pytest.mark.parametrize("nby", [1, 257])
-@pytest.mark.parametrize("nbx", [1, 3, 256])
-@pytest.mark.parametrize("e", [512, 1024, 2048])
-def test_rate_sweep_kernel_matches_twin(card, e, nbx, nby):
-    """New entries and CR flags bit for bit, one launch per frame; over
-    the frame some block takes its ABOVE entry (neither its left one nor
-    the next), some CR and some not (where nbx > 1)."""
-    args = _sweep_frame(nby, nbx, e, 60.0, e + nbx + nby)
-    on_card = tuple(a.to(card) for a in args)
+def _on(card, args):
+    return tuple(_on(card, a) if isinstance(a, tuple) else a.to(card) if a is not None else None
+                 for a in args)
+
+
+@pytest.mark.parametrize("prev", [True, False])
+@pytest.mark.parametrize("nby,nbx", [(1, 1), (1, 300), (257, 3), (64, 256)])
+@pytest.mark.parametrize("e", [17, 512, 2048])
+def test_rate_sweep_kernel_matches_twin(card, e, nby, nbx, prev):
+    """New entries and selectors bit for bit, one launch per frame, with
+    and without a previous frame; on a frame with one, some blocks keep
+    the previous pair and some do not."""
+    args = _sweep_frame(nby, nbx, e, e + nbx + nby, prev=prev)
     before = etc1s_cuda.LAUNCHES["etc1s_rate_sweep"]
-    got = etc1s_cuda.rate_sweep_cols(*on_card, 60.0, nbx)
+    got = etc1s_cuda.rate_sweep_frame(*_on(card, args), 0, 60.0, 1.5, nbx)
     torch.cuda.synchronize()
     assert etc1s_cuda.LAUNCHES["etc1s_rate_sweep"] == before + 1
     small = nby * nbx * e <= 1 << 20
-    twin = etc1s_cuda.rate_sweep_cols_plain(*(args if small else on_card), 60.0, nbx)
+    twin = etc1s_cuda.rate_sweep_frame_plain(*(args if small else _on(card, args)), 0, 60.0,
+                                             1.5, nbx)
     for g, w in zip(got, twin):
+        assert g.dtype == torch.int32
         np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
-    new_ep, cr = (t.cpu().numpy().reshape(nby, nbx) for t in got)
-    if nbx > 1 and nby > 1:
-        ep_in = args[2].numpy().reshape(nby, nbx)
-        above = np.concatenate([ep_in[:1], ep_in[:-1]])[:, 1:]
-        left = new_ep[:, :-1]
-        took_above = (~cr[:, 1:]) & (new_ep[:, 1:] == above) & (above != left) & (
-            (above - left) % e != 1)
-        assert took_above.any() and cr.any() and not cr.all()
+    if prev and nby * nbx > 64:
+        kept = got[0].cpu() == args[7][0]
+        assert kept.any() and not kept.all()
 
 
-@pytest.mark.parametrize("e", [512, 2048])
+@pytest.mark.parametrize("e", [40, 512, 2048])
 def test_rate_sweep_kernel_breaks_ties_to_the_first_entry(card, e):
-    """lam 0: every cost is its error, in 0..2, so nearly every row ties;
-    the first minimum wins on the card as in the twin."""
-    args = _sweep_frame(257, 3, e, 0.0, e)
-    got = etc1s_cuda.rate_sweep_cols(*(a.to(card) for a in args), 0.0, 3)
+    """lam 0 over a palette whose second half repeats its first: every tie
+    between two equal entries goes to the first, on the card as in the
+    twin, so a block ends on a second-half entry only by taking its
+    previous one."""
+    args = _sweep_frame(65, 19, e, e, dup=True)
+    got = etc1s_cuda.rate_sweep_frame(*_on(card, args), 0, 0.0, 1.5, 19)
     torch.cuda.synchronize()
-    for g, w in zip(got, etc1s_cuda.rate_sweep_cols_plain(*args, 0.0, 3)):
+    for g, w in zip(got, etc1s_cuda.rate_sweep_frame_plain(*args, 0, 0.0, 1.5, 19)):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    ep = got[0].cpu()
+    assert ((ep < e // 2) | (ep == args[7][0])).all()  # a second-half entry only by CR
 
 
-def test_etc1s_delta_encode_on_card_matches_cpu(card):
-    """The delta-aware stage at 512/512 on 2 x 64x64: the card's bytes
-    equal the CPU port's, with K7 once per frame of each of 3 sweeps."""
+@pytest.mark.parametrize("kind", ["rgb_512", "rgba_1024"])
+def test_etc1s_delta_encode_on_card_matches_cpu(card, kind):
+    """The delta-aware stage on 2 x 64x64 (RGBA: 1,024 blocks, so 1,024
+    entries): the card's bytes equal the CPU port's, with K7 once per
+    frame of each of 3 sweeps."""
     from uvol_tpu_torch.codecs.basis.etc1s_encode import encode_ktx2_etc1s
 
     yy, xx = np.mgrid[0:64, 0:64]
@@ -498,7 +520,11 @@ def test_etc1s_delta_encode_on_card_matches_cpu(card):
                                          ((xx + yy) * 2) % 256], -1)
                                + r.integers(-6, 7, (64, 64, 3)), 0, 255)
                        for i in range(2)]).astype(np.uint8)
-    kw = dict(num_endpoints=512, num_selectors=512)
+    if kind == "rgba_1024":
+        alpha = np.clip(xx * 4 - np.arange(2)[:, None, None], 0, 255).astype(np.uint8)
+        frames = np.concatenate([frames, alpha[..., None]], -1)
+    e_n = int(kind.split("_")[1])
+    kw = dict(num_endpoints=e_n, num_selectors=e_n)
     etc1s_cuda.reset_launches()
     got = encode_ktx2_etc1s(frames, device="cuda", **kw)
     sweeps = etc1s_cuda.LAUNCHES["etc1s_rate_sweep"]

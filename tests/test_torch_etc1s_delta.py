@@ -1,7 +1,8 @@
 """The ETC1S delta-aware stage of the port (uvol_tpu_torch) against the
 JAX package, on the CPU.
 
-The endpoint-major flips, the rate sweep (K7's plain twin on the CPU),
+The endpoint-major flips, the rate sweep (K7's plain twin on the CPU:
+`etc1s_cuda.rate_sweep_frame_plain`),
 the endpoint quads and the whole delta path of `build_palettes` /
 `encode_ktx2_etc1s` take the same inputs as the reference and must give
 the same assignments, palettes and `.ktx2` bytes: every comparison is
@@ -300,15 +301,23 @@ def test_quad_share_refuses_an_odd_grid():
 
 
 def test_rate_sweep_wrapper_refuses_other_shapes():
-    err = torch.zeros((12, 512))
+    blocks = torch.zeros((12, 16, 3), dtype=torch.uint8)
+    base, mods = torch.zeros((512, 3), dtype=torch.int32), torch.zeros((512, 4), dtype=torch.int32)
+    sel_cb, bits = torch.zeros((4, 16), dtype=torch.int32), torch.zeros(512)
     z = torch.zeros(12, dtype=torch.int32)
-    args = (torch.zeros(512), z, z, torch.zeros(12), torch.zeros(12, dtype=torch.bool), 60.0)
+    args = (blocks, base, mods, sel_cb, bits, z, z, (z, z), 0, 60.0, 1.5)
     with pytest.raises(ValueError, match="rows of 5"):
-        kern.rate_sweep_cols(err, *args, 5)
-    with pytest.raises(ValueError, match="float32 errors"):
-        kern.rate_sweep_cols(torch.zeros((12, kern.SEG_MAX_K + 1)), *args, 4)
-    with pytest.raises(ValueError, match="has_prev"):
-        kern.rate_sweep_cols(err, *args[:4], torch.zeros(12), 60.0, 4)
+        kern.rate_sweep_frame(*args, 5)
+    with pytest.raises(ValueError, match="palette entries"):
+        big = torch.zeros((kern.SEG_MAX_K + 1, 3), dtype=torch.int32)
+        kern.rate_sweep_frame(blocks, big, *args[2:], 4)
+    with pytest.raises(ValueError, match="uint8 blocks"):
+        kern.rate_sweep_frame(blocks.int(), *args[1:], 4)
+    with pytest.raises(ValueError, match="bits"):
+        kern.rate_sweep_frame(*args[:4], bits.double(), *args[5:], 4)
+    with pytest.raises(ValueError, match="prev_ep"):
+        kern.rate_sweep_frame(*args[:7], (z.long(), z), *args[8:], 4)
+    assert [t.shape for t in kern.rate_sweep_frame(*args, 4)] == [(12,), (12,)]
 
 
 def test_delta_entropy_proxy_matches_jax():

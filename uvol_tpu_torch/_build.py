@@ -126,8 +126,8 @@ def get_lib() -> ctypes.CDLL:
                 "uvt_etc1s_assign_endpoints": [vp, vp, vp, ci, ci, vp],
                 "uvt_etc1s_kmeans_iter": [vp, vp, ci, ci, vp, vp, vp, vp],
                 "uvt_etc1s_segment_sum": [vp, vp, ci, ci, ci, vp, vp, vp],
-                "uvt_etc1s_rate_sweep": [vp, vp, vp, vp, vp, vp, ctypes.c_float, ci, ci, ci,
-                                         vp, vp, vp],
+                "uvt_etc1s_rate_sweep": [vp] * 9 + [ci, ci, ctypes.c_float, ctypes.c_float,
+                                                    ci, ci, ci, vp, vp, vp],
                 "uvt_geometry_minmax": [vp, vp, vp, vp, ci, ci, ci, vp],
                 "uvt_quantize_delta_zigzag": [vp, vp, vp, vp, vp, ci, vp, vp, ci, ci, ci, vp],
             }

@@ -3,9 +3,10 @@
 `assign_endpoints` (K4), `inten_errors` (K5) and `kmeans_iter` (K6) are
 the three hot stages of the palette build (`etc1s_encode.palette_core`);
 `segment_sum` is the fixed-order segment sum that the build takes for
-every per-cluster reduction, the port's `_seg_reduce`; `rate_sweep_cols`
-(K7) is the column scan of the delta-aware stage's rate sweep
-(`etc1s_encode.rate_sweep_assignments`), one launch per frame. The
+every per-cluster reduction, the port's `_seg_reduce`; `rate_sweep_frame`
+(K7) is a whole frame of the delta-aware stage's rate sweep
+(`etc1s_encode.rate_sweep_assignments`: error product, column scan and CR
+snap), one launch per frame. The
 device of the tensor decides the route:
 
   - a CUDA tensor launches the hand-written kernels of `csrc/etc1s.cu`,
@@ -23,9 +24,11 @@ chunks of `SEG_MAX_ROWS` rows and add the chunk results in order, first
 to last; at or below it nothing is chunked. `SEG_MAX_K` segments or
 centroids is the limit of both routes.
 
-K7 prices with one fused multiply-add per entry, as XLA compiles the
-reference's scan on the CPU; its twin rounds the same FMA once
-(`_device.fma_f32`), so kernel and twin agree bit for bit.
+K7 computes its errors in int32 (exact: the reference's float32 product
+holds integers below 2^24) and prices with one fused multiply-add per
+entry, as XLA compiles the reference's scan on the CPU; its twin rounds
+the same FMA once (`_device.fma_f32`), so kernel and twin agree bit for
+bit.
 
 K4 and K5 are exact integer arithmetic (the TPU kernels' f32 terms are
 all integers below 2^24), so kernel, twin and TPU kernel agree bit for
@@ -388,37 +391,68 @@ def _kmeans_launch(feats: Tensor, cb: Tensor, assign: Tensor) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K7: the rate sweep's column scan
+# K7: the rate sweep's frame stage (error product, column scan, CR snap)
 # ---------------------------------------------------------------------------
 
 #: the sweep's price in bits of an entry equal to the block above's, at most
 SWEEP_ABOVE_BITS = f32(1.4)
 #: the CR cost of a block whose frame has no previous one
 SWEEP_NO_CR = f32(3.0e38)
+#: the CR snap's absolute headroom on near-zero errors
+SWEEP_SLACK = 64.0
+
+
+def pair_errors(px: Tensor, base: Tensor, mods: Tensor, sel_cb: Tensor, ep_idx: Tensor,
+                sel_idx: Tensor) -> Tensor:
+    """Exact error [N] (f32) of coding blocks px [N, 16, 3] (int32 or
+    uint8) with endpoints ep_idx and selectors sel_idx [N]: base [E, 3] and
+    mods [E, 4] int32, sel_cb [S, 16] integer codes; int32 arithmetic,
+    every sum below 2^24."""
+    mod = mods[ep_idx].gather(1, sel_cb.long()[sel_idx])  # [N, 16]
+    d = px.to(torch.int32) - torch.clamp(base[ep_idx][:, None, :] + mod[:, :, None], 0, 255)
+    return (d * d).sum((1, 2)).to(torch.float32)
+
+
+def sweep_features(blocks: Tensor, base: Tensor, mods: Tensor, sel_cb: Tensor,
+                   sel: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """The rate sweep's error decomposition, as f32 tensors of integers:
+    (p_sq [N], feat [N, 16], mat [E, 16]) with err[b, e] = p_sq[b] +
+    feat[b] . mat[e]: grouping block b's pixels by their code c under its
+    own selector row, feat = (-2 S_c (12, code-major), n_c (4)) and mat =
+    (col(e, c) (12), |col(e, c)|^2 (4)), col the clipped decoded color."""
+    px = blocks.to(torch.int32)
+    e_n = base.shape[0]
+    col = torch.clamp(base[:, None, :] + mods[:, :, None], 0, 255)  # [E, 4, 3]
+    mat = torch.cat([col.reshape(e_n, 12), (col * col).sum(2)], 1).float()
+    codes = sel_cb.long()[sel.long()]  # [N, 16]
+    onehot = [(codes == j).to(torch.int32) for j in range(4)]
+    s_c = torch.cat([(px * m[:, :, None]).sum(1) for m in onehot], 1)  # [N, 12], code-major
+    feat = torch.cat([-2 * s_c, torch.stack([m.sum(1) for m in onehot], 1)], 1).float()
+    return (px * px).sum((1, 2)).float(), feat, mat
 
 
 def rate_sweep_cols_plain(err: Tensor, bits: Tensor, ep_in: Tensor, prev_ep: Tensor,
-                          e_prev: Tensor, has_prev: Tensor, lam: float,
+                          e_prev: Tensor, has_prev: bool, lam: float,
                           nbx: int) -> Tuple[Tensor, Tensor]:
-    """Plain twin of K7, the reference's column scan (`_rate_sweep_fn`'s
-    `col_step`) as a loop over the block columns; the rows go together.
+    """The twin's column scan, the reference's `col_step` as a loop over
+    the block columns; the rows go together.
 
     err [nb, E] f32 (nb = nby * nbx, rows of blocks in raster order),
-    bits [E] f32 (`etc1s_encode.sweep_bits_table`), ep_in and prev_ep [nb]
-    int32, e_prev [nb] f32, has_prev [nb] bool, lam the bits' weight →
-    (new_ep [nb] int32, use_cr [nb] bool). Block (r, c) prices entry e at
-    fma(lam, b, err) with b = bits[(e - left) mod E], left the new entry of
-    (r, c - 1) (column 0: its own incoming one), and b at most
-    `SWEEP_ABOVE_BITS` for the incoming entry of (r - 1, c) (row 0: its
-    own); the first minimum wins unless e_prev + lam / 2 (where has_prev)
-    is no more: then CR, prev_ep."""
+    bits [E] f32 (`etc1s_encode.sweep_bits_table`), ep_in and prev_ep [nb],
+    e_prev [nb] f32, has_prev whether the frame has a previous one, lam the
+    bits' weight → (new_ep [nb] int32, use_cr [nb] bool). Block (r, c)
+    prices entry e at fma(lam, b, err) with b = bits[(e - left) mod E],
+    left the new entry of (r, c - 1) (column 0: its own incoming one), and
+    b at most `SWEEP_ABOVE_BITS` for the incoming entry of (r - 1, c) (row
+    0: its own); the first minimum wins unless e_prev + lam / 2 (with
+    has_prev; else `SWEEP_NO_CR`) is no more: then CR, prev_ep."""
     nb, e = err.shape
     nby = nb // nbx
     lam = f32(lam)
     half = f32(lam * 0.5)  # exact
     ep = ep_in.long().reshape(nby, nbx)
     above = torch.cat([ep[:1], ep[:-1]])
-    pe, epv, hp = (t.reshape(nby, nbx) for t in (prev_ep.long(), e_prev, has_prev))
+    pe, epv = prev_ep.long().reshape(nby, nbx), e_prev.reshape(nby, nbx)
     cols = err.reshape(nby, nbx, e)
     iota = torch.arange(e, device=err.device)[None, :]
     left = ep[:, 0]
@@ -428,7 +462,7 @@ def rate_sweep_cols_plain(err: Tensor, bits: Tensor, ep_in: Tensor, prev_ep: Ten
         b = torch.where(iota == above[:, c:c + 1], torch.clamp(b, max=SWEEP_ABOVE_BITS), b)
         cost = fma_f32(lam, b, cols[:, c])
         ep_rd = torch.argmin(cost, 1)
-        cost_cr = torch.where(hp[:, c], epv[:, c] + half, SWEEP_NO_CR)
+        cost_cr = epv[:, c] + half if has_prev else torch.full_like(epv[:, c], SWEEP_NO_CR)
         cr = cost_cr <= cost.gather(1, ep_rd[:, None])[:, 0]
         left = torch.where(cr, pe[:, c], ep_rd)
         new_ep.append(left)
@@ -437,29 +471,75 @@ def rate_sweep_cols_plain(err: Tensor, bits: Tensor, ep_in: Tensor, prev_ep: Ten
             torch.stack(use_cr, 1).reshape(nb))
 
 
-def rate_sweep_cols(err: Tensor, bits: Tensor, ep_in: Tensor, prev_ep: Tensor,
-                    e_prev: Tensor, has_prev: Tensor, lam: float,
-                    nbx: int) -> Tuple[Tensor, Tensor]:
-    """K7 on one frame, arguments and results as `rate_sweep_cols_plain`
-    (E <= `SEG_MAX_K`); one launch of nby CTAs."""
-    if err.dtype != torch.float32 or err.ndim != 2 or not 0 < err.shape[1] <= SEG_MAX_K:
-        raise ValueError(f"expected [nb, E <= {SEG_MAX_K}] float32 errors, "
-                         f"got {tuple(err.shape)} {err.dtype}")
-    nb, e = err.shape
+def rate_sweep_frame_plain(blocks: Tensor, base: Tensor, mods: Tensor, sel_cb: Tensor,
+                           bits: Tensor, ep: Tensor, sel: Tensor,
+                           prev: Optional[Tuple[Tensor, Tensor]], s0_index: int, lam: float,
+                           lam_cr: float, nbx: int) -> Tuple[Tensor, Tensor]:
+    """Plain twin of K7: the reference's `_rate_sweep_fn` frame body.
+
+    The error of every palette entry under each block's own selector codes
+    (`sweep_features`: one [nb, 16] x [16, E] product, exact: integers
+    below 2^24), the column scan (`rate_sweep_cols_plain`), where CR won the
+    previous selector, then the CR snap of the patterned blocks (sel !=
+    s0_index on entry): the previous pair where e_prev <= fma(lam_cr, e_new,
+    64). Arguments as `rate_sweep_frame`; returns (ep, sel) [nb] int32."""
+    nb = ep.shape[0]
+    p_sq, feat, mat = sweep_features(blocks, base, mods, sel_cb, sel)
+    err = p_sq[:, None] + feat @ mat.T  # [nb, E]
+    if prev is None:
+        prev_ep = prev_sel = torch.zeros_like(ep)
+        e_prev = torch.zeros(nb, dtype=torch.float32, device=ep.device)
+    else:
+        prev_ep, prev_sel = prev
+        e_prev = pair_errors(blocks, base, mods, sel_cb, prev_ep.long(), prev_sel.long())
+    new_ep, use_cr = rate_sweep_cols_plain(err, bits, ep, prev_ep, e_prev, prev is not None,
+                                           lam, nbx)
+    new_sel = torch.where(use_cr, prev_sel, sel)
+    if prev is not None:  # patterned blocks: the plain CR snap
+        e_new = pair_errors(blocks, base, mods, sel_cb, new_ep.long(), new_sel.long())
+        cr = (e_prev <= fma_f32(lam_cr, e_new, SWEEP_SLACK)) & (sel != s0_index)
+        new_ep, new_sel = torch.where(cr, prev_ep, new_ep), torch.where(cr, prev_sel, new_sel)
+    return new_ep.to(torch.int32), new_sel.to(torch.int32)
+
+
+def rate_sweep_frame(blocks: Tensor, base: Tensor, mods: Tensor, sel_cb: Tensor, bits: Tensor,
+                     ep: Tensor, sel: Tensor, prev: Optional[Tuple[Tensor, Tensor]],
+                     s0_index: int, lam: float, lam_cr: float,
+                     nbx: int) -> Tuple[Tensor, Tensor]:
+    """K7: the rate sweep on one frame, the reference's `_rate_sweep_fn`
+    frame body in one launch of nby CTAs. blocks [nb, 16, 3] uint8 (rows of
+    nbx blocks in raster order), base [E, 3] and mods [E, 4] int32 (8-bit
+    colors and intensity modifiers, 1 <= E <= `SEG_MAX_K`), sel_cb [S, 16]
+    int32 codes, bits [E] f32 (`etc1s_encode.sweep_bits_table`), ep and sel
+    [nb] int32 (the incoming pairs), prev the previous frame's (ep, sel)
+    [nb] int32 or None, s0_index the uniform selector row, lam the bits'
+    weight, lam_cr the CR snap's → (ep, sel) [nb] int32, as
+    `rate_sweep_frame_plain`."""
+    _check_blocks(blocks)
+    nb = blocks.shape[0]
+    if not 0 < base.shape[0] <= SEG_MAX_K:
+        raise ValueError(f"expected 1 to {SEG_MAX_K} palette entries, got {base.shape[0]}")
+    e = base.shape[0]
     if nbx <= 0 or nb % nbx:
         raise ValueError(f"{nb} blocks are not rows of {nbx}")
-    if bits.dtype != torch.float32 or tuple(bits.shape) != (e,):
-        raise ValueError(f"expected [{e}] float32 bits, got {tuple(bits.shape)} {bits.dtype}")
-    for name, t, dt in (("ep_in", ep_in, torch.int32), ("prev_ep", prev_ep, torch.int32),
-                        ("e_prev", e_prev, torch.float32), ("has_prev", has_prev, torch.bool)):
-        if t.dtype != dt or tuple(t.shape) != (nb,):
-            raise ValueError(f"expected [{nb}] {dt} {name}, got {tuple(t.shape)} {t.dtype}")
-    if not _route(err):
-        return rate_sweep_cols_plain(err, bits, ep_in, prev_ep, e_prev, has_prev, lam, nbx)
-    args = [t.contiguous() for t in (err, bits, ep_in, prev_ep, e_prev, has_prev)]
-    new_ep = torch.empty(nb, dtype=torch.int32, device=err.device)
-    use_cr = torch.empty(nb, dtype=torch.bool, device=err.device)
-    _launch("etc1s_rate_sweep", "uvt_etc1s_rate_sweep", err.device,
-            *(t.data_ptr() for t in args), f32(lam), nb // nbx, nbx, e,
-            new_ep.data_ptr(), use_cr.data_ptr())
-    return new_ep, use_cr
+    pairs = (ep, sel) + (() if prev is None else tuple(prev))
+    for name, t, dt, shape in (("base", base, torch.int32, (e, 3)),
+                               ("mods", mods, torch.int32, (e, 4)),
+                               ("sel_cb", sel_cb, torch.int32, (sel_cb.shape[0], 16)),
+                               ("bits", bits, torch.float32, (e,)),
+                               *((n, t, torch.int32, (nb,))
+                                 for n, t in zip(("ep", "sel", "prev_ep", "prev_sel"), pairs))):
+        if t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"expected {list(shape)} {dt} {name}, got {tuple(t.shape)} {t.dtype}")
+    if not _route(blocks):
+        return rate_sweep_frame_plain(blocks, base, mods, sel_cb, bits, ep, sel, prev,
+                                      s0_index, lam, lam_cr, nbx)
+    args = [t.contiguous() for t in (blocks, base, mods, sel_cb, bits, *pairs)]
+    if prev is None:  # not read by the kernel
+        args += args[-2:]
+    out_ep = torch.empty(nb, dtype=torch.int32, device=blocks.device)
+    out_sel = torch.empty(nb, dtype=torch.int32, device=blocks.device)
+    _launch("etc1s_rate_sweep", "uvt_etc1s_rate_sweep", blocks.device,
+            *(t.data_ptr() for t in args), int(prev is not None), int(s0_index), f32(lam),
+            f32(lam_cr), nb // nbx, nbx, e, out_ep.data_ptr(), out_sel.data_ptr())
+    return out_ep, out_sel

@@ -1,5 +1,5 @@
-// ETC1S palette-build kernels K4, K5 and K6, and the rate sweep's column
-// scan K7, for Hopper (sm_90a).
+// ETC1S palette-build kernels K4, K5 and K6, and the rate sweep's frame
+// stage K7, for Hopper (sm_90a).
 //
 // Replace the Pallas TPU kernels of uvol_tpu/codecs/basis/etc1s_pallas.py:
 //   K4  `_assign_kernel` (assign_endpoints_pallas): per block, the exact
@@ -89,22 +89,49 @@
 // index and values read once, the sums written once); counts are sums of
 // 1.0, exact below 2^24.
 //
-// K7 -- the column scan of the delta-aware stage's rate sweep
-// (`_rate_sweep_fn`'s `col_step`, uvol_tpu/codecs/basis/etc1s_encode.py:
-// 1267-1319, a lax.scan that XLA runs, not a Pallas site). Per frame, each
-// block prices every palette entry e: cost = fma(lam, bits[dm], err[b, e])
-// with dm = (e - left) mod E, left the FINAL choice of the block to its
-// left, and bits[dm] lowered to at most 1.4 for the entry of the block
-// above (its incoming assignment; row 0 takes its own); the first
-// minimum wins, unless conditional replenishment costs no more
-// (e_prev + lam / 2 where the frame has a previous one). Columns depend on
-// each other, rows do not: one CTA of 256 threads per block row walks the
-// columns; the bits table sits in shared memory, a thread prices entries
-// tid, tid + 256, ... (the next column's errors load while this column
-// reduces), a warp-shuffle then shared-memory argmin over (cost, entry)
-// keeps the first minimum, and thread 0 makes the CR decision and hands
-// the new left entry on. The FMA is __fmaf_rn, as XLA contracts it on the
-// CPU. Bound: bytes, the [nb, E] float32 error tile read once.
+// K7 -- the delta-aware stage's rate sweep, one frame per launch: the
+// reference's `_rate_sweep_fn` frame body (uvol_tpu/codecs/basis/
+// etc1s_encode.py:1211-1330, an XLA product and lax.scan, not a Pallas site).
+// Each block prices every palette entry e under its own selector codes:
+// cost = fma(lam, bits[dm], err(b, e)) with dm = (e - left) mod E (a floor
+// modulo), left the FINAL choice of the block to its left (column 0: its own
+// incoming entry), bits[dm] at most 1.4 for the incoming entry of the block
+// above (row 0: its own); the first minimum wins unless conditional
+// replenishment costs no more (e_prev + lam / 2 where the frame has a
+// previous one). Then a CR block takes the previous selector, and each
+// patterned block (incoming selector not the uniform row) the previous pair
+// where e_prev <= fma(lam_cr, e_new, 64). Columns depend on each other, rows
+// do not: one CTA per block row, 32 * ceil(E / 128) threads, thread t
+// pricing entries t + j * blockDim.x, j < 4.
+//   - errors: err = |p|^2 + sum_c n_c |col(e, c)|^2 - 2 sum_v S_v col_v(e),
+//     S_v the block's per-code, per-channel pixel sums (v = 3c + ch, at most
+//     16 * 255: 16 bits) and col the entry's clipped decoded colors (8 bits).
+//     A thread keeps its 4 entries in registers (3 words of color bytes and
+//     4 squares each), a block's features come as 16-bit pairs, and the 12
+//     color products are 6 __dp2a: 11 integer instructions a (block, entry).
+//     Exact in int32; the reference's float32 [nb, 16] x [16, E] product
+//     holds the same integers (every partial sum below 2^24 in magnitude), so
+//     the float32 conversion of the int32 result is its value bit for bit,
+//     and no [nb, E] tile is written or read;
+//   - a pass over up to 256 columns of the row first stages, a thread per
+//     block, each block's features, its above and previous entries, e_prev
+//     (the exact pair error of the previous pair) and its CR cost in shared
+//     memory: the column loop then makes no global load;
+//   - one barrier per column: each warp's first minimum of (cost, entry) --
+//     the least of the costs' bits in float order, then the least entry that
+//     holds it, two redux.sync reductions -- goes to a double-buffered shared
+//     array, and after the barrier every warp reduces the warps' minima the
+//     same way and makes the CR decision itself, so the new left entry needs
+//     no second barrier; the next column's errors, which do not depend on
+//     it, are computed before the barrier; left is an entry, so dm needs no
+//     division;
+//   - the epilogue, a thread per block, computes e_new and the snap.
+// Shared memory (static, any E): bits 8 KB (E <= 2048), 256 blocks' features
+// 12 KB, 5 per-block words 5 KB, CR flags and keys 0.5 KB. The FMAs are
+// __fmaf_rn, as XLA contracts them on the CPU. Bound: operations, 21 a
+// (block, entry) (the 11 above, the table index and its load, the ABOVE
+// test, the FMA, the running minimum); its bytes (blocks, palette,
+// assignments) are ~5 MB a 1024^2 frame.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -649,99 +676,251 @@ __global__ void kmeans_chunk_kernel(const float4* __restrict__ feats,
 
 // ---- K7 -------------------------------------------------------------------
 
-constexpr int kSweepThreads = 256;
-constexpr int kSweepPer = kSegMaxK / kSweepThreads;  // entries a thread prices, at most
-constexpr int kSweepWarps = kSweepThreads / 32;
+constexpr int kSweepPer = 4;                            // entries a thread prices
+constexpr int kSweepMaxThreads = kSegMaxK / kSweepPer;  // 512 at 2,048 entries
+constexpr int kSweepMaxWarps = kSweepMaxThreads / 32;
+constexpr int kSweepCols = 256;          // block columns one pass of a row stages
 constexpr float kSweepAboveBits = 1.4f;  // the price of matching the block above
 constexpr float kSweepNoCr = 3.0e38f;    // the CR cost of a block without a previous frame
+constexpr float kSweepSlack = 64.f;      // the CR snap's absolute headroom
 
-// (c, e) becomes (oc, oe) when that is a lower cost, or the same cost at a
-// lower entry: the first minimum.
-__device__ __forceinline__ void take_least(float& c, int& e, float oc, int oe) {
-  if (oc < c || (oc == c && oe < e)) {
-    c = oc;
-    e = oe;
+// A float's bits as an unsigned integer in the float's order (no NaN), and back.
+__device__ __forceinline__ unsigned ordered_bits(float f) {
+  const unsigned b = __float_as_uint(f);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+__device__ __forceinline__ float from_ordered(unsigned u) {
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+// The first minimum over the warp of (key, entry), key a cost's ordered
+// bits: the least key, then the least entry among the lanes that hold it
+// (two redux.sync reductions). Every lane gets both.
+__device__ __forceinline__ void warp_first_min(unsigned& key, unsigned& entry) {
+  const unsigned least = __reduce_min_sync(0xffffffffu, key);
+  entry = __reduce_min_sync(0xffffffffu, key == least ? entry : 0xffffffffu);
+  key = least;
+}
+
+__device__ __forceinline__ int pick4(const int (&m)[4], int code) {
+  return code == 0 ? m[0] : code == 1 ? m[1] : code == 2 ? m[2] : m[3];
+}
+
+// The exact error of coding the block's 48 pixel bytes px with palette entry
+// e and selector row s.
+__device__ int pair_error(const uint8_t* __restrict__ px, const int32_t* __restrict__ base,
+                          const int32_t* __restrict__ mods, const int32_t* __restrict__ sel_cb,
+                          int e, int s) {
+  int b[3], m[4];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) b[c] = base[e * 3 + c];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) m[j] = mods[e * 4 + j];
+  int err = 0;
+#pragma unroll
+  for (int p = 0; p < 16; ++p) {
+    const int mod = pick4(m, sel_cb[s * 16 + p]);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const int d = (int)px[p * 3 + c] - min(max(b[c] + mod, 0), 255);
+      err += d * d;
+    }
+  }
+  return err;
+}
+
+// One palette entry as a thread holds it: col(k, c)[ch] as bytes, v = 3c + ch
+// at byte v % 4 of word v / 4, and |col(k, c)|^2.
+struct SweepEntry {
+  unsigned col[3];
+  int sq[4];
+};
+
+// A block's features as the scan reads them: the per-code pixel sums
+// S_c[ch] (at most 16 * 255) as unsigned 16-bit pairs, v = 3c + ch at half
+// v % 2 of word v / 2, the per-code pixel counts n_c, and |p|^2.
+struct __align__(16) SweepBlock {
+  unsigned s[6];
+  int n[4];
+  int p_sq;
+};
+
+// The errors of one block against the thread's kSweepPer entries,
+// err = |p|^2 + sum_c n_c |col_c|^2 - 2 sum_v S_v col_v: 4 multiply-adds,
+// 6 two-way 16 x 8-bit dot products (__dp2a) and one multiply-add, exact in
+// int32; the same integer as the reference's float32 product, whose every
+// partial sum is an integer below 2^24. Then converted (exactly) to float32.
+__device__ __forceinline__ void column_errors(const SweepBlock& f,
+                                              const SweepEntry (&tab)[kSweepPer],
+                                              float (&errs)[kSweepPer]) {
+#pragma unroll
+  for (int j = 0; j < kSweepPer; ++j) {
+    const SweepEntry& t = tab[j];
+    const int acc = f.p_sq + f.n[0] * t.sq[0] + f.n[1] * t.sq[1] + f.n[2] * t.sq[2] +
+                    f.n[3] * t.sq[3];
+    unsigned dot = 0;
+#pragma unroll
+    for (int q = 0; q < 6; ++q)
+      dot = (q & 1) ? __dp2a_hi(f.s[q], t.col[q >> 1], dot) : __dp2a_lo(f.s[q], t.col[q >> 1], dot);
+    errs[j] = __int2float_rn(acc - 2 * (int)dot);
   }
 }
 
-// One CTA per block row. err: [nby * nbx, e] float32; bits: [e]; ep_in,
-// prev_ep: [nby * nbx] int32; e_prev: [nby * nbx] float32; has_prev:
-// [nby * nbx] bytes (0/1). Writes new_ep and use_cr (0/1).
-__global__ void __launch_bounds__(kSweepThreads)
-rate_sweep_kernel(const float* __restrict__ err, const float* __restrict__ bits,
-                  const int32_t* __restrict__ ep_in, const int32_t* __restrict__ prev_ep,
-                  const float* __restrict__ e_prev, const uint8_t* __restrict__ has_prev,
-                  float lam, int nbx, int e, int32_t* __restrict__ new_ep,
-                  uint8_t* __restrict__ use_cr) {
+// One CTA per block row, 32 * ceil(e / 128) threads: thread t prices entries
+// t + j * blockDim.x (j < kSweepPer). blocks: the frame's [nby * nbx, 16, 3]
+// uint8; base [e, 3], mods [e, 4] int32 (8-bit colors, intensity modifiers);
+// sel_cb [S, 16] int32 codes; bits [e] f32; ep, sel, prev_ep, prev_sel
+// [nby * nbx] int32 (the previous pair read only with has_prev). Writes the
+// frame's new ep and sel.
+__global__ void __launch_bounds__(kSweepMaxThreads)
+rate_sweep_frame_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restrict__ base,
+                        const int32_t* __restrict__ mods, const int32_t* __restrict__ sel_cb,
+                        const float* __restrict__ bits, const int32_t* __restrict__ ep,
+                        const int32_t* __restrict__ sel, const int32_t* __restrict__ prev_ep,
+                        const int32_t* __restrict__ prev_sel, bool has_prev, int s0_index,
+                        float lam, float lam_cr, int nbx, int e, int32_t* __restrict__ out_ep,
+                        int32_t* __restrict__ out_sel) {
   __shared__ float s_bits[kSegMaxK];
-  __shared__ float s_cost[kSweepWarps];
-  __shared__ int s_entry[kSweepWarps];
-  __shared__ int s_left;
+  __shared__ SweepBlock s_feat[kSweepCols];
+  __shared__ int s_above[kSweepCols], s_prev_ep[kSweepCols], s_choice[kSweepCols];
+  __shared__ float s_cost_cr[kSweepCols], s_e_prev[kSweepCols];
+  __shared__ bool s_cr[kSweepCols];
+  __shared__ unsigned s_key[2][kSweepMaxWarps], s_entry[2][kSweepMaxWarps];  // per warp
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t row0 = (int64_t)blockIdx.x * nbx;                   // the row's first block
-  const int64_t above0 = blockIdx.x > 0 ? row0 - nbx : row0;        // row 0 is its own above
-  for (int k = tid; k < e; k += kSweepThreads) s_bits[k] = bits[k];
+  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
+  const int64_t row0 = (int64_t)blockIdx.x * nbx;             // the row's first block
+  const int64_t above0 = blockIdx.x > 0 ? row0 - nbx : row0;  // row 0 is its own above
   const float half_lam = __fmul_rn(lam, 0.5f);
-  float next[kSweepPer];
+  for (int k = tid; k < e; k += nthreads) s_bits[k] = bits[k];
+  // the thread's entries: col(k, c) per code and channel, then |col(k, c)|^2
+  SweepEntry tab[kSweepPer];
 #pragma unroll
   for (int j = 0; j < kSweepPer; ++j) {
-    const int k = tid + j * kSweepThreads;
-    next[j] = k < e ? err[row0 * e + k] : 0.f;
-  }
-  int left = ep_in[row0];  // column 0 prices against its own incoming entry
-  __syncthreads();
-  for (int c = 0; c < nbx; ++c) {
-    float cur[kSweepPer];
+    const int k = tid + j * nthreads;
+    const bool live = k < e;
+    int b[3], m[4];
 #pragma unroll
-    for (int j = 0; j < kSweepPer; ++j) cur[j] = next[j];
-    if (c + 1 < nbx) {
-      const float* nrow = err + (row0 + c + 1) * e;
+    for (int c = 0; c < 3; ++c) b[c] = live ? base[k * 3 + c] : 0;
 #pragma unroll
-      for (int j = 0; j < kSweepPer; ++j) {
-        const int k = tid + j * kSweepThreads;
-        if (k < e) next[j] = nrow[k];
+    for (int c = 0; c < 4; ++c) m[c] = live ? mods[k * 4 + c] : 0;
+#pragma unroll
+    for (int w = 0; w < 3; ++w) tab[j].col[w] = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      int sq = 0;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        const int v = live ? min(max(b[ch] + m[c], 0), 255) : 0;
+        tab[j].col[(3 * c + ch) >> 2] |= (unsigned)v << (8 * ((3 * c + ch) & 3));
+        sq += v * v;
       }
+      tab[j].sq[c] = sq;
     }
-    const int above = ep_in[above0 + c];
-    int base = left % e;  // dm = (k - left) mod e, the floor modulo
-    if (base < 0) base += e;
-    float best = INFINITY;
-    int best_e = 0x7fffffff;
+  }
+  int left = ep[row0];  // column 0 prices against its own incoming entry
+  for (int c0 = 0; c0 < nbx; c0 += kSweepCols) {
+    const int cols = min(kSweepCols, nbx - c0);
+    // prologue: a thread per block of this pass's columns
+    for (int i = tid; i < cols; i += nthreads) {
+      const int64_t blk = row0 + c0 + i;
+      const uint8_t* px = blocks + blk * 48;
+      const int s = sel[blk];
+      int sums[12] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0}, n[4] = {0, 0, 0, 0}, p_sq = 0;
 #pragma unroll
-    for (int j = 0; j < kSweepPer; ++j) {
-      const int k = tid + j * kSweepThreads;
-      if (k < e) {
-        const int dm = k >= base ? k - base : k - base + e;
-        float b = s_bits[dm];
-        if (k == above) b = fminf(b, kSweepAboveBits);
-        const float cost = __fmaf_rn(lam, b, cur[j]);
-        if (cost < best) {  // entries ascend: the thread's first minimum
-          best = cost;
-          best_e = k;
+      for (int p = 0; p < 16; ++p) {
+        const int code = sel_cb[s * 16 + p];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) n[j] += code == j;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          const int v = px[p * 3 + ch];
+          p_sq += v * v;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) sums[j * 3 + ch] += code == j ? v : 0;
         }
       }
-    }
+      SweepBlock& f = s_feat[i];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      take_least(best, best_e, __shfl_xor_sync(0xffffffffu, best, off),
-                 __shfl_xor_sync(0xffffffffu, best_e, off));
-    if (lane == 0) {
-      s_cost[warp] = best;
-      s_entry[warp] = best_e;
+      for (int q = 0; q < 6; ++q) f.s[q] = (unsigned)sums[2 * q] | (unsigned)sums[2 * q + 1] << 16;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) f.n[j] = n[j];
+      f.p_sq = p_sq;
+      s_above[i] = ep[above0 + c0 + i];
+      const float e_prev =
+          has_prev ? __int2float_rn(pair_error(px, base, mods, sel_cb, prev_ep[blk], prev_sel[blk]))
+                   : 0.f;
+      s_e_prev[i] = e_prev;
+      s_prev_ep[i] = has_prev ? prev_ep[blk] : 0;
+      s_cost_cr[i] = has_prev ? __fadd_rn(e_prev, half_lam) : kSweepNoCr;
     }
     __syncthreads();
-    if (tid == 0) {
-      for (int w = 1; w < kSweepWarps; ++w) take_least(best, best_e, s_cost[w], s_entry[w]);
-      const int64_t i = row0 + c;
-      const float cost_cr = has_prev[i] ? __fadd_rn(e_prev[i], half_lam) : kSweepNoCr;
-      const bool cr = cost_cr <= best;
-      const int chosen = cr ? prev_ep[i] : best_e;
-      new_ep[i] = chosen;
-      use_cr[i] = cr;
-      s_left = chosen;
+    // the column scan: one barrier per column
+    float errs[kSweepPer];
+    column_errors(s_feat[0], tab, errs);
+    for (int c = 0; c < cols; ++c) {
+      int origin = left;  // dm = (k - left) mod e, the floor modulo
+      if ((unsigned)origin >= (unsigned)e) {  // an incoming entry out of range
+        origin %= e;
+        if (origin < 0) origin += e;
+      }
+      const int above = s_above[c];
+      float best = INFINITY;
+      int best_e = 0x7fffffff;
+#pragma unroll
+      for (int j = 0; j < kSweepPer; ++j) {
+        const int k = tid + j * nthreads;
+        if (k < e) {
+          int dm = k - origin;
+          if (dm < 0) dm += e;
+          float b = s_bits[dm];
+          if (k == above) b = fminf(b, kSweepAboveBits);
+          const float cost = __fmaf_rn(lam, b, errs[j]);
+          if (cost < best) {  // entries ascend: the thread's first minimum
+            best = cost;
+            best_e = k;
+          }
+        }
+      }
+      unsigned key = ordered_bits(best), entry = (unsigned)best_e;
+      warp_first_min(key, entry);
+      if (lane == 0) {
+        s_key[c & 1][warp] = key;
+        s_entry[c & 1][warp] = entry;
+      }
+      if (c + 1 < cols) column_errors(s_feat[c + 1], tab, errs);  // before the wait
+      __syncthreads();
+      // every warp reduces the warps' minima and decides CR itself: the new
+      // left entry needs no second barrier (the minima are double-buffered)
+      key = lane < nwarps ? s_key[c & 1][lane] : 0xffffffffu;
+      entry = lane < nwarps ? s_entry[c & 1][lane] : 0xffffffffu;
+      warp_first_min(key, entry);
+      const bool cr = s_cost_cr[c] <= from_ordered(key);  // CR wins ties
+      left = cr ? s_prev_ep[c] : (int)entry;
+      if (tid == 0) {
+        s_choice[c] = left;
+        s_cr[c] = cr;
+      }
     }
     __syncthreads();
-    left = s_left;
+    // epilogue: CR takes the previous selector; patterned blocks get the CR snap
+    for (int i = tid; i < cols; i += nthreads) {
+      const int64_t blk = row0 + c0 + i;
+      const int s_in = sel[blk];
+      const int ps = has_prev ? prev_sel[blk] : 0;
+      int ep_new = s_choice[i], sel_new = s_cr[i] ? ps : s_in;
+      if (has_prev && s_in != s0_index) {
+        const float e_new =
+            __int2float_rn(pair_error(blocks + blk * 48, base, mods, sel_cb, ep_new, sel_new));
+        if (s_e_prev[i] <= __fmaf_rn(lam_cr, e_new, kSweepSlack)) {
+          ep_new = s_prev_ep[i];
+          sel_new = ps;
+        }
+      }
+      out_ep[blk] = ep_new;
+      out_sel[blk] = sel_new;
+    }
+    __syncthreads();  // the next pass restages the shared arrays
   }
 }
 
@@ -769,14 +948,11 @@ int uvt_etc1s_inten_errors(const void* blocks, const void* base, void* out, int 
                            void* stream) {
   if ((uintptr_t)out & 15) return (int)cudaErrorMisalignedAddress;
   if (n > 0) {
-    static int sms = 0;  // of the first device asked for: it only caps the grid
-    if (sms == 0) {
-      int device = 0;
-      cudaError_t err = cudaGetDevice(&device);
-      if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-      if (err != cudaSuccess) return (int)err;
-    }
+    int device = 0, sms = 0;  // of the current device, asked on each call: it caps the grid
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
     const int tiles = (n + kIntenThreads - 1) / kIntenThreads;
     inten_errors_kernel<<<min(tiles, kIntenCtasPerSm * sms), kIntenThreads, 0,
                           (cudaStream_t)stream>>>(
@@ -833,18 +1009,23 @@ int uvt_etc1s_kmeans_iter(const void* feats, const void* cb, int n, int k, void*
   return (int)launch_tree((const float*)part, m, (int64_t)k * kKmCols, (float*)sums, s);
 }
 
-// K7 on one frame. err: [nby * nbx, e] f32 (e <= 2048); bits: [e] f32; ep_in, prev_ep:
-// [nby * nbx] int32; e_prev: [nby * nbx] f32; has_prev: [nby * nbx] bytes; new_ep: [nby * nbx]
-// int32; use_cr: [nby * nbx] bytes. One launch of nby CTAs.
-int uvt_etc1s_rate_sweep(const void* err, const void* bits, const void* ep_in, const void* prev_ep,
-                         const void* e_prev, const void* has_prev, float lam, int nby, int nbx,
-                         int e, void* new_ep, void* use_cr, void* stream) {
+// K7 on one frame. blocks: [nby * nbx, 16, 3] uint8; base: [e, 3], mods: [e, 4] int32
+// (e <= 2048); sel_cb: [S, 16] int32; bits: [e] f32; ep, sel, prev_ep, prev_sel, out_ep,
+// out_sel: [nby * nbx] int32 (prev_ep and prev_sel are read only with has_prev). One
+// launch of nby CTAs.
+int uvt_etc1s_rate_sweep(const void* blocks, const void* base, const void* mods,
+                         const void* sel_cb, const void* bits, const void* ep, const void* sel,
+                         const void* prev_ep, const void* prev_sel, int has_prev, int s0_index,
+                         float lam, float lam_cr, int nby, int nbx, int e, void* out_ep,
+                         void* out_sel, void* stream) {
   if (nby < 0 || nbx < 0 || e <= 0 || e > kSegMaxK) return (int)cudaErrorInvalidValue;
+  const int threads = 32 * ((e + 32 * kSweepPer - 1) / (32 * kSweepPer));
   if (nby > 0 && nbx > 0)
-    rate_sweep_kernel<<<(unsigned)nby, kSweepThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)err, (const float*)bits, (const int32_t*)ep_in, (const int32_t*)prev_ep,
-        (const float*)e_prev, (const uint8_t*)has_prev, lam, nbx, e, (int32_t*)new_ep,
-        (uint8_t*)use_cr);
+    rate_sweep_frame_kernel<<<(unsigned)nby, threads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)blocks, (const int32_t*)base, (const int32_t*)mods,
+        (const int32_t*)sel_cb, (const float*)bits, (const int32_t*)ep, (const int32_t*)sel,
+        (const int32_t*)prev_ep, (const int32_t*)prev_sel, has_prev != 0, s0_index, lam, lam_cr,
+        nbx, e, (int32_t*)out_ep, (int32_t*)out_sel);
   return (int)cudaGetLastError();
 }
 
@@ -852,7 +1033,7 @@ int uvt_etc1s_func_attrs(int which, int* out, const char** name) {
   static const KernelRef ks[] = {
       UVT_KERNEL(inten_errors_kernel), UVT_KERNEL(assign_endpoints_kernel),
       UVT_KERNEL(kmeans_chunk_kernel), UVT_KERNEL(seg_sum_chunk_kernel),
-      UVT_KERNEL(seg_sum_tree_kernel), UVT_KERNEL(rate_sweep_kernel)};
+      UVT_KERNEL(seg_sum_tree_kernel), UVT_KERNEL(rate_sweep_frame_kernel)};
   return fill_func_attrs(ks, which, out, name);
 }
 
