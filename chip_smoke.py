@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from `uvol_tpu_torch/csrc/` (nvcc, sm_90a,
-one process per source), holds each kernel (K1-K7, the fixed-order
+one process per source), holds each kernel (K1-K8, the fixed-order
 segment sum and the geometry stage's minimum/maximum) bit-for-bit against
 its plain PyTorch twin (the geometry stage on ragged masks, a frame of one
 vertex, of equal values, without a valid vertex, rows whose minimum is both
@@ -30,6 +30,23 @@ CPU codecs, counts the kernels one K6 or segment-sum call launches
 (fixed, whatever N), times kernels and chains with CUDA events and the
 kernels alone with the profiler, and traces one pass of each codec
 stage with `torch.profiler` to split its time between host and device.
+
+Its last phase, `drc_device_path`, drives the real-`.drc` device decode
+(`models/drc_device.py`, `runtime/device_stream.py`) at liam scale. It
+makes 128 frames (32 distinct) with the port's own native Draco encoder:
+83 x 315 grids (26,145 vertices, 51,496 faces), each displaced
+differently, at draco_encoder's default 11/10/8 bits. K8 (`csrc/drc.cu`:
+one launch a window unpacks, dequantizes and decodes the normals of
+every float attribute) is held bit for bit against its twin on random
+windows (every packing mode and kind, value counts off every group size,
+modes 16 and 32 at their extremes, maxv 254, 0 and -1, metadata just
+4-aligned); `decode_drc_batch` of 8 frames on the card equals the CPU
+port's bit for bit and the C host floats within 2e-5; one decode window
+is one K8 launch and one H2D copy; `decode_drc_stream` at windows 4 and
+8 equals the batches; device memory does not grow over the windows;
+`stream_frames` runs the geometry encode over 3 windows of 32 frames.
+It reports the batch and pipelined decode rates, K8 on a 64-frame
+window (per call, alone, its twin) and the traced split of one window.
 Each phase prints one JSON line; then come the card's `nvidia-smi`
 name/power-limit line, the kernels line (each kernel's launches on its
 main path, worst difference from its twin, call time, its twin's time,
@@ -102,6 +119,7 @@ WRAPPER_KERNELS = {
     "etc1s_kmeans_iter": ("kmeans_chunk_kernel", "seg_sum_tree_kernel"),
     "etc1s_segment_sum": ("seg_sum_chunk_kernel", "seg_sum_tree_kernel"),
     "etc1s_rate_sweep": ("rate_sweep_frame_kernel",),
+    "drc_fused_batch": ("drc_fused_batch_kernel",),
 }
 #: the segment sums of one palette build at 256/256 (etc1s_encode.py): (k, D)
 #: of the bisections (endpoints D = 9, selectors D = 33, k doubling to 256),
@@ -130,6 +148,24 @@ SWEEP_FRAME_KERNELS_MAX = 5
 #: pass and its peak memory in bytes, from examples/torch_etc1s_segment_times.py
 #: on that tree (NVIDIA H100 80GB HBM3, 700 W)
 SWEEP_BEFORE = {"pass_kernels_per_frame": 91.0, "pass_peak_bytes": 645410816}
+#: the real-.drc decode (`drc_device_path`): grid frames of 83 x 315 vertices (the
+#: bench's 26,145; 51,496 faces) at draco_encoder's default bits (-qp 11 -qt 10
+#: -qn 8), made by the port's native encoder; 128 frames as bench.py streams, 32
+#: of them distinct
+DRC_GRID = (83, 315)
+DRC_BITS = (11, 10, 8)
+DRC_FRAMES = 128
+DRC_DISTINCT = 32
+DRC_WINDOW = 8  # decode_drc_stream's default window, and the batch decode's frames
+DRC_BENCH_WINDOW = 4  # bench.py's stream window
+DRC_STAGE_FRAMES = 64  # bench.py's device-stage variant: K8 on a 64-frame window
+DRC_STREAM_WINDOWS = 3  # stream_frames over windows of F frames (bench.py:744-760)
+#: K8 on random windows: (kind, mode, values hi) of every mode (modes 16 and 32
+#: signed, at their extremes) and kind, each at nmax off every group size and
+#: off a CTA's 1,024 values, with maxv 254, 0 and -1 over the frames
+DRC_ATTRS = ((1, 8, 1 << 8), (1, 10, 1 << 10), (1, 12, 1 << 12), (1, 16, 1 << 16),
+             (1, 32, 1 << 32), (2, 8, 1 << 8), (2, 10, 1 << 10), (2, 16, 1 << 16))
+DRC_NMAX = (1, 3, 1001, 4097)
 #: K3's and the minimum/maximum's kernel names in a profiler trace (csrc/geometry.cu)
 K3_KERNEL_NAME = WRAPPER_KERNELS["quantize_delta_zigzag"][0]
 MINMAX_KERNEL_NAME = WRAPPER_KERNELS["geometry_minmax"][0]
@@ -186,6 +222,11 @@ OPS = {
     # index (2) and its load, the ABOVE test (2), the FMA and the running
     # minimum's compare and 2 selects (csrc/etc1s.cu, K7)
     "etc1s_rate_sweep": 21,
+    # per output float: a dequantized value is its unpack (3), the conversion
+    # and one FMA; a normal's 3 floats take 2 unpacks and conversions, 2
+    # divisions, the fold (~10), 3 products, 2 sums, a square root, a maximum
+    # and 3 divisions (csrc/drc.cu, K8)
+    "drc_fused_batch": 10,
 }
 
 
@@ -1041,6 +1082,311 @@ def etc1s_delta_path(torch, dev, textures, median_cuda_ms) -> tuple:
     return launches, err, ms
 
 
+def drc_window(torch, attrs, f: int, nmax: int, seed: int, maxv=(254.0,), pad: int = 0):
+    """A random packed K8 window: attrs [(kind, mode, values hi)], kind 1
+    with 3 components, kind 2 (normals) with 2; mode 16 and 32 values
+    signed, with both extremes present; `maxv` cycles over the frames;
+    `pad` extra bytes before the 4-aligned metadata. Returns (packed
+    uint8 tensor, specs, meta_off, meta_len)."""
+    from uvol_tpu_torch.models.drc_device import _pack_host
+
+    r = np.random.default_rng(seed)
+    chunks, metas, specs = [], [], []
+    off = moff = 0
+    for t, (kind, mode, hi) in enumerate(attrs):
+        nc = 3 if kind == 1 else 2
+        n = f * nmax * nc
+        lo = -(hi // 2) if mode in (16, 32) else 0
+        ints = r.integers(lo, lo + hi, n, dtype=np.int64)
+        ints[:2] = lo, lo + hi - 1
+        by = _pack_host(ints, mode)
+        meta = (np.concatenate([r.normal(size=f * nc) * 5, r.uniform(1e-4, 1e-2, f)])
+                if kind == 1 else np.resize(np.asarray(maxv, np.float64), f))
+        specs.append((t, kind, mode, f, nmax, nc, off, len(meta), moff))
+        chunks.append(by)
+        metas.append(meta.astype(np.float32))
+        off += len(by)
+        moff += len(meta)
+    pad += (-(off + pad)) % 4
+    meta_all = np.concatenate(metas)
+    packed = np.concatenate(chunks + [np.zeros(pad, np.uint8), meta_all.view(np.uint8)])
+    return torch.from_numpy(packed), tuple(specs), off + pad, len(meta_all)
+
+
+def hold_floats(torch, err: dict, name: str, got, want) -> None:
+    """Float32 tensors equal bit for bit, NaN positions included (NaN
+    payloads aside); the worst |difference| of the rest in err[name]."""
+    g, w = got.cpu(), want.cpu()
+    check(g.shape == w.shape and g.dtype == w.dtype == torch.float32, f"{name}: shape or type")
+    gn, wn = torch.isnan(g), torch.isnan(w)
+    check(torch.equal(gn, wn), f"{name}: NaN positions differ from its plain twin's")
+    check(torch.equal(g[~gn].view(torch.int32), w[~wn].view(torch.int32)),
+          f"{name}: bits differ from its plain twin's")
+    e = float((g[~gn].double() - w[~wn].double()).abs().max()) if (~gn).any() else 0.0
+    err[name] = max(err.get(name, 0.0), e)
+
+
+def hold_drc_batch(torch, err: dict, got, want) -> None:
+    """Two DeviceFrameBatch equal: faces, counts, num_points, integer
+    attributes, and every float of the padded arrays bit for bit."""
+    check(got.num_points == want.num_points, ".drc batch: num_points differ")
+    check(len(got.faces) == len(want.faces) and
+          all(np.array_equal(a, b) for a, b in zip(got.faces, want.faces)),
+          ".drc batch: faces differ")
+    check(sorted(got.values) == sorted(want.values), ".drc batch: attribute sets differ")
+    for t, w in want.values.items():
+        check(np.array_equal(got.counts[t], want.counts[t]), f".drc batch: counts of {t}")
+        if isinstance(w, list):
+            check(all(np.array_equal(a, b) for a, b in zip(got.values[t], w)),
+                  f".drc batch: integer attribute {t} differs")
+        else:
+            hold_floats(torch, err, "drc_fused_batch", got.values[t], w)
+
+
+@contextlib.contextmanager
+def recorded_drc_windows(dd):
+    """Keep the arguments (packed window on the card, specs, meta_off,
+    meta_len) of every K8 call made inside; the calls launch as usual."""
+    calls = []
+    saved = dd.fused_batch
+
+    def call(*args):
+        calls.append(args)
+        return saved(*args)
+
+    dd.fused_batch = call
+    try:
+        yield calls
+    finally:
+        dd.fused_batch = saved
+
+
+def drc_window_trace(torch, dd, fn) -> dict:
+    """The work one decode window puts on the card, from a padded trace of
+    `LAUNCH_COUNT_CALLS` calls of fn: the kernel launches and copies the
+    host issued (the runtime calls in the trace, the two pads left out;
+    K8's also by its wrapper), the device events, and the window's split
+    between host and device. The trace is taken again, up to
+    `TRACE_ATTEMPTS`, while its device events hold fewer copies than calls
+    or no K8: the profiler drops device events now and then (late in a
+    smoke run all of one trace's copies, five times in a row). Where no
+    trace holds them all, the split is None; the issued counts decide."""
+    k8 = WRAPPER_KERNELS["drc_fused_batch"][0]
+    calls = LAUNCH_COUNT_CALLS
+    fn()
+    for attempt in range(TRACE_ATTEMPTS):
+        torch.cuda.synchronize()
+        before = dd.LAUNCHES["drc_fused_batch"]
+        with padded_trace(torch) as prof:
+            t = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        launched = dd.LAUNCHES["drc_fused_batch"] - before
+        issued = {"launches": -2, "copies": 0, "memsets": 0}  # the two pad kernels
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                for key, api in (("launches", "LaunchKernel"), ("copies", "Memcpy"),
+                                 ("memsets", "Memset")):
+                    issued[key] += e.name.startswith(("cuda", "cu")) and api in e.name
+        events = [(e.name, e.time_range.elapsed_us() / 1e3) for e in device_events(torch, prof)]
+        h2d = [v for n, v in events if n.startswith("Memcpy HtoD")]
+        k8_ms = [v for n, v in events if k8 in n]
+        missing = (["Memcpy HtoD"] if len(h2d) < calls else []) + ([] if k8_ms else [k8])
+        if not missing:
+            break
+        TRACES_RETAKEN.append(missing)
+        emit({"phase": "trace_retaken", "attempt": attempt + 1, "missing": missing,
+              "issued": issued})
+    others = [(n, v) for n, v in events if not n.startswith("Memcpy HtoD") and k8 not in n]
+    split = None
+    if not missing:
+        busy = sum(h2d) + float(np.mean(k8_ms)) * launched + sum(v for _n, v in others)
+        split = {"wall_ms": wall / calls, "h2d_ms": sum(h2d) / calls,
+                 "k8_ms": float(np.mean(k8_ms)),
+                 "other_ms": sum(v for _n, v in others) / calls,
+                 "device_busy_share": busy / wall, "host_ms": (wall - busy) / calls}
+    return {"kernels_per_window": issued["launches"] / calls,
+            "copies_per_window": issued["copies"] / calls,
+            "memsets_per_window": issued["memsets"] / calls, "k8_launches": launched,
+            "device_events": {"h2d": len(h2d), "k8": len(k8_ms),
+                              "others": [n[:60] for n, _v in others]},
+            "split": split}
+
+
+def drc_device_path(torch, dev, positions, uvs, median_cuda_ms) -> tuple:
+    """The real-`.drc` device decode at liam scale (`models/drc_device.py`,
+    `runtime/device_stream.py`): K8 against its twin on random windows;
+    then the main path, `decode_drc_batch` of `DRC_WINDOW` frames and
+    `decode_drc_stream` over `DRC_FRAMES` at its default window, with
+    K8's launches counted; card = CPU; the C host floats; one window = one
+    K8 and one H2D copy; the stream at windows 4 and 8 = the batches; no
+    memory growth over windows; `stream_frames` through `encode_device`;
+    rates, K8 on a 64-frame window, and the traced split of one window.
+    Returns (launches, max_abs_err, ms, the main-path window's K8 args)."""
+    from uvol_tpu_torch import native
+    from uvol_tpu_torch.codecs.draco.grid import grid_drc
+    from uvol_tpu_torch.models import drc_device as dd
+    from uvol_tpu_torch.models.sequence import encode_device
+    from uvol_tpu_torch.runtime.device_stream import stream_frames
+
+    err = {"drc_fused_batch": 0.0}
+    # K8 bit for bit on random windows
+    cases = 0
+    for (kind, mode, hi) in DRC_ATTRS:
+        for nmax in DRC_NMAX:
+            packed, specs, mo, ml = drc_window(torch, [(kind, mode, hi)], 3, nmax,
+                                               mode + nmax, maxv=(254.0, 0.0, -1.0))
+            got = dd.fused_batch(packed.to(dev), specs, mo, ml)
+            for g, w, w2 in zip(got, dd.fused_batch_plain(packed.to(dev), specs, mo, ml),
+                                dd.fused_batch_plain(packed, specs, mo, ml)):
+                hold_floats(torch, err, "drc_fused_batch", g, w)
+                hold_floats(torch, err, "drc_fused_batch", g, w2)
+            cases += 1
+    for pad in range(4):  # four attributes a launch, metadata just 4-aligned
+        packed, specs, mo, ml = drc_window(torch, [(1, 12, 1 << 11), (1, 10, 1 << 10),
+                                                   (2, 8, 255), (1, 16, 1 << 16)],
+                                           DRC_WINDOW, 4097, pad, pad=pad)
+        for g, w in zip(dd.fused_batch(packed.to(dev), specs, mo, ml),
+                        dd.fused_batch_plain(packed.to(dev), specs, mo, ml)):
+            hold_floats(torch, err, "drc_fused_batch", g, w)
+        cases += 1
+
+    # frames: liam-scale grids from the port's native encoder, before any timing
+    t = time.perf_counter()
+    distinct = [grid_drc(*DRC_GRID, seed, DRC_BITS) for seed in range(DRC_DISTINCT)]
+    blobs = [distinct[i % DRC_DISTINCT] for i in range(DRC_FRAMES)]
+    encode_s = time.perf_counter() - t
+    first = blobs[:DRC_WINDOW]
+
+    # the main path, its K8 launches counted
+    dd.decode_drc_batch(first)  # warmup: pinned pool, side stream
+    torch.cuda.synchronize()
+    dd.reset_launches()
+    batch = dd.decode_drc_batch(first)
+    windows = 0
+    for _start, _b in dd.decode_drc_stream(blobs):
+        windows += 1
+    torch.cuda.synchronize()
+    launches = {"drc_fused_batch": dd.LAUNCHES["drc_fused_batch"]}
+    check(launches["drc_fused_batch"] == 1 + windows,
+          f"K8: {launches['drc_fused_batch']} launches for {1 + windows} windows")
+
+    # card = CPU, bit for bit; the C host floats within 2e-5
+    hold_drc_batch(torch, err, batch, dd.decode_drc_batch(first, device="cpu"))
+    host_err = 0.0
+    for i, blob in enumerate(first):
+        full = native.drc_decode_native(blob)
+        for a in full[3]:
+            n = len(a[5])
+            got = batch.values[a[0]][i, :n].cpu().numpy()
+            check(np.allclose(got, a[5], rtol=2e-5, atol=2e-5),
+                  f".drc attribute {a[0]} of frame {i} is off the C host floats")
+            host_err = max(host_err, float(np.abs(got - a[5]).max()))
+    check(all(bool(torch.isfinite(v).all()) for v in batch.values.values()),
+          "non-finite decoded values")
+    check(tuple(batch.values[0].shape) == (DRC_WINDOW, dd._bucket(DRC_GRID[0] * DRC_GRID[1]), 3),
+          "decoded positions shape")
+
+    # one window: one K8 launch and one H2D copy, nothing else on the card
+    events = drc_window_trace(torch, dd, lambda: dd.decode_drc_batch(first))
+    check(events["k8_launches"] == LAUNCH_COUNT_CALLS and events["kernels_per_window"] == 1
+          and events["copies_per_window"] == 1 and events["memsets_per_window"] == 0
+          and not events["device_events"]["others"], f"a decode window's device work: {events}")
+
+    # the stream at bench.py's window 4 and at the default 8: every window is
+    # the batch of its slice (the frames repeat every DRC_DISTINCT)
+    for window in (DRC_BENCH_WINDOW, DRC_WINDOW):
+        want = {}
+        for start, b in dd.decode_drc_stream(blobs, window=window):
+            key = start % DRC_DISTINCT
+            if key not in want:
+                want[key] = dd.decode_drc_batch(blobs[start:start + window])
+            hold_drc_batch(torch, err, b, want[key])
+        del want
+
+    # device memory does not grow with the number of windows: the peak over
+    # one stream of DRC_FRAMES frames at its DRC_DISTINCT-th frame and at its end
+    def drain(frames):
+        for _s, _b in dd.decode_drc_stream(frames, window=DRC_BENCH_WINDOW):
+            pass
+        torch.cuda.synchronize()
+
+    drain(blobs[:DRC_DISTINCT])
+    torch.cuda.reset_peak_memory_stats()
+    peaks = {}
+    for start, _b in dd.decode_drc_stream(blobs, window=DRC_BENCH_WINDOW):
+        if start + DRC_BENCH_WINDOW == DRC_DISTINCT:
+            peaks[DRC_DISTINCT] = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    peaks[DRC_FRAMES] = torch.cuda.max_memory_allocated()
+    window_out = DRC_BENCH_WINDOW * sum(v.shape[1] * v.shape[2] * 4
+                                        for v in batch.values.values())
+    check(peaks[DRC_FRAMES] <= peaks[DRC_DISTINCT] + window_out,
+          f"device memory grew with the windows: {peaks}")
+
+    # stream_frames over 3 windows of 32 frames through the geometry encode
+    pos_t = np.ascontiguousarray(positions.transpose(0, 2, 1))
+    uv_t = np.ascontiguousarray(uvs.transpose(0, 2, 1))
+    sf_windows = [(pos_t, uv_t, np.ones((F, N), bool)) for _ in range(DRC_STREAM_WINDOWS)]
+    sf_want = encode_device(*(torch.from_numpy(a).to(dev) for a in sf_windows[0]), 11, 10)
+    step = lambda w: encode_device(*w, 11, 10)  # noqa: E731
+    sf_seen = 0
+    for _i, out in stream_frames(sf_windows, step):
+        check(all(torch.equal(out[k], v) for k, v in sf_want.items()),
+              "stream_frames' windowed encode differs from the unwindowed one")
+        sf_seen += 1
+    check(sf_seen == DRC_STREAM_WINDOWS, "stream_frames yielded the wrong number of windows")
+
+    # rates: the batch decode (host-inclusive), the pipelined stream (median of 3)
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    ms = {}
+    verts = int(sum(batch.counts[0]))
+    ms["drc_decode_batch"] = float(np.median([host_ms(lambda: dd.decode_drc_batch(first))
+                                              for _ in range(REPS)]))
+    ms["drc_decode_pipelined"] = float(np.median([host_ms(lambda: drain(blobs))
+                                                  for _ in range(3)]))
+    sf_ms = host_ms(lambda: [r for _i, r in stream_frames(sf_windows, step)])
+
+    # K8 at the main path's window (DRC_WINDOW frames) and at the bench's
+    # 64-frame device stage: per call, alone, and its twin on the card
+    with recorded_drc_windows(dd) as rec:
+        dd.decode_drc_batch(first)
+        dd.decode_drc_batch(blobs[:DRC_STAGE_FRAMES])
+    main_args, stage_args = rec
+    k8 = WRAPPER_KERNELS["drc_fused_batch"]
+    for key, args in (("drc_fused_batch", main_args), ("drc_fused_batch_64", stage_args)):
+        for g, w in zip(dd.fused_batch(*args), dd.fused_batch_plain(*args)):
+            hold_floats(torch, err, "drc_fused_batch", g, w)
+        ms[key] = median_cuda_ms(lambda: dd.fused_batch(*args), REPS)
+        ms[key + "_plain"] = median_cuda_ms(lambda: dd.fused_batch_plain(*args), REPS)
+        ms[key + "_kernel"], _ = kernel_only_ms(torch, lambda: dd.fused_batch(*args), k8)
+    stage_verts = DRC_STAGE_FRAMES * DRC_GRID[0] * DRC_GRID[1]
+
+    emit({"phase": "drc_device_path", "grid": DRC_GRID, "bits": DRC_BITS,
+          "frames": DRC_FRAMES, "distinct": DRC_DISTINCT, "encode_s": encode_s,
+          "blob_bytes": sum(map(len, distinct)) / DRC_DISTINCT,
+          "k8_random_cases": cases, "launches": launches, "window": events,
+          "host_c_max_abs_err": host_err, "peak_bytes": peaks, "window_out_bytes": window_out,
+          "packed_bytes": {"main": int(main_args[0].numel()), "stage": int(stage_args[0].numel())},
+          "ms": ms, "stream_frames_ms": sf_ms,
+          "decode_fps": DRC_WINDOW / (ms["drc_decode_batch"] / 1e3),
+          "decode_mverts": verts / (ms["drc_decode_batch"] / 1e3) / 1e6,
+          "decode_pipelined_fps": DRC_FRAMES / (ms["drc_decode_pipelined"] / 1e3),
+          "stage_mverts": stage_verts / (ms["drc_fused_batch_64"] / 1e3) / 1e6,
+          "stage_mverts_kernel": stage_verts / (ms["drc_fused_batch_64_kernel"] / 1e3) / 1e6,
+          "stream_frames_fps": DRC_STREAM_WINDOWS * F / (sf_ms / 1e3),
+          "max_abs_err": err})
+    return launches, err, ms, main_args
+
+
 def main() -> int:
     import torch
 
@@ -1289,7 +1635,15 @@ def main() -> int:
         for name, v in e.items():
             err[name] = max(err[name], v)
 
-    # ---- 6. one torch.profiler pass per host-inclusive stage ------------------
+    # ---- 6. the real-.drc device decode at liam scale (K8's main path), before the
+    # profile and the 1024/1024 path: late in a run the profiler drops more events
+    drc_launches, drc_err, drc_ms, drc_args = drc_device_path(
+        torch, dev, positions, uvs, median_cuda_ms)
+    launches.update(drc_launches)
+    ms.update(drc_ms)
+    err.update(drc_err)
+
+    # ---- 7. one torch.profiler pass per host-inclusive stage ------------------
     # wall_ms includes the profiler's own overhead; device_ms sums the
     # device-side events (one stream, so they do not overlap)
     stages = {
@@ -1338,14 +1692,14 @@ def main() -> int:
     emit({"phase": "profile", "stages": profile, "traces_retaken": TRACES_RETAKEN,
           "total_s": time.perf_counter() - t_start})
 
-    # ---- 7. the delta-aware stage at the CLI's 1024/1024 (K7's main path) --------
+    # ---- 8. the delta-aware stage at the CLI's 1024/1024 (K7's main path) --------
     delta_launches, delta_err, delta_ms = etc1s_delta_path(torch, dev, textures, median_cuda_ms)
     ms.update(delta_ms)
     launches["etc1s_rate_sweep"] = delta_launches["etc1s_rate_sweep"]
     for name, v in delta_err.items():
         err[name] = max(err.get(name, 0), v)
 
-    # ---- 8. the kernels line: main-path launches, parity, times, bounds -------
+    # ---- 9. the kernels line: main-path launches, parity, times, bounds -------
     nb = F * (H // 4) * (W // 4)  # K1/K2: 32 layers of 1024^2
     nq = F * 3 * N  # K3: the positions call
     ne = ETC1S_LAYERS * (H // 4) * (W // 4)  # K4-K6: 327,680 blocks
@@ -1353,6 +1707,9 @@ def main() -> int:
     sn, sk, sd = SEG_TIMED
     nr, er = (H // 4) * (W // 4), ETC1S_DELTA_PALETTE  # K7: one frame at 1024 entries
     sweep_rows = ETC1S_DELTA_PALETTE  # its selector rows
+    # K8: the main path's window of DRC_WINDOW frames, every float it writes
+    drc_out = sum(f * nmax * (nc if kind == 1 else 3)
+                  for _t, kind, _m, f, nmax, nc, *_r in drc_args[1])
     work = {  # name: (source, replaces, bytes moved once, operations, their rate)
         "etc1_encode": ("etc1.cu", "codecs/basis/etc_pallas.py:230", nb * 48 + nb * 8,
                         OPS["etc1_encode"] * nb, INT_OPS_PER_S),
@@ -1387,10 +1744,15 @@ def main() -> int:
                              nr * 48 + er * (12 + 16 + 4) + sweep_rows * 64 + nr * 4 * 4
                              + nr * 2 * 4,
                              OPS["etc1s_rate_sweep"] * nr * er, INT_OPS_PER_S),
+        # the reference's device stage is one XLA program, not a Pallas site: the
+        # packed window (values and metadata) in once, every float written once
+        "drc_fused_batch": ("drc.cu", "models/drc_device.py:193",
+                            drc_args[0].numel() + drc_out * 4,
+                            OPS["drc_fused_batch"] * drc_out, INT_OPS_PER_S),
     }
     attrs = _build.kernel_attrs()
     for fn in ("etc1_encode_kernel", "etc1_decode_kernel", "inten_errors_kernel",
-               "rate_sweep_frame_kernel", *STAGE_KERNEL_NAMES):
+               "rate_sweep_frame_kernel", "drc_fused_batch_kernel", *STAGE_KERNEL_NAMES):
         check(attrs[fn]["stack_bytes"] == 0, f"{fn} uses stack memory")
     # K3's times are those of the call the main path makes (offsets taken in)
     timed_as = {"quantize_delta_zigzag": "quantize_from_bounds"}
@@ -1406,8 +1768,8 @@ def main() -> int:
             # index_add_ for the segment sum; for K7 the error product
             # `feat @ mat.T`, the one piece of its stage a library call
             # computes; no single PyTorch call computes any of the others
-            # (none takes a mask, sums in a fixed order or scans a column at
-            # a time)
+            # (none takes a mask, sums in a fixed order, scans a column at a
+            # time or unpacks bit-packed values)
             "library_ms": ms.get(name + "_library"),
             "kernel_ms": ms[timed + "_kernel"],
             "kernel_attrs": {fn: attrs[fn] for fn in WRAPPER_KERNELS[name]},

@@ -530,3 +530,154 @@ def test_etc1s_delta_encode_on_card_matches_cpu(card, kind):
     sweeps = etc1s_cuda.LAUNCHES["etc1s_rate_sweep"]
     assert sweeps > 0 and sweeps % (3 * 2) == 0
     assert got == encode_ktx2_etc1s(frames, device="cpu", **kw)
+
+
+# ---- K8: the real-.drc decode's device stage ---------------------------------------
+
+#: (kind, mode, values hi) of random K8 attributes: every mode; mode 16 and 32
+#: signed, at their extremes
+_DRC_ATTRS = ((1, 8, 1 << 8), (1, 10, 1 << 10), (1, 12, 1 << 12), (1, 16, 1 << 16),
+              (1, 32, 1 << 32), (2, 8, 1 << 8), (2, 10, 1 << 10), (2, 16, 1 << 16))
+
+
+def _drc_window(specs_in, f: int, nmax: int, seed: int, maxv=(254.0,), pad: int = 0):
+    """A packed K8 window of random attributes: specs_in is [(kind, mode,
+    hi)]; kind 1 takes 3 components, kind 2 the normals' 2; mode 16 and
+    32 values are signed, with both extremes present; `maxv` cycles over
+    the frames; `pad` extra bytes before the 4-aligned metadata. Returns
+    (packed uint8 tensor, specs, meta_off, meta_len)."""
+    from uvol_tpu_torch.models.drc_device import _pack_host
+
+    r = np.random.default_rng(seed)
+    chunks, metas, specs = [], [], []
+    off = moff = 0
+    for t, (kind, mode, hi) in enumerate(specs_in):
+        nc = 3 if kind == 1 else 2
+        n = f * nmax * nc
+        lo = -(hi // 2) if mode in (16, 32) else 0
+        ints = r.integers(lo, lo + hi, n, dtype=np.int64)
+        ints[:2] = lo, lo + hi - 1
+        by = _pack_host(ints, mode)
+        if kind == 1:
+            meta = np.concatenate([r.normal(size=f * nc) * 5, r.uniform(1e-4, 1e-2, f)])
+        else:
+            meta = np.resize(np.asarray(maxv, np.float64), f)
+        specs.append((t, kind, mode, f, nmax, nc, off, len(meta), moff))
+        chunks.append(by)
+        metas.append(meta.astype(np.float32))
+        off += len(by)
+        moff += len(meta)
+    pad += (-(off + pad)) % 4
+    meta_all = np.concatenate(metas)
+    packed = np.concatenate(chunks + [np.zeros(pad, np.uint8), meta_all.view(np.uint8)])
+    return torch.from_numpy(packed), tuple(specs), off + pad, len(meta_all)
+
+
+def _hold_bits(got, want):
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    assert g.shape == w.shape and g.dtype == w.dtype == np.float32
+    gn, wn = np.isnan(g), np.isnan(w)
+    np.testing.assert_array_equal(gn, wn)
+    np.testing.assert_array_equal(g[~gn].view(np.int32), w[~wn].view(np.int32))
+
+
+@pytest.mark.parametrize("attr", range(len(_DRC_ATTRS)))
+@pytest.mark.parametrize("nmax", [1, 3, 1001, 4096])
+def test_drc_fused_batch_kernel_matches_twin(card, attr, nmax):
+    """K8 against its twin bit for bit, NaN positions included: every mode
+    and kind, value counts off every group size and off a CTA's 1,024,
+    mode 16 and 32 at their extremes, maxv 254, 0 and -1 (0/0, ±inf)."""
+    from uvol_tpu_torch.models import drc_device as dd
+
+    packed, specs, mo, ml = _drc_window([_DRC_ATTRS[attr]], 3, nmax, attr + nmax,
+                                        maxv=(254.0, 0.0, -1.0))
+    before = dd.LAUNCHES["drc_fused_batch"]
+    got = dd.fused_batch(packed.to(card), specs, mo, ml)
+    torch.cuda.synchronize()
+    assert dd.LAUNCHES["drc_fused_batch"] == before + 1
+    for g, w, w2 in zip(got, dd.fused_batch_plain(packed.to(card), specs, mo, ml),
+                        dd.fused_batch_plain(packed, specs, mo, ml)):
+        _hold_bits(g, w)
+        _hold_bits(g, w2)
+
+
+@pytest.mark.parametrize("pad", [0, 1, 2, 3])
+def test_drc_fused_batch_kernel_on_a_whole_window(card, pad):
+    """Four attributes in one launch (the table's most), the metadata at
+    an offset that only just meets the 4-byte alignment."""
+    from uvol_tpu_torch.models import drc_device as dd
+
+    packed, specs, mo, ml = _drc_window([(1, 12, 1 << 11), (1, 10, 1 << 10), (2, 8, 255),
+                                         (1, 16, 1 << 16)], 8, 4097, pad, pad=pad)
+    got = dd.fused_batch(packed.to(card), specs, mo, ml)
+    for g, w in zip(got, dd.fused_batch_plain(packed, specs, mo, ml)):
+        _hold_bits(g, w)
+    with pytest.raises(ValueError, match="at most"):
+        dd.fused_batch(packed.to(card), specs + specs[:1], mo, ml)
+
+
+def _grid_blobs(count: int, ny: int = 9, nx: int = 13):
+    from uvol_tpu_torch.codecs.draco.grid import grid_drc
+
+    return [grid_drc(ny, nx, seed) for seed in range(count)]
+
+
+def _hold_batch(got, want):
+    assert got.num_points == want.num_points
+    for a, b in zip(got.faces, want.faces):
+        np.testing.assert_array_equal(a, b)
+    assert got.counts.keys() == want.counts.keys()
+    for t, v in want.values.items():
+        np.testing.assert_array_equal(got.counts[t], want.counts[t])
+        if isinstance(v, list):
+            for a, b in zip(got.values[t], v):
+                np.testing.assert_array_equal(a, b)
+        else:
+            _hold_bits(got.values[t], v)
+
+
+def test_drc_decode_on_card_matches_cpu(card):
+    """decode_drc_batch: one H2D copy and one K8 launch a window; the
+    card's batch equals the CPU port's bit for bit."""
+    from uvol_tpu_torch.models import drc_device as dd
+
+    blobs = _grid_blobs(5)
+    before = dd.LAUNCHES["drc_fused_batch"]
+    got = dd.decode_drc_batch(blobs)
+    assert dd.LAUNCHES["drc_fused_batch"] == before + 1
+    assert isinstance(got.token, torch.cuda.Event) and got.token.query()
+    _hold_batch(got, dd.decode_drc_batch(blobs, device="cpu"))
+    host = dd.decode_drc_batch(blobs, as_numpy=True)
+    for t, v in host.values.items():
+        assert isinstance(v, np.ndarray)
+        _hold_bits(torch.from_numpy(v), got.values[t])
+
+
+def test_drc_stream_reuses_the_pinned_pool(card):
+    """36 windows through a pool of 6 pinned buffers: every window equals
+    the CPU batch of its slice, so no buffer was overwritten while its
+    copy was in flight."""
+    from uvol_tpu_torch.models import drc_device as dd
+
+    blobs = _grid_blobs(12)
+    blobs = [blobs[i % 12] for i in range(72)]
+    want = {s: dd.decode_drc_batch(blobs[s:s + 2], device="cpu") for s in range(0, 24, 2)}
+    seen = 0
+    for start, batch in dd.decode_drc_stream(blobs, window=2, lookahead=4):
+        _hold_batch(batch, want[start % 24])
+        seen += len(batch.faces)
+    assert seen == 72
+    assert dd._POOL._made <= dd.PINNED_POOL_SIZE
+
+
+def test_ring_buffer_on_card(card):
+    from uvol_tpu_torch.runtime.device_stream import DeviceRingBuffer, stream_frames
+
+    frames = [np.full((64, 64), i, np.float32) for i in range(7)]
+    out = list(stream_frames(frames, lambda x: (x * 2.0).sum()))
+    assert [i for i, _ in out] == list(range(7))
+    for i, r in out:
+        assert float(r) == float(np.sum(frames[i] * 2.0))
+    ring = DeviceRingBuffer()
+    dev = ring.put(0, (frames[1], {"a": frames[2]}))
+    assert dev[0].device.type == "cuda" and float(dev[1]["a"][0, 0]) == 2.0

@@ -9,6 +9,7 @@ loader report no library, so both take their Python code.
 """
 
 import copy
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -357,21 +358,151 @@ def test_etc1_segment_identical_on_both_paths(path, supercompression):
                                   jc.decode_segment(jktx2.read_ktx2(blob)))
 
 
+# ---- the Draco frame codec (native library copy) ------------------------------------
+
+
+def _drc_case(case: str) -> bytes:
+    from uvol_tpu_torch.codecs.draco.grid import grid_drc
+
+    if case == "grid_fixture":
+        return (Path(__file__).parent / "fixtures" / "grid.drc").read_bytes()
+    ny, nx, seed, bits = {"grid_11_17": (11, 17, 0, (11, 10, 8)),
+                          "grid_9_23": (9, 23, 1, (14, 12, 10)),
+                          "grid_2_2": (2, 2, 2, (11, 10, 8)),
+                          "grid_16_bits": (12, 12, 3, (16, 16, 12))}[case]
+    return grid_drc(ny, nx, seed, bits)
+
+
+DRC_CASES = ["grid_fixture", "grid_11_17", "grid_9_23", "grid_2_2", "grid_16_bits"]
+
+
+@pytest.mark.parametrize("case", DRC_CASES)
+def test_drc_portable_decode_matches_the_python_decoder(case):
+    """The port's native decode with `portable=True`: faces and corner maps
+    as the full native decode gives them, integer attributes identical, and
+    the quantized stages rebuilt in float64 equal the reference's pure
+    Python `decode_drc` floats (tests/test_drc_device.py's check)."""
+    from uvol_tpu.codecs.draco.decoder import decode_drc
+
+    blob = _drc_case(case)
+    port = tnative.drc_decode_native(blob, portable=True)
+    full = tnative.drc_decode_native(blob)
+    mesh = decode_drc(blob)
+    assert port[:2] == full[:2] == (len(mesh.faces), mesh.num_points)
+    np.testing.assert_array_equal(port[2], full[2])
+    np.testing.assert_array_equal(port[2].reshape(-1, 3), mesh.faces)
+    kinds = set()
+    for pa, fa in zip(port[3], full[3], strict=True):
+        assert pa[:5] == fa[:5]
+        np.testing.assert_array_equal(pa[6], fa[6])
+        kind = pa[7][0]
+        kinds.add(kind)
+        want = mesh.attribute_by_type(pa[0]).values
+        if kind == 0:
+            np.testing.assert_array_equal(pa[5], fa[5])
+        elif kind == 1:
+            _k, bits, _mq, rng, mins = pa[7]
+            recon = mins[None, :pa[5].shape[1]] + pa[5].astype(np.float64) * (
+                rng / ((1 << bits) - 1))
+            np.testing.assert_allclose(recon.astype(np.float32), want, rtol=0, atol=1e-6)
+            np.testing.assert_array_equal(fa[5], want)
+        else:  # octahedral: the ints the C float path decodes
+            assert pa[5].shape[1] == 2 and pa[7][2] > 0
+            np.testing.assert_array_equal(fa[5], want)
+    assert kinds == {1, 2}
+
+
+@pytest.mark.parametrize("case", DRC_CASES[1:])
+def test_drc_encode_native_matches_the_python_encoder(case):
+    """The port's native encoder emits the reference Python encoder's bytes
+    (tests/test_native_draco.py holds the reference's native encoder to
+    the same)."""
+    from uvol_tpu.codecs.draco import encoder as jdenc
+    from uvol_tpu_torch.codecs.draco.grid import grid_attributes
+
+    ny, nx, seed, bits = {"grid_11_17": (11, 17, 0, (11, 10, 8)),
+                          "grid_9_23": (9, 23, 1, (14, 12, 10)),
+                          "grid_2_2": (2, 2, 2, (11, 10, 8)),
+                          "grid_16_bits": (12, 12, 3, (16, 16, 12))}[case]
+    faces, atts = grid_attributes(ny, nx, seed, bits)
+    jatts = [jdenc.AttributeToEncode(a.attribute_type, a.values, a.corner_to_value,
+                                     a.quantization_bits, a.integer) for a in atts]
+    blob = tnative.drc_encode_native(faces, atts)
+    assert blob == _drc_case(case) == jdenc.encode_drc(faces, jatts)
+
+
+@pytest.mark.parametrize("mode", [8, 10, 12, 16, 32])
+def test_window_packers_match_the_reference_numpy_packing(mode):
+    """`pack_bits_native` and `pack_frames_native` against the reference's
+    `_pack_host` on its numpy path (int64 input): group-aligned and tail
+    lengths, values at the mode's bit edges, and the signed values that
+    ride modes 16 and 32."""
+    from uvol_tpu.models.drc_device import _pack_host, _packed_nbytes
+
+    rng = np.random.default_rng(mode)
+    hi = {8: 1 << 8, 10: 1 << 10, 12: 1 << 12, 16: 1 << 15, 32: 1 << 20}[mode]
+    lengths = (0, 1, 2, 3, 4, 5, 7, 12, 1000, 1001, 1002, 1003)
+    runs = [rng.integers(0, hi, n).astype(np.int64) for n in lengths]
+    for v in runs:
+        if len(v):
+            v[0] = hi - 1
+    if mode in (16, 32):
+        runs.append(np.asarray([-1, -32768, 32767, 0, -5] if mode == 16 else
+                               [-1, -(2**31), 2**31 - 1, 0, -5], np.int64))
+    for v in runs:
+        got = tnative.pack_bits_native(v.astype(np.int32), mode, _packed_nbytes(len(v), mode))
+        assert got.dtype == np.uint8
+        np.testing.assert_array_equal(got, _pack_host(v, mode), err_msg=f"{mode=} {len(v)=}")
+    # whole frames into their padded slots of one window, at an odd offset
+    stride = 1004
+    frames = [v for v in runs if len(v) <= stride]
+    ints = np.zeros((len(frames), stride), np.int64)
+    for i, v in enumerate(frames):
+        ints[i, :len(v)] = v
+    want = _pack_host(ints.reshape(-1), mode)
+    out = np.full(len(want) + 3, 0xAB, np.uint8)
+    assert tnative.pack_frames_native([v.astype(np.int32) for v in frames], mode, stride,
+                                      out, 3)
+    assert (out[:3] == 0xAB).all()
+    np.testing.assert_array_equal(out[3:], want)
+    with pytest.raises(ValueError, match="do not fit"):
+        tnative.pack_frames_native([v.astype(np.int32) for v in frames], mode, stride, out, 4)
+
+
+def test_draco_library_is_a_second_library_and_not_sticky(monkeypatch, tmp_path):
+    assert tnative.library_path(tnative.DRACO_SOURCES, "draco") != tnative.library_path()
+    monkeypatch.setattr(tnative, "_draco_lib", None)
+    monkeypatch.setattr(tnative, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(tnative.shutil, "which", lambda name: None)
+    assert tnative.get_draco_lib() is None  # no g++: no .drc decode, no packer
+    assert tnative.drc_decode_native(_drc_case("grid_fixture")) is None
+    assert not tnative.pack_frames_native([np.zeros(3, np.int32)], 8, 4, np.zeros(4, np.uint8),
+                                          0)
+    assert not (tmp_path / "build").exists()
+
+
 # ---- entry points need the card unless the caller names the CPU -------------------
 
 
-@pytest.mark.parametrize("call", ["resolve_device", "geometry", "texture", "etc1s", "entry"])
+@pytest.mark.parametrize("call", ["resolve_device", "geometry", "texture", "etc1s", "entry",
+                                  "drc_batch", "drc_stream", "ring"])
 def test_entry_points_default_to_the_card(monkeypatch, call):
     from uvol_tpu_torch._device import resolve_device
     from uvol_tpu_torch.entry import entry
+    from uvol_tpu_torch.models import drc_device as tdrc
+    from uvol_tpu_torch.runtime.device_stream import DeviceRingBuffer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     frames = np.zeros((1, 8, 8, 3), np.uint8)
+    blobs = [_drc_case("grid_fixture")]
     fn = {"resolve_device": lambda: resolve_device(None),
           "geometry": tseq.GeometrySequenceCodec,
           "texture": tseq.TextureSequenceCodec,
           "etc1s": lambda: tenc.encode_ktx2_etc1s(frames, num_endpoints=4, num_selectors=4),
-          "entry": entry}[call]
+          "entry": entry,
+          "drc_batch": lambda: tdrc.decode_drc_batch(blobs),
+          "drc_stream": lambda: list(tdrc.decode_drc_stream(blobs)),
+          "ring": DeviceRingBuffer}[call]
     with pytest.raises(RuntimeError, match="cuda"):
         fn()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -47,8 +47,9 @@ def test_entry_matches_jax_entry():
 def test_port_runs_without_jax(tmp_path):
     """A subprocess whose import system refuses `jax` and the JAX package
     (`uvol_tpu`) imports every module of the port and runs a 2-frame
-    geometry and texture round trip and a 1-frame ETC1S encode on the
-    CPU, so no lazy import of either is reached."""
+    geometry and texture round trip, a 1-frame ETC1S encode and a 2-frame
+    `.drc` decode of tests/fixtures/grid.drc on the CPU, so no lazy
+    import of either is reached."""
     script = textwrap.dedent(
         """
         import importlib, importlib.abc, pkgutil, sys
@@ -85,6 +86,11 @@ def test_port_runs_without_jax(tmp_path):
             encode_ktx2_etc1s, read_ktx2 as read_basis, transcode_ktx2_etc1s)
         blob = encode_ktx2_etc1s(tex[:1], num_endpoints=8, num_selectors=8, device="cpu")
         assert transcode_ktx2_etc1s(read_basis(blob)).shape[:3] == (1, 16, 16)
+        from uvol_tpu_torch.models.drc_device import decode_drc_batch
+        drc = open(sys.argv[1], "rb").read()
+        batch = decode_drc_batch([drc, drc], device="cpu", as_numpy=True)
+        assert batch.values[0].shape == (2, 4096, 3) and batch.counts[0].tolist() == [72, 72]
+        assert np.isfinite(batch.values[1]).all() and len(batch.faces[1]) == 112
         loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "uvol_tpu")]
         assert not loaded, loaded
         print(len(names), "modules ok")
@@ -92,7 +98,8 @@ def test_port_runs_without_jax(tmp_path):
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
-        [sys.executable, "-c", script], cwd=tmp_path, env=env,
+        [sys.executable, "-c", script, str(REPO / "tests" / "fixtures" / "grid.drc")],
+        cwd=tmp_path, env=env,
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr

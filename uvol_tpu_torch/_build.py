@@ -39,7 +39,8 @@ NVCC_FLAGS = [
 ]
 
 #: one per source: `fn(which, out, name)` of `csrc/func_attrs.cuh`
-_FUNC_ATTRS = ("uvt_etc1_func_attrs", "uvt_etc1s_func_attrs", "uvt_geometry_func_attrs")
+_FUNC_ATTRS = ("uvt_etc1_func_attrs", "uvt_etc1s_func_attrs", "uvt_geometry_func_attrs",
+               "uvt_drc_func_attrs")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -130,6 +131,7 @@ def get_lib() -> ctypes.CDLL:
                                                     ci, ci, ci, vp, vp, vp],
                 "uvt_geometry_minmax": [vp, vp, vp, vp, ci, ci, ci, vp],
                 "uvt_quantize_delta_zigzag": [vp, vp, vp, vp, vp, ci, vp, vp, ci, ci, ci, vp],
+                "uvt_drc_fused_batch": [vp, vp, ci, ctypes.c_int64, vp, vp],
             }
             attrs = [ci, ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_char_p)]
             signatures.update({fn: attrs for fn in _FUNC_ATTRS})

@@ -11,11 +11,20 @@ after the hash of its sources and flags and is written under a name of
 its own process and thread, then moved into place with `os.replace`, so
 concurrent builds never load or overwrite a partial file.
 
-A failed build is not remembered: `get_lib()` returns None, the callers
-take their Python paths (identical bytes, slower), and the next call
-tries again. Without g++ on PATH it returns None at once. Every wrapper
-below returns None where the library is unavailable, as the reference's
-do.
+The Draco frame codec (`draco_native.cpp`, `draco_frame.cpp`,
+`draco_frame_enc.cpp`, unchanged copies of the reference's) is a second
+library, linked with `entropy.cpp` as the reference links it, built the
+same way by `get_draco_lib()` (~20 s of g++ at first use): the `.drc`
+device decode (`models/drc_device.py`) needs its portable frame decode
+and its window packer, and the smoke and tests make their frames with
+its encoder.
+
+A failed build is not remembered: `get_lib()` and `get_draco_lib()`
+return None, the callers take their Python paths (identical bytes,
+slower) or, for a `.drc` frame, raise, and the next call tries again.
+Without g++ on PATH they return None at once. Every wrapper below
+returns None (or False) where its library is unavailable, as the
+reference's do.
 """
 
 from __future__ import annotations
@@ -25,33 +34,41 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "entropy.cpp", _HERE / "etc1s_native.cpp")
+DRACO_SOURCES = (_HERE / "draco_native.cpp", _HERE / "draco_frame.cpp",
+                 _HERE / "draco_frame_enc.cpp", _HERE / "entropy.cpp")
 BUILD_DIR = _HERE.parents[1] / "build" / "uvol_tpu_torch"
 GXX_FLAGS = ["-O3", "-ffp-contract=off", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_draco_lib: Optional[ctypes.CDLL] = None
 
 
-def library_path() -> Path:
+def library_path(sources: Optional[Sequence[Path]] = None, stem: str = "host") -> Path:
+    """The library of `sources` (default `SOURCES`), named after their hash."""
     h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES if sources is None else sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libuvol_tpu_torch_host_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libuvol_tpu_torch_{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Optional[Path]:
-    """Compile the sources if the library for their hash is missing;
-    returns its path, or None when g++ is missing or fails."""
-    so = library_path()
+def build(sources: Optional[Sequence[Path]] = None, stem: str = "host") -> Optional[Path]:
+    """Compile the sources (default `SOURCES`) if the library for their
+    hash is missing; returns its path, or None when g++ is missing or
+    fails."""
+    sources = SOURCES if sources is None else sources
+    so = library_path(sources, stem)
     if so.exists():
         return so
     gxx = shutil.which("g++")
@@ -61,7 +78,7 @@ def build() -> Optional[Path]:
     try:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         proc = subprocess.run(
-            [gxx, *GXX_FLAGS, *map(str, SOURCES), "-o", str(tmp)],
+            [gxx, *GXX_FLAGS, *map(str, sources), "-o", str(tmp)],
             capture_output=True,
         )
         if proc.returncode != 0:
@@ -335,3 +352,221 @@ def etc1s_palette_selectors_native(data, bit_pos, num_selectors, lut):
     if pos < 0:
         return None
     return out, int(pos)
+
+
+# ---------------------------------------------------------------------------
+# The Draco frame codec (draco_native.cpp, draco_frame.cpp, draco_frame_enc.cpp)
+# ---------------------------------------------------------------------------
+
+
+def _bind_draco(lib: ctypes.CDLL) -> None:
+    c = ctypes
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    vp = c.c_void_p
+    signatures = {
+        "uvt_pack_bits": (c.c_int, [i32p, c.c_int64, c.c_int, u8p]),
+        "uvt_pack_frames": (c.c_int, [c.POINTER(vp), c.POINTER(c.c_int64), c.c_int64,
+                                      c.c_int64, c.c_int, vp]),
+        "uvt_drc_decode2": (vp, [u8p, c.c_int64, c.c_int64, i64p]),
+        "uvt_drc_attr_info": (c.c_int, [vp, c.c_int, i64p]),
+        "uvt_drc_attr_fetch": (c.c_int, [vp, c.c_int, vp, i32p]),
+        "uvt_drc_attr_deq": (c.c_int, [vp, c.c_int, f64p]),
+        "uvt_drc_points_fetch": (c.c_int, [vp, i32p]),
+        "uvt_drc_free": (None, [vp]),
+        "uvt_drc_encode": (c.c_int64, [i64p, c.c_int64, c.c_int64,
+                                       c.c_int64, i32p, u8p, i32p, i32p, i32p, i64p,
+                                       f64p, i64p, i64p, i64p,
+                                       i64p, c.c_int, u8p, c.c_int64]),
+    }
+    for name, (restype, argtypes) in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+
+
+def get_draco_lib() -> Optional[ctypes.CDLL]:
+    """Build (if needed) and load the Draco library once per process;
+    None when it cannot be built (tried again on the next call)."""
+    global _draco_lib
+    if _draco_lib is not None:
+        return _draco_lib
+    with _lock:
+        if _draco_lib is None:
+            so = build(DRACO_SOURCES, "draco")
+            if so is None:
+                return None
+            lib = ctypes.CDLL(str(so))
+            _bind_draco(lib)
+            _draco_lib = lib
+        return _draco_lib
+
+
+#: upload packing mode (bits) -> (values, bytes) per group (`uvt_pack_bits`)
+PACK_GROUPS = {8: (1, 1), 10: (4, 5), 12: (2, 3), 16: (1, 2), 32: (1, 4)}
+
+
+def pack_bits_native(vals: np.ndarray, mode: int, nbytes: int) -> Optional[np.ndarray]:
+    """Flat int32 array -> uint8 upload wire at `mode`-bit granularity
+    (`models/drc_device.py`'s packing modes) in one C pass; None when the
+    library is unavailable or the host is not little-endian (the 16- and
+    32-bit modes are numpy's `.view(uint8)` there)."""
+    lib = get_draco_lib()
+    if lib is None or sys.byteorder != "little":
+        return None
+    v = np.ascontiguousarray(vals, np.int32)
+    out = np.empty(nbytes, np.uint8)
+    if lib.uvt_pack_bits(v, len(v), mode, out) != 0:
+        return None
+    return out
+
+
+def pack_frames_native(vals: list, mode: int, stride: int, out: np.ndarray,
+                       out_off: int) -> bool:
+    """Pack F per-frame int32 value arrays into their padded slots of the
+    window buffer `out` from byte `out_off` on, zero-filling the padding
+    (`uvt_pack_frames`). `out` may be the numpy view of a pinned tensor:
+    the C loop writes at its address. False when the library is
+    unavailable (the caller keeps the numpy path). Raises where `out`
+    cannot hold the F padded slots."""
+    gv, gb = PACK_GROUPS[mode]
+    if (out.dtype != np.uint8 or not out.flags.c_contiguous or stride % gv
+            or out_off < 0 or out.nbytes < out_off + len(vals) * (stride // gv) * gb):
+        raise ValueError(f"{len(vals)} frames of {stride} values at mode {mode} do not fit "
+                         f"{out.nbytes} bytes from {out_off}")
+    lib = get_draco_lib()
+    if lib is None or sys.byteorder != "little":
+        return False
+    c = ctypes
+    f = len(vals)
+    arrs = [np.ascontiguousarray(v, np.int32).reshape(-1) for v in vals]
+    ptrs = (c.c_void_p * f)(*[a.ctypes.data for a in arrs])
+    ns = (c.c_int64 * f)(*[a.size for a in arrs])
+    return lib.uvt_pack_frames(ptrs, ns, f, stride, mode, out.ctypes.data + out_off) == 0
+
+
+def drc_decode_native(data: bytes, *, portable: bool = False):
+    """Whole-frame `.drc` decode in one native call (draco_frame.cpp).
+
+    Returns (num_faces, num_points, point_of_corner int32[3F], attrs), each
+    attrs entry (att_type, data_type, num_components, normalized,
+    unique_id, values ndarray, corner_to_value int32[3F]); or None when
+    the stream uses a feature outside the native path (standard coder,
+    tagged symbols, sequential or point-cloud encodings) or the library
+    is unavailable.
+
+    `portable=True` keeps the integer stages (quantized values,
+    octahedral normal ints) and appends each attribute's dequantize
+    parameters, (kind, bits, oct_max_quantized, range, mins[nc]): the
+    host half of the split whose device half is `models/drc_device.py`.
+    """
+    lib = get_draco_lib()
+    if lib is None:
+        return None
+    c = ctypes
+    d = np.frombuffer(data, np.uint8)
+    info = np.zeros(4, np.int64)
+    h = lib.uvt_drc_decode2(d, len(d), 1 if portable else 0, info)
+    if not h or int(info[0]) != 0:
+        return None
+    try:
+        num_attrs, num_faces, num_points = int(info[1]), int(info[2]), int(info[3])
+        n_corners = 3 * num_faces
+        point_of_corner = np.empty(n_corners, np.int32)
+        if lib.uvt_drc_points_fetch(h, point_of_corner) != 0:
+            return None
+        attrs = []
+        info8 = np.zeros(8, np.int64)
+        for i in range(num_attrs):
+            if lib.uvt_drc_attr_info(h, i, info8) != 0:
+                return None
+            att_type, data_type, ncomp, norm, uid, is_float, nvals, stored_nc = (
+                int(x) for x in info8)
+            values = np.empty((nvals, stored_nc), np.float32 if is_float else np.int64)
+            corner_map = np.empty(n_corners, np.int32)
+            if lib.uvt_drc_attr_fetch(h, i, values.ctypes.data_as(c.c_void_p), corner_map) != 0:
+                return None
+            attr = (att_type, data_type, ncomp, bool(norm), uid, values, corner_map)
+            if portable:
+                deq = np.zeros(12, np.float64)
+                if lib.uvt_drc_attr_deq(h, i, deq) != 0:
+                    return None
+                attr += ((int(deq[0]), int(deq[1]), int(deq[2]), float(deq[3]),
+                          deq[4:4 + max(ncomp, 1)].copy()),)
+            attrs.append(attr)
+        return num_faces, num_points, point_of_corner, attrs
+    finally:
+        lib.uvt_drc_free(h)
+
+
+@dataclass
+class AttributeToEncode:
+    """One attribute for `drc_encode_native`: the fields it reads of the
+    reference encoder's record of the same name."""
+
+    attribute_type: int  # constants.ATT_POSITION / ATT_TEX_COORD / ...
+    values: np.ndarray  # [N, C] float32 (or ints for integer attributes)
+    corner_to_value: np.ndarray  # [3F] value index per corner
+    quantization_bits: int = 11
+    integer: bool = False  # SEQ_INTEGER (no quantization header)
+
+
+def drc_encode_native(faces, attributes: Sequence[AttributeToEncode],
+                      standard_traversal: bool = False) -> Optional[bytes]:
+    """Whole-frame `.drc` encode in one native call (draco_frame_enc.cpp);
+    `attributes[0]` must be the positions. Returns the encoded bytes, or
+    None when the library is unavailable or the frame uses a feature
+    outside the native path."""
+    lib = get_draco_lib()
+    if lib is None:
+        return None
+    from uvol_tpu_torch.codecs.draco import constants as K
+
+    faces = np.ascontiguousarray(np.asarray(faces, np.int64).reshape(-1))
+    num_faces = len(faces) // 3
+    n = 3 * num_faces
+    num_positions = int(faces.max()) + 1 if num_faces else 0
+    na = len(attributes)
+    att_type = np.zeros(na, np.int32)
+    att_integer = np.zeros(na, np.uint8)
+    att_dtype = np.zeros(na, np.int32)
+    att_qbits = np.zeros(na, np.int32)
+    att_ncomp = np.zeros(na, np.int32)
+    att_nvals = np.zeros(na, np.int64)
+    fvals, ivals, foffs, ioffs = [], [], [], []
+    c2v = np.empty((na, n), np.int64)
+    fcount = icount = 0
+    for i, a in enumerate(attributes):
+        vals = np.asarray(a.values)
+        if vals.ndim != 2:
+            return None
+        att_type[i] = a.attribute_type
+        att_integer[i] = 1 if a.integer else 0
+        att_qbits[i] = a.quantization_bits
+        att_ncomp[i] = vals.shape[1]
+        att_nvals[i] = vals.shape[0]
+        c2v[i] = np.asarray(a.corner_to_value, np.int64).reshape(-1)
+        foffs.append(fcount)
+        ioffs.append(icount)
+        if a.integer:
+            att_dtype[i] = K.DT_UINT8 if vals.dtype == np.uint8 else K.DT_INT32
+            ivals.append(np.ascontiguousarray(vals.reshape(-1), np.int64))
+            icount += vals.size
+        else:
+            fvals.append(np.ascontiguousarray(vals.reshape(-1), np.float64))
+            fcount += vals.size
+    fvalues_all = np.concatenate(fvals) if fvals else np.zeros(1, np.float64)
+    ivalues_all = np.concatenate(ivals) if icount else np.zeros(1, np.int64)
+    cap = (1 << 20) + 8 * (fcount + icount) + 4 * n
+    out = np.empty(cap, np.uint8)
+    rc = lib.uvt_drc_encode(
+        faces, num_faces, num_positions,
+        na, att_type, att_integer, att_dtype, att_qbits, att_ncomp, att_nvals,
+        fvalues_all, np.asarray(foffs, np.int64), ivalues_all, np.asarray(ioffs, np.int64),
+        np.ascontiguousarray(c2v.reshape(-1)), 1 if standard_traversal else 0, out, cap,
+    )
+    if rc < 0:
+        return None
+    return out[:rc].tobytes()
