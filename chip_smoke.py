@@ -31,7 +31,7 @@ CPU codecs, counts the kernels one K6 or segment-sum call launches
 kernels alone with the profiler, and traces one pass of each codec
 stage with `torch.profiler` to split its time between host and device.
 
-Its last phase, `drc_device_path`, drives the real-`.drc` device decode
+Its phase `drc_device_path` drives the real-`.drc` device decode
 (`models/drc_device.py`, `runtime/device_stream.py`) at liam scale. It
 makes 128 frames (32 distinct) with the port's own native Draco encoder:
 83 x 315 grids (26,145 vertices, 51,496 faces), each displaced
@@ -47,6 +47,28 @@ is one K8 launch and one H2D copy; `decode_drc_stream` at windows 4 and
 `stream_frames` runs the geometry encode over 3 windows of 32 frames.
 It reports the batch and pipelined decode rates, K8 on a 64-frame
 window (per call, alone, its twin) and the traced split of one window.
+
+Its last phase, `cli_player_path`, drives the port's own entry points on
+the card: `uvol_tpu_torch.encoder_cli.main` in process and the facade
+`Player`. Project A is the CLI's defaults (`TEMPLATE`: Draco at
+11/10/8 in 8 spawned workers while CUDA is live, ETC1S at 1024/1024, 5
+layers a segment) on 32 OBJ frames of 83 x 315 grids (26,145 vertices,
+51,496 faces) and 32 PNG layers of 1024^2 of the bench texture, written
+by this script without Pillow; project B the same inputs through `uvtg`
+and `etc`. Each is encoded (A must launch K4-K7 and the segment sum, B
+the minimum/maximum, K3 and K1), encoded again (no file and no mtime may
+change), and played on a virtual clock at 1/60 s until the track ends,
+sync and with `async_prefetch`: on every `ok` tick the geometry equals
+the port's decoder's output for that frame's file, the texture layer
+(`frame % 5`) the decode of that segment's file, and the async ticks the
+sync ones; B's playback must launch K2. Project C (6 frames of 20 x 30
+grids, 6 layers of 256^2, `uvtg` and "etc1s,etc" at 1024/1024) is encoded
+on the card and on the CPU (`UVT_PLATFORM=cpu`): every file, manifest
+and resume indexes included, must be the same bytes. It prints each
+project's stage times, frames/s, the player's decode ms per frame and per
+segment, and each kernel's launches per encode and playback, from the
+wrappers' counters.
+
 Each phase prints one JSON line; then come the card's `nvidia-smi`
 name/power-limit line, the kernels line (each kernel's launches on its
 main path, worst difference from its twin, call time, its twin's time,
@@ -66,10 +88,14 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
+import struct
 import subprocess
 import sys
 import time
+import zlib
+from pathlib import Path
 
 import numpy as np
 
@@ -166,6 +192,19 @@ DRC_STREAM_WINDOWS = 3  # stream_frames over windows of F frames (bench.py:744-7
 DRC_ATTRS = ((1, 8, 1 << 8), (1, 10, 1 << 10), (1, 12, 1 << 12), (1, 16, 1 << 16),
              (1, 32, 1 << 32), (2, 8, 1 << 8), (2, 10, 1 << 10), (2, 16, 1 << 16))
 DRC_NMAX = (1, 3, 1001, 4097)
+#: the encoder CLI and the player (`cli_player_path`): projects A and B take the
+#: CLI's defaults (`encoder_cli.TEMPLATE`) on F OBJ frames of DRC_GRID grids and
+#: F PNG layers of the bench texture, the Draco frames in 8 spawned workers, played
+#: at 60 ticks a second; project C, 6 frames of 20 x 30 grids and 6 layers of
+#: 256^2 through `uvtg` and both texture codecs at 1024/1024, on the card and on
+#: the CPU
+CLI_FRAMES = F
+CLI_WORKERS = 8
+CLI_TICK = 1 / 60
+CLI_C_FRAMES = 6
+CLI_C_GRID = (20, 30)
+CLI_C_SIDE = 256
+CLI_C_CODECS = "etc1s,etc"
 #: K3's and the minimum/maximum's kernel names in a profiler trace (csrc/geometry.cu)
 K3_KERNEL_NAME = WRAPPER_KERNELS["quantize_delta_zigzag"][0]
 MINMAX_KERNEL_NAME = WRAPPER_KERNELS["geometry_minmax"][0]
@@ -1386,6 +1425,328 @@ def drc_device_path(torch, dev, positions, uvs, median_cuda_ms) -> tuple:
           "max_abs_err": err})
     return launches, err, ms, main_args
 
+# ---------------------------------------------------------------------------
+# The encoder CLI and the V2 player (`cli_player_path`)
+# ---------------------------------------------------------------------------
+
+
+def write_png(path, img: np.ndarray) -> None:
+    """[H, W, 3] uint8 -> an RGB PNG with zlib alone (the card machine has
+    no Pillow); the rows take the None, Sub and Up filters in turn."""
+    h, w, _ = img.shape
+    rows = img.reshape(h, w * 3).astype(np.int16)
+    left = np.zeros_like(rows)
+    left[:, 3:] = rows[:, :-3]
+    up = np.zeros_like(rows)
+    up[1:] = rows[:-1]
+    kind = (np.arange(h) % 3)[:, None]
+    filt = np.where(kind == 1, rows - left, np.where(kind == 2, rows - up, rows)) & 0xFF
+    raw = np.concatenate([kind, filt], 1).astype(np.uint8).tobytes()
+
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body)))
+
+    path.write_bytes(b"\x89PNG\r\n\x1a\n"
+                     + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def write_obj(path, pos, uv, nrm, faces) -> None:
+    """One OBJ frame: v, vt and vn per vertex, faces indexing all three alike."""
+    lines = [f"v {a:.6f} {b:.6f} {c:.6f}" for a, b, c in pos.tolist()]
+    lines += [f"vt {a:.6f} {b:.6f}" for a, b in uv.tolist()]
+    lines += [f"vn {a:.6f} {b:.6f} {c:.6f}" for a, b, c in nrm.tolist()]
+    lines += ["f {0}/{0}/{0} {1}/{1}/{1} {2}/{2}/{2}".format(*f)
+              for f in (faces + 1).tolist()]
+    path.write_text("\n".join(lines) + "\n")
+
+
+def cli_inputs(root, frames: int, grid: tuple, textures: np.ndarray) -> tuple:
+    """OBJ frames of `grid` (`grid_mesh` seeds 0..frames-1) and one PNG per
+    texture layer under root; returns their path templates."""
+    from uvol_tpu_torch.codecs.draco.grid import grid_mesh
+
+    (root / "OBJ").mkdir(parents=True)
+    (root / "images").mkdir()
+    for i in range(frames):
+        write_obj(root / "OBJ" / f"{i:05d}.obj", *grid_mesh(*grid, seed=i))
+    for i, img in enumerate(textures):
+        write_png(root / "images" / f"{i:05d}.png", img)
+    return str(root / "OBJ" / "[#####].obj"), str(root / "images" / "[#####].png")
+
+
+def cli_config(path, inputs: tuple, out_dir, **over) -> str:
+    """A project config: the CLI's `TEMPLATE` with `over` on top."""
+    from uvol_tpu_torch.encoder_cli import TEMPLATE
+
+    cfg = {**TEMPLATE, "name": "smoke", "OBJFilesPath": inputs[0], "ImagesPath": inputs[1],
+           "OutputDirectory": str(out_dir), "ENCODE_WORKERS": CLI_WORKERS, **over}
+    path.write_text(json.dumps(cfg))
+    return str(path)
+
+
+def all_launches() -> dict:
+    from uvol_tpu_torch.codecs.basis import etc1s_cuda, etc_cuda
+    from uvol_tpu_torch.models import drc_device
+    from uvol_tpu_torch.ops import pallas_kernels
+
+    return {**etc_cuda.LAUNCHES, **pallas_kernels.LAUNCHES, **etc1s_cuda.LAUNCHES,
+            **drc_device.LAUNCHES}
+
+
+def reset_all_launches() -> None:
+    from uvol_tpu_torch.codecs.basis import etc1s_cuda, etc_cuda
+    from uvol_tpu_torch.models import drc_device
+    from uvol_tpu_torch.ops import pallas_kernels
+
+    for mod in (etc_cuda, pallas_kernels, etc1s_cuda, drc_device):
+        mod.reset_launches()
+
+
+def stats_seconds(stats) -> dict:
+    """Total seconds of every timer in the registry."""
+    return {k: v["mean"] * v["count"] for k, v in stats.snapshot()["timings"].items()}
+
+
+def tree(root) -> dict:
+    """Every file under root: relative path -> (bytes, mtime in ns)."""
+    return {str(p.relative_to(root)): (p.read_bytes(), p.stat().st_mtime_ns)
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def cli_encode(torch, cfg_path: str) -> dict:
+    """One in-process run of the port's CLI on `cfg_path`: its wall time,
+    stage times (`STATS`) and every kernel's launches."""
+    from uvol_tpu_torch.encoder_cli import main as cli_main
+    from uvol_tpu_torch.utils.stats import STATS
+
+    torch.cuda.synchronize()
+    reset_all_launches()
+    STATS.reset()
+    printed = io.StringIO()  # the CLI's progress lines stay off the smoke's stdout
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = cli_main([cfg_path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    check(rc == 0, f"the encoder CLI returned {rc} on {cfg_path}: {printed.getvalue()[-500:]}")
+    return {"wall_s": wall, "stage_s": stats_seconds(STATS),
+            "launches": {k: v for k, v in all_launches().items() if v}}
+
+
+def play(torch, manifest: str, async_prefetch: bool) -> tuple:
+    """The port's facade `Player` on the card, on a `VirtualClock` at
+    `CLI_TICK` until the track ends; with `async_prefetch` the pools are
+    waited for after each tick, so the ticks are the sync run's. Returns
+    (every tick's FrameResult, the V2 player, decode seconds, launches)."""
+    from uvol_tpu_torch.interfaces import PlayMode
+    from uvol_tpu_torch.player import PlaybackClock, Player, VirtualClock
+    from uvol_tpu_torch.utils.stats import STATS
+
+    torch.cuda.synchronize()
+    reset_all_launches()
+    STATS.reset()
+    vc = VirtualClock()
+    ended = []
+    p = Player(play_mode=PlayMode.single, paths=[manifest], on_track_end=lambda: ended.append(1),
+               device=DEVICE, v2_player_kwargs={"clock": PlaybackClock(now=vc),
+                                                "async_prefetch": async_prefetch})
+    p.set_track_path()
+
+    def settle():
+        if async_prefetch:
+            p.v2_instance._geo_pool.wait_idle(timeout=600)
+            p.v2_instance._tex_pool.wait_idle(timeout=600)
+
+    settle()
+    ticks = []
+    while not ended:
+        check(len(ticks) < 100000, "the track never ended")
+        vc.advance(CLI_TICK)
+        ticks.append(p.update())
+        settle()
+    p.dispose()
+    torch.cuda.synchronize()
+    timings = STATS.snapshot()["timings"]
+    decode_ms = {k.split(".")[1]: {"count": v["count"], "mean_ms": v["mean"] * 1e3,
+                                   "p50_ms": v["p50"] * 1e3, "max_ms": v["max"] * 1e3}
+                 for k, v in timings.items() if k.startswith("v2.")}
+    return ticks, p.v2_instance, decode_ms, {k: v for k, v in all_launches().items() if v}
+
+
+def hold_playback(ticks, v2, frames: int, seq: int) -> int:
+    """Every `ok` tick's geometry equals the port's decoder's output for that
+    frame's file, its texture the decode of that segment's file, and its
+    layer is `frame % seq`; every frame of the track but the first showed.
+    Returns the `ok` ticks."""
+    from uvol_tpu_torch.codecs.basis.transcoder import transcode_ktx2_etc1s
+    from uvol_tpu_torch.codecs.draco.decoder import decode_drc
+    from uvol_tpu_torch.containers.ktx2 import read_ktx2
+    from uvol_tpu_torch.models.sequence import GeometrySequenceCodec, TextureSequenceCodec
+
+    geo = GeometrySequenceCodec(device=DEVICE)
+    tex = TextureSequenceCodec(device=DEVICE)
+    segments, shown = {}, set()
+    ok = [r for r in ticks if r.status == "ok"]
+    for r in ok:
+        data = open(v2.geometry_url(r.geometry_frame), "rb").read()
+        if data[:4] == b"UVTG":
+            want = geo.decode([data])
+            check(np.array_equal(r.geometry.positions, want.positions)
+                  and np.array_equal(r.geometry.uvs, want.uvs)
+                  and all(np.array_equal(a, b) for a, b in zip(r.geometry.faces, want.faces)),
+                  f"frame {r.geometry_frame}: geometry differs from its decoder's")
+        else:
+            want = decode_drc(data)
+            check(np.array_equal(r.geometry.faces, want.faces)
+                  and all(np.array_equal(a.values, b.values)
+                          and np.array_equal(a.corner_to_value, b.corner_to_value)
+                          for a, b in zip(r.geometry.attributes, want.attributes, strict=True)),
+                  f"frame {r.geometry_frame}: geometry differs from its decoder's")
+        s = r.texture_segment
+        if s not in segments:
+            ktx = read_ktx2(open(v2.texture_url(s), "rb").read())
+            segments[s] = (transcode_ktx2_etc1s(ktx, target="etc1") if ktx.basis_lz is not None
+                           else tex.decode_segment(ktx))
+        check(r.texture_layer == r.geometry_frame % seq, "the layer is not frame % sequenceSize")
+        check(np.array_equal(np.asarray(r.texture)[r.texture_layer],
+                             segments[s][r.geometry_frame % seq]),
+              f"frame {r.geometry_frame}: texture layer differs from its segment's decode")
+        shown.add(r.geometry_frame)
+    # the first tick comes 1/60 s after the start, where frame round(0.5) may be 1
+    check(set(range(1, frames)) <= shown, f"frames {set(range(1, frames)) - shown} never showed")
+    return len(ok)
+
+
+def same_ticks(a, b) -> bool:
+    """Two runs' ticks: the same statuses, frames, segments and layers, and
+    on `ok` ticks the same geometry and texture arrays."""
+    key = [(r.status, r.geometry_frame, r.texture_segment, r.texture_layer) for r in a]
+    if key != [(r.status, r.geometry_frame, r.texture_segment, r.texture_layer) for r in b]:
+        return False
+    for x, y in zip(a, b):
+        if x.status != "ok":
+            continue
+        gx, gy = x.geometry, y.geometry
+        arrays = (([gx.positions, gx.uvs], [gy.positions, gy.uvs]) if hasattr(gx, "positions")
+                  else ([gx.faces] + [t.values for t in gx.attributes],
+                        [gy.faces] + [t.values for t in gy.attributes]))
+        if not all(np.array_equal(p, q) for p, q in zip(*arrays)):
+            return False
+        if x.texture.format != y.texture.format or not np.array_equal(
+                np.asarray(x.texture), np.asarray(y.texture)):
+            return False
+    return True
+
+
+def cli_player_path(torch, textures) -> tuple:
+    """The port's own entry points at liam scale: the encoder CLI
+    (`uvol_tpu_torch.encoder_cli.main`, in process) and the facade
+    `Player`, on the card. Project A, the CLI's defaults (`TEMPLATE`:
+    draco at 11/10/8, `etc1s` at 1024/1024, 5 layers a segment, 8 Draco
+    workers spawned while CUDA is live), and project B, the same inputs
+    through `uvtg` and `etc`: each encoded, encoded again (nothing may be
+    written), then played at 1/60 s ticks, sync and with
+    `async_prefetch`; every `ok` tick held to the decoders' own output.
+    Project C, small, encoded on the card and on the CPU: the same bytes
+    in every file. Returns each kernel's launches over the CLI and player
+    runs."""
+    import os
+    import shutil
+
+    root = Path(__file__).resolve().parent / "build" / "cli_player_path"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    inputs = cli_inputs(root / "inputs", CLI_FRAMES, DRC_GRID, textures[:CLI_FRAMES])
+    inputs_s = time.perf_counter() - t0
+    projects = {"A": {}, "B": {"GEOMETRY_CODEC": "uvtg", "TEXTURE_CODEC": "etc"}}
+    want_encode = {"A": ETC1S_BUILD_KERNELS + ("etc1s_rate_sweep",),
+                   "B": ("geometry_minmax", "quantize_delta_zigzag", "etc1_encode")}
+    totals, report = {}, {}
+    from uvol_tpu_torch.encoder_cli import TEMPLATE
+
+    seq = TEMPLATE["KTX2_BATCH_SIZE"]
+    for name, over in projects.items():
+        out = root / name
+        cfg = cli_config(root / f"{name}.json", inputs, out, **over)
+        first = cli_encode(torch, cfg)
+        for k in want_encode[name]:
+            check(first["launches"].get(k, 0) >= 1, f"project {name}'s encode never launched {k}")
+        before = tree(out)
+        again = cli_encode(torch, cfg)
+        check(tree(out) == before, f"the second CLI run of project {name} wrote a file")
+        manifest = str(out / "smoke.uvol.json")
+        m = json.loads(open(manifest).read())
+        geo_t = next(iter(m["geometry"]["targets"].values()))
+        check(geo_t["frameCount"] == CLI_FRAMES, "manifest frame count")
+        for t in m["texture"]["targets"].values():
+            check(t["sequenceCount"] == -(-CLI_FRAMES // seq) and t["resolution"] == [W, H],
+                  "manifest texture target")
+        sync, v2, decode_ms, play_launches = play(torch, manifest, False)
+        ok = hold_playback(sync, v2, CLI_FRAMES, seq)
+        asyn, v2a, decode_ms_async, _ = play(torch, manifest, True)
+        check(hold_playback(asyn, v2a, CLI_FRAMES, seq) == ok,
+              "the async run showed other frames")
+        check(same_ticks(asyn, sync), f"project {name}: the async ticks differ from the sync ones")
+        if name == "B":
+            check(play_launches.get("etc1_decode", 0) >= 1, "project B's playback never launched K2")
+        for src in (first["launches"], play_launches):
+            for k, v in src.items():
+                totals[k] = totals.get(k, 0) + v
+        files = sum(1 for _ in out.rglob("*") if _.is_file())
+        report[name] = {
+            "config": {k: v for k, v in json.loads(open(cfg).read()).items()
+                       if k in ("GEOMETRY_CODEC", "TEXTURE_CODEC", "ETC1S_ENDPOINTS",
+                                "ETC1S_SELECTORS", "KTX2_BATCH_SIZE", "ENCODE_WORKERS",
+                                "Q_POSITION_ATTR", "Q_TEXTURE_ATTR", "Q_NORMAL_ATTR")},
+            "files": files, "bytes": sum(len(b) for b, _ in tree(out).values()),
+            "encode_s": first["wall_s"], "encode_fps": CLI_FRAMES / first["wall_s"],
+            "stage_s": first["stage_s"], "encode_launches": first["launches"],
+            "second_run_s": again["wall_s"], "second_run_launches": again["launches"],
+            "ticks": len(sync), "ok_ticks": ok,
+            "statuses": {s: [r.status for r in sync].count(s)
+                         for s in sorted({r.status for r in sync})},
+            "decode_ms": decode_ms, "decode_ms_async": decode_ms_async,
+            "playback_launches": play_launches,
+        }
+        emit({"phase": "cli_player_project", "project": name, **report[name]})
+
+    # project C: the card's files = the CPU port's files, every one
+    small = np.stack([np.roll(textures[i, :CLI_C_SIDE, :CLI_C_SIDE], 7 * i, axis=0)
+                      for i in range(CLI_C_FRAMES)])
+    inputs_c = cli_inputs(root / "inputs_c", CLI_C_FRAMES, CLI_C_GRID, small)
+    runs = {}
+    for where in ("cuda", "cpu"):
+        cfg = cli_config(root / f"C_{where}.json", inputs_c, root / f"C_{where}",
+                         GEOMETRY_CODEC="uvtg", TEXTURE_CODEC=CLI_C_CODECS)
+        saved = os.environ.pop("UVT_PLATFORM", None)
+        if where == "cpu":
+            os.environ["UVT_PLATFORM"] = "cpu"
+        try:
+            runs[where] = cli_encode(torch, cfg)
+        finally:
+            os.environ.pop("UVT_PLATFORM", None)
+            if saved is not None:
+                os.environ["UVT_PLATFORM"] = saved
+    card = {k: b for k, (b, _) in tree(root / "C_cuda").items()}
+    cpu = {k: b for k, (b, _) in tree(root / "C_cpu").items()}
+    check(sorted(card) == sorted(cpu), "project C: the card and the CPU wrote other files")
+    differ = [k for k in card if card[k] != cpu[k]]
+    check(not differ, f"project C: card and CPU bytes differ in {differ[:4]}")
+    check(runs["cuda"]["launches"].get("quantize_delta_zigzag", 0) >= 1
+          and runs["cpu"]["launches"] == {}, "project C: the card run launched no kernel, "
+          "or the CPU run launched one")
+    emit({"phase": "cli_player_path", "inputs_s": inputs_s,
+          "projects": {k: {"encode_s": v["encode_s"], "encode_fps": v["encode_fps"],
+                           "ok_ticks": v["ok_ticks"]} for k, v in report.items()},
+          "project_c": {"files": len(card), "bytes_equal": True,
+                        "card_s": runs["cuda"]["wall_s"], "cpu_s": runs["cpu"]["wall_s"],
+                        "card_launches": runs["cuda"]["launches"]},
+          "launches": totals, "total_s": time.perf_counter() - t0})
+    shutil.rmtree(root, ignore_errors=True)
+    return totals
+
 
 def main() -> int:
     import torch
@@ -1699,7 +2060,12 @@ def main() -> int:
     for name, v in delta_err.items():
         err[name] = max(err.get(name, 0), v)
 
-    # ---- 9. the kernels line: main-path launches, parity, times, bounds -------
+    # ---- 9. the port's entry points: the encoder CLI and the player. Last: it
+    # reads the wrappers' counters, no trace, and run before `profile` it left that
+    # phase's texture-encode traces empty five times in a row (PERF.md section 6)
+    cli_launches = cli_player_path(torch, textures)
+
+    # ---- 10. the kernels line: main-path launches, parity, times, bounds ------
     nb = F * (H // 4) * (W // 4)  # K1/K2: 32 layers of 1024^2
     nq = F * 3 * N  # K3: the positions call
     ne = ETC1S_LAYERS * (H // 4) * (W // 4)  # K4-K6: 327,680 blocks
@@ -1763,6 +2129,7 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": f"uvol_tpu_torch/csrc/{src}",
             "replaces": f"uvol_tpu/{replaces}", "launches": launches[name],
+            "launches_cli_player": cli_launches.get(name, 0),
             "max_abs_err": err[name], "ms": ms[timed], "plain_ms": ms[timed + "_plain"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             # index_add_ for the segment sum; for K7 the error product

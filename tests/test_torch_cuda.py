@@ -681,3 +681,108 @@ def test_ring_buffer_on_card(card):
     ring = DeviceRingBuffer()
     dev = ring.put(0, (frames[1], {"a": frames[2]}))
     assert dev[0].device.type == "cuda" and float(dev[1]["a"][0, 0]) == 2.0
+
+
+# ---- the encoder CLI and the player on the card ------------------------------------
+
+
+def _png(path, img: np.ndarray) -> None:
+    """An RGB PNG with zlib alone (Pillow may be absent where the card is)."""
+    import struct
+    import zlib
+
+    h, w, _ = img.shape
+    raw = b"".join(b"\0" + img[y].tobytes() for y in range(h))
+
+    def chunk(tag, body):
+        return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", zlib.crc32(tag + body))
+
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0,
+                                                                     0, 0))
+                     + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def _cli_project(root, out_dir, **over) -> str:
+    """5 OBJ frames of 6 x 8 grids and 5 layers of 32 x 32, 3 layers a segment."""
+    import json
+
+    from uvol_tpu_torch.codecs.draco.grid import grid_mesh
+
+    (root / "OBJ").mkdir(parents=True, exist_ok=True)
+    (root / "images").mkdir(exist_ok=True)
+    r = np.random.default_rng(9)
+    for i in range(5):
+        pos, uv, nrm, faces = grid_mesh(6, 8, seed=i)
+        lines = [f"v {a:.6f} {b:.6f} {c:.6f}" for a, b, c in pos.tolist()]
+        lines += [f"vt {a:.6f} {b:.6f}" for a, b in uv.tolist()]
+        lines += [f"vn {a:.6f} {b:.6f} {c:.6f}" for a, b, c in nrm.tolist()]
+        lines += ["f {0}/{0}/{0} {1}/{1}/{1} {2}/{2}/{2}".format(*f) for f in (faces + 1).tolist()]
+        (root / "OBJ" / f"{i:05d}.obj").write_text("\n".join(lines) + "\n")
+        _png(root / "images" / f"{i:05d}.png", r.integers(40, 220, (32, 32, 3)).astype(np.uint8))
+    cfg = {"name": "card", "OBJFilesPath": f"{root}/OBJ/[#####].obj",
+           "ImagesPath": f"{root}/images/[#####].png", "OutputDirectory": str(out_dir),
+           "KTX2_BATCH_SIZE": 3, "ETC1S_ENDPOINTS": 16, "ETC1S_SELECTORS": 16,
+           "ENCODE_WORKERS": 2, **over}
+    path = root / f"{out_dir.name}.json"
+    path.write_text(json.dumps(cfg))
+    return str(path)
+
+
+@pytest.mark.parametrize("geometry,texture", [("draco", "etc1s,etc"), ("uvtg", "etc1s,etc")])
+def test_encoder_cli_on_card_writes_the_cpu_files(card, tmp_path, monkeypatch, geometry, texture):
+    from uvol_tpu_torch.encoder_cli import main as cli_main
+
+    files = {}
+    for where in ("cuda", "cpu"):
+        if where == "cpu":
+            monkeypatch.setenv("UVT_PLATFORM", "cpu")
+        else:
+            monkeypatch.delenv("UVT_PLATFORM", raising=False)
+        out = tmp_path / where
+        before = {**etc_cuda.LAUNCHES, **pallas_kernels.LAUNCHES}
+        assert cli_main([_cli_project(tmp_path, out, GEOMETRY_CODEC=geometry,
+                                      TEXTURE_CODEC=texture)]) == 0
+        after = {**etc_cuda.LAUNCHES, **pallas_kernels.LAUNCHES}
+        launched = {k for k in after if after[k] > before[k]}
+        if where == "cuda":
+            assert "etc1_encode" in launched
+            assert ("quantize_delta_zigzag" in launched) == (geometry == "uvtg")
+        else:
+            assert not launched
+        files[where] = {str(p.relative_to(out)): p.read_bytes() for p in out.rglob("*")
+                        if p.is_file()}
+    assert sorted(files["cuda"]) == sorted(files["cpu"])
+    for name, data in files["cpu"].items():
+        assert files["cuda"][name] == data, name
+
+
+def test_player_on_card_plays_like_the_cpu_player(card, tmp_path, monkeypatch):
+    from uvol_tpu_torch.encoder_cli import main as cli_main
+    from uvol_tpu_torch.interfaces import PlayMode
+    from uvol_tpu_torch.player import PlaybackClock, Player, VirtualClock
+
+    monkeypatch.setenv("UVT_PLATFORM", "cpu")
+    out = tmp_path / "out"
+    assert cli_main([_cli_project(tmp_path, out, GEOMETRY_CODEC="uvtg", TEXTURE_CODEC="etc")]) == 0
+    runs = {}
+    for device in ("cuda", "cpu"):
+        vc, ended = VirtualClock(), []
+        p = Player(play_mode=PlayMode.single, paths=[str(out / "card.uvol.json")],
+                   on_track_end=lambda: ended.append(1), device=device,
+                   v2_player_kwargs={"clock": PlaybackClock(now=vc), "async_prefetch": True})
+        p.set_track_path()
+        ticks = []
+        while not ended and len(ticks) < 200:
+            p.v2_instance._geo_pool.wait_idle()
+            p.v2_instance._tex_pool.wait_idle()
+            vc.advance(1 / 60)
+            ticks.append(p.update())
+        p.dispose()
+        runs[device] = ticks
+    keys = {d: [(r.status, r.geometry_frame, r.texture_segment, r.texture_layer) for r in t]
+            for d, t in runs.items()}
+    assert keys["cuda"] == keys["cpu"] and [k[0] for k in keys["cpu"]].count("ok") >= 4
+    for a, b in zip(runs["cuda"], runs["cpu"]):
+        if a.status == "ok":
+            np.testing.assert_array_equal(a.geometry.positions, b.geometry.positions)
+            np.testing.assert_array_equal(np.asarray(a.texture), np.asarray(b.texture))

@@ -26,6 +26,14 @@ the reference's modules, byte for byte in what they emit. This package
 imports neither `jax` nor the JAX package.
 """
 
-from uvol_tpu_torch._device import resolve_device  # noqa: F401
-
 __version__ = "0.1.0"
+
+
+def __getattr__(name: str):
+    # `resolve_device` on first use: importing the package imports no torch,
+    # so the encoder CLI's spawned Draco workers start on numpy alone
+    if name == "resolve_device":
+        from uvol_tpu_torch._device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module 'uvol_tpu_torch' has no attribute {name!r}")

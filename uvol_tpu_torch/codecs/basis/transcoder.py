@@ -8,9 +8,11 @@ selector history (conditional replenishment for video).
 
 The port's copy of the reference's `codecs/basis/transcoder.py`, cut to
 the full RGBA decode (`transcode_ktx2_etc1s(target="rgba")`) and the
-constants the ETC1S encoder shares with it. The native loops run in the
-port's own library (`uvol_tpu_torch.native`). The compressed targets
-(ETC1 words, BC1/BC3, ETC2+EAC, PVRTC1) are not copied yet.
+constants the ETC1S encoder shares with it, and the player's compressed
+passthrough targets: ETC1 words and ETC2+EAC (`etc1_word_tables`,
+`eac_entry_tables`, `FORMAT_OPTIONS`, `select_transcode_target`). The
+native loops run in the port's own library (`uvol_tpu_torch.native`). The
+BC1/BC3 and PVRTC1 targets are not copied yet.
 """
 
 from __future__ import annotations
@@ -558,11 +560,223 @@ def blocks_to_rgb(
     return rgb.transpose(0, 2, 1, 3, 4).reshape(nby * 4, nbx * 4, 3)
 
 
+def blocks_to_etc1_words(
+    blocks: np.ndarray, endpoints: List[Endpoint], selectors: np.ndarray
+) -> np.ndarray:
+    """(endpoint, selector) indices → ETC1 block words [nby*nbx, 2] uint32.
+
+    The "fast transcode" target: every ETC1S block is a valid ETC1
+    differential block with both subblocks sharing the base color and
+    intensity table (what the native basis transcoder emits for
+    ETC1/ETC2-capable devices, src/lib/KTX2Loader.js:591-697 table).
+    """
+    # word1 depends only on the endpoint and word2 only on the selector,
+    # so build per-palette-entry tables once and gather (the per-block
+    # work is two index lookups instead of per-pixel bit packing)
+    word1_of, word2_of = etc1_word_tables(endpoints, selectors)
+    ep = blocks[..., 0].reshape(-1)
+    sel = blocks[..., 1].reshape(-1)
+    return np.stack([word1_of[ep], word2_of[sel]], axis=1)
+
+
+def etc1_word_tables(
+    endpoints, selectors: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-palette-entry ETC1 word tables (word1_of [E], word2_of [S]).
+
+    Palettes are per-segment globals, so sequence transcoders build
+    these once and reuse them for every layer (the rebuild measured
+    ~0.6 ms/frame in the playback profile)."""
+    color5, inten5 = _endpoint_arrays(endpoints)
+    base5 = color5.astype(np.uint32)  # [E,3]
+    inten = inten5.astype(np.uint32)
+    word1_of = (
+        (base5[:, 0] << 27) | (base5[:, 1] << 19) | (base5[:, 2] << 11)
+        | (inten << 5) | (inten << 2) | (1 << 1)  # diff=1, flip=0
+    ).astype(np.uint32)  # [E]
+    # ETC1S selector s (ascending modifier [-L,-s,+s,+L]) → ETC1 pixel code
+    # (msb=sign, lsb=magnitude): 0→(1,1) 1→(1,0) 2→(0,0) 3→(0,1)
+    msb_of = np.array([1, 1, 0, 0], np.uint32)
+    lsb_of = np.array([1, 0, 0, 1], np.uint32)
+    j = np.arange(16)
+    y, x = j % 4, j // 4
+    codes = selectors[:, y, x]  # [S, 16] in ETC1 column-major order j=x*4+y
+    word2_of = (
+        (lsb_of[codes] << j[None, :]).sum(1)
+        + (msb_of[codes] << (j[None, :] + 16)).sum(1)
+    ).astype(np.uint32)  # [S]
+    return word1_of, word2_of
+
+
+#: ETC2 EAC alpha modifier tables (Khronos spec; extracted + verified
+#: against Mesa llvmpipe's GL_COMPRESSED_RGBA8_ETC2_EAC decoder)
+EAC_MODIFIERS = np.array([
+    (-3, -6, -9, -15, 2, 5, 8, 14),
+    (-3, -7, -10, -13, 2, 6, 9, 12),
+    (-2, -5, -8, -13, 1, 4, 7, 12),
+    (-2, -4, -6, -13, 1, 3, 5, 12),
+    (-3, -6, -8, -12, 2, 5, 7, 11),
+    (-3, -7, -9, -11, 2, 6, 8, 10),
+    (-4, -7, -8, -11, 3, 6, 7, 10),
+    (-3, -5, -8, -11, 2, 4, 7, 10),
+    (-2, -6, -8, -10, 1, 5, 7, 9),
+    (-2, -5, -8, -10, 1, 4, 7, 9),
+    (-2, -4, -8, -10, 1, 3, 7, 9),
+    (-2, -5, -7, -10, 1, 4, 6, 9),
+    (-3, -4, -7, -10, 2, 3, 6, 9),
+    (-1, -2, -3, -10, 0, 1, 2, 9),
+    (-4, -6, -8, -9, 3, 5, 7, 8),
+    (-3, -5, -7, -9, 2, 4, 6, 8),
+], np.int64)  # [16 tables, 8 indices]
+
+
+def eac_entry_tables(endpoints):
+    """Per-endpoint-entry EAC alpha parameters for the ETC1S gray alpha
+    slice: (byte0 [E] base, byte1 [E] mult<<4|table, code_map [E,4]).
+
+    An ETC1S alpha block holds at most the entry's 4 intensity levels
+    (alpha rides the green channel), so the best (base, multiplier,
+    table) fit depends only on the endpoint entry — searched over all
+    16 tables with a small multiplier/base neighborhood, scored by the
+    squared distance of each level to its nearest decodable value
+    (clamped like the hardware decoder)."""
+    color5, inten5 = _endpoint_arrays(endpoints)
+    g5 = color5[:, 1].astype(np.int64)
+    base8 = (g5 << 3) | (g5 >> 2)  # [E]
+    levels = np.clip(
+        base8[:, None] + INTEN_TABLES[inten5.astype(np.int64)], 0, 255
+    )  # [E,4] ascending
+    E = len(levels)
+    lmin, lmax = levels[:, 0], levels[:, 3]
+    mod_min = EAC_MODIFIERS.min(axis=1)  # [16]
+    mod_max = EAC_MODIFIERS.max(axis=1)
+    span = (mod_max - mod_min).astype(np.float64)  # [16]
+    mult0 = np.clip(
+        np.round((lmax - lmin)[:, None] / span[None, :]), 1, 15
+    )  # [E,16]
+    # candidate grid: per table, multiplier in {m0-1,m0,m0+1} x base in
+    # {b0-1,b0,b0+1}
+    mults = np.clip(
+        mult0[:, :, None] + np.array([-1.0, 0.0, 1.0]), 1, 15
+    )  # [E,16,3]
+    center = (lmin + lmax)[:, None, None] / 2.0
+    b0 = np.round(
+        center - mults * (mod_min + mod_max)[None, :, None] / 2.0
+    )
+    bases = np.clip(
+        b0[..., None] + np.array([-1.0, 0.0, 1.0]), 0, 255
+    )  # [E,16,3,3]
+    # decodable values: [E,16,3mult,3base,8idx]
+    vals = np.clip(
+        bases[..., None]
+        + mults[..., None, None] * EAC_MODIFIERS[None, :, None, None, :],
+        0,
+        255,
+    )
+    # error of each level against its nearest decodable value
+    d = np.abs(
+        vals[:, :, :, :, None, :] - levels[:, None, None, None, :, None]
+    )  # [E,16,3,3,4lev,8idx]
+    best_idx = d.argmin(axis=-1)  # [E,16,3,3,4]
+    err = (d.min(axis=-1) ** 2).sum(axis=-1)  # [E,16,3,3]
+    flat = err.reshape(E, -1).argmin(axis=1)
+    ti, mi, bi = np.unravel_index(flat, (16, 3, 3))
+    e_idx = np.arange(E)
+    byte0 = bases[e_idx, ti, mi, bi].astype(np.uint8)  # base codeword
+    mult = mults[e_idx, ti, mi].astype(np.uint8)
+    byte1 = ((mult << 4) | ti.astype(np.uint8)).astype(np.uint8)
+    code_map = best_idx[e_idx, ti, mi, bi]  # [E,4] level -> 3-bit index
+    return byte0, byte1, code_map.astype(np.int64)
+
+
+def alpha_blocks_to_eac_words(
+    blocks: np.ndarray, endpoints, selectors: np.ndarray
+) -> np.ndarray:
+    """ETC1S gray *alpha* slice blocks → EAC alpha words [N, 2] uint32
+    (big-endian halves, pack with `pack_etc1_payload` semantics: the
+    alpha half of a GL_COMPRESSED_RGBA8_ETC2_EAC block).
+
+    Wire: byte0 = base codeword, byte1 = multiplier<<4 | table, then a
+    48-bit index field, 3 bits per texel MSB-first in ETC column-major
+    order (texel k = x*4 + y)."""
+    byte0, byte1, code_map = eac_entry_tables(endpoints)
+    ep = blocks[..., 0].reshape(-1)
+    sel = blocks[..., 1].reshape(-1)
+    j16 = np.arange(16)
+    y, x = j16 % 4, j16 // 4  # k = x*4+y column-major
+    sel_codes = selectors[:, y, x]  # [S,16] level indices
+    codes = code_map[ep[:, None], sel_codes[sel]].astype(np.uint64)  # [N,16]
+    field = (codes << (3 * (15 - j16))[None, :].astype(np.uint64)).sum(1)
+    w0 = (
+        (byte0[ep].astype(np.uint64) << 24)
+        | (byte1[ep].astype(np.uint64) << 16)
+        | (field >> 32)
+    )
+    w1 = field & 0xFFFFFFFF
+    return np.stack([w0.astype(np.uint32), w1.astype(np.uint32)], axis=1)
+
+
+#: transcode-target selection table — priorities and constraints per device
+#: capability, mirroring the reference's FORMAT_OPTIONS
+#: (src/lib/KTX2Loader.js:591-697): lower priority number wins among
+#: supported formats; PVRTC-class targets require power-of-two textures.
+FORMAT_OPTIONS = [
+    # ETC1S cannot be transcoded to ASTC blocks (reference marks this
+    # priorityETC1S: Infinity, src/lib/KTX2Loader.js): etc1s priority None
+    {"cap": "astc", "target": "astc-4x4", "priority_etc1s": None,
+     "priority_uastc": 1, "needs_pow2": False},
+    {"cap": "bptc", "target": "bc7", "priority_etc1s": 3,
+     "priority_uastc": 2, "needs_pow2": False},
+    {"cap": "dxt", "target": "bc1-bc3", "priority_etc1s": 4,
+     "priority_uastc": 5, "needs_pow2": False},
+    {"cap": "etc2", "target": "etc1", "priority_etc1s": 1,
+     "priority_uastc": 3, "needs_pow2": False},
+    {"cap": "etc1", "target": "etc1", "priority_etc1s": 2,
+     "priority_uastc": 4, "needs_pow2": False},
+    {"cap": "pvrtc", "target": "pvrtc1", "priority_etc1s": 5,
+     "priority_uastc": 6, "needs_pow2": True},
+]
+
+
+def select_transcode_target(
+    capabilities, *, is_uastc: bool = False, width: int = 0, height: int = 0
+) -> str:
+    """Pick the best device target; falls back to 'rgba' (full decode)."""
+
+    def pow2(n):
+        return n > 0 and (n & (n - 1)) == 0
+
+    key = "priority_uastc" if is_uastc else "priority_etc1s"
+    best = None
+    for opt in FORMAT_OPTIONS:
+        if opt[key] is None:  # source format cannot reach this target
+            continue
+        if opt["cap"] not in capabilities:
+            continue
+        if opt["needs_pow2"] and not (pow2(width) and pow2(height)):
+            continue
+        if best is None or opt[key] < best[key]:
+            best = opt
+    return best["target"] if best else "rgba"
+
+
 def transcode_ktx2_etc1s(ktx2_file, target: str = "rgba") -> np.ndarray:
-    """Full BasisLZ KTX2 → [layers, H, W, 3] uint8 pixels (4 channels
-    when the file carries alpha slices). Only `target="rgba"` is copied."""
-    if target != "rgba":
-        raise NotImplementedError(f"transcode target {target!r} is not ported")
+    """Full BasisLZ KTX2 → frames.
+
+    target="rgba": [layers, H, W, 3] uint8 pixels (full decode; 4 channels
+    when the file carries alpha slices).
+    target="etc1": [layers, nblocks, 2] uint32 ETC1 words (fast passthrough
+    for ETC-capable devices — no pixel math, palette lookups only).
+    target="etc2-eac": [layers, nblocks, 4] uint32 — EAC alpha block words
+    followed by the ETC1 color words (GL_COMPRESSED_RGBA8_ETC2_EAC
+    layout); carries alpha files on ETC2-capable devices.
+
+    The reference's "bc1-bc3" and "pvrtc1" targets are not copied yet
+    (ROADMAP §1 item 7) and raise NotImplementedError.
+    """
+    if target not in ("rgba", "etc1", "etc2-eac"):
+        raise NotImplementedError(
+            f"transcode target {target!r} is not ported (ROADMAP.md §1 item 7)")
     g = ktx2_file.basis_lz
     if g is None:
         raise ValueError("not a BasisLZ ktx2 file")
@@ -576,9 +790,19 @@ def transcode_ktx2_etc1s(ktx2_file, target: str = "rgba") -> np.ndarray:
     models = decode_slice_models(g.tables_data)
     level = ktx2_file.levels[0].data
     has_alpha = any(d.alpha_slice_byte_length for d in g.image_descs)
+    if has_alpha and target == "etc1":
+        # callers fall back to the full decode like the reference on
+        # devices with no matching alpha format (etc2-eac pairs an EAC
+        # alpha block with the ETC1 color block)
+        raise NotImplementedError(f"alpha slices: no {target!r} target")
     frames = []
     prev_blocks = None
     prev_alpha_blocks = None
+    etc1_tabs = (
+        etc1_word_tables(endpoints, selectors)
+        if target in ("etc1", "etc2-eac")
+        else None
+    )
     for d in g.image_descs:
         sl = level[
             d.rgb_slice_byte_offset : d.rgb_slice_byte_offset + d.rgb_slice_byte_length
@@ -588,8 +812,9 @@ def transcode_ktx2_etc1s(ktx2_file, target: str = "rgba") -> np.ndarray:
             prev_frame=prev_blocks,
         )
         prev_blocks = blocks
-        rgb = blocks_to_rgb(blocks, endpoints, selectors)[:h, :w]
-        if has_alpha:
+
+        def _alpha_blocks():
+            nonlocal prev_alpha_blocks
             asl = level[
                 d.alpha_slice_byte_offset :
                 d.alpha_slice_byte_offset + d.alpha_slice_byte_length
@@ -599,8 +824,46 @@ def transcode_ktx2_etc1s(ktx2_file, target: str = "rgba") -> np.ndarray:
                 g.selector_count, prev_frame=prev_alpha_blocks,
             )
             prev_alpha_blocks = ab
-            # alpha rides the decoded green channel (gray ETC1S slice)
-            alpha = blocks_to_rgb(ab, endpoints, selectors)[:h, :w, 1:2]
-            rgb = np.concatenate([rgb, alpha], axis=-1)
-        frames.append(rgb)
+            return ab
+
+        if target in ("etc1", "etc2-eac"):
+            word1_of, word2_of = etc1_tabs
+            from uvol_tpu_torch import native
+
+            color = native.etc1s_words_native(blocks, word1_of, word2_of)
+            if color is None:
+                color = np.stack(
+                    [
+                        word1_of[blocks[..., 0].reshape(-1)],
+                        word2_of[blocks[..., 1].reshape(-1)],
+                    ],
+                    axis=1,
+                )
+            if target == "etc2-eac":
+                # GL_COMPRESSED_RGBA8_ETC2_EAC: 8-byte EAC alpha block
+                # then the 8-byte color block
+                if has_alpha:
+                    alpha = alpha_blocks_to_eac_words(
+                        _alpha_blocks(), endpoints, selectors
+                    )
+                else:
+                    # constant opaque alpha: base 255, multiplier 1,
+                    # table 13 whose index 4 modifier is 0 -> exact 255
+                    alpha = np.empty_like(color)
+                    alpha[:, 0] = np.uint32(
+                        (255 << 24) | (0x1D << 16) | 0x9249
+                    )
+                    alpha[:, 1] = np.uint32(0x24924924)
+                frames.append(np.concatenate([alpha, color], axis=1))
+            else:
+                frames.append(color)
+        else:
+            rgb = blocks_to_rgb(blocks, endpoints, selectors)[:h, :w]
+            if has_alpha:
+                # alpha rides the decoded green channel (gray ETC1S slice)
+                alpha = blocks_to_rgb(
+                    _alpha_blocks(), endpoints, selectors
+                )[:h, :w, 1:2]
+                rgb = np.concatenate([rgb, alpha], axis=-1)
+            frames.append(rgb)
     return np.stack(frames)

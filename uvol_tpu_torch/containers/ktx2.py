@@ -26,8 +26,9 @@ SUPERCOMPRESSION_BASISLZ = 1
 SUPERCOMPRESSION_ZSTD = 2
 SUPERCOMPRESSION_ZLIB = 3
 
-# DFD color model of ETC1S
+# DFD color models of ETC1S and of UASTC (the player names a UASTC file it cannot play)
 KHR_DF_MODEL_ETC1S = 163
+KHR_DF_MODEL_UASTC = 166
 
 
 @dataclasses.dataclass

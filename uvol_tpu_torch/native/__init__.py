@@ -2,14 +2,15 @@
 `uvol_tpu/native/__init__.py`, cut to what the port calls.
 
 `entropy.cpp` (the Draco-layout rANS coder) and `etc1s_native.cpp` (the
-ETC1S slice emission, slice decode, palette decode and Huffman table
-parse) are copies of the reference's sources. g++ builds both into one
-library at first use, with the reference's flags (`-O3
--ffp-contract=off`: the loops are bit-exact against the Python paths),
-into `build/uvol_tpu_torch/` at the repo root. The library is named
-after the hash of its sources and flags and is written under a name of
-its own process and thread, then moved into place with `os.replace`, so
-concurrent builds never load or overwrite a partial file.
+ETC1S slice emission, slice decode, palette decode, Huffman table parse
+and the transcoder's ETC1-word emission) are copies of the reference's
+sources. g++ builds both into one library at first use, with the
+reference's flags (`-O3 -ffp-contract=off`: the loops are bit-exact
+against the Python paths), into `build/uvol_tpu_torch/` at the repo root.
+The library is named after the hash of its sources and flags and is
+written under a name of its own process and thread, then moved into place
+with `os.replace`, so concurrent builds never load or overwrite a partial
+file.
 
 The Draco frame codec (`draco_native.cpp`, `draco_frame.cpp`,
 `draco_frame_enc.cpp`, unchanged copies of the reference's) is a second
@@ -115,6 +116,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         "uvt_etc1s_palette_selectors": (c.c_int64, [u8p, c.c_int64, c.c_int64, c.c_int64,
                                                     vp, u8p]),
         "uvt_huffman_read_table": (c.c_int64, [u8p, c.c_int64, c.c_int64, u8p, i64p]),
+        "uvt_etc1s_words": (c.c_int, [i32p, c.c_int64, u32p, c.c_int64, u32p, c.c_int64,
+                                      u32p]),
     }
     for name, (restype, argtypes) in signatures.items():
         fn = getattr(lib, name)
@@ -353,6 +356,21 @@ def etc1s_palette_selectors_native(data, bit_pos, num_selectors, lut):
         return None
     return out, int(pos)
 
+
+def etc1s_words_native(blocks, word1_of, word2_of) -> Optional[np.ndarray]:
+    """One-pass [n, 2] palette-index -> ETC1-word mapping (`uvt_etc1s_words`).
+    Returns [n, 2] uint32, or None when the library is unavailable or an
+    index is outside its table."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    b = np.ascontiguousarray(np.asarray(blocks).reshape(-1, 2), np.int32)
+    w1 = np.ascontiguousarray(word1_of, np.uint32)
+    w2 = np.ascontiguousarray(word2_of, np.uint32)
+    out = np.empty((len(b), 2), np.uint32)
+    if lib.uvt_etc1s_words(b, len(b), w1, len(w1), w2, len(w2), out) != 0:
+        return None
+    return out
 
 # ---------------------------------------------------------------------------
 # The Draco frame codec (draco_native.cpp, draco_frame.cpp, draco_frame_enc.cpp)

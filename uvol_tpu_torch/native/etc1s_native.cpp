@@ -1,8 +1,6 @@
 // uvol-tpu native ETC1S/BasisLZ slice emission (C ABI, ctypes-bound).
 //
-// The port's copy of the reference's native/etc1s_native.cpp, unchanged but
-// for the ETC1-word emission it leaves out (a transcode target the port
-// has not copied).
+// The port's copy of the reference's native/etc1s_native.cpp, unchanged.
 //
 // Port of the per-block state machines in
 // codecs/basis/etc1s_encode.py:encode_etc1s_slice_bits — the
@@ -538,4 +536,24 @@ extern "C" int64_t uvt_huffman_read_table(
         }
     }
     return br.pos;
+}
+
+// ---------------------------------------------------------------------------
+// One-pass ETC1 word emission (transcoder.py etc1_word_tables apply step).
+// blocks [n,2] int32 palette indices -> out [n,2] uint32 ETC1 words via the
+// per-palette-entry LUTs; replaces two numpy fancy-gathers + an np.stack
+// (three temporaries per 64K-block frame in the playback hot loop).
+// ---------------------------------------------------------------------------
+extern "C" int uvt_etc1s_words(const int32_t* blocks, int64_t n,
+                               const uint32_t* word1_of, int64_t n_e,
+                               const uint32_t* word2_of, int64_t n_s,
+                               uint32_t* out) {
+    for (int64_t i = 0; i < n; ++i) {
+        const int32_t e = blocks[i * 2];
+        const int32_t s = blocks[i * 2 + 1];
+        if (e < 0 || e >= n_e || s < 0 || s >= n_s) return -1;
+        out[i * 2] = word1_of[e];
+        out[i * 2 + 1] = word2_of[s];
+    }
+    return 0;
 }

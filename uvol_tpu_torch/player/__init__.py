@@ -1,0 +1,12 @@
+"""The port's headless players: the facade `Player` and `V2Player`, on the
+card unless the caller names the CPU (`device="cpu"`)."""
+
+from uvol_tpu_torch.player.clock import PlaybackClock, VirtualClock  # noqa: F401
+from uvol_tpu_torch.player.facade import Player  # noqa: F401
+from uvol_tpu_torch.player.scheduler import (  # noqa: F401
+    PrefetchState,
+    eviction_thresholds,
+    get_current_frame,
+    plan_prefetch,
+)
+from uvol_tpu_torch.player.v2 import FrameResult, V2Player  # noqa: F401
