@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from `uvol_tpu_torch/csrc/` (nvcc, sm_90a,
-one process per source), holds each kernel (K1-K8, the fixed-order
+one process per source), holds each kernel (K1-K8, U1, the fixed-order
 segment sum and the geometry stage's minimum/maximum) bit-for-bit against
 its plain PyTorch twin (the geometry stage on ragged masks, a frame of one
 vertex, of equal values, without a valid vertex, rows whose minimum is both
@@ -68,6 +68,24 @@ and resume indexes included, must be the same bytes. It prints each
 project's stage times, frames/s, the player's decode ms per frame and per
 segment, and each kernel's launches per encode and playback, from the
 wrappers' counters.
+
+Its phase `uastc_path` runs before `cli_player_path`. U1 (the UASTC
+device fit, `csrc/uastc.cu`: every candidate mode of every 4x4 block
+fitted, scored and the winner chosen in one launch) is driven through
+`encode_uastc_blocks(device_fit="auto")` on the bench's 32 layers of
+1024^2 (2,097,152 blocks: one launch), held bit for bit against its
+plain twin on the card for the default RGB pair [0, 5], for [10, 12] on
+an alpha-ramp copy and for all eleven eligible modes, and timed per
+call, alone and as its twin; `encode_uastc_blocks` and the legacy
+`encode_uastc_ktx2` with the device fit on the card write the CPU
+port's bytes (2 layers of 256^2). Project D is the CLI's `TEMPLATE` with
+`TEXTURE_CODEC` "uastc" on 10 OBJ frames of 83 x 315 grids and 10
+layers of 1024^2 (2 segments): encoded (the spec wire's host encode),
+encoded again (nothing written), played sync and with `async_prefetch`
+on the player's default ETC capabilities, where each segment becomes
+etc2-eac words whose ETC1 fit is K1 (it must launch), every `ok` tick
+held to the decoders' output; its segments transcoded to etc2-eac and
+etc1 on the card and on the CPU give the same words.
 
 Each phase prints one JSON line; then come the card's `nvidia-smi`
 name/power-limit line, the kernels line (each kernel's launches on its
@@ -146,6 +164,7 @@ WRAPPER_KERNELS = {
     "etc1s_segment_sum": ("seg_sum_chunk_kernel", "seg_sum_tree_kernel"),
     "etc1s_rate_sweep": ("rate_sweep_frame_kernel",),
     "drc_fused_batch": ("drc_fused_batch_kernel",),
+    "uastc_device_fit": ("uastc_device_fit_kernel",),
 }
 #: the segment sums of one palette build at 256/256 (etc1s_encode.py): (k, D)
 #: of the bisections (endpoints D = 9, selectors D = 33, k doubling to 256),
@@ -205,6 +224,21 @@ CLI_C_FRAMES = 6
 CLI_C_GRID = (20, 30)
 CLI_C_SIDE = 256
 CLI_C_CODECS = "etc1s,etc"
+#: UASTC (`uastc_path`): project D is the CLI's `TEMPLATE` with `TEXTURE_CODEC`
+#: "uastc" (quality 0: the spec wire's host encode) on UASTC_FRAMES OBJ frames of
+#: DRC_GRID grids and the bench texture's first UASTC_FRAMES layers at 1024^2, two
+#: segments of 5 layers, played at CLI_TICK on the player's default (ETC)
+#: capabilities, whose refit is K1; its segments transcoded on the card and on the
+#: CPU (segment, target) as UASTC_CPU_TRANSCODES lists. U1 runs on the bench's F
+#: layers (2,097,152 blocks) with each mode list of UASTC_MODE_SETS; the card's
+#: `encode_uastc_blocks` / legacy `encode_uastc_ktx2` with the device fit against
+#: the CPU port's on UASTC_CPU_LAYERS layers of UASTC_CPU_SIDE^2
+UASTC_FRAMES = 10
+UASTC_CPU_TRANSCODES = ((0, "etc2-eac"), (0, "etc1"), (1, "etc2-eac"), (1, "etc1"))
+UASTC_MODE_SETS = {"rgb": (0, 5), "rgba": (10, 12),
+                   "all": (0, 1, 2, 5, 10, 11, 12, 13, 14, 17, 18)}
+UASTC_CPU_LAYERS = 2
+UASTC_CPU_SIDE = 256
 #: K3's and the minimum/maximum's kernel names in a profiler trace (csrc/geometry.cu)
 K3_KERNEL_NAME = WRAPPER_KERNELS["quantize_delta_zigzag"][0]
 MINMAX_KERNEL_NAME = WRAPPER_KERNELS["geometry_minmax"][0]
@@ -267,6 +301,32 @@ OPS = {
     # and 3 divisions (csrc/drc.cu, K8)
     "drc_fused_batch": 10,
 }
+
+
+def uastc_fit_ops(modes) -> int:
+    """Operations the UASTC device fit needs per block for the mode list
+    `modes` (UastcMode rows), counted from the function (uvol_tpu's
+    `_device_fit_fn` and the choice of the winner), not from U1's code.
+    Per plane of cn channels: 2 per pixel channel for the minimum and
+    maximum; 2 per channel for the axis and its squared length, 1 for its
+    test; per pixel 2 per channel for the projection, its conversion, the
+    division, 3 for the clamp and the scale by 64, and 8 for the nearest
+    weight entry in closed form (every table is round(k * 64 / (L - 1)):
+    scale and round, pick the neighbour on w64's side, the two distances,
+    one compare and a select; U1 scans the table instead), 1 for 64 - w.
+    Per mode and channel: 8 to quantize both endpoints (scale, round, clamp),
+    6 more to expand them below 8 bits, 2 to widen them to 16 bits; 6 per
+    pixel channel for the reconstruction, its difference and square; 3 for
+    the mean (with the alpha term of an RGB mode) and 2 for the choice.
+    The alpha term of the RGB modes, the same for each, once a block: 2
+    per pixel and 2 for its mean."""
+    ops = 0
+    for m in modes:
+        nc = 4 if m.cem == 12 else 3
+        planes = (3, 1) if m.dual_plane else (nc,)
+        ops += sum(32 * cn + 2 * cn + 1 + 16 * (2 * cn + 13) + 16 for cn in planes)
+        ops += nc * (10 + (6 if m.ep_bits < 8 else 0)) + 16 * nc * 6 + 3 + 2
+    return ops + (34 if any(m.cem != 12 for m in modes) else 0)
 
 
 class CheckFailed(RuntimeError):
@@ -1487,20 +1547,20 @@ def cli_config(path, inputs: tuple, out_dir, **over) -> str:
 
 
 def all_launches() -> dict:
-    from uvol_tpu_torch.codecs.basis import etc1s_cuda, etc_cuda
+    from uvol_tpu_torch.codecs.basis import etc1s_cuda, etc_cuda, uastc_cuda
     from uvol_tpu_torch.models import drc_device
     from uvol_tpu_torch.ops import pallas_kernels
 
     return {**etc_cuda.LAUNCHES, **pallas_kernels.LAUNCHES, **etc1s_cuda.LAUNCHES,
-            **drc_device.LAUNCHES}
+            **drc_device.LAUNCHES, **uastc_cuda.LAUNCHES}
 
 
 def reset_all_launches() -> None:
-    from uvol_tpu_torch.codecs.basis import etc1s_cuda, etc_cuda
+    from uvol_tpu_torch.codecs.basis import etc1s_cuda, etc_cuda, uastc_cuda
     from uvol_tpu_torch.models import drc_device
     from uvol_tpu_torch.ops import pallas_kernels
 
-    for mod in (etc_cuda, pallas_kernels, etc1s_cuda, drc_device):
+    for mod in (etc_cuda, pallas_kernels, etc1s_cuda, drc_device, uastc_cuda):
         mod.reset_launches()
 
 
@@ -1581,8 +1641,9 @@ def hold_playback(ticks, v2, frames: int, seq: int) -> int:
     layer is `frame % seq`; every frame of the track but the first showed.
     Returns the `ok` ticks."""
     from uvol_tpu_torch.codecs.basis.transcoder import transcode_ktx2_etc1s
+    from uvol_tpu_torch.codecs.basis.uastc import transcode_uastc
     from uvol_tpu_torch.codecs.draco.decoder import decode_drc
-    from uvol_tpu_torch.containers.ktx2 import read_ktx2
+    from uvol_tpu_torch.containers.ktx2 import KHR_DF_MODEL_UASTC, read_ktx2
     from uvol_tpu_torch.models.sequence import GeometrySequenceCodec, TextureSequenceCodec
 
     geo = GeometrySequenceCodec(device=DEVICE)
@@ -1608,6 +1669,8 @@ def hold_playback(ticks, v2, frames: int, seq: int) -> int:
         if s not in segments:
             ktx = read_ktx2(open(v2.texture_url(s), "rb").read())
             segments[s] = (transcode_ktx2_etc1s(ktx, target="etc1") if ktx.basis_lz is not None
+                           else transcode_uastc(ktx, "etc2-eac", device=DEVICE)
+                           if ktx.dfd_color_model() == KHR_DF_MODEL_UASTC
                            else tex.decode_segment(ktx))
         check(r.texture_layer == r.geometry_frame % seq, "the layer is not frame % sequenceSize")
         check(np.array_equal(np.asarray(r.texture)[r.texture_layer],
@@ -1743,6 +1806,155 @@ def cli_player_path(torch, textures) -> tuple:
           "project_c": {"files": len(card), "bytes_equal": True,
                         "card_s": runs["cuda"]["wall_s"], "cpu_s": runs["cpu"]["wall_s"],
                         "card_launches": runs["cuda"]["launches"]},
+          "launches": totals, "total_s": time.perf_counter() - t0})
+    shutil.rmtree(root, ignore_errors=True)
+    return totals
+
+
+def uastc_blocks(textures) -> np.ndarray:
+    """The bench texture's layers as opaque UASTC input blocks, [B, 16, 4]."""
+    from uvol_tpu_torch.codecs.basis.uastc import image_to_blocks_rgba
+
+    opaque = np.full(textures.shape[1:3] + (1,), 255, np.uint8)
+    return np.concatenate([image_to_blocks_rgba(np.concatenate([t, opaque], -1))
+                           for t in textures]).reshape(-1, 16, 4)
+
+
+def uastc_device_fit_path(torch, dev, textures, median_cuda_ms) -> tuple:
+    """U1 at the main path's size: `encode_uastc_blocks(device_fit="auto")`
+    on the bench's F layers of 1024^2 (2,097,152 blocks, the default RGB
+    pair [0, 5]) must launch the kernel once; the kernel's winners and
+    fields bit for bit against its plain twin on the card for [0, 5], for
+    [10, 12] on an alpha-ramp copy, and for all eleven eligible modes;
+    `encode_uastc_blocks` and the legacy `encode_uastc_ktx2` with the
+    device fit on the card write the CPU port's bytes; the call (CUDA
+    events), the kernel alone (profiler) and the twin, per mode list.
+    Returns (launches, max_abs_err, ms)."""
+    from uvol_tpu_torch import _build
+    from uvol_tpu_torch.codecs.basis import uastc, uastc_cuda
+
+    px = uastc_blocks(textures)
+    nblocks = len(px)
+    t = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_all_launches()
+    main_bytes = uastc.encode_uastc_blocks(px.reshape(-1, 4, 4, 4), device=DEVICE)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in all_launches().items() if v}
+    main_s = time.perf_counter() - t
+    check(launches == {"uastc_device_fit": 1},
+          f"encode_uastc_blocks at {nblocks} blocks launched {launches}, not U1 once")
+    check(main_bytes.shape == (nblocks, 16), "encode_uastc_blocks output shape")
+
+    ramp = px.copy()
+    ramp[:, :, 3] = np.linspace(0, 255, 16).astype(np.uint8)[None] // (1 + np.arange(nblocks) % 4)[:, None]
+    inputs = {"rgb": torch.from_numpy(px).to(dev), "rgba": torch.from_numpy(ramp).to(dev)}
+    inputs["all"] = inputs["rgb"]
+    err, ms, winners = {"uastc_device_fit": 0}, {}, {}
+    for name, modes in UASTC_MODE_SETS.items():
+        x = inputs[name]
+        got = uastc_cuda.device_fit(x, modes)
+        hold_bits(torch, err, "uastc_device_fit", got, uastc_cuda.device_fit_select_plain(x, modes))
+        winners[name] = np.bincount(got[0].cpu().numpy(), minlength=len(modes)).tolist()
+        key = "uastc_device_fit" if name == "rgb" else f"uastc_device_fit_{name}"
+        ms[key] = median_cuda_ms(lambda: uastc_cuda.device_fit(x, modes), REPS)
+        ms[key + "_plain"] = median_cuda_ms(
+            lambda: uastc_cuda.device_fit_select_plain(x, modes), REPS)
+        ms[key + "_kernel"], _ = kernel_only_ms(
+            torch, lambda: uastc_cuda.device_fit(x, modes), WRAPPER_KERNELS["uastc_device_fit"])
+    # the entry points on the card against the CPU port: 2 layers of 256^2
+    small = textures[:UASTC_CPU_LAYERS, :UASTC_CPU_SIDE, :UASTC_CPU_SIDE]
+    small_px = uastc_blocks(small).reshape(-1, 4, 4, 4)
+    for modes in (None, list(UASTC_MODE_SETS["all"])):
+        card = uastc.encode_uastc_blocks(small_px, modes, device_fit=True, device=DEVICE)
+        cpu = uastc.encode_uastc_blocks(small_px, modes, device_fit=True, device="cpu")
+        check(np.array_equal(card, cpu), f"encode_uastc_blocks({modes}) card != CPU")
+    for quality in (0, 2):
+        card = uastc.encode_uastc_ktx2(small, wire="legacy", device_fit=True, device=DEVICE,
+                                       quality=quality)
+        cpu = uastc.encode_uastc_ktx2(small, wire="legacy", device_fit=True, device="cpu",
+                                      quality=quality)
+        check(card == cpu, f"legacy encode_uastc_ktx2 at quality {quality}: card != CPU")
+    attrs = _build.kernel_attrs()
+    check(attrs["uastc_device_fit_kernel"]["stack_bytes"] == 0, "U1 uses stack memory")
+    emit({"phase": "uastc_device_fit", "blocks": nblocks, "main_path_s": main_s,
+          "launches": launches, "winners": winners, "max_abs_err": err, "ms": ms,
+          "cpu_compare": {"layers": UASTC_CPU_LAYERS, "side": UASTC_CPU_SIDE,
+                          "bytes_equal": True},
+          "kernel_attrs": attrs["uastc_device_fit_kernel"]})
+    return launches, err, ms
+
+
+def uastc_project_path(torch, textures) -> dict:
+    """Project D: the CLI's `TEMPLATE` with `TEXTURE_CODEC` "uastc" on
+    UASTC_FRAMES OBJ frames and 1024^2 layers, encoded, encoded again
+    (nothing may be written), played at 1/60 s ticks sync and with
+    `async_prefetch` (every `ok` tick held to the decoders' output, K1
+    launched), and its segments transcoded to etc2-eac and etc1 on the card
+    and on the CPU (the same words). Returns each kernel's launches over
+    the CLI and player runs."""
+    import shutil
+
+    from uvol_tpu_torch.codecs.basis.uastc import transcode_uastc
+    from uvol_tpu_torch.containers.ktx2 import read_ktx2
+    from uvol_tpu_torch.encoder_cli import TEMPLATE
+
+    root = Path(__file__).resolve().parent / "build" / "uastc_path"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    inputs = cli_inputs(root / "inputs", UASTC_FRAMES, DRC_GRID, textures[:UASTC_FRAMES])
+    out = root / "D"
+    cfg = cli_config(root / "D.json", inputs, out, TEXTURE_CODEC="uastc")
+    seq = TEMPLATE["KTX2_BATCH_SIZE"]
+    first = cli_encode(torch, cfg)
+    before = tree(out)
+    again = cli_encode(torch, cfg)
+    check(tree(out) == before, "the second CLI run of project D wrote a file")
+    manifest = str(out / "smoke.uvol.json")
+    m = json.loads(open(manifest).read())
+    check(list(m["texture"]["targets"]) == ["uastc-tpu"]
+          and m["texture"]["targets"]["uastc-tpu"]["sequenceCount"] == -(-UASTC_FRAMES // seq),
+          "project D's manifest texture target")
+    sync, v2, decode_ms, play_launches = play(torch, manifest, False)
+    ok = hold_playback(sync, v2, UASTC_FRAMES, seq)
+    check({r.texture.format for r in sync if r.status == "ok"} == {"etc2-eac"},
+          "project D did not play as etc2-eac")
+    check(play_launches.get("etc1_encode", 0) >= 1, "project D's playback never launched K1")
+    asyn, v2a, decode_ms_async, async_launches = play(torch, manifest, True)
+    check(hold_playback(asyn, v2a, UASTC_FRAMES, seq) == ok, "the async run showed other frames")
+    check(same_ticks(asyn, sync), "project D: the async ticks differ from the sync ones")
+    # the card's transcode against the CPU's
+    segs = sorted((out / "texture_uastc-tpu_baseColor_default").glob("*.ktx2"))
+    compared = []
+    for i, target in UASTC_CPU_TRANSCODES:
+        f = read_ktx2(segs[i].read_bytes())
+        t = time.perf_counter()
+        card = transcode_uastc(f, target, device=DEVICE)
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        cpu = transcode_uastc(f, target, device="cpu")
+        compared.append({"segment": i, "target": target, "shape": list(card.shape),
+                         "card_s": card_s, "cpu_s": time.perf_counter() - t})
+        check(card.dtype == cpu.dtype and np.array_equal(card, cpu),
+              f"segment {i} to {target}: card words != CPU words")
+    totals = {}
+    for src in (first["launches"], play_launches, async_launches):
+        for k, v in src.items():
+            totals[k] = totals.get(k, 0) + v
+    emit({"phase": "uastc_path", "project": "D",
+          "config": {k: v for k, v in json.loads(open(cfg).read()).items()
+                     if k in ("GEOMETRY_CODEC", "TEXTURE_CODEC", "KTX2_BATCH_SIZE",
+                              "ENCODE_WORKERS", "Q_POSITION_ATTR", "Q_TEXTURE_ATTR",
+                              "Q_NORMAL_ATTR")},
+          "frames": UASTC_FRAMES, "size": [H, W], "files": sum(1 for p in out.rglob("*") if p.is_file()),
+          "bytes": sum(len(b) for b, _ in tree(out).values()),
+          "encode_s": first["wall_s"], "encode_fps": UASTC_FRAMES / first["wall_s"],
+          "stage_s": first["stage_s"], "encode_launches": first["launches"],
+          "second_run_s": again["wall_s"], "second_run_launches": again["launches"],
+          "ticks": len(sync), "ok_ticks": ok,
+          "statuses": {s: [r.status for r in sync].count(s) for s in sorted({r.status for r in sync})},
+          "decode_ms": decode_ms, "decode_ms_async": decode_ms_async,
+          "playback_launches": play_launches, "card_vs_cpu": compared,
           "launches": totals, "total_s": time.perf_counter() - t0})
     shutil.rmtree(root, ignore_errors=True)
     return totals
@@ -2060,12 +2272,24 @@ def main() -> int:
     for name, v in delta_err.items():
         err[name] = max(err.get(name, 0), v)
 
-    # ---- 9. the port's entry points: the encoder CLI and the player. Last: it
+    # ---- 9. UASTC: U1 at the main path's size (traced, so before the CLI's
+    # runs), then project D: the CLI's `uastc` codec and the player's etc2-eac
+    # refit through K1, which reads only the wrappers' counters
+    uastc_launches, uastc_err, uastc_ms = uastc_device_fit_path(torch, dev, textures,
+                                                                median_cuda_ms)
+    launches.update(uastc_launches)
+    ms.update(uastc_ms)
+    err.update(uastc_err)
+    uastc_cli_launches = uastc_project_path(torch, textures)
+
+    # ---- 10. the port's entry points: the encoder CLI and the player. Last: it
     # reads the wrappers' counters, no trace, and run before `profile` it left that
     # phase's texture-encode traces empty five times in a row (PERF.md section 6)
     cli_launches = cli_player_path(torch, textures)
+    for k, v in uastc_cli_launches.items():
+        cli_launches[k] = cli_launches.get(k, 0) + v
 
-    # ---- 10. the kernels line: main-path launches, parity, times, bounds ------
+    # ---- 11. the kernels line: main-path launches, parity, times, bounds ------
     nb = F * (H // 4) * (W // 4)  # K1/K2: 32 layers of 1024^2
     nq = F * 3 * N  # K3: the positions call
     ne = ETC1S_LAYERS * (H // 4) * (W // 4)  # K4-K6: 327,680 blocks
@@ -2076,6 +2300,11 @@ def main() -> int:
     # K8: the main path's window of DRC_WINDOW frames, every float it writes
     drc_out = sum(f * nmax * (nc if kind == 1 else 3)
                   for _t, kind, _m, f, nmax, nc, *_r in drc_args[1])
+    # U1: the main path's 2,097,152 blocks with the default RGB pair
+    from uvol_tpu_torch.codecs.basis.uastc import MODES as UASTC_MODES
+
+    nu = F * (H // 4) * (W // 4)
+    u1_ops = uastc_fit_ops([UASTC_MODES[m] for m in UASTC_MODE_SETS["rgb"]])
     work = {  # name: (source, replaces, bytes moved once, operations, their rate)
         "etc1_encode": ("etc1.cu", "codecs/basis/etc_pallas.py:230", nb * 48 + nb * 8,
                         OPS["etc1_encode"] * nb, INT_OPS_PER_S),
@@ -2115,10 +2344,16 @@ def main() -> int:
         "drc_fused_batch": ("drc.cu", "models/drc_device.py:193",
                             drc_args[0].numel() + drc_out * 4,
                             OPS["drc_fused_batch"] * drc_out, INT_OPS_PER_S),
+        # the reference's fit is one XLA program, not a Pallas site: each block's
+        # 64 bytes in once; the winner's index, endpoints (2 x 4 bytes), weight
+        # planes (2 x 16) and error (4) out once
+        "uastc_device_fit": ("uastc.cu", "codecs/basis/uastc.py:609",
+                             nu * 64 + nu * (1 + 8 + 32 + 4), u1_ops * nu, INT_OPS_PER_S),
     }
     attrs = _build.kernel_attrs()
     for fn in ("etc1_encode_kernel", "etc1_decode_kernel", "inten_errors_kernel",
-               "rate_sweep_frame_kernel", "drc_fused_batch_kernel", *STAGE_KERNEL_NAMES):
+               "rate_sweep_frame_kernel", "drc_fused_batch_kernel", "uastc_device_fit_kernel",
+               *STAGE_KERNEL_NAMES):
         check(attrs[fn]["stack_bytes"] == 0, f"{fn} uses stack memory")
     # K3's times are those of the call the main path makes (offsets taken in)
     timed_as = {"quantize_delta_zigzag": "quantize_from_bounds"}
@@ -2136,7 +2371,7 @@ def main() -> int:
             # `feat @ mat.T`, the one piece of its stage a library call
             # computes; no single PyTorch call computes any of the others
             # (none takes a mask, sums in a fixed order, scans a column at a
-            # time or unpacks bit-packed values)
+            # time, unpacks bit-packed values or fits a UASTC block's modes)
             "library_ms": ms.get(name + "_library"),
             "kernel_ms": ms[timed + "_kernel"],
             "kernel_attrs": {fn: attrs[fn] for fn in WRAPPER_KERNELS[name]},

@@ -134,6 +134,9 @@ def _assert_same_outputs(tmp_path) -> dict:
     # 512 endpoints or more: the delta-aware stage (the CLI's default is 1024);
     # 64 x 64 layers, so a segment's 768 blocks do not cap the palette below 512
     ("draco", "etc1s", 512, 64),
+    # UASTC: the spec wire's host encode, alone and published beside ETC1S
+    ("draco", "uastc", 16, 32),
+    ("draco", "etc1s,uastc", 16, 32),
 ])
 def test_cli_writes_the_reference_files(tmp_path, jax_kernel_path, on_cpu, monkeypatch,
                                         geometry, texture, palette, tex):
@@ -148,7 +151,7 @@ def test_cli_writes_the_reference_files(tmp_path, jax_kernel_path, on_cpu, monke
     files = _assert_same_outputs(tmp_path)
     ext = {"draco": ".drc", "uvtg": ".uvtg"}[geometry]
     assert sum(n.endswith(ext) for n in files) == 6
-    targets = {"etc1s": "etc1s-tpu", "etc": "etc-tpu"}
+    targets = {"etc1s": "etc1s-tpu", "etc": "etc-tpu", "uastc": "uastc-tpu"}
     for name in texture.split(","):
         seg_dir = f"texture_{targets[name]}_baseColor_default"
         assert sorted(n for n in files if n.startswith(seg_dir)) == [
@@ -260,17 +263,30 @@ def test_a_changed_input_rewrites_only_its_output(tmp_path, jax_kernel_path, on_
 # ---- what the port refuses, and where it runs --------------------------------
 
 
+@pytest.mark.parametrize("quality", [1, 2])
+def test_uastc_quality_writes_the_reference_files(tmp_path, on_cpu, quality):
+    """UASTC_QUALITY widens the spec encoder's candidate modes; 64 x 64
+    layers with alpha in one segment take the RGBA mode set."""
+    ref, port = _both(tmp_path, tex=64, TEXTURE_CODEC="uastc", UASTC_QUALITY=quality)
+    for side in ("ref", "port"):  # one layer with alpha
+        png = tmp_path / side / "images" / "00004.png"
+        img = np.asarray(Image.open(png).convert("RGBA")).copy()
+        img[..., 3] = np.arange(64, dtype=np.uint8)[None, :] * 4
+        Image.fromarray(img).save(png)
+    assert jcli.main([ref]) == 0
+    assert tcli.main([port]) == 0
+    files = _assert_same_outputs(tmp_path)
+    assert "texture_uastc-tpu_baseColor_default/00001.ktx2" in files
+
+
 @pytest.mark.parametrize("over", [
-    {"TEXTURE_CODEC": "uastc"},
-    {"TEXTURE_CODEC": "etc1s,uastc"},
     {"ABCFilePath": "/data/take.abc"},
 ])
 def test_unported_inputs_are_refused_before_any_output(tmp_path, capsys, on_cpu, over):
     cfg = _make_assets(tmp_path, **over)
     assert tcli.main([cfg]) == 1
     out = capsys.readouterr().out
-    item = "item 6" if "TEXTURE_CODEC" in over else "item 7"
-    assert out.startswith("error: ") and item in out
+    assert out.startswith("error: ") and "item 5" in out
     assert not (tmp_path / "output").exists()
 
 

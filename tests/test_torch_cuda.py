@@ -425,7 +425,8 @@ def test_redesigned_kernels_use_no_stack(card):
 
     attrs = _build.kernel_attrs()
     for fn in ("etc1_encode_kernel", "etc1_decode_kernel", "inten_errors_kernel",
-               "geometry_minmax_kernel", "quantize_delta_zigzag_kernel", "rate_sweep_frame_kernel"):
+               "geometry_minmax_kernel", "quantize_delta_zigzag_kernel", "rate_sweep_frame_kernel",
+               "uastc_device_fit_kernel"):
         assert attrs[fn]["stack_bytes"] == 0, (fn, attrs[fn])
 
 
@@ -786,3 +787,68 @@ def test_player_on_card_plays_like_the_cpu_player(card, tmp_path, monkeypatch):
         if a.status == "ok":
             np.testing.assert_array_equal(a.geometry.positions, b.geometry.positions)
             np.testing.assert_array_equal(np.asarray(a.texture), np.asarray(b.texture))
+
+
+# ---- U1: the UASTC device fit, and the UASTC transcode's ETC refit (K1) ----------
+
+
+def _uastc_blocks(n: int, seed: int) -> np.ndarray:
+    """Random, smooth, solid, opaque and alpha-ramp blocks, [n, 16, 4] uint8."""
+    r = np.random.default_rng(seed)
+    k = n // 5
+    lo = r.integers(0, 200, (n, 1, 4))
+    px = np.clip(lo + r.integers(0, 56, (n, 16, 4)), 0, 255).astype(np.uint8)
+    px[:k] = r.integers(0, 256, (k, 16, 4))
+    px[k:2 * k] = px[k:2 * k, :1]
+    px[2 * k:3 * k, :, 3] = 255
+    px[3 * k:4 * k, :, 3] = np.linspace(0, 255, 16).astype(np.uint8)
+    return px
+
+
+@pytest.mark.parametrize("modes", [[0, 5], [10, 12], [0, 1, 2, 5, 10, 11, 12, 13, 14, 17, 18],
+                                   [18, 2]])
+@pytest.mark.parametrize("n", [1, 127, 129, 70001])
+def test_uastc_device_fit_kernel_matches_twin(card, modes, n):
+    from uvol_tpu_torch.codecs.basis import uastc_cuda
+
+    px = torch.from_numpy(_uastc_blocks(n, seed=n))
+    before = uastc_cuda.LAUNCHES["uastc_device_fit"]
+    got = uastc_cuda.device_fit(px.to(card), modes)
+    torch.cuda.synchronize()
+    assert uastc_cuda.LAUNCHES["uastc_device_fit"] == before + 1
+    for twin in (uastc_cuda.device_fit_select_plain(px.to(card), modes),
+                 uastc_cuda.device_fit_select_plain(px, modes)):
+        for g, w in zip(got, twin, strict=True):
+            g, w = g.cpu(), w.cpu()
+            assert g.dtype == w.dtype
+            if g.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            assert torch.equal(g, w)
+
+
+def test_uastc_device_fit_kernel_reads_unaligned_blocks(card):
+    from uvol_tpu_torch.codecs.basis import uastc_cuda
+
+    px = torch.from_numpy(_uastc_blocks(301, seed=4)).to(card)
+    shifted = torch.cat([px.reshape(-1)[:4], px.reshape(-1)])[4:].reshape(301, 16, 4)
+    assert shifted.data_ptr() % 16 == 4
+    for g, w in zip(uastc_cuda.device_fit(shifted, [0, 5]), uastc_cuda.device_fit(px, [0, 5])):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("legacy", [False, True])
+def test_uastc_encode_and_transcode_on_card_match_cpu(card, legacy):
+    from uvol_tpu_torch.codecs.basis import uastc
+
+    yy, xx = np.mgrid[0:64, 0:96]
+    img = np.stack([xx * 4 % 256, yy * 4 % 256, (xx + yy) * 2 % 256, (xx * 4) % 256], -1)
+    imgs = np.stack([img, np.roll(img, 7, 1)]).astype(np.uint8)
+    wire = "legacy" if legacy else "spec"
+    blob = uastc.encode_uastc_ktx2(imgs, wire=wire, device_fit=legacy, device=card)
+    assert blob == uastc.encode_uastc_ktx2(imgs, wire=wire, device_fit=legacy, device="cpu")
+    f = read_ktx2(blob)
+    for target in ("etc1", "etc2-eac"):
+        before = etc_cuda.LAUNCHES["etc1_encode"]
+        got = uastc.transcode_uastc(f, target, device=card)
+        assert etc_cuda.LAUNCHES["etc1_encode"] == before + 1  # one K1 call per file
+        np.testing.assert_array_equal(got, uastc.transcode_uastc(f, target, device="cpu"))

@@ -44,6 +44,8 @@ PROJECTS = {
     "multi_target": {"TEXTURE_CODEC": "etc1s,etc"},
     # textures at half the geometry's rate: 6 layers span 0.4 s, 6 frames 0.2 s
     "half_rate_texture": {"TEXTURE_FRAME_RATE": 15},
+    # UASTC segments: the ETC device's etc2-eac refit (K1's twin on the CPU)
+    "uastc": {"TEXTURE_CODEC": "uastc"},
 }
 
 
@@ -163,7 +165,7 @@ def test_port_player_plays_like_the_reference(projects, name, async_prefetch):
     for g, w in ok:
         _assert_geometry_equal(g.geometry, w.geometry)
         _assert_texture_equal(g.texture, w.texture)
-    want_format = "rgba" if name == "uvtg_etc" else "etc1"
+    want_format = {"uvtg_etc": "rgba", "uastc": "etc2-eac"}.get(name, "etc1")
     assert {g.texture.format for g, _ in ok} == {want_format}
 
 
@@ -234,10 +236,76 @@ def test_default_texture_decoder_takes_alpha_to_etc2_eac():
 
 
 def test_default_decoders_refuse_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tv2.default_texture_decoder((FIXTURES / "video_uastc.ktx2").read_bytes(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         tv2.default_geometry_decoder((FIXTURES / "grid_std.drc").read_bytes(), device="cpu")
+
+
+_CAPS = ("astc", "bptc", "dxt", "etc2", "etc1", "pvrtc")
+
+
+def _caching(transcode):
+    """`transcode_uastc` computed once per file payload and target: the
+    decoders below are called for every capability set, which picks one
+    of seven targets."""
+    cache = {}
+
+    def call(f, target="rgba", **kw):
+        key = (f.level_payload(0), f.header.pixel_width, target)
+        if key not in cache:
+            try:
+                cache[key] = transcode(f, target, **kw)
+            except NotImplementedError as e:
+                cache[key] = e
+        if isinstance(cache[key], NotImplementedError):
+            raise cache[key]
+        return cache[key]
+
+    return call
+
+
+@pytest.mark.parametrize("fixture", ["video_uastc.ktx2", "video_uastc_legacy.ktx2",
+                                     "alpha_uastc"])
+def test_default_texture_decoder_on_uastc_for_every_capability_set(monkeypatch, fixture):
+    import itertools
+
+    from uvol_tpu.codecs.basis import uastc as juastc
+    from uvol_tpu_torch.codecs.basis import uastc as tuastc
+
+    if fixture == "alpha_uastc":  # alpha content: etc2-eac carries it, pvrtc1 refuses it
+        img = np.zeros((2, 16, 16, 4), np.uint8)
+        img[..., 1] = np.arange(16)[:, None] * 15
+        img[..., 3] = np.arange(16)[None, :] * 16
+        data = juastc.encode_uastc_ktx2(img)
+    else:
+        data = (FIXTURES / fixture).read_bytes()
+    monkeypatch.setattr(juastc, "transcode_uastc", _caching(juastc.transcode_uastc))
+    monkeypatch.setattr(tuastc, "transcode_uastc", _caching(tuastc.transcode_uastc))
+    formats = set()
+    for n in range(len(_CAPS) + 1):
+        for caps in itertools.combinations(_CAPS, n):
+            monkeypatch.setattr(jv2, "DEVICE_TEXTURE_CAPABILITIES", caps)
+            monkeypatch.setattr(tv2, "DEVICE_TEXTURE_CAPABILITIES", caps)
+            got = tv2.default_texture_decoder(data, device="cpu")
+            _assert_texture_equal(got, jv2.default_texture_decoder(data))
+            formats.add(got.format)
+    assert formats >= {"astc-4x4", "bc7", "etc2-eac", "etc1", "bc1-bc3", "rgba"}
+    assert ("pvrtc1" in formats) == (fixture != "alpha_uastc")
+
+
+def test_default_texture_decoder_refits_uastc_through_k1(monkeypatch):
+    """The player's default capabilities take a UASTC segment to etc2-eac,
+    whose ETC1 fit is one K1 call for the whole segment."""
+    from uvol_tpu_torch.codecs.basis import etc_cuda
+
+    calls = []
+    enc = etc_cuda.encode_etc1_images
+    monkeypatch.setattr(etc_cuda, "encode_etc1_images",
+                        lambda x: calls.append(tuple(x.shape)) or enc(x))
+    data = (FIXTURES / "video_uastc.ktx2").read_bytes()
+    got = tv2.default_texture_decoder(data, device="cpu")
+    assert got.format == "etc2-eac" and got.shape == (3, 64, 4)
+    _assert_texture_equal(got, jv2.default_texture_decoder(data))
+    assert calls == [(3, 32, 32, 3)]
 
 
 def test_default_geometry_decoder_on_grid_fixture():

@@ -9,10 +9,11 @@ selector history (conditional replenishment for video).
 The port's copy of the reference's `codecs/basis/transcoder.py`, cut to
 the full RGBA decode (`transcode_ktx2_etc1s(target="rgba")`) and the
 constants the ETC1S encoder shares with it, and the player's compressed
-passthrough targets: ETC1 words and ETC2+EAC (`etc1_word_tables`,
-`eac_entry_tables`, `FORMAT_OPTIONS`, `select_transcode_target`). The
-native loops run in the port's own library (`uvol_tpu_torch.native`). The
-BC1/BC3 and PVRTC1 targets are not copied yet.
+passthrough targets: ETC1 words, ETC2+EAC, BC1/BC3 and PVRTC1
+(`etc1_word_tables`, `eac_entry_tables`, `blocks_to_bc1_words`,
+`alpha_blocks_to_bc4_words`, `pvrtc.py`, `FORMAT_OPTIONS`,
+`select_transcode_target`). The native loops run in the port's own
+library (`uvol_tpu_torch.native`).
 """
 
 from __future__ import annotations
@@ -608,6 +609,98 @@ def etc1_word_tables(
     return word1_of, word2_of
 
 
+def blocks_to_bc1_words(
+    blocks: np.ndarray, endpoints, selectors: np.ndarray
+) -> np.ndarray:
+    """(endpoint, selector) indices → BC1/DXT1 block words [nby*nbx, 2]
+    uint32 (word0 = color0 | color1<<16 in RGB565, word1 = 2-bit codes).
+
+    The "dxt" fast-transcode target of the reference's format table
+    (src/lib/KTX2Loader.js:591-697): each ETC1S block spans the segment
+    [base+mod0 .. base+mod3]; its ends quantize to the BC1 endpoints and
+    the two middle modifiers map to the 1/3-2/3 interpolants. Like the
+    ETC1 target, per-palette-entry tables make the per-block work two
+    gathers."""
+    color5, inten5 = _endpoint_arrays(endpoints)
+    c5 = color5.astype(np.int64)
+    base8 = (c5 << 3) | (c5 >> 2)  # [E,3]
+    mods = INTEN_TABLES[inten5.astype(np.int64)]  # [E,4]
+    lo8 = np.clip(base8 + mods[:, 0:1], 0, 255)  # [E,3]
+    hi8 = np.clip(base8 + mods[:, 3:4], 0, 255)
+
+    def to565(rgb8):
+        r = (rgb8[:, 0] * 31 + 127) // 255
+        g = (rgb8[:, 1] * 63 + 127) // 255
+        b = (rgb8[:, 2] * 31 + 127) // 255
+        return (r << 11) | (g << 5) | b
+
+    q_lo = to565(lo8)
+    q_hi = to565(hi8)  # channel-wise >= q_lo, so u16 >= q_lo
+    equal = q_hi == q_lo
+    # 4-color mode needs color0 > color1: color0 = high end, color1 = low
+    word1_of = np.where(
+        equal, q_lo | (q_lo << 16), q_hi | (q_lo << 16)
+    ).astype(np.uint32)
+    # ETC1S selector s (ascending [-L,-s,+s,+L]) → BC1 code with color0 =
+    # high: 3 (nearest low+1/3), 2 (nearest high-1/3), endpoints 1 / 0
+    code_of = np.array([1, 3, 2, 0], np.uint32)
+    j = np.arange(16)
+    y, x = j // 4, j % 4  # BC1 texel order: i = y*4 + x, 2 bits LSB-first
+    codes = code_of[selectors[:, y, x].astype(np.int64)]  # [S,16]
+    word2_4c = (codes << (2 * j[None, :])).sum(1).astype(np.uint32)
+    ep = blocks[..., 0].reshape(-1)
+    sel = blocks[..., 1].reshape(-1)
+    word2 = np.where(equal[ep], np.uint32(0), word2_4c[sel])
+    return np.stack([word1_of[ep], word2.astype(np.uint32)], axis=1)
+
+
+def alpha_blocks_to_bc4_words(
+    blocks: np.ndarray, endpoints, selectors: np.ndarray
+) -> np.ndarray:
+    """ETC1S gray *alpha* slice blocks → BC4 alpha words [N, 2] uint32
+    (the alpha half of a BC3 block: a0, a1, then 16 3-bit codes).
+
+    a0 = the block's highest alpha level, a1 = the lowest (a0 > a1
+    selects BC4's 8-step mode); each ETC1S selector maps to the 3-bit
+    code whose interpolant is nearest its level. The code map depends on
+    the endpoint entry, so it is a per-palette-entry [E, 4] table
+    gathered per texel."""
+    color5, inten5 = _endpoint_arrays(endpoints)
+    g5 = color5[:, 1].astype(np.int64)  # alpha rides the green channel
+    base8 = (g5 << 3) | (g5 >> 2)  # [E]
+    mods = INTEN_TABLES[inten5.astype(np.int64)]  # [E,4] ascending
+    levels = np.clip(base8[:, None] + mods, 0, 255)  # [E,4]
+    a1 = levels[:, 0]
+    a0 = levels[:, 3]
+    equal = a0 <= a1  # uniform block: all codes 0, a0==a1
+    a0 = np.where(equal, a1, a0)
+    # BC4 8-step palette for a0 > a1: p0=a0, p1=a1, pk=( (8-k)*a0+(k-1)*a1 )/7
+    k = np.arange(8)
+    pal = np.empty((len(a0), 8), np.int64)
+    pal[:, 0] = a0
+    pal[:, 1] = a1
+    for j in range(2, 8):
+        pal[:, j] = ((8 - j) * a0 + (j - 1) * a1) // 7
+    # per-entry map: ETC1S selector s (level index) -> nearest BC4 code
+    code_map = np.abs(levels[:, :, None] - pal[:, None, :]).argmin(-1)  # [E,4]
+    code_map[equal] = 0
+    ep = blocks[..., 0].reshape(-1)
+    sel = blocks[..., 1].reshape(-1)
+    # texel order i = y*4 + x, 3 bits LSB-first over the 48-bit field
+    j16 = np.arange(16)
+    y, x = j16 // 4, j16 % 4
+    sel_codes = selectors[:, y, x]  # [S,16] level indices 0..3
+    codes = code_map[ep[:, None], sel_codes[sel]]  # [N,16] 3-bit codes
+    field = (codes.astype(np.uint64) << (3 * j16[None, :]).astype(np.uint64)).sum(1)
+    w0 = (
+        a0[ep].astype(np.uint64)
+        | (a1[ep].astype(np.uint64) << 8)
+        | ((field & 0xFFFF) << 16)
+    )
+    w1 = field >> 16
+    return np.stack([w0.astype(np.uint32), w1.astype(np.uint32)], axis=1)
+
+
 #: ETC2 EAC alpha modifier tables (Khronos spec; extracted + verified
 #: against Mesa llvmpipe's GL_COMPRESSED_RGBA8_ETC2_EAC decoder)
 EAC_MODIFIERS = np.array([
@@ -770,13 +863,12 @@ def transcode_ktx2_etc1s(ktx2_file, target: str = "rgba") -> np.ndarray:
     target="etc2-eac": [layers, nblocks, 4] uint32 — EAC alpha block words
     followed by the ETC1 color words (GL_COMPRESSED_RGBA8_ETC2_EAC
     layout); carries alpha files on ETC2-capable devices.
-
-    The reference's "bc1-bc3" and "pvrtc1" targets are not copied yet
-    (ROADMAP §1 item 7) and raise NotImplementedError.
+    target="bc1-bc3": [layers, nblocks, 2] uint32 BC1 words, or [layers,
+    nblocks, 4] BC4 alpha words then BC1 color words (BC3) for alpha files.
+    target="pvrtc1": [layers, nblocks, 2] uint32 PVRTC1 4bpp block words
+    (modulation, color) in Morton order — power-of-two textures only
+    (the format-selection table enforces this).
     """
-    if target not in ("rgba", "etc1", "etc2-eac"):
-        raise NotImplementedError(
-            f"transcode target {target!r} is not ported (ROADMAP.md §1 item 7)")
     g = ktx2_file.basis_lz
     if g is None:
         raise ValueError("not a BasisLZ ktx2 file")
@@ -790,10 +882,11 @@ def transcode_ktx2_etc1s(ktx2_file, target: str = "rgba") -> np.ndarray:
     models = decode_slice_models(g.tables_data)
     level = ktx2_file.levels[0].data
     has_alpha = any(d.alpha_slice_byte_length for d in g.image_descs)
-    if has_alpha and target == "etc1":
+    if has_alpha and target not in ("rgba", "bc1-bc3", "etc2-eac"):
         # callers fall back to the full decode like the reference on
-        # devices with no matching alpha format (etc2-eac pairs an EAC
-        # alpha block with the ETC1 color block)
+        # devices with no matching alpha format (bc1-bc3 upgrades to
+        # BC3 = BC1 color + BC4 alpha; etc2-eac pairs an EAC alpha
+        # block with the ETC1 color block)
         raise NotImplementedError(f"alpha slices: no {target!r} target")
     frames = []
     prev_blocks = None
@@ -857,6 +950,24 @@ def transcode_ktx2_etc1s(ktx2_file, target: str = "rgba") -> np.ndarray:
                 frames.append(np.concatenate([alpha, color], axis=1))
             else:
                 frames.append(color)
+        elif target == "bc1-bc3":
+            color = blocks_to_bc1_words(blocks, endpoints, selectors)
+            if has_alpha:
+                # BC3 block = 8 bytes BC4 alpha then 8 bytes BC1 color
+                alpha = alpha_blocks_to_bc4_words(
+                    _alpha_blocks(), endpoints, selectors
+                )
+                frames.append(np.concatenate([alpha, color], axis=1))
+            else:
+                frames.append(color)
+        elif target == "pvrtc1":
+            from uvol_tpu_torch.codecs.basis.pvrtc import (
+                transcode_blocks_to_pvrtc1,
+            )
+
+            frames.append(
+                transcode_blocks_to_pvrtc1(blocks, endpoints, selectors, w, h)
+            )
         else:
             rgb = blocks_to_rgb(blocks, endpoints, selectors)[:h, :w]
             if has_alpha:

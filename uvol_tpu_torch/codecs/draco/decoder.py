@@ -9,7 +9,7 @@ frame is one call into the port's copy of the reference's C decoder
 reference's `decode_drc` takes it first. The reference falls back to its
 staged Python decoder for a stream outside that path (the standard edge
 coder, tagged symbols, sequential or point-cloud encodings); the port
-has no Python Draco decoder yet (ROADMAP.md §1 item 7) and raises
+has no Python Draco decoder yet (ROADMAP.md §1 item 5) and raises
 `NotImplementedError` for such a stream.
 """
 
@@ -109,7 +109,7 @@ def decode_drc(data: bytes, *, vertex_color_space: str = "linear") -> DracoMesh:
             raise NotImplementedError(
                 "this .drc stream is outside the native decoder's path (or g++ could not "
                 "build the Draco library); the port has no Python Draco decoder yet "
-                "(ROADMAP.md §1 item 7)")
+                "(ROADMAP.md §1 item 5)")
         if vertex_color_space == "srgb":
             convert_vertex_colors_srgb_to_linear(mesh)
         elif vertex_color_space != "linear":

@@ -26,7 +26,9 @@ SUPERCOMPRESSION_BASISLZ = 1
 SUPERCOMPRESSION_ZSTD = 2
 SUPERCOMPRESSION_ZLIB = 3
 
-# DFD color models of ETC1S and of UASTC (the player names a UASTC file it cannot play)
+VK_FORMAT_UNDEFINED = 0  # Basis/ETC1S and UASTC use UNDEFINED
+
+# DFD color models of ETC1S and of UASTC
 KHR_DF_MODEL_ETC1S = 163
 KHR_DF_MODEL_UASTC = 166
 

@@ -14,14 +14,16 @@ encodes only what changed; a rerun where nothing changed writes nothing
 
 `UVT_PLATFORM` chooses the device (the reference's JAX platform switch):
 unset runs on the CUDA card and raises where there is none; `cpu` runs
-on the CPU. Every codec the CLI builds is given that device. Draco frames
+on the CPU. Every device codec the CLI builds is given that device (the
+`uastc` texture codec is the spec wire's host encode, as in the
+reference). Draco frames
 go through the port's native whole-frame encoder in a spawned process
 pool (the workers import `io.meshio` and the C encoder, no torch: the
 CLI's own process may hold a CUDA context and threads, which a fork
 would copy); images are read as PNG by `io.image`, without Pillow.
 
-Refused before any output is written: a `TEXTURE_CODEC` naming `uastc`
-(ROADMAP.md §1 item 6) and an `ABCFilePath` input (item 7).
+Refused before any output is written: an `ABCFilePath` input
+(ROADMAP.md §1 item 5).
 
 A script that calls `main()` itself does so under
 `if __name__ == "__main__":`: the spawned Draco workers import the
@@ -118,10 +120,7 @@ def unported_inputs(cfg: Dict) -> List[str]:
     problems = []
     if cfg.get("ABCFilePath"):
         problems.append("ABCFilePath: the Alembic input (io/alembic.py, io/ogawa.py) is not "
-                        "ported (ROADMAP.md §1 item 7); give OBJFilesPath")
-    if cfg.get("ImagesPath") and "uastc" in _texture_codec_names(cfg):
-        problems.append("TEXTURE_CODEC uastc: the UASTC encoder is not ported "
-                        "(ROADMAP.md §1 item 6); use etc1s or etc")
+                        "ported (ROADMAP.md §1 item 5); give OBJFilesPath")
     return problems
 
 
@@ -241,7 +240,7 @@ def _encode_draco_frame(args):
     if blob is None:
         raise RuntimeError(
             f"{path}: the native Draco encoder refused the frame; the port has no "
-            "Python Draco encoder (ROADMAP.md §1 item 7)")
+            "Python Draco encoder (ROADMAP.md §1 item 5)")
     return blob
 
 
@@ -263,7 +262,7 @@ def _encode_geometry_draco(cfg: Dict, objs: List[str], out_dir: str) -> str:
     # built here, before the pool, so the workers find the library built
     if native.get_draco_lib() is None:
         raise RuntimeError("the native Draco library could not be built (g++); the port "
-                           "has no Python Draco encoder (ROADMAP.md §1 item 7)")
+                           "has no Python Draco encoder (ROADMAP.md §1 item 5)")
     geo_dir = os.path.join(out_dir, "geometry_draco")
     os.makedirs(geo_dir, exist_ok=True)
     resume = _ResumeIndex(geo_dir)
@@ -354,6 +353,20 @@ class _Etc1sSegmentCodec:
                                  num_selectors=self.num_selectors, device=self.device)
 
 
+class _UastcSegmentCodec:
+    """Fills the role of `basisu -uastc` (scripts/Encoder.py:33-39):
+    Zstd-supercompressed UASTC KTX2, the spec wire's host encode (numpy),
+    as the reference's CLI runs it."""
+
+    def __init__(self, cfg: Dict):
+        self.quality = int(cfg.get("UASTC_QUALITY", 0))
+
+    def encode_segment(self, px: np.ndarray) -> bytes:
+        from uvol_tpu_torch.codecs.basis.uastc import encode_uastc_ktx2
+
+        return encode_uastc_ktx2(px, quality=self.quality)
+
+
 def _encode_textures(cfg: Dict, imgs: List[str], out_dir: str, device) -> Dict:
     """KTX2_BATCH_SIZE layers per `.ktx2`, one directory per target; returns
     the manifest's texture targets."""
@@ -369,6 +382,9 @@ def _encode_textures(cfg: Dict, imgs: List[str], out_dir: str, device) -> Dict:
         if codec_name == "etc1s":
             codec = _Etc1sSegmentCodec(cfg, device)
             target_name = "etc1s-tpu"
+        elif codec_name == "uastc":
+            codec = _UastcSegmentCodec(cfg)
+            target_name = "uastc-tpu"
         else:  # any other name is the raw-ETC fast path, as in the reference
             codec = TextureSequenceCodec(sequence_size=batch, device=device)
             target_name = "etc-tpu"

@@ -5,8 +5,7 @@ consumed at src/lib/KTX2Loader.js:799-823 for Zstd-supercompressed KTX2
 levels). Zstd stays on the host per SURVEY §7 hard part (e); device work
 overlaps with it in the prefetch pools.
 
-The port's copy of the reference's `native/zstd.py` (compress and
-decompress).
+The port's copy of the reference's `native/zstd.py`.
 """
 
 from __future__ import annotations
@@ -42,6 +41,14 @@ def _zstd() -> ctypes.CDLL:
         ]
         _lib = lib
     return _lib
+
+
+def is_available() -> bool:
+    try:
+        _zstd()
+        return True
+    except OSError:
+        return False
 
 
 def compress(data: bytes, level: int = 3) -> bytes:

@@ -8,7 +8,7 @@ reference (:46-51).
 
 Only V2 (`uvol.json`) tracks play: the V1 player (Corto `.drcs` geometry,
 H.264/MP4 textures) is not ported yet, and a V1 manifest raises
-NotImplementedError (ROADMAP.md §1 item 7). The V2 player is built on
+NotImplementedError (ROADMAP.md §1 item 5). The V2 player is built on
 `device` (default: the CUDA card; `"cpu"` names the CPU).
 """
 
@@ -100,7 +100,7 @@ class Player:
         if not isinstance(manifest, V2Schema):
             raise NotImplementedError(
                 f"{next_path}: a V1 manifest; the V1 player (Corto, H.264/MP4) is not "
-                "ported (ROADMAP.md §1 item 7)")
+                "ported (ROADMAP.md §1 item 5)")
         self.manifest = manifest
         self.current_manifest_path = next_path
         if self.v2_instance is None:

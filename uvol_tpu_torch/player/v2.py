@@ -14,12 +14,14 @@ names the CPU):
   - `.uvtg` geometry: `models.sequence.GeometrySequenceCodec` on the device;
   - `.drc` geometry: `codecs.draco.decoder.decode_drc`, the C decoder on
     the host, as the reference decodes it;
-  - BasisLZ/ETC1S textures: the transcoder's `etc1` words (or `etc2-eac`
-    for alpha) under `DEVICE_TEXTURE_CAPABILITIES`, palette lookups on
-    the host;
+  - BasisLZ/ETC1S textures: the transcoder's target for
+    `DEVICE_TEXTURE_CAPABILITIES` (`etc1` words, or `etc2-eac` for alpha,
+    by default), palette lookups on the host;
   - raw-ETC KTX2 textures: `TextureSequenceCodec.decode_segment` (the
     ETC1 decode kernel on the card);
-  - UASTC textures raise NotImplementedError (ROADMAP.md §1 item 6).
+  - UASTC textures: `uastc.transcode_uastc` to the target the format
+    table picks; on an ETC device its decode-and-refit, whose ETC1 fit is
+    the ETC1 encode kernel on `device`.
 
 Each decoder returns host arrays after its device work has finished, so
 the prefetch threads (`async_prefetch=True`) may run them concurrently.
@@ -108,6 +110,10 @@ class DecodedTexture:
       - ``"rgba"``: `data` is [F, H, W, 3|4] uint8 pixels,
       - ``"etc1"``: [F, nblocks, 2] uint32 block words
       - ``"etc2-eac"``: [F, nblocks, 4] uint32 (EAC alpha + color words)
+      - ``"pvrtc1"``: [F, nblocks, 2] uint32 Morton-order PVRTC1 blocks
+        (compressed passthrough, upload-ready),
+      - ``"bc1-bc3"``: [F, nblocks, 2|4] uint32 BC1 (BC4 alpha + BC1) words,
+      - ``"astc-4x4"`` / ``"bc7"``: [F, nblocks, 16] uint8 blocks (UASTC).
 
     Array-protocol passthroughs keep ndarray-style consumers working.
     """
@@ -173,10 +179,42 @@ def default_texture_decoder(data: bytes, *, device: DeviceLike = None) -> Decode
                     target = "rgba"
             return DecodedTexture(target, transcode_ktx2_etc1s(f, target=target))
         if f.dfd_color_model() == KHR_DF_MODEL_UASTC:
-            raise NotImplementedError(
-                "UASTC textures are not ported (ROADMAP.md §1 item 6)")
+            return _uastc_texture(f, device)
         codec = _codec("etc", resolve_device(device))
         return DecodedTexture("rgba", codec.decode_segment(f))
+
+
+def _uastc_texture(f, device) -> DecodedTexture:
+    """UASTC path (reference: KTX2Loader UASTC column of FORMAT_OPTIONS)
+    — astc-4x4 devices get REAL ASTC blocks and bptc devices real BC7
+    (structural transcodes); ETC/DXT/PVRTC-class devices get
+    decode-and-refit block words, matching basisu's transcoder."""
+    from uvol_tpu_torch.codecs.basis.transcoder import select_transcode_target
+    from uvol_tpu_torch.codecs.basis.uastc import transcode_uastc
+
+    target = select_transcode_target(
+        DEVICE_TEXTURE_CAPABILITIES,
+        is_uastc=True,
+        width=f.header.pixel_width,
+        height=f.header.pixel_height,
+    )
+    if target == "astc-4x4":
+        return DecodedTexture("astc-4x4", transcode_uastc(f, target="astc", device=device))
+    if target == "bc7":
+        return DecodedTexture("bc7", transcode_uastc(f, target="bc7", device=device))
+    if target == "etc1" and "etc2" in DEVICE_TEXTURE_CAPABILITIES:
+        # ETC2-capable devices take the EAC-paired form so alpha content
+        # survives; plain etc1 devices get the color words
+        return DecodedTexture("etc2-eac", transcode_uastc(f, target="etc2-eac", device=device))
+    if target in ("etc1", "bc1-bc3", "pvrtc1"):
+        try:
+            return DecodedTexture(target, transcode_uastc(f, target=target, device=device))
+        except NotImplementedError:
+            # alpha content on the pvrtc1 target: full decode, like the
+            # reference's unsupported-combination column (a format rule;
+            # a kernel or build failure raises something else)
+            pass
+    return DecodedTexture("rgba", transcode_uastc(f, target="rgba", device=device))
 
 
 @dataclasses.dataclass
