@@ -28,7 +28,9 @@ one sweep frame to be one device kernel and a sweep to allocate no
 [blocks, entries] error tile, checks the bytes against the
 CPU codecs, counts the kernels one K6 or segment-sum call launches
 (fixed, whatever N), times kernels and chains with CUDA events and the
-kernels alone with the profiler, and traces one pass of each codec
+kernels alone with the profiler, replays and times every segment-sum and
+K6 call of a 256/256 and a 1,024/1,024 palette build
+(`segment_sum_builds`), and traces one pass of each codec
 stage with `torch.profiler` to split its time between host and device.
 
 Its phase `drc_device_path` drives the real-`.drc` device decode
@@ -78,7 +80,10 @@ plain twin on the card for the default RGB pair [0, 5], for [10, 12] on
 an alpha-ramp copy and for all eleven eligible modes, and timed per
 call, alone and as its twin; `encode_uastc_blocks` and the legacy
 `encode_uastc_ktx2` with the device fit on the card write the CPU
-port's bytes (2 layers of 256^2). Project D is the CLI's `TEMPLATE` with
+port's bytes (2 layers of 256^2); [0, 5] is also held and timed on
+random, flat and two-colour blocks, and the kernel's nearest weight
+entry (a closed form) against the twin's scan on every float32 in
+[0, 64]. Project D is the CLI's `TEMPLATE` with
 `TEXTURE_CODEC` "uastc" on 10 OBJ frames of 83 x 315 grids and 10
 layers of 1024^2 (2 segments): encoded (the spec wire's host encode),
 encoded again (nothing written), played sync and with `async_prefetch`
@@ -176,6 +181,13 @@ SEG_ROWS = (1, 63, 64, 65, 1025, 20000, 70001)
 SEG_TIMED = (327680, 256, 64)  # sel_update's shape on the main path: N, k, D
 #: rows above the 2^24 of one launch: the segment sum and K6 in two chunks
 SEG_ROWS_CHUNKED = (1 << 24) + 1025
+#: the palettes whose builds' segment-sum and K6 calls are replayed and timed
+#: (`segment_sum_builds`): the smoke's 256/256 and the encoder CLI's 1,024/1,024
+SEG_BUILD_PALETTES = (256, 1024)
+#: the segment sum at sel_update's N and D on other assignments: (k, share of
+#: the rows in one segment)
+SEG_EXTRA = ((256, 0.0), (256, 0.9), (1024, 0.0), (1024, 0.9), (2048, 0.0))
+SEG_BUILD_REPS = 3  # timed runs of each recorded call
 #: K7 on random frames (block rows, block columns, entries): one column, one
 #: grid row of 256, rows past a multiple of 256, a row of two column passes,
 #: the largest palette, a palette under one warp's 32 entries
@@ -239,6 +251,9 @@ UASTC_MODE_SETS = {"rgb": (0, 5), "rgba": (10, 12),
                    "all": (0, 1, 2, 5, 10, 11, 12, 13, 14, 17, 18)}
 UASTC_CPU_LAYERS = 2
 UASTC_CPU_SIDE = 256
+#: U1 at the main path's blocks and modes on four block classes (`uastc_classes`)
+UASTC_CLASSES = ("bench_gradient", "random", "flat", "two_colour")
+UASTC_WEIGHT_CHUNK = 1 << 25  # floats of one comparison of the closed-form weight index
 #: K3's and the minimum/maximum's kernel names in a profiler trace (csrc/geometry.cu)
 K3_KERNEL_NAME = WRAPPER_KERNELS["quantize_delta_zigzag"][0]
 MINMAX_KERNEL_NAME = WRAPPER_KERNELS["geometry_minmax"][0]
@@ -986,6 +1001,70 @@ def etc1s_times(torch, dev, textures, inten_args, median_cuda_ms) -> tuple:
           "max_abs_err": err, "segment_sum_library_max_abs_err": library_err, "ms": ms,
           "segment_layers_per_s": ETC1S_LAYERS / (ms["etc1s_segment_encode"] / 1e3)})
     return ms, err, inten_ops
+
+
+def segment_sum_builds(torch, dev, textures, median_cuda_ms) -> tuple:
+    """Every segment-sum and K6 call of one palette build at each of
+    `SEG_BUILD_PALETTES` on the smoke segment (327,680 blocks), recorded as
+    `palette_core` makes them: each held bit for bit against its twin and
+    timed per call (CUDA events) and alone (profiler), with the sums of the
+    alone times per build; then the segment sum at sel_update's N and D on
+    `SEG_EXTRA` (random and skewed assignments, k up to 2,048), its two
+    kernels also apart, and the registers, stack and shared memory of the
+    segment sum's and K6's kernels (pass 1's dynamic bytes those of the
+    main path's shape). Returns (max_abs_err, ms)."""
+    from uvol_tpu_torch import _build
+    from uvol_tpu_torch.codecs.basis import etc1s_cuda as k
+    from uvol_tpu_torch.codecs.basis.etc1s_encode import _blocks_of, palette_core
+
+    bd = torch.from_numpy(_blocks_of(textures[:ETC1S_LAYERS])).to(dev)
+    err, ms, builds = {}, {}, {}
+    for palette in SEG_BUILD_PALETTES:
+        with recorded_etc1s_calls(k) as calls:
+            palette_core(bd, palette, palette, 6)
+        rows, alone = [], {"etc1s_segment_sum": 0.0, "etc1s_kmeans_iter": 0.0}
+        for name, args, got in calls:
+            if name not in alone:
+                continue
+            kernel, twin = (getattr(k, fn) for fn in ETC1S_KERNELS[name])
+            hold_bits(torch, err, name, got, twin(*args))
+            kernel_ms, _ = kernel_only_ms(torch, lambda: kernel(*args), WRAPPER_KERNELS[name],
+                                          SEG_BUILD_REPS)
+            alone[name] += kernel_ms
+            shape = ({"k": args[1], "d": args[2].shape[1]} if name == "etc1s_segment_sum"
+                     else {"k": args[1].shape[0]})
+            rows.append({"name": name, **shape, "kernel_ms": kernel_ms,
+                         "ms": median_cuda_ms(lambda: kernel(*args), SEG_BUILD_REPS)})
+        builds[f"{palette}/{palette}"] = {
+            "alone_ms_sum": alone, "calls": rows,
+            "launches": {n: sum(row["name"] == n for row in rows) for n in alone}}
+        for n, v in alone.items():
+            ms[f"{n}_build_{palette}_kernel_sum"] = v
+        del calls
+    sn, _, sd = SEG_TIMED
+    r = np.random.default_rng(13)
+    x = torch.from_numpy(r.integers(-400, 400, (sn, sd)).astype(np.float32)).to(dev)
+    names = WRAPPER_KERNELS["etc1s_segment_sum"]
+    extra = {}
+    for kk, hot in SEG_EXTRA:
+        idx = np.where(r.random(sn) < hot, kk // 3, r.integers(0, kk, sn))
+        idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+        hold_bits(torch, err, "etc1s_segment_sum", k.segment_sum(idx, kk, x),
+                  k.segment_sum_plain(idx, kk, x))
+        fn = lambda: k.segment_sum(idx, kk, x)  # noqa: E731
+        extra[f"k{kk}_hot{round(hot * 100)}"] = {
+            "ms": median_cuda_ms(fn, REPS), "kernel_ms": kernel_only_ms(torch, fn, names)[0],
+            "per_kernel_ms": {n: kernel_only_ms(torch, fn, (n,))[0] for n in names}}
+    k.segment_sum(idx[:0].new_zeros(sn), SEG_TIMED[1], x)  # pass 1's shared bytes at this shape
+    torch.cuda.synchronize()
+    attrs = _build.kernel_attrs()
+    attrs = {n: attrs[n] for n in (*names, "seg_sum_tree_kernel_small",
+                                   *WRAPPER_KERNELS["etc1s_kmeans_iter"])}
+    for n in (*names, "seg_sum_tree_kernel_small"):
+        check(attrs[n]["stack_bytes"] == 0, f"{n} uses stack memory")
+    emit({"phase": "segment_sum_builds", "blocks": len(bd), "builds": builds,
+          "rows": sn, "d": sd, "extra": extra, "kernel_attrs": attrs, "max_abs_err": err})
+    return err, ms
 
 
 @contextlib.contextmanager
@@ -1820,6 +1899,48 @@ def uastc_blocks(textures) -> np.ndarray:
                            for t in textures]).reshape(-1, 16, 4)
 
 
+def uastc_classes(px: np.ndarray) -> dict:
+    """`UASTC_CLASSES` at the main path's block count: the bench's gradient
+    blocks `px` and, from a seed, random, flat and two-colour blocks (each
+    pixel one of two random colours), [B, 16, 4] uint8, opaque."""
+    r = np.random.default_rng(21)
+    nb = len(px)
+    two = r.integers(0, 256, (2, nb, 1, 4), dtype=np.uint8)
+    out = {"bench_gradient": px,
+           "random": r.integers(0, 256, (nb, 16, 4), dtype=np.uint8),
+           "flat": np.repeat(r.integers(0, 256, (nb, 1, 4), dtype=np.uint8), 16, 1),
+           "two_colour": np.where(r.random((nb, 16, 1)) < 0.5, two[0], two[1])}
+    for v in out.values():
+        v[..., 3] = 255
+    check(tuple(out) == UASTC_CLASSES, "the U1 block classes")
+    return out
+
+
+def weight_index_exhaustive(torch, dev) -> dict:
+    """U1's nearest weight entry in closed form (`uastc_cuda.weight_index`,
+    the kernel's own device function) against the twin's scan
+    (`weight_index_plain`) on the card, for every float32 in [0, 64] (the
+    bit patterns 0 to that of 64.0) and each weight table; fails on any
+    difference."""
+    from uvol_tpu_torch.codecs.basis import uastc_cuda
+    from uvol_tpu_torch.codecs.basis.uastc import WEIGHT_TABLES
+
+    top = int(np.float32(64.0).view(np.int32))
+    t = time.perf_counter()
+    bad = {}
+    for levels in WEIGHT_TABLES:
+        bad[levels] = 0
+        for lo in range(0, top + 1, UASTC_WEIGHT_CHUNK):
+            w = torch.arange(lo, min(lo + UASTC_WEIGHT_CHUNK, top + 1), dtype=torch.int32,
+                             device=dev).view(torch.float32)
+            bad[levels] += int((uastc_cuda.weight_index(w, levels)
+                                != uastc_cuda.weight_index_plain(w, levels)).sum())
+    torch.cuda.synchronize()
+    check(not any(bad.values()), f"the closed-form weight index differs from the scan: {bad}")
+    return {"floats": top + 1, "tables": list(WEIGHT_TABLES), "mismatches": bad,
+            "s": time.perf_counter() - t}
+
+
 def uastc_device_fit_path(torch, dev, textures, median_cuda_ms) -> tuple:
     """U1 at the main path's size: `encode_uastc_blocks(device_fit="auto")`
     on the bench's F layers of 1024^2 (2,097,152 blocks, the default RGB
@@ -1862,6 +1983,22 @@ def uastc_device_fit_path(torch, dev, textures, median_cuda_ms) -> tuple:
             lambda: uastc_cuda.device_fit_select_plain(x, modes), REPS)
         ms[key + "_kernel"], _ = kernel_only_ms(
             torch, lambda: uastc_cuda.device_fit(x, modes), WRAPPER_KERNELS["uastc_device_fit"])
+    # U1 at the main path's blocks and modes on each block class, and its
+    # closed-form weight index against the scan on every float32 in [0, 64]
+    classes = uastc_classes(px)
+    per_class = {}
+    for name, blocks in classes.items():
+        x = torch.from_numpy(blocks).to(dev)
+        modes = UASTC_MODE_SETS["rgb"]
+        got = uastc_cuda.device_fit(x, modes)
+        hold_bits(torch, err, "uastc_device_fit", got, uastc_cuda.device_fit_select_plain(x, modes))
+        per_class[name] = {
+            "ms": median_cuda_ms(lambda: uastc_cuda.device_fit(x, modes), REPS),
+            "kernel_ms": kernel_only_ms(torch, lambda: uastc_cuda.device_fit(x, modes),
+                                        WRAPPER_KERNELS["uastc_device_fit"])[0],
+            "winners": np.bincount(got[0].cpu().numpy(), minlength=len(modes)).tolist()}
+        del x, got
+    weights = weight_index_exhaustive(torch, dev)
     # the entry points on the card against the CPU port: 2 layers of 256^2
     small = textures[:UASTC_CPU_LAYERS, :UASTC_CPU_SIDE, :UASTC_CPU_SIDE]
     small_px = uastc_blocks(small).reshape(-1, 4, 4, 4)
@@ -1876,12 +2013,15 @@ def uastc_device_fit_path(torch, dev, textures, median_cuda_ms) -> tuple:
                                       quality=quality)
         check(card == cpu, f"legacy encode_uastc_ktx2 at quality {quality}: card != CPU")
     attrs = _build.kernel_attrs()
-    check(attrs["uastc_device_fit_kernel"]["stack_bytes"] == 0, "U1 uses stack memory")
+    for fn in ("uastc_device_fit_kernel", "weight_index_kernel"):
+        check(attrs[fn]["stack_bytes"] == 0, f"{fn} uses stack memory")
     emit({"phase": "uastc_device_fit", "blocks": nblocks, "main_path_s": main_s,
           "launches": launches, "winners": winners, "max_abs_err": err, "ms": ms,
+          "classes": per_class, "weight_index_exhaustive": weights,
           "cpu_compare": {"layers": UASTC_CPU_LAYERS, "side": UASTC_CPU_SIDE,
                           "bytes_equal": True},
-          "kernel_attrs": attrs["uastc_device_fit_kernel"]})
+          "kernel_attrs": {fn: attrs[fn] for fn in ("uastc_device_fit_kernel",
+                                                    "weight_index_kernel")}})
     return launches, err, ms
 
 
@@ -2204,7 +2344,9 @@ def main() -> int:
     etc1s_ms, times_err, inten_ops = etc1s_times(
         torch, dev, textures, inten_args, median_cuda_ms)
     ms.update(etc1s_ms)
-    for e in (main_err, times_err):  # the kernels line: the worst of every comparison
+    builds_err, builds_ms = segment_sum_builds(torch, dev, textures, median_cuda_ms)
+    ms.update(builds_ms)
+    for e in (main_err, times_err, builds_err):  # the kernels line: the worst of every comparison
         for name, v in e.items():
             err[name] = max(err[name], v)
 
@@ -2353,7 +2495,8 @@ def main() -> int:
     attrs = _build.kernel_attrs()
     for fn in ("etc1_encode_kernel", "etc1_decode_kernel", "inten_errors_kernel",
                "rate_sweep_frame_kernel", "drc_fused_batch_kernel", "uastc_device_fit_kernel",
-               *STAGE_KERNEL_NAMES):
+               "weight_index_kernel", "seg_sum_chunk_kernel", "seg_sum_tree_kernel",
+               "seg_sum_tree_kernel_small", *STAGE_KERNEL_NAMES):
         check(attrs[fn]["stack_bytes"] == 0, f"{fn} uses stack memory")
     # K3's times are those of the call the main path makes (offsets taken in)
     timed_as = {"quantize_delta_zigzag": "quantize_from_bounds"}

@@ -286,6 +286,69 @@ def test_etc1s_kmeans_iter_kernel_at_odd_rows(card, n, k):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
 
 
+def _hold_segment_sum(card, idx, k, x):
+    before = etc1s_cuda.LAUNCHES["etc1s_segment_sum"]
+    got = etc1s_cuda.segment_sum(idx.to(card), k, x.to(card))
+    torch.cuda.synchronize()
+    assert etc1s_cuda.LAUNCHES["etc1s_segment_sum"] == before + 1
+    want = etc1s_cuda.segment_sum_plain(idx, k, x)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.int32), want.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("d", [1, 4, 8, 9, 33, 64])
+@pytest.mark.parametrize("k", [1, 7, 1024, 2048])
+@pytest.mark.parametrize("n", [1, 63, 1023, 1025, 3077])
+def test_segment_sum_kernel_at_tile_chunk_and_group_edges(card, n, k, d):
+    """Bit for bit at every column-group layout (one group; 3 of 11
+    columns; 4 of 16) and chunk count, absent segments included."""
+    idx, x = _seg_inputs(n, k, d, 7 * n + k + d)
+    _hold_segment_sum(card, idx, k, x)
+
+
+@pytest.mark.parametrize("k,d", [(2, 9), (256, 64), (1024, 64)])
+@pytest.mark.parametrize("n", [1025, 70001])
+def test_segment_sum_kernel_on_skewed_assignments(card, n, k, d):
+    """90% of the rows in one segment: its runs are whole tiles."""
+    idx, x = _seg_inputs(n, k, d, n + 3 * k)
+    r = np.random.default_rng(n)
+    idx = torch.where(torch.from_numpy(r.random(n) < 0.9), k // 2, idx)
+    _hold_segment_sum(card, idx, k, x)
+
+
+@pytest.mark.parametrize("n", [64, 1000, 1024, 3000])
+def test_segment_sum_kernel_with_negative_zeros_beside_absent_tiles(card, n):
+    idx = torch.from_numpy(np.arange(n) % 2)
+    idx[::97] = 2
+    _, x = _seg_inputs(n, 3, 9, n)
+    x[(idx == 0) | (idx == 2)] = -0.0
+    _hold_segment_sum(card, idx, 3, x)
+
+
+def test_segment_sum_kernel_reads_values_off_a_16_byte_boundary(card):
+    """x one float into its buffer: the 4-byte copies, D = 64."""
+    idx, x = _seg_inputs(3000, 256, 64, 4)
+    xd = torch.cat([x.reshape(-1)[:1], x.reshape(-1)]).to(card)[1:].reshape(3000, 64)
+    assert xd.data_ptr() % 16 == 4
+    got = etc1s_cuda.segment_sum(idx.to(card), 256, xd)
+    want = etc1s_cuda.segment_sum_plain(idx, 256, x)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.int32), want.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("k", [1, 7, 1024])
+@pytest.mark.parametrize("n", [63, 1024, 3077])
+def test_etc1s_kmeans_iter_kernel_at_tile_and_chunk_edges(card, n, k):
+    r = np.random.default_rng(n * 5 + k)
+    feats = torch.from_numpy((r.random((n, 4)) * 255).astype(np.float32))
+    feats[::5] = feats[0]  # duplicate rows: long runs of one centroid
+    cb = feats[torch.from_numpy(r.integers(0, n, k))] + 0.5
+    before = etc1s_cuda.LAUNCHES["etc1s_kmeans_iter"]
+    got = etc1s_cuda.kmeans_iter(feats.to(card), cb.to(card))
+    torch.cuda.synchronize()
+    assert etc1s_cuda.LAUNCHES["etc1s_kmeans_iter"] == before + 1
+    for g, w in zip(got, etc1s_cuda.kmeans_iter_plain(feats, cb)):
+        np.testing.assert_array_equal(g.cpu().numpy().view(np.int32), w.numpy().view(np.int32))
+
+
 @pytest.mark.parametrize("shape,offset", [((2, 8, 1028, 3), 0), ((1, 16, 1024, 3), 3)])
 def test_encode_kernel_other_widths_and_offsets(card, shape, offset):
     """A width whose rows are not 16-byte aligned (two runs per block row),
@@ -426,7 +489,8 @@ def test_redesigned_kernels_use_no_stack(card):
     attrs = _build.kernel_attrs()
     for fn in ("etc1_encode_kernel", "etc1_decode_kernel", "inten_errors_kernel",
                "geometry_minmax_kernel", "quantize_delta_zigzag_kernel", "rate_sweep_frame_kernel",
-               "uastc_device_fit_kernel"):
+               "uastc_device_fit_kernel", "weight_index_kernel", "seg_sum_chunk_kernel",
+               "seg_sum_tree_kernel", "seg_sum_tree_kernel_small"):
         assert attrs[fn]["stack_bytes"] == 0, (fn, attrs[fn])
 
 
@@ -834,6 +898,52 @@ def test_uastc_device_fit_kernel_reads_unaligned_blocks(card):
     assert shifted.data_ptr() % 16 == 4
     for g, w in zip(uastc_cuda.device_fit(shifted, [0, 5]), uastc_cuda.device_fit(px, [0, 5])):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("modes", [[0, 5], [10, 12], [0, 1, 2, 5, 10, 11, 12, 13, 14, 17, 18]])
+@pytest.mark.parametrize("n", [1, 3, 127, 128, 129, (1 << 16) + 5])
+def test_uastc_device_fit_kernel_at_quad_and_cta_edges(card, modes, n):
+    """Blocks on 4 lanes, 64 a CTA: counts off both, against the twin."""
+    from uvol_tpu_torch.codecs.basis import uastc_cuda
+
+    px = torch.from_numpy(_uastc_blocks(n, seed=n + 1))
+    got = uastc_cuda.device_fit(px.to(card), modes)
+    torch.cuda.synchronize()
+    for g, w in zip(got, uastc_cuda.device_fit_select_plain(px, modes), strict=True):
+        g = g.cpu()
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("offset", [4, 8, 12])
+def test_uastc_device_fit_kernel_off_16_byte_alignment(card, offset):
+    from uvol_tpu_torch.codecs.basis import uastc_cuda
+
+    px = torch.from_numpy(_uastc_blocks(1001, seed=offset)).to(card)
+    flat = px.reshape(-1)
+    shifted = torch.cat([flat[:offset], flat])[offset:].reshape(1001, 16, 4)
+    assert shifted.data_ptr() % 16 == offset
+    for g, w in zip(uastc_cuda.device_fit(shifted, [0, 5]),
+                    uastc_cuda.device_fit_select_plain(px, [0, 5])):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("levels", [2, 3, 4, 5, 8, 16])
+def test_uastc_weight_index_kernel_equals_the_scan(card, levels):
+    """The kernel's closed form on 2^24 floats spread over [0, 64] and the
+    4,096 either side of each entry and midpoint (chip_smoke.py takes
+    every float32 in [0, 64])."""
+    from uvol_tpu_torch.codecs.basis import uastc_cuda
+    from uvol_tpu_torch.codecs.basis.uastc import WEIGHT_TABLES
+
+    t = np.asarray(WEIGHT_TABLES[levels], np.float32)
+    marks = np.concatenate([t, (t[1:] + t[:-1]) / 2]).astype(np.float32).view(np.int32)
+    near = (marks[:, None] + np.arange(-4096, 4097, dtype=np.int32)).ravel()
+    top = int(np.float32(64).view(np.int32))
+    bits = np.concatenate([near, np.linspace(0, top, 1 << 24).astype(np.int32)])
+    w = torch.from_numpy(bits[(bits >= 0) & (bits <= top)].view(np.float32)).to(card)
+    assert torch.equal(uastc_cuda.weight_index(w, levels), uastc_cuda.weight_index_plain(w, levels))
 
 
 @pytest.mark.parametrize("legacy", [False, True])

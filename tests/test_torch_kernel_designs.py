@@ -6,8 +6,9 @@ checked here is that the decompositions they compute are the twins'
 functions, bit for bit:
 
   - the segment-sum kernel (`csrc/etc1s.cu`: pass 1 over chunks of 16
-    tiles, pass 2 over the chunk partials) against `segment_sum_plain`,
-    through a numpy model of the two passes;
+    tiles, each tile's keys sorted by a warp, a walk per (run, columns)
+    and per (present segment, columns); pass 2 over the chunk partials)
+    against `segment_sum_plain`, through a numpy model of the two passes;
   - K1 (`csrc/etc1.cu`): the closed form of pass 1's table ranking, and
     the forms of pass 2's code errors, against the twin's formulas in
     `codecs/basis/etc.py`;
@@ -97,27 +98,54 @@ def test_segment_sum_plain_takes_its_documented_order(d, n):
 
 def _kernel_model(idx: np.ndarray, k: int, x: np.ndarray) -> np.ndarray:
     """numpy model of the segment-sum kernel's two passes, as
-    `csrc/etc1s.cu` computes them."""
+    `csrc/etc1s.cu` computes them.
+
+    Pass 1, one CTA per chunk of 1,024 rows: the keys segment << 10 | row
+    sorted within each tile of 64 (one warp a tile); the (segment, tile)
+    runs (stretches of the sorted keys) and the present segments, a slot
+    each in segment order; per column group (at most 16 columns), each
+    run's in-order sum from 0.0 written over its first row, then per
+    present segment the levels 0..3 over the 16 tiles (an absent tile
+    adding 0.0), written as the chunk's partial; 0.0 for a segment the
+    chunk does not hold. Pass 2: the tree over the chunk partials in
+    pieces of 256 leaves, then the piece roots."""
     n, d = x.shape
+    tiles, levels = kern.SEG_CHUNK_TILES, 4
     m = max(1, -(-n // CHUNK))
-    part = np.zeros((m, k, d), np.float32)
-    for ch in range(m):  # pass 1: one CTA per chunk
+    groups = -(-d // 16)
+    dc = -(-d // groups)
+    part = np.zeros((m, k, d), np.float32)  # 0.0 for the segments a chunk does not hold
+    for ch in range(m):
         rows = np.arange(ch * CHUNK, min(n, (ch + 1) * CHUNK))
-        keys = np.sort((idx[rows].astype(np.int64) << 10) | (rows - ch * CHUNK))
-        tile = np.zeros((kern.SEG_CHUNK_TILES, k, d), np.float32)
-        for key in keys:  # a segment's run, in row order: each tile from 0.0
-            seg, r = int(key >> 10), int(key & 1023)
-            t = r // kern.SEG_TILE
-            tile[t, seg] = tile[t, seg] + x[ch * CHUNK + r]
-        pend = [None] * 4
-        for t in range(kern.SEG_CHUNK_TILES):  # levels 0..3: a binary counter
-            node = tile[t]
-            for lvl in range(4):
-                if not (t >> lvl) & 1:
-                    pend[lvl] = node
-                    break
-                node = pend[lvl] + node
-        part[ch] = node
+        keys = (idx[rows].astype(np.int64) << 10) | (rows - ch * CHUNK)
+        keys = np.concatenate([np.sort(keys[t:t + kern.SEG_TILE])
+                               for t in range(0, len(keys), kern.SEG_TILE)] or [keys])
+        st = keys >> 6  # (segment, tile)
+        starts = np.flatnonzero(np.r_[True, st[1:] != st[:-1]]) if len(keys) else np.zeros(0, int)
+        ends = np.r_[starts[1:], len(keys)]
+        run_row = keys[starts] & (CHUNK - 1)
+        run_seg = keys[starts] >> 10
+        segs = np.unique(run_seg)
+        for g in range(groups):
+            c0 = g * dc
+            xs = x[ch * CHUNK:ch * CHUNK + len(rows), c0:c0 + dc].copy()  # staged, row order
+            acc = np.zeros((len(starts), xs.shape[1]), np.float32)
+            for step in range(kern.SEG_TILE):  # every run's walk, one row a step
+                live = ends - starts > step
+                acc[live] = acc[live] + xs[keys[starts[live] + step] & (CHUNK - 1)]
+            xs[run_row] = acc  # each run's sum over its first row
+            seg_of_run = np.searchsorted(segs, run_seg)
+            tile_sum = np.zeros((tiles, len(segs), xs.shape[1]), np.float32)
+            tile_sum[run_row >> 6, seg_of_run] = xs[run_row]
+            pend = [None] * levels
+            for t in range(tiles):  # levels 0..3: a binary counter, absent tiles 0.0
+                node = tile_sum[t]
+                for lvl in range(levels):
+                    if not (t >> lvl) & 1:
+                        pend[lvl] = node
+                        break
+                    node = pend[lvl] + node
+            part[ch, segs, c0:c0 + dc] = node
     p = 1  # pass 2: pieces of up to 256 leaves, then the piece roots
     while p < m:
         p *= 2
@@ -138,17 +166,54 @@ def _kernel_model(idx: np.ndarray, k: int, x: np.ndarray) -> np.ndarray:
     return tree(roots)
 
 
-@pytest.mark.parametrize("n", [1, 65, 1023, 1025, 3077, 20000])
-@pytest.mark.parametrize("k", [1, 7, 256, 2048])
-def test_kernel_decomposition_matches_segment_sum_plain(k, n):
-    """Bit-exact: chunk subtrees, then the outer levels, equal the twin's
-    one tree, -0.0 inputs and long runs of one segment included."""
-    r = np.random.default_rng(k * 100003 + n)
-    idx = r.integers(0, k, n)
-    idx[: n // 3] = np.sort(idx[: n // 3])
-    x = _values(r, n, 3)
+def _hold_model(idx: np.ndarray, k: int, x: np.ndarray) -> None:
     want = kern.segment_sum_plain(torch.from_numpy(idx), k, torch.from_numpy(x))
     np.testing.assert_array_equal(_bits(_kernel_model(idx, k, x)), _bits(want))
+
+
+@pytest.mark.parametrize("n", [1, 63, 65, 1023, 1025, 3077])
+@pytest.mark.parametrize("d", [1, 4, 8, 9, 33, 64])
+@pytest.mark.parametrize("k", [1, 7, 256, 1024, 2048])
+def test_kernel_decomposition_matches_segment_sum_plain(k, d, n):
+    """Bit-exact: chunk partials, then the outer levels, equal the twin's
+    one tree, at every (k, D) of a palette build,
+    over tile and chunk edges; -0.0 inputs and long runs of one segment
+    included."""
+    r = np.random.default_rng(k * 100003 + n * 101 + d)
+    idx = r.integers(0, k, n)
+    idx[: n // 3] = np.sort(idx[: n // 3])
+    _hold_model(idx, k, _values(r, n, d))
+
+
+@pytest.mark.parametrize("k,d", [(7, 3), (2048, 9)])
+@pytest.mark.parametrize("n", [20000, 256 * 1024 + 1])
+def test_kernel_decomposition_at_pass_2_piece_edges(k, d, n):
+    """Past one piece of 256 chunk partials (pass 2's second round)."""
+    r = np.random.default_rng(n + k)
+    _hold_model(r.integers(0, k, n), k, _values(r, n, d))
+
+
+@pytest.mark.parametrize("k,d", [(256, 64), (1024, 9), (2, 33)])
+@pytest.mark.parametrize("n", [1025, 5000])
+def test_kernel_decomposition_on_skewed_assignments(k, d, n):
+    """90% of the rows in one segment: its runs are whole tiles."""
+    r = np.random.default_rng(n * 3 + k)
+    idx = np.where(r.random(n) < 0.9, k // 2, r.integers(0, k, n))
+    _hold_model(idx, k, _values(r, n, d))
+
+
+@pytest.mark.parametrize("n", [64, 1000, 1024, 3000])
+def test_kernel_decomposition_with_negative_zeros_beside_absent_tiles(n):
+    """A segment of -0.0 rows in every tile, and one whose only row of a
+    tile is -0.0 beside tiles without it: each run's sum starts from 0.0,
+    so no node is -0.0 and an absent sibling's 0.0 changes nothing."""
+    r = np.random.default_rng(n)
+    idx = (np.arange(n) % 2).astype(np.int64)
+    idx[::97] = 2
+    x = _values(r, n, 9)
+    x[idx == 0] = -0.0
+    x[idx == 2] = -0.0
+    _hold_model(idx, 3, x)
 
 
 def test_segment_sum_wrapper_on_the_cpu_takes_the_twin():

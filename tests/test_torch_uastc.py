@@ -172,59 +172,65 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
 # ---- the kernel's formulation, modelled in numpy -------------------------------
 
 
+def _nearest_weight(w64: np.ndarray, table: np.ndarray) -> np.ndarray:
+    """The kernel's closed-form nearest entry (`nearest_weight`): c =
+    floor(w64 * f32((L - 1) / 64)), at most L - 2, then c + 1 where its
+    |w64 - table| is strictly less, all in float32."""
+    levels = len(table)
+    tf = table.astype(np.float32)
+    f = np.float32(levels - 1) * np.float32(1 / 64)
+    c = np.minimum((w64.astype(np.float32) * f).astype(np.float32).astype(np.int64), levels - 2)
+    d0 = np.abs((w64 - tf[c]).astype(np.float32))
+    d1 = np.abs((w64 - tf[c + 1]).astype(np.float32))
+    return np.where(d1 < d0, c + 1, c)
+
+
 def _kernel_model(px: np.ndarray, modes) -> tuple:
-    """csrc/uastc.cu in numpy, one block per row: integer endpoints,
-    projections and reconstruction sums; float32 only for t (an IEEE
-    division of two exact integers), the scaled endpoints and the error
-    (an FMA for RGB modes); weights by a linear scan with strict `<`;
-    the first minimum of the error over the modes with strict `<`."""
-    p = px.astype(np.int64)
+    """csrc/uastc.cu in numpy, a block on 4 lanes of 4 pixels each: the
+    per-channel minimum and maximum of each lane's pixels, then of the 4
+    lanes; w64 once per plane layout (RGB, RGBA, alpha) for every mode
+    that uses it, t an IEEE division of two exact integers; the nearest
+    weight in closed form; the endpoints scaled in float32; each lane's
+    integer error sum over its pixels, then the 4 lanes' sum; the error in
+    float32 (an FMA for RGB modes); the first minimum over the modes."""
+    p = px.astype(np.int64).reshape(len(px), 4, 4, 4)  # [block, lane, pixel, channel]
+    lo = p.min(2).min(1)  # the lanes' minima, then the quad's
+    hi = p.max(2).max(1)
     rows = TC.mode_rows(modes)
+
+    def plane_w64(c0, c1):
+        d = hi[:, c0:c1] - lo[:, c0:c1]
+        denom = (d * d).sum(-1)[:, None, None]
+        num = ((p[..., c0:c1] - lo[:, None, None, c0:c1]) * d[:, None, None]).sum(-1)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            t = np.where(denom > 0, num.astype(np.float32) / denom.astype(np.float32),
+                         np.float32(0.5)).astype(np.float32)
+        return (np.clip(t, np.float32(0), np.float32(1)) * np.float32(64)).astype(np.float32)
+
+    w = {"rgb": plane_w64(0, 3), "rgba": plane_w64(0, 4), "a": plane_w64(3, 4)}
+    sa = ((255 - p[..., 3]) ** 2).sum(2).sum(1)  # each lane's sum, then the quad's
     best = None
     for i, row in enumerate(rows):
         nc, dual, bits, levels = (int(v) for v in row[:4])
         k, inv_n = row[4:6].view(np.float32)
         table = row[8:8 + levels].astype(np.int64)
-        planes = [(0, 3), (3, 4)] if dual else [(0, nc)]
-        e0 = np.zeros((len(p), 4), np.int64)
-        e1 = np.zeros((len(p), 4), np.int64)
-        widx = []
-        for c0, c1 in planes:
-            e0[:, c0:c1] = p[:, :, c0:c1].min(1)
-            e1[:, c0:c1] = p[:, :, c0:c1].max(1)
-            d = e1[:, c0:c1] - e0[:, c0:c1]
-            denom = (d * d).sum(-1)
-            num = ((p[:, :, c0:c1] - e0[:, None, c0:c1]) * d[:, None]).sum(-1)
-            with np.errstate(invalid="ignore", divide="ignore"):
-                t = np.where(denom[:, None] > 0,
-                             num.astype(np.float32) / denom[:, None].astype(np.float32),
-                             np.float32(0.5)).astype(np.float32)
-            w64 = (np.clip(t, np.float32(0), np.float32(1)) * np.float32(64)).astype(np.float32)
-            dist = np.abs(w64[..., None] - table.astype(np.float32))
-            idx = np.zeros(dist.shape[:2], np.int64)
-            bd = dist[..., 0]
-            for j in range(1, levels):
-                take = dist[..., j] < bd
-                idx = np.where(take, j, idx)
-                bd = np.where(take, dist[..., j], bd)
-            widx.append(idx)
-        wm = widx[0]
-        wa = widx[1] if dual else np.zeros_like(wm)
+        wm = _nearest_weight(w["rgb" if dual or nc == 3 else "rgba"], table)  # [block, lane, pixel]
+        wa = _nearest_weight(w["a"], table) if dual else np.zeros_like(wm)
         scale = (1 << bits) - 1
-        q0 = np.clip(np.rint((e0[:, :nc].astype(np.float32) * k).astype(np.float32)), 0, scale)
-        q1 = np.clip(np.rint((e1[:, :nc].astype(np.float32) * k).astype(np.float32)), 0, scale)
+        q0 = np.clip(np.rint((lo[:, :nc].astype(np.float32) * k).astype(np.float32)), 0, scale)
+        q1 = np.clip(np.rint((hi[:, :nc].astype(np.float32) * k).astype(np.float32)), 0, scale)
         q0, q1 = q0.astype(np.int64), q1.astype(np.int64)
         x0 = q0 if bits == 8 else (q0 << (8 - bits)) | (q0 >> (2 * bits - 8))
         x1 = q1 if bits == 8 else (q1 << (8 - bits)) | (q1 >> (2 * bits - 8))
-        sq = np.zeros(len(p), np.int64)
+        lane_sq = np.zeros((len(p), 4), np.int64)
         for c in range(nc):
             wv = table[wa if (dual and c == 3) else wm]
-            c0v = ((x0[:, c] << 8) | x0[:, c])[:, None]
-            c1v = ((x1[:, c] << 8) | x1[:, c])[:, None]
+            c0v = ((x0[:, c] << 8) | x0[:, c])[:, None, None]
+            c1v = ((x1[:, c] << 8) | x1[:, c])[:, None, None]
             rec = ((c0v * (64 - wv) + c1v * wv + 32) >> 6) >> 8
-            sq += ((rec - p[:, :, c]) ** 2).sum(1)
+            lane_sq += ((rec - p[..., c]) ** 2).sum(2)
+        sq = lane_sq.sum(1)
         if nc == 3:
-            sa = ((255 - p[:, :, 3]) ** 2).sum(1)
             err = fma_f32(torch.from_numpy(sq.astype(np.float32)), float(inv_n),
                           torch.from_numpy((sa.astype(np.float32) * np.float32(0.0625)))).numpy()
         else:
@@ -232,8 +238,8 @@ def _kernel_model(px: np.ndarray, modes) -> tuple:
         q0p = np.zeros((len(p), 4), np.uint8)
         q1p = np.zeros((len(p), 4), np.uint8)
         q0p[:, :nc], q1p[:, :nc] = q0, q1
-        cand = (np.full(len(p), i, np.uint8), q0p, q1p, wm.astype(np.uint8),
-                wa.astype(np.uint8), err)
+        cand = (np.full(len(p), i, np.uint8), q0p, q1p, wm.reshape(-1, 16).astype(np.uint8),
+                wa.reshape(-1, 16).astype(np.uint8), err)
         if best is None:
             best = list(cand)
             continue
@@ -243,12 +249,72 @@ def _kernel_model(px: np.ndarray, modes) -> tuple:
     return tuple(best)
 
 
+def _gradient_blocks(n: int, seed: int) -> np.ndarray:
+    """Linear ramps over the block, per channel, as the bench's smooth
+    texture holds them."""
+    r = np.random.default_rng(seed)
+    y, x = np.mgrid[0:4, 0:4]
+    base = r.integers(0, 180, (n, 1, 4))
+    slope = r.integers(-20, 21, (n, 2, 4))
+    px = base + x.reshape(1, 16, 1) * slope[:, :1] + y.reshape(1, 16, 1) * slope[:, 1:]
+    px[..., 3] = 255
+    return np.clip(px, 0, 255).astype(np.uint8)
+
+
+MODEL_KINDS = KINDS + ["gradient"]
+
+
+def _model_blocks(kind: str, n: int, seed: int) -> np.ndarray:
+    return _gradient_blocks(n, seed) if kind == "gradient" else _blocks(kind, n, seed)
+
+
 @pytest.mark.parametrize("modes", list(MODE_SETS), ids=list(MODE_SETS))
 def test_kernel_model_equals_the_twin(modes):
-    px = np.concatenate([_blocks(k, 64, seed=9) for k in KINDS])
+    px = np.concatenate([_model_blocks(k, 64, seed=9) for k in MODEL_KINDS])
     want = TC.device_fit_select_plain(torch.from_numpy(px), MODE_SETS[modes])
     got = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in _kernel_model(px, MODE_SETS[modes]))
     _assert_fields_equal(got, tuple(w.numpy() for w in want))
+
+
+@pytest.mark.parametrize("mode", ELIGIBLE)
+@pytest.mark.parametrize("kind", ["random", "solid", "two_color", "gradient", "alpha_ramp"])
+def test_kernel_lane_split_equals_the_twin_for_each_mode(kind, mode):
+    """The quad's lane sums and the once-per-layout w64, mode by mode,
+    against `device_fit_plain` (every field, the error bit for bit)."""
+    px = _model_blocks(kind, 96, seed=mode)
+    want = TC.device_fit_select_plain(torch.from_numpy(px), [mode])
+    got = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in _kernel_model(px, [mode]))
+    _assert_fields_equal(got, tuple(w.numpy() for w in want), f"mode {mode}")
+
+
+def _weight_probe_floats(table: np.ndarray, seed: int) -> np.ndarray:
+    """float32 in [0, 64]: every float within 4,096 ulps of each entry and
+    of each midpoint of two neighbours, 0, 64, subnormals, 10^6 random."""
+    r = np.random.default_rng(seed)
+    marks = np.concatenate([table, (table[1:] + table[:-1]) / 2]).astype(np.float32)
+    near = marks.view(np.int32)[:, None] + np.arange(-4096, 4097, dtype=np.int32)[None]
+    sub = np.concatenate([np.arange(1, 4097), 0x007FFFFF - np.arange(4096)]).astype(np.int32)
+    w = np.concatenate([near.ravel().view(np.float32), sub.view(np.float32),
+                        np.float32([0.0, 64.0]), (r.random(10 ** 6) * 64).astype(np.float32)])
+    return w[(w >= 0) & (w <= 64)]
+
+
+@pytest.mark.parametrize("levels", sorted(J.WEIGHT_TABLES))
+def test_closed_form_weight_index_equals_the_scan(levels):
+    """The kernel's nearest weight entry in closed form against the
+    twin's scan (`weight_index_plain`, the first minimum of |w64 - t|)."""
+    table = np.asarray(J.WEIGHT_TABLES[levels], np.int64)
+    w = _weight_probe_floats(table, levels)
+    want = TC.weight_index_plain(torch.from_numpy(w), levels).numpy()
+    np.testing.assert_array_equal(_nearest_weight(w, table), want)
+    np.testing.assert_array_equal(TC.weight_index(torch.from_numpy(w), levels).numpy(), want)
+
+
+def test_weight_index_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        TC.weight_index(torch.zeros(4, dtype=torch.float64), 16)
+    with pytest.raises(ValueError):
+        TC.weight_index(torch.zeros(4), 6)
 
 
 def test_mode_rows_hold_the_twins_constants():

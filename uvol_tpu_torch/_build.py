@@ -133,6 +133,7 @@ def get_lib() -> ctypes.CDLL:
                 "uvt_quantize_delta_zigzag": [vp, vp, vp, vp, vp, ci, vp, vp, ci, ci, ci, vp],
                 "uvt_drc_fused_batch": [vp, vp, ci, ctypes.c_int64, vp, vp],
                 "uvt_uastc_device_fit": [vp, vp, ci, ctypes.c_int64] + [vp] * 7,
+                "uvt_uastc_weight_index": [vp, ctypes.c_int64, ci, vp, vp, vp],
             }
             attrs = [ci, ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_char_p)]
             signatures.update({fn: attrs for fn in _FUNC_ATTRS})
@@ -167,19 +168,22 @@ def launch(fn: str, device: torch.device, *args) -> None:
 
 
 def kernel_attrs() -> dict:
-    """{kernel: {"registers", "stack_bytes", "static_shared_bytes"}} of
-    every kernel of the library, from `cudaFuncGetAttributes`
-    (`csrc/func_attrs.cuh`); needs the card."""
+    """{kernel: {"registers", "stack_bytes", "static_shared_bytes",
+    "dynamic_shared_limit_bytes"}} of every kernel of the library, from
+    `cudaFuncGetAttributes` (`csrc/func_attrs.cuh`); needs the card. The
+    dynamic limit of a kernel whose launcher raises it is the bytes of its
+    last launch in this process."""
     lib = get_lib()
     out = {}
     for fn in _FUNC_ATTRS:
         for which in itertools.count():
-            vals, name = (ctypes.c_int * 3)(), ctypes.c_char_p()
+            vals, name = (ctypes.c_int * 4)(), ctypes.c_char_p()
             err = getattr(lib, fn)(which, vals, ctypes.byref(name))
             if err == -1:  # past the source's last kernel
                 break
             if err != 0:
                 raise RuntimeError(f"{fn}({which}): {lib.uvt_cuda_error_string(err).decode()}")
             out[name.value.decode()] = {"registers": vals[0], "stack_bytes": vals[1],
-                                        "static_shared_bytes": vals[2]}
+                                        "static_shared_bytes": vals[2],
+                                        "dynamic_shared_limit_bytes": vals[3]}
     return out

@@ -14,6 +14,12 @@ decides the route:
 
 Each kernel launch adds one to `LAUNCHES["uastc_device_fit"]`.
 
+`weight_index(w64, levels)` exports the kernel's nearest weight entry
+(a closed form: every table is round(k * 64 / (levels - 1))) on its own,
+so that it can be held against the twin's scan (`weight_index_plain`)
+for every float32 in [0, 64]; its launches count under
+`LAUNCHES["uastc_weight_index"]`.
+
 Both return `(winner, q0, q1, wmain, walpha, err)` for the winning mode
 of each block: its index in `modes` [B] uint8, its quantized endpoints
 [B, 4] uint8 (channel 3 is 0 for an RGB mode), its weight indices [B, 16]
@@ -39,7 +45,7 @@ from uvol_tpu_torch.codecs.basis.uastc import (
 Tensor = torch.Tensor
 
 #: kernel launches since the last reset (plain-twin calls are not counted)
-LAUNCHES = {"uastc_device_fit": 0}
+LAUNCHES = {"uastc_device_fit": 0, "uastc_weight_index": 0}
 
 #: blocks per chunk of the plain twin: its [B, 16, levels] float32 tiles
 #: stay at 256 MiB
@@ -47,6 +53,8 @@ PLAIN_CHUNK = 1 << 18
 
 #: the kernel's mode rows, one tensor per (modes, device)
 _TABLES: Dict[Tuple[Tuple[int, ...], str], Tensor] = {}
+#: one weight table per (levels, device), for `weight_index`
+_WEIGHTS: Dict[Tuple[int, str], Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -130,3 +138,34 @@ def device_fit(px: Tensor, modes: Sequence[int]):
                   wmain.data_ptr(), walpha.data_ptr(), err.data_ptr())
     LAUNCHES["uastc_device_fit"] += 1
     return winner, q0, q1, wmain, walpha, err
+
+
+def weight_index_plain(w64: Tensor, levels: int) -> Tensor:
+    """The twin's nearest weight entry (`uastc._fit_plane`): the first
+    minimum of |w64 - table[k]| over the table of `levels` entries, for
+    w64 [N] float32 -> [N] int32, on the tensor's device."""
+    table_f = torch.tensor(WEIGHT_TABLES[levels], dtype=torch.float32, device=w64.device)
+    return (w64[..., None] - table_f).abs().argmin(-1).to(torch.int32)
+
+
+def weight_index(w64: Tensor, levels: int) -> Tensor:
+    """U1's nearest weight entry for each w64 [N] float32 in [0, 64]
+    (levels one of `WEIGHT_TABLES`) -> [N] int32: on a CUDA tensor the
+    kernel's own device function (`weight_index_kernel`), on a CPU tensor
+    `weight_index_plain`."""
+    if w64.dtype != torch.float32 or w64.ndim != 1 or levels not in WEIGHT_TABLES:
+        raise ValueError(f"expected [N] float32 and levels in {sorted(WEIGHT_TABLES)}, "
+                         f"got {tuple(w64.shape)} {w64.dtype}, {levels}")
+    if w64.device.type == "cpu":
+        return weight_index_plain(w64, levels)
+    if w64.device.type != "cuda":
+        raise ValueError(f"unsupported device {w64.device}")
+    w64 = w64.contiguous()
+    key = (levels, str(w64.device))
+    if key not in _WEIGHTS:
+        _WEIGHTS[key] = torch.tensor(WEIGHT_TABLES[levels], dtype=torch.int32, device=w64.device)
+    out = torch.empty(w64.shape[0], dtype=torch.int32, device=w64.device)
+    _build.launch("uvt_uastc_weight_index", w64.device, w64.data_ptr(), w64.shape[0], levels,
+                  _WEIGHTS[key].data_ptr(), out.data_ptr())
+    LAUNCHES["uastc_weight_index"] += 1
+    return out

@@ -68,26 +68,53 @@
 // order within consecutive tiles of kSegTile rows (from 0.0), then tiles
 // added pairwise, level by level (adjacent pairs; an odd last tile is
 // added to 0.0). That is a complete binary tree over the tiles padded
-// with 0.0 to a power of two, which splits into two passes:
-//   pass 1 -- a chunk of 16 tiles (1,024 rows) is a level-4 subtree. One
-//     CTA stages the chunk's rows in shared memory (16 loads in flight per
-//     thread), sorts its keys segment << 10 | row (a bitonic sort in
-//     registers, warp shuffles and shared memory), so each segment's rows
-//     form one run in row order, and a thread per (segment, 4 columns)
-//     walks its run: each tile's sum from 0.0, then levels 0..3 over the
-//     16 tiles as a binary counter; one [k, d] partial per chunk. K6 fuses
-//     it into its assignment kernel (on [feats, 1.0] by assignment);
-//     `segment_sum` runs it on its own, columns split over CTAs in groups
-//     of at most 16;
-//   pass 2 -- the levels above, over the chunk partials of each element:
-//     a CTA reduces 32 consecutive elements (coalesced reads) in pieces of
-//     256 leaves in shared memory, then the piece roots.
-// Two launches per call whatever n, and a scratch of ceil(n/1024) x k x d
-// floats. A sum that starts from +0.0 is never -0.0 (round to nearest
-// gives -0.0 only for -0.0 + -0.0), so every 0.0 the twin adds is an
-// identity here too, and signed zeros match. Bound: bytes (each row's
-// index and values read once, the sums written once); counts are sums of
-// 1.0, exact below 2^24.
+// with 0.0 to a power of two, which splits into two passes, a chunk of 16
+// tiles (1,024 rows) being a level-4 subtree. A sum that starts from +0.0
+// is never -0.0 (round to nearest gives -0.0 only for -0.0 + -0.0), so no
+// node of the tree is -0.0 and a 0.0 added beside it is an identity:
+// every add of the twin is made, and where a segment is absent from a
+// chunk, pass 2 adds the twin's 0.0 without reading a root. Counts are
+// sums of 1.0, exact below 2^24.
+//
+// K6's pass 1 (the segment sum's former design, kept: K6 is bound by its
+// distances) is
+// fused into its assignment kernel: the chunk staged, its keys segment <<
+// 10 | row sorted by a bitonic sort over the CTA, and a thread per
+// (segment, 4 columns) walks its run through the 16 tiles (each tile's
+// sum from 0.0, levels 0..3 as a binary counter); one [k, 5] partial per
+// chunk.
+//
+// The segment sum (`segment_sum`) is bound by bytes: each row's index and
+// values read once, the sums written once (85 MB at sel_update's 327,680 x
+// 64). Its former pass 1 ran one CTA per (chunk, 16 columns), each sorting the
+// chunk's 1,024 keys again, and one thread per (segment, 4 columns)
+// walked its run through all 16 tiles serially: up to 1,024 dependent
+// adds on a hot segment, 3 threads of 256 busy at k = 1. This pass 1
+// (seg_sum_chunk_kernel) takes one CTA of kSegThreads per chunk, every
+// column. The copies of the first two column groups (at most 16 columns,
+// 4-byte or 16-byte cp.async) start at once; meanwhile each warp sorts one
+// tile's 64 keys in registers (no CTA barrier) and lists the tile's runs;
+// one warp scans the present segments' bits (a slot each) and the tiles'
+// run counts, and each run goes to the chunk's run list and under its
+// (slot, tile). Then per group, double buffered (group g + 2 is copied
+// while g + 1 is summed): a thread per (run, 4 columns) adds the run's
+// rows in order from 0.0 (at most 64 dependent adds) and writes the sum
+// over the run's first row; a thread per (segment, 4 columns) takes
+// levels 0..3 over the 16 tiles, an absent tile adding 0.0, and writes
+// the chunk's [k, d] partial (0.0 for an absent segment). At D = 64 two
+// buffers of 64 KB leave one CTA an SM; groups of 8 columns and 256 or
+// 1,024 threads measured no faster overall
+// (examples/torch_segsum_variants.py), and roots written only for the
+// segments a chunk holds made pass 2 slower than the dense reads it
+// saved (PERF.md section 6).
+//
+// Pass 2 (seg_sum_tree_kernel, K6's and the segment sum's): the levels
+// above, over the chunk partials of each element: a CTA reduces 32
+// consecutive elements (coalesced reads) in pieces of 256 leaves in
+// shared memory, then the piece roots; 32 threads an element below
+// kTreeSmallE elements, where a call is latency-bound, else 8. Two
+// launches per call whatever n, and a scratch of ceil(n/1024) x k x d
+// floats. PERF.md section 6 has the measured times.
 //
 // K7 -- the delta-aware stage's rate sweep, one frame per launch: the
 // reference's `_rate_sweep_fn` frame body (uvol_tpu/codecs/basis/
@@ -382,15 +409,16 @@ __global__ void assign_endpoints_kernel(const uint8_t* __restrict__ blocks,
 constexpr int kChunkTiles = 16;                     // tiles per pass-1 chunk (2^4)
 constexpr int kChunkLevels = 4;                     // log2(kChunkTiles)
 constexpr int kChunkRows = kChunkTiles * kSegTile;  // 1,024 rows
-constexpr int kSegMaxPitch = 16;                    // most columns a pass-1 CTA holds
 constexpr int kTreeCols = 32;                       // pass-2 elements per CTA
 constexpr int kTreeRows = 8;                        // pass-2 threads per element
+constexpr int kTreeRowsSmall = 32;                  // ... where e < kTreeSmallE: latency-bound
+constexpr int kTreeSmallE = 1 << 14;
 constexpr int kTreePiece = 256;                     // pass-2 leaves per round in shared memory
 constexpr int kTreeMaxPieces = 64;                  // rounds: n <= 2^24 rows
 constexpr int kSegMaxRows = kChunkRows * kTreePiece * kTreeMaxPieces;
 
-// Shared memory of one pass-1 chunk: `pitch` is a power of two >= the
-// columns held, `k` the segment count.
+// Shared memory of one pass-1 chunk of K6: `pitch` is a power of two >=
+// the columns held, `k` the segment count.
 struct ChunkSmem {
   float* x;      // [kChunkRows][pitch] the chunk's values
   int* key;      // [kChunkRows] segment << 10 | row (kNoSegment for none), then sorted
@@ -515,62 +543,16 @@ __device__ void chunk_sums(const ChunkSmem& s, int lp, int cols, int k,
   }
 }
 
-// Copies rows [row0, row0 + min(rows, kChunkRows)) x elements [0, cols) of
-// src (row stride ld elements) into dst [kChunkRows][2^lp], zero-filled,
-// with 16 loads in flight per thread.
-template <typename T>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src, int ld, int rows,
-                                           int64_t row0, int cols, int lp, T* dst) {
-  constexpr int kBatch = 16;
-  const int total = kChunkRows << lp;
-  for (int base = threadIdx.x; base < total; base += kBatch * kThreads) {
-    T v[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int i = base + u * kThreads, r = i >> lp, c = i & ((1 << lp) - 1);
-      v[u] = (i < total && r < rows && c < cols) ? src[(row0 + r) * ld + c] : T{};
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u)
-      if (base + u * kThreads < total) dst[base + u * kThreads] = v[u];
-  }
-}
-
-// Pass 1 of `segment_sum`: CTA (chunk, column group). idx: [n] int32
-// (rows outside [0, k) are dropped); x: [n, d] f32; part: [m, k, d].
-__global__ void seg_sum_chunk_kernel(const int32_t* __restrict__ idx,
-                                     const float* __restrict__ x, int n, int d, int k,
-                                     int dc, int lp, float* __restrict__ part) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const ChunkSmem s = chunk_smem(smem, 1 << lp, k);
-  const int c0 = blockIdx.y * dc, cols = min(dc, d - c0);
-  const int64_t row0 = (int64_t)blockIdx.x * kChunkRows;
-  const int rows = (int)(n - row0);
-#pragma unroll
-  for (int j = 0; j < kChunkRows / kThreads; ++j) {
-    const int r = threadIdx.x + j * kThreads;
-    const int v = row0 + r < n ? idx[row0 + r] : -1;
-    s.key[r] = (v >= 0 && v < k) ? (v << kRowBits | r) : kNoSegment;
-  }
-  // the values, zero past n and past the group's columns: float4 loads
-  // where rows and columns allow them, 16 loads in flight per thread
-  const float* xg = x + c0;
-  if ((d | c0 | cols) % 4 == 0 && ((uintptr_t)x & 15) == 0)
-    stage_rows((const float4*)xg, d / 4, rows, row0, cols / 4, lp - 2, (float4*)s.x);
-  else
-    stage_rows(xg, d, rows, row0, cols, lp, s.x);
-  __syncthreads();
-  chunk_sums(s, lp, cols, k, part + (int64_t)blockIdx.x * k * d + c0, d);
-}
-
-// Pass 2: the twin's remaining levels over the m chunk partials of each
-// of e elements (part: [m, e]; out: [e]) -- a complete binary tree over
-// p = 2^ceil(log2 m) leaves, leaves >= m being 0.0. A CTA takes
-// kTreeCols consecutive elements (coalesced reads) and reduces aligned
-// pieces of up to kTreePiece leaves in shared memory, then the piece
-// roots.
-__global__ void seg_sum_tree_kernel(const float* __restrict__ part, int m, int64_t e,
-                                    float* __restrict__ out) {
+// Pass 2 (K6 and the segment sum): the twin's remaining levels over the m
+// chunk partials of each of e elements (part: [m, e]; out: [e]) -- a
+// complete binary tree over p = 2^ceil(log2 m) leaves, leaves >= m being
+// 0.0. A CTA takes kTreeCols consecutive elements (coalesced reads) with
+// kRows threads each and reduces aligned pieces of up to kTreePiece
+// leaves in shared memory, then the piece roots.
+template <int kRows>  // at most 32 registers: 2,048 threads an SM, as with 8 rows untemplated
+__global__ void __launch_bounds__(kTreeCols * kRows, 2048 / (kTreeCols * kRows))
+    seg_sum_tree_kernel(const float* __restrict__ part, int m, int64_t e,
+                        float* __restrict__ out) {
   __shared__ float s_leaf[kTreePiece][kTreeCols];
   __shared__ float s_root[kTreeMaxPieces][kTreeCols];
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -584,13 +566,13 @@ __global__ void seg_sum_tree_kernel(const float* __restrict__ part, int m, int64
       if (ty == 0) s_root[pc][tx] = 0.f;
       continue;
     }
-    for (int j = ty; j < piece; j += kTreeRows) {
+    for (int j = ty; j < piece; j += kRows) {
       const int leaf = leaf0 + j;
       s_leaf[j][tx] = (leaf < m && el < e) ? part[(int64_t)leaf * e + el] : 0.f;
     }
     __syncthreads();
     for (int w = 1; w < piece; w *= 2) {  // level by level, in place
-      for (int j = ty * 2 * w; j < piece; j += kTreeRows * 2 * w)
+      for (int j = ty * 2 * w; j < piece; j += kRows * 2 * w)
         s_leaf[j][tx] = __fadd_rn(s_leaf[j][tx], s_leaf[j + w][tx]);
       __syncthreads();
     }
@@ -599,11 +581,281 @@ __global__ void seg_sum_tree_kernel(const float* __restrict__ part, int m, int64
   }
   __syncthreads();
   for (int w = 1; w < pieces; w *= 2) {  // the levels above the pieces
-    for (int j = ty * 2 * w; j < pieces; j += kTreeRows * 2 * w)
+    for (int j = ty * 2 * w; j < pieces; j += kRows * 2 * w)
       s_root[j][tx] = __fadd_rn(s_root[j][tx], s_root[j + w][tx]);
     __syncthreads();
   }
   if (ty == 0 && el < e) out[el] = s_root[0][tx];
+}
+
+// -- the segment sum's pass 1: each tile's keys sorted in one warp, the
+// chunk's present segments found once, the column groups streamed through
+// two shared-memory buffers.
+
+constexpr int kSegThreads = 512;          // pass-1 threads per CTA
+constexpr int kSegGroupCols = 16;         // most columns of a staged group
+constexpr int kSegWords = kSegMaxK / 32;  // presence words of a chunk, at most
+constexpr int kSegMaxSlots = kChunkRows;  // present segments of a chunk, at most
+constexpr int kRunLenShift = 10;          // a run: first position | length << 10
+
+// Shared memory of a pass-1 CTA, for `slots` = min(k, kSegMaxSlots)
+// present segments at most, in this order (each size a multiple of 16
+// bytes): the keys, sorted within each tile; each tile's runs (first
+// position | length << 10, in tile order, tile t's from [64 t]); the same
+// runs as one list; the presence bits, and the slots before each word; the
+// runs a tile holds and those before it; per slot (a present segment, in
+// segment order) the tiles that hold it and the first row of its run in
+// each; then one or two staged column groups of kChunkRows rows at `pitch`
+// floats.
+struct SegSmem {
+  int* key;        // [kChunkRows] segment << 10 | row (kNoSegment for none)
+  int* tile_run;   // [kChunkRows]
+  int* run;        // [kChunkRows]
+  unsigned* bits;  // [kSegWords]
+  int* base;       // [kSegWords]
+  int* tiles;      // [2 * kChunkTiles]: the runs of each tile, then the runs before it
+  int* mask;       // [slots] a bit per tile
+  short* run_row;  // [slots][kChunkTiles], valid where mask has the tile's bit
+  float* x;        // [nbuf][kChunkRows][pitch]
+};
+
+__host__ __device__ inline size_t seg_meta_bytes(int slots) {
+  const size_t s8 = (size_t)((slots + 7) & ~7);
+  return kChunkRows * 12 + kSegWords * 8 + kChunkTiles * 8 + s8 * 4 + s8 * 2 * kChunkTiles;
+}
+
+__device__ inline SegSmem seg_smem(unsigned char* base, int slots) {
+  SegSmem s;
+  s.key = (int*)base;
+  s.tile_run = s.key + kChunkRows;
+  s.run = s.tile_run + kChunkRows;
+  s.bits = (unsigned*)(s.run + kChunkRows);
+  s.base = (int*)(s.bits + kSegWords);
+  s.tiles = s.base + kSegWords;
+  s.mask = s.tiles + 2 * kChunkTiles;
+  s.run_row = (short*)(s.mask + ((slots + 7) & ~7));
+  s.x = (float*)(base + seg_meta_bytes(slots));
+  return s;
+}
+
+// Starts the copies of rows [row0, row0 + rows) x columns [c0, c0 + cols)
+// of x ([*, d] f32) into dst ([kChunkRows][pitch]): 16-byte copies where
+// `vec` (d, c0 and cols multiples of 4, x 16-byte aligned), else 4-byte
+// ones; a row's copies go by a power of two 2^lc >= their count. Nothing
+// else is written: the walks read only rows with a key, and a column past
+// cols only into a result that is not stored.
+__device__ __forceinline__ void stage_group(const float* __restrict__ x, int d, int64_t row0,
+                                            int rows, int c0, int cols, int pitch, int lc,
+                                            bool vec, float* dst) {
+  const int per = vec ? cols >> 2 : cols, width = vec ? 4 : 1, mask = (1 << lc) - 1;
+  for (int i = threadIdx.x; i < rows << lc; i += kSegThreads) {
+    const int r = i >> lc, c = (i & mask) * width;
+    if ((i & mask) >= per) continue;
+    if (vec)
+      __pipeline_memcpy_async(dst + r * pitch + c, x + (row0 + r) * d + c0 + c, 16);
+    else
+      __pipeline_memcpy_async(dst + r * pitch + c, x + (row0 + r) * d + c0 + c, 4);
+  }
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+
+// Bitonic sort of one tile's 64 keys by one warp, ascending: lane l holds
+// keys l (v0) and l + 32 (v1); the stride 32 pairs a lane's two keys, the
+// others go through shuffles.
+__device__ __forceinline__ void sort_tile(int& v0, int& v1) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int size = 2; size <= 64; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride == 32) {  // size 64: ascending
+        const int lo = min(v0, v1);
+        v1 = max(v0, v1);
+        v0 = lo;
+        continue;
+      }
+      const int b0 = __shfl_xor_sync(0xffffffffu, v0, stride);
+      const int b1 = __shfl_xor_sync(0xffffffffu, v1, stride);
+      // the lower index of an ascending pair keeps the smaller key
+      const bool min0 = ((lane & stride) == 0) == ((lane & size) == 0);
+      const bool min1 = ((lane & stride) == 0) == (((lane + 32) & size) == 0);
+      v0 = min0 ? min(v0, b0) : max(v0, b0);
+      v1 = min1 ? min(v1, b1) : max(v1, b1);
+    }
+  }
+}
+
+// Pass 1 of `segment_sum`: one CTA per chunk of kChunkRows rows, every
+// column. idx: [n] int32 (rows outside [0, k) are dropped); x: [n, d] f32,
+// read in `groups` groups of dc columns (the last may hold fewer), each
+// staged at a pitch of 4 * ceil(dc / 4) floats; lq = log2 of a power of two
+// >= dc / 4 (the quads a walk item takes), lc that of the copies a staged
+// row takes; part: [m, k, d] chunk partials (0.0 for a segment the chunk
+// does not hold).
+__global__ void __launch_bounds__(kSegThreads)
+    seg_sum_chunk_kernel(const int32_t* __restrict__ idx, const float* __restrict__ x, int n,
+                         int d, int k, int dc, int groups, int pitch, int lq, int lc, bool vec,
+                         float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int slots = min(k, kSegMaxSlots);
+  const SegSmem s = seg_smem(smem, slots);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t row0 = (int64_t)blockIdx.x * kChunkRows;
+  const int rows = (int)min((int64_t)kChunkRows, (int64_t)n - row0);
+  const int kw = (k + 31) >> 5, nq = 1 << lq, buf = kChunkRows * pitch;
+  // 1. the copies of the first two column groups start now and land while
+  //    the keys are sorted; one commit per group, an empty one past the last
+  stage_group(x, d, row0, rows, 0, min(dc, d), pitch, lc, vec, s.x);
+  __pipeline_commit();
+  if (groups > 1) stage_group(x, d, row0, rows, dc, min(dc, d - dc), pitch, lc, vec, s.x + buf);
+  __pipeline_commit();
+  for (int i = tid; i < kw; i += kSegThreads) s.bits[i] = 0u;
+  for (int i = tid; i < slots; i += kSegThreads) s.mask[i] = 0;
+  __syncthreads();
+  // 2. per tile, one warp: the keys segment << 10 | row sorted, so that each
+  //    segment's rows of the tile are one run in row order; the tile's runs
+  //    in order, and the present segments' bits
+  for (int t = warp; t < kChunkTiles; t += kSegThreads / 32) {
+    int v[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = t * kSegTile + 32 * j + lane;
+      const int sg = r < rows ? idx[row0 + r] : -1;
+      v[j] = sg >= 0 && sg < k ? (sg << kRowBits | r) : kNoSegment;
+    }
+    sort_tile(v[0], v[1]);
+    // a run starts where the segment changes (no segment counts as one)
+    const int up0 = __shfl_up_sync(0xffffffffu, v[0], 1);
+    const int up1 = __shfl_up_sync(0xffffffffu, v[1], 1);
+    const int last0 = __shfl_sync(0xffffffffu, v[0], 31);
+    const int prev[2] = {lane ? up0 : -1, lane ? up1 : last0};
+    bool start[2], live[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      start[j] = (prev[j] >> kRowBits) != (v[j] >> kRowBits);
+      live[j] = start[j] && v[j] < kNoSegment;
+    }
+    const uint64_t starts = (uint64_t)__ballot_sync(0xffffffffu, start[0]) |
+                            (uint64_t)__ballot_sync(0xffffffffu, start[1]) << 32;
+    const uint64_t runs = (uint64_t)__ballot_sync(0xffffffffu, live[0]) |
+                          (uint64_t)__ballot_sync(0xffffffffu, live[1]) << 32;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int i = 32 * j + lane, p = t * kSegTile + i;
+      s.key[p] = v[j];
+      if (live[j]) {
+        const uint64_t after = (starts >> i) >> 1;  // the starts past i
+        const int len = after ? __ffsll((long long)after) : kSegTile - i;
+        const int rank = __popcll(runs & ((1ull << i) - 1));
+        s.tile_run[t * kSegTile + rank] = p | len << kRunLenShift;
+        atomicOr(s.bits + (v[j] >> (kRowBits + 5)), 1u << ((v[j] >> kRowBits) & 31));
+      }
+    }
+    if (lane == 0) s.tiles[t] = __popcll(runs);
+  }
+  __syncthreads();
+  // 3. one warp: the slots before each presence word (a present segment's
+  //    slot is its rank among them) and the runs before each tile; then each
+  //    run goes to the chunk's run list and under its (slot, tile)
+  if (warp == 0) {
+    int total = 0;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int w = 32 * j + lane, c = w < kw ? __popc(s.bits[w]) : 0;
+      int inc = c;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, inc, o);
+        if (lane >= o) inc += y;
+      }
+      if (w < kw) s.base[w] = total + inc - c;
+      total += __shfl_sync(0xffffffffu, inc, 31);
+    }
+    const int c = lane < kChunkTiles ? s.tiles[lane] : 0;
+    int inc = c;
+#pragma unroll
+    for (int o = 1; o < kChunkTiles; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += y;
+    }
+    if (lane < kChunkTiles) s.tiles[kChunkTiles + lane] = inc - c;
+  }
+  __syncthreads();
+  const int nruns = s.tiles[2 * kChunkTiles - 1] + s.tiles[kChunkTiles - 1];
+  for (int i = tid; i < kChunkRows; i += kSegThreads) {
+    const int t = i / kSegTile, r = i % kSegTile;
+    if (r >= s.tiles[t]) continue;
+    const int rp = s.tile_run[i], kp = s.key[rp & (kChunkRows - 1)];
+    const int seg = kp >> kRowBits, w = seg >> 5;
+    const int slot = s.base[w] + __popc(s.bits[w] & ((1u << (seg & 31)) - 1));
+    s.run[s.tiles[kChunkTiles + t] + r] = rp;
+    s.run_row[slot * kChunkTiles + t] = (short)(kp & (kChunkRows - 1));
+    atomicOr(s.mask + slot, 1 << t);
+  }
+  // 4. per column group: each run's in-order sum from 0.0 (a thread per
+  //    (run, 4 columns): at most 64 dependent adds), written over its first
+  //    row; then per (segment, 4 columns) the twin's levels 0..3 over the 16
+  //    tiles, an absent tile adding 0.0, written as the chunk's partial (0.0
+  //    for a segment the chunk does not hold); then the copies of the group
+  //    two ahead into the buffer just read
+  for (int g = 0; g < groups; ++g) {
+    __pipeline_wait_prior(1);  // all but the last commit: group g has landed
+    __syncthreads();
+    float* xb = s.x + (g & 1) * buf;
+    const int c0 = g * dc, cols = min(dc, d - c0);
+    for (int i = tid; i < nruns << lq; i += kSegThreads) {
+      const int q = i & (nq - 1), rp = s.run[i >> lq];
+      if (4 * q >= cols) continue;
+      const int p = rp & (kChunkRows - 1), len = rp >> kRunLenShift;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int j = 0; j < len; ++j)
+        acc = add4(acc, *(const float4*)(xb + (s.key[p + j] & (kChunkRows - 1)) * pitch + 4 * q));
+      *(float4*)(xb + (s.key[p] & (kChunkRows - 1)) * pitch + 4 * q) = acc;
+    }
+    __syncthreads();
+    for (int i = tid; i < k << lq; i += kSegThreads) {
+      const int seg = i >> lq, q = i & (nq - 1), w = seg >> 5;
+      if (4 * q >= cols) continue;
+      const unsigned bw = s.bits[w], bit = 1u << (seg & 31);
+      float4 node = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (bw & bit) {
+        const int slot = s.base[w] + __popc(bw & (bit - 1)), tiles = s.mask[slot];
+        const short* rr = s.run_row + slot * kChunkTiles;
+        float4 pend[kChunkLevels];
+#pragma unroll
+        for (int t = 0; t < kChunkTiles; ++t) {
+          node = make_float4(0.f, 0.f, 0.f, 0.f);
+          if ((tiles >> t) & 1) node = *(const float4*)(xb + rr[t] * pitch + 4 * q);
+#pragma unroll
+          for (int l = 0; l < kChunkLevels; ++l) {
+            if (!((t >> l) & 1)) {
+              pend[l] = node;
+              break;
+            }
+            node = add4(pend[l], node);
+          }
+        }
+      }
+      float* o = part + ((int64_t)blockIdx.x * k + seg) * d + c0 + 4 * q;
+      if (vec) {
+        *(float4*)o = node;
+      } else {
+        const float v[4] = {node.x, node.y, node.z, node.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (4 * q + c < cols) o[c] = v[c];
+      }
+    }
+    __syncthreads();  // the buffer is read: the group two ahead may land there
+    if (g + 2 < groups)
+      stage_group(x, d, row0, rows, (g + 2) * dc, min(dc, d - (g + 2) * dc), pitch, lc, vec,
+                  s.x + (g & 1) * buf);
+    __pipeline_commit();
+  }
 }
 
 // K6: one CTA per chunk of kChunkRows rows. The nearest centroid of each
@@ -934,7 +1186,11 @@ constexpr cudaFuncAttribute kSmemLimit = cudaFuncAttributeMaxDynamicSharedMemory
 
 cudaError_t launch_tree(const float* part, int m, int64_t e, float* out, cudaStream_t s) {
   const unsigned grid = (unsigned)((e + kTreeCols - 1) / kTreeCols);
-  seg_sum_tree_kernel<<<grid, dim3(kTreeCols, kTreeRows), 0, s>>>(part, m, e, out);
+  if (e < kTreeSmallE)
+    seg_sum_tree_kernel<kTreeRowsSmall><<<grid, dim3(kTreeCols, kTreeRowsSmall), 0, s>>>(
+        part, m, e, out);
+  else
+    seg_sum_tree_kernel<kTreeRows><<<grid, dim3(kTreeCols, kTreeRows), 0, s>>>(part, m, e, out);
   return cudaGetLastError();
 }
 
@@ -978,15 +1234,20 @@ int uvt_etc1s_segment_sum(const void* idx, const void* x, int n, int d, int k, v
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int m = chunks_for(n);
-  const int groups = (d + kSegMaxPitch - 1) / kSegMaxPitch;
-  const int dc = (d + groups - 1) / groups;
-  int lp = 2;  // a pitch of at least 4: the sums read float4
-  while ((1 << lp) < dc) ++lp;
-  const size_t smem = chunk_smem_bytes(1 << lp, k);
+  const int groups = (d + kSegGroupCols - 1) / kSegGroupCols;
+  const int dc = (d + groups - 1) / groups, quads = (dc + 3) / 4;
+  const bool vec = d % 4 == 0 && dc % 4 == 0 && ((uintptr_t)x & 15) == 0 &&
+                   ((uintptr_t)part & 15) == 0;
+  int lq = 0, lc = 0;  // powers of two >= the quads and the copies of a row
+  while ((1 << lq) < quads) ++lq;
+  while ((1 << lc) < (vec ? quads : dc)) ++lc;
+  const size_t smem = seg_meta_bytes(min(k, kSegMaxSlots)) +
+                      (size_t)min(groups, 2) * kChunkRows * quads * 16;
   cudaError_t err = cudaFuncSetAttribute(seg_sum_chunk_kernel, kSmemLimit, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  seg_sum_chunk_kernel<<<dim3((unsigned)m, (unsigned)groups), kThreads, smem, s>>>(
-      (const int32_t*)idx, (const float*)x, n, d, k, dc, lp, (float*)part);
+  seg_sum_chunk_kernel<<<(unsigned)m, kSegThreads, smem, s>>>(
+      (const int32_t*)idx, (const float*)x, n, d, k, dc, groups, 4 * quads, lq, lc, vec,
+      (float*)part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_tree((const float*)part, m, (int64_t)k * d, (float*)out, s);
@@ -1033,7 +1294,9 @@ int uvt_etc1s_func_attrs(int which, int* out, const char** name) {
   static const KernelRef ks[] = {
       UVT_KERNEL(inten_errors_kernel), UVT_KERNEL(assign_endpoints_kernel),
       UVT_KERNEL(kmeans_chunk_kernel), UVT_KERNEL(seg_sum_chunk_kernel),
-      UVT_KERNEL(seg_sum_tree_kernel), UVT_KERNEL(rate_sweep_frame_kernel)};
+      KernelRef{(const void*)seg_sum_tree_kernel<kTreeRows>, "seg_sum_tree_kernel"},
+      KernelRef{(const void*)seg_sum_tree_kernel<kTreeRowsSmall>, "seg_sum_tree_kernel_small"},
+      UVT_KERNEL(rate_sweep_frame_kernel)};
   return fill_func_attrs(ks, which, out, name);
 }
 

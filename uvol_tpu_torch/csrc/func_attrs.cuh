@@ -16,9 +16,11 @@ struct KernelRef {
 
 #define UVT_KERNEL(f) KernelRef{(const void*)(f), #f}
 
-// Kernel `which` of `ks`: its name, and out[0..2] = registers per thread,
-// local (stack) bytes, static shared bytes. -1 past the last kernel, else
-// the CUDA error.
+// Kernel `which` of `ks`: its name, and out[0..3] = registers per thread,
+// local (stack) bytes, static shared bytes, and the dynamic shared bytes
+// a launch may take (the limit a launcher last set with
+// cudaFuncSetAttribute, else 48 KB minus the static bytes). -1 past the
+// last kernel, else the CUDA error.
 template <size_t N>
 int fill_func_attrs(const KernelRef (&ks)[N], int which, int* out, const char** name) {
   if (which < 0 || which >= (int)N) return -1;
@@ -29,6 +31,7 @@ int fill_func_attrs(const KernelRef (&ks)[N], int which, int* out, const char** 
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   out[2] = (int)a.sharedSizeBytes;
+  out[3] = a.maxDynamicSharedSizeBytes;
   return 0;
 }
 
