@@ -42,13 +42,20 @@ one launch a window unpacks, dequantizes and decodes the normals of
 every float attribute) is held bit for bit against its twin on random
 windows (every packing mode and kind, value counts off every group size,
 modes 16 and 32 at their extremes, maxv 254, 0 and -1, metadata just
-4-aligned); `decode_drc_batch` of 8 frames on the card equals the CPU
+4-aligned, 1 to 4 components, frames that CTAs cross, attributes at every
+residue mod 16, windows off a 16-byte boundary and windows whose last
+16-byte piece of an attribute reaches past their end; every output view
+contiguous and 16-byte aligned; a cached spec key's window one byte short
+raises); `decode_drc_batch` of 8 frames on the card equals the CPU
 port's bit for bit and the C host floats within 2e-5; one decode window
 is one K8 launch and one H2D copy; `decode_drc_stream` at windows 4 and
 8 equals the batches; device memory does not grow over the windows;
 `stream_frames` runs the geometry encode over 3 windows of 32 frames.
-It reports the batch and pipelined decode rates, K8 on a 64-frame
-window (per call, alone, its twin) and the traced split of one window.
+It reports the batch and pipelined decode rates, K8 on the 8- and a
+64-frame window (per call, alone, its twin; alone at 8 frames also with
+the L2 cache overwritten), `stream_frames` as a median of REPS with its
+minimum and maximum, beside the same windows given pinned, and the traced
+split of one window.
 
 Its last phase, `cli_player_path`, drives the port's own entry points on
 the card: `uvol_tpu_torch.encoder_cli.main` in process and the facade
@@ -218,11 +225,14 @@ DRC_BENCH_WINDOW = 4  # bench.py's stream window
 DRC_STAGE_FRAMES = 64  # bench.py's device-stage variant: K8 on a 64-frame window
 DRC_STREAM_WINDOWS = 3  # stream_frames over windows of F frames (bench.py:744-760)
 #: K8 on random windows: (kind, mode, values hi) of every mode (modes 16 and 32
-#: signed, at their extremes) and kind, each at nmax off every group size and
-#: off a CTA's 1,024 values, with maxv 254, 0 and -1 over the frames
+#: signed, at their extremes) and kind, each at nmax off every group size, off
+#: and on a CTA's values (4,097 frames are crossed by CTAs, 4,096 not), with
+#: maxv 254, 0 and -1 over the frames
 DRC_ATTRS = ((1, 8, 1 << 8), (1, 10, 1 << 10), (1, 12, 1 << 12), (1, 16, 1 << 16),
              (1, 32, 1 << 32), (2, 8, 1 << 8), (2, 10, 1 << 10), (2, 16, 1 << 16))
-DRC_NMAX = (1, 3, 1001, 4097)
+DRC_NMAX = (1, 3, 1001, 4096, 4097)
+#: and kind 1 at these modes with 1 to 4 components
+DRC_NC_MODES = (8, 10, 12, 16, 32)
 #: the encoder CLI and the player (`cli_player_path`): projects A and B take the
 #: CLI's defaults (`encoder_cli.TEMPLATE`) on F OBJ frames of DRC_GRID grids and
 #: F PNG layers of the bench texture, the Draco frames in 8 spawned workers, played
@@ -1260,19 +1270,21 @@ def etc1s_delta_path(torch, dev, textures, median_cuda_ms) -> tuple:
     return launches, err, ms
 
 
-def drc_window(torch, attrs, f: int, nmax: int, seed: int, maxv=(254.0,), pad: int = 0):
-    """A random packed K8 window: attrs [(kind, mode, values hi)], kind 1
-    with 3 components, kind 2 (normals) with 2; mode 16 and 32 values
-    signed, with both extremes present; `maxv` cycles over the frames;
-    `pad` extra bytes before the 4-aligned metadata. Returns (packed
-    uint8 tensor, specs, meta_off, meta_len)."""
+def drc_window(torch, attrs, f: int, nmax: int, seed: int, maxv=(254.0,), pad: int = 0,
+               lead: int = 0):
+    """A random packed K8 window: attrs [(kind, mode, values hi[, nc])],
+    kind 1 with nc (default 3) components, kind 2 (normals) with 2; mode 16
+    and 32 values signed, with both extremes present; `maxv` cycles over
+    the frames; `lead` bytes before the first attribute, `pad` extra bytes
+    before the 4-aligned metadata. Returns (packed uint8 tensor, specs,
+    meta_off, meta_len)."""
     from uvol_tpu_torch.models.drc_device import _pack_host
 
     r = np.random.default_rng(seed)
-    chunks, metas, specs = [], [], []
-    off = moff = 0
-    for t, (kind, mode, hi) in enumerate(attrs):
-        nc = 3 if kind == 1 else 2
+    chunks, metas, specs = [np.full(lead, 0xA5, np.uint8)], [], []
+    off, moff = lead, 0
+    for t, (kind, mode, hi, *nc) in enumerate(attrs):
+        nc = nc[0] if nc else 3 if kind == 1 else 2
         n = f * nmax * nc
         lo = -(hi // 2) if mode in (16, 32) else 0
         ints = r.integers(lo, lo + hi, n, dtype=np.int64)
@@ -1289,6 +1301,45 @@ def drc_window(torch, attrs, f: int, nmax: int, seed: int, maxv=(254.0,), pad: i
     meta_all = np.concatenate(metas)
     packed = np.concatenate(chunks + [np.zeros(pad, np.uint8), meta_all.view(np.uint8)])
     return torch.from_numpy(packed), tuple(specs), off + pad, len(meta_all)
+
+
+def drc_cases(torch) -> list:
+    """K8's random windows beyond `DRC_ATTRS` x `DRC_NMAX`: [(name, packed
+    on the host, specs, meta_off, meta_len, base)], base the residue mod 16
+    of the window's first byte on the card (`on_card_at`): kind 1 with 1 to
+    4 components, the attribute at a residue mod 16; four attributes with
+    the first at every residue; one frame of normals whose last 16-byte
+    piece reaches past the window's end."""
+    cases = []
+    for mode in DRC_NC_MODES:
+        for nc in range(1, 5):
+            for nmax in DRC_NMAX:
+                lead = (mode * 7 + nc * 3 + nmax) % 16
+                packed, specs, mo, ml = drc_window(torch, [(1, mode, 1 << min(mode, 31), nc)], 3,
+                                                   nmax, mode + nc + nmax, lead=lead)
+                cases.append((f"nc{nc}_mode{mode}_nmax{nmax}", packed, specs, mo, ml,
+                              (4 - mo) % 4 + 4 * (nmax % 4)))
+    for lead in range(16):
+        packed, specs, mo, ml = drc_window(
+            torch, [(1, 12, 1 << 12), (1, 10, 1 << 10, 2), (2, 8, 255), (1, 16, 1 << 16, 4)],
+            2, 4096, lead, pad=lead % 4, lead=lead)
+        for base in ((4 - mo) % 4, (4 - mo) % 4 + 8):
+            cases.append((f"four_lead{lead}_base{base}", packed, specs, mo, ml, base))
+    for nmax in (1001, 1003):
+        for base in range(0, 16, 4):
+            packed, specs, mo, ml = drc_window(torch, [(2, 8, 255)], 1, nmax, nmax + base)
+            cases.append((f"ends_in_metadata_nmax{nmax}_base{base}", packed, specs, mo, ml, base))
+    return cases
+
+
+def on_card_at(torch, dev, packed, base: int):
+    """The window on the card as a view whose first byte lies `base` bytes
+    past a 16-byte boundary (the caching allocator's blocks are 512-aligned)."""
+    big = torch.zeros(len(packed) + 32, dtype=torch.uint8, device=dev)
+    view = big[base:base + len(packed)]
+    view.copy_(packed.to(dev))
+    check(view.data_ptr() % 16 == base, "on_card_at: the view is not where it was asked")
+    return view
 
 
 def hold_floats(torch, err: dict, name: str, got, want) -> None:
@@ -1430,6 +1481,33 @@ def drc_device_path(torch, dev, positions, uvs, median_cuda_ms) -> tuple:
                         dd.fused_batch_plain(packed.to(dev), specs, mo, ml)):
             hold_floats(torch, err, "drc_fused_batch", g, w)
         cases += 1
+    # component counts, offsets and window bases; every output view contiguous
+    # and 16-byte aligned
+    for _name, packed, specs, mo, ml, base in drc_cases(torch):
+        for g, w in zip(dd.fused_batch(on_card_at(torch, dev, packed, base), specs, mo, ml),
+                        dd.fused_batch_plain(packed, specs, mo, ml), strict=True):
+            check(g.is_contiguous() and g.data_ptr() % 16 == 0,
+                  "K8's output view is not contiguous and 16-byte aligned")
+            hold_floats(torch, err, "drc_fused_batch", g, w)
+        cases += 1
+    # the plan cache: a hit and a miss on a new meta_len give a fresh call's
+    # outputs; a window one byte short of a cached key raises
+    packed, specs, mo, ml = drc_window(torch, [(1, 12, 1 << 11), (2, 8, 255)], DRC_WINDOW,
+                                       4096, 7)
+    dd._PLANS.clear()
+    fresh = dd.fused_batch(packed.to(dev), specs, mo, ml)
+    hit = dd.fused_batch(on_card_at(torch, dev, packed, 4), specs, mo, ml)
+    longer = torch.cat([packed, torch.zeros(4, dtype=torch.uint8)])
+    miss = dd.fused_batch(longer.to(dev), specs, mo, ml + 1)
+    check(len(dd._PLANS) == 2, f"K8's plan cache holds {len(dd._PLANS)} keys, not 2")
+    for a, b, c in zip(fresh, hit, miss, strict=True):
+        hold_floats(torch, err, "drc_fused_batch", b, a)
+        hold_floats(torch, err, "drc_fused_batch", c, a)
+    try:
+        dd.fused_batch(packed.to(dev)[:-1], specs, mo, ml)
+        check(False, "K8 took a window one byte short of its cached key")
+    except ValueError:
+        pass
 
     # frames: liam-scale grids from the port's native encoder, before any timing
     t = time.perf_counter()
@@ -1531,7 +1609,17 @@ def drc_device_path(torch, dev, positions, uvs, median_cuda_ms) -> tuple:
                                               for _ in range(REPS)]))
     ms["drc_decode_pipelined"] = float(np.median([host_ms(lambda: drain(blobs))
                                                   for _ in range(3)]))
-    sf_ms = host_ms(lambda: [r for _i, r in stream_frames(sf_windows, step)])
+    # stream_frames: REPS runs on the numpy windows (each array pinned on its
+    # upload), beside the same windows given already pinned
+    sf_pinned = [tuple(torch.from_numpy(a).pin_memory() for a in w) for w in sf_windows]
+    sf = {}
+    for key, wins in (("numpy", sf_windows), ("pinned", sf_pinned)):
+        runs = [host_ms(lambda: [r for _i, r in stream_frames(wins, step)])
+                for _ in range(REPS)]
+        sf[key] = {"median_ms": float(np.median(runs)), "min_ms": min(runs),
+                   "max_ms": max(runs), "runs_ms": runs}
+    sf_ms = sf["numpy"]["median_ms"]
+    del sf_pinned
 
     # K8 at the main path's window (DRC_WINDOW frames) and at the bench's
     # 64-frame device stage: per call, alone, and its twin on the card
@@ -1546,6 +1634,14 @@ def drc_device_path(torch, dev, positions, uvs, median_cuda_ms) -> tuple:
         ms[key] = median_cuda_ms(lambda: dd.fused_batch(*args), REPS)
         ms[key + "_plain"] = median_cuda_ms(lambda: dd.fused_batch_plain(*args), REPS)
         ms[key + "_kernel"], _ = kernel_only_ms(torch, lambda: dd.fused_batch(*args), k8)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def k8_cold():  # the 50 MB L2 cache overwritten before each call
+        flush.zero_()
+        return dd.fused_batch(*main_args)
+
+    ms["drc_fused_batch_kernel_l2_cold"], _ = kernel_only_ms(torch, k8_cold, k8)
+    del flush
     stage_verts = DRC_STAGE_FRAMES * DRC_GRID[0] * DRC_GRID[1]
 
     emit({"phase": "drc_device_path", "grid": DRC_GRID, "bits": DRC_BITS,
@@ -1554,7 +1650,7 @@ def drc_device_path(torch, dev, positions, uvs, median_cuda_ms) -> tuple:
           "k8_random_cases": cases, "launches": launches, "window": events,
           "host_c_max_abs_err": host_err, "peak_bytes": peaks, "window_out_bytes": window_out,
           "packed_bytes": {"main": int(main_args[0].numel()), "stage": int(stage_args[0].numel())},
-          "ms": ms, "stream_frames_ms": sf_ms,
+          "ms": ms, "stream_frames_ms": sf_ms, "stream_frames": sf,
           "decode_fps": DRC_WINDOW / (ms["drc_decode_batch"] / 1e3),
           "decode_mverts": verts / (ms["drc_decode_batch"] / 1e3) / 1e6,
           "decode_pipelined_fps": DRC_FRAMES / (ms["drc_decode_pipelined"] / 1e3),

@@ -6,8 +6,9 @@ A wrapper call of `uvol_tpu_torch` is host work (argument checks, output
 allocation, the stream lookup, the ctypes call, the launch) beside its
 kernel. This script times those pieces on the host clock, each in a loop
 of `LOOPS` iterations that ends in one `torch.cuda.synchronize()`, at the
-geometry encode's shapes (32 frames x 26,145 vertices) and at the palette
-build's (327,680 blocks, 256 entries), and prints one JSON object with
+geometry encode's shapes (32 frames x 26,145 vertices), at the palette
+build's (327,680 blocks, 256 entries) and at a `.drc` decode window's (K8:
+8 frames of 28,672 vertices, three attributes), and prints one JSON object with
 microseconds per iteration, after the card's `nvidia-smi` name/power-limit
 line. A loop whose kernels take longer than its host work reads the
 kernels' time, so `wrapper_*` lines give the larger of the two.
@@ -15,6 +16,7 @@ kernels' time, so `wrapper_*` lines give the larger of the two.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -28,6 +30,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from uvol_tpu_torch import _build  # noqa: E402
 from uvol_tpu_torch.codecs.basis import etc1s_cuda as k  # noqa: E402
+from uvol_tpu_torch.models import drc_device as dd  # noqa: E402
 from uvol_tpu_torch.ops import pallas_kernels as pk  # noqa: E402
 
 LOOPS = 2000
@@ -99,6 +102,29 @@ def main() -> int:
     us["wrapper_segment_sum_d4"] = per_call_us(lambda: k.segment_sum(idx, ENTRIES, feats), 200)
     us["wrapper_segment_sum_d4_int64_idx"] = per_call_us(
         lambda: k.segment_sum(idx64, ENTRIES, feats), 200)
+    # K8's wrapper and its pieces on the main path's window
+    import chip_smoke as cs
+
+    packed, specs, mo, ml = cs.drc_window(torch, ((1, 12, 1 << 11, 3), (1, 10, 1 << 10, 2),
+                                                  (2, 8, 255)), 8, 28672, 0)
+    packed = packed.to(dev)
+    plan = dd._plan(specs, mo, ml)
+    dout = torch.empty(plan.total, dtype=torch.float32, device=dev)
+    k8 = dd._k8()
+    empty_table = (dd._Spec * dd.MAX_SPECS)()  # f = 0: the entry point launches nothing
+    empty_table[0].kind, empty_table[0].mode, empty_table[0].nc = 1, 8, 1
+    us["k8_plan_cached"] = per_call_us(lambda: dd._plan(specs, mo, ml))
+    us["k8_torch_empty_out"] = per_call_us(
+        lambda: torch.empty(plan.total, dtype=torch.float32, device=dev))
+    us["k8_views"] = per_call_us(lambda: tuple(dout.as_strided(sh, st, at)
+                                               for sh, st, at in plan.views))
+    us["k8_build_launch_no_launch"] = per_call_us(lambda: _build.launch(
+        k8, dev, packed.data_ptr(), packed.numel(), ctypes.addressof(empty_table), 1, mo,
+        dout.data_ptr()))
+    us["k8_ctypes_call_launching"] = per_call_us(lambda: k8(
+        packed.data_ptr(), packed.numel(), ctypes.addressof(plan.table), len(specs), mo,
+        dout.data_ptr(), stream), 200)
+    us["wrapper_k8_8_frames"] = per_call_us(lambda: dd.fused_batch(packed, specs, mo, ml), 200)
     print(json.dumps({"loops": LOOPS, "us_per_call": us}))
     return 0
 

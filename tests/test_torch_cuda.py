@@ -490,7 +490,7 @@ def test_redesigned_kernels_use_no_stack(card):
     for fn in ("etc1_encode_kernel", "etc1_decode_kernel", "inten_errors_kernel",
                "geometry_minmax_kernel", "quantize_delta_zigzag_kernel", "rate_sweep_frame_kernel",
                "uastc_device_fit_kernel", "weight_index_kernel", "seg_sum_chunk_kernel",
-               "seg_sum_tree_kernel", "seg_sum_tree_kernel_small"):
+               "seg_sum_tree_kernel", "seg_sum_tree_kernel_small", "drc_fused_batch_kernel"):
         assert attrs[fn]["stack_bytes"] == 0, (fn, attrs[fn])
 
 
@@ -605,19 +605,21 @@ _DRC_ATTRS = ((1, 8, 1 << 8), (1, 10, 1 << 10), (1, 12, 1 << 12), (1, 16, 1 << 1
               (1, 32, 1 << 32), (2, 8, 1 << 8), (2, 10, 1 << 10), (2, 16, 1 << 16))
 
 
-def _drc_window(specs_in, f: int, nmax: int, seed: int, maxv=(254.0,), pad: int = 0):
+def _drc_window(specs_in, f: int, nmax: int, seed: int, maxv=(254.0,), pad: int = 0,
+                lead: int = 0):
     """A packed K8 window of random attributes: specs_in is [(kind, mode,
-    hi)]; kind 1 takes 3 components, kind 2 the normals' 2; mode 16 and
-    32 values are signed, with both extremes present; `maxv` cycles over
-    the frames; `pad` extra bytes before the 4-aligned metadata. Returns
+    hi[, nc])]; kind 1 takes nc (default 3) components, kind 2 the
+    normals' 2; mode 16 and 32 values are signed, with both extremes
+    present; `maxv` cycles over the frames; `lead` bytes before the first
+    attribute and `pad` extra bytes before the 4-aligned metadata. Returns
     (packed uint8 tensor, specs, meta_off, meta_len)."""
     from uvol_tpu_torch.models.drc_device import _pack_host
 
     r = np.random.default_rng(seed)
-    chunks, metas, specs = [], [], []
-    off = moff = 0
-    for t, (kind, mode, hi) in enumerate(specs_in):
-        nc = 3 if kind == 1 else 2
+    chunks, metas, specs = [np.full(lead, 0xA5, np.uint8)], [], []
+    off, moff = lead, 0
+    for t, (kind, mode, hi, *nc) in enumerate(specs_in):
+        nc = nc[0] if nc else 3 if kind == 1 else 2
         n = f * nmax * nc
         lo = -(hi // 2) if mode in (16, 32) else 0
         ints = r.integers(lo, lo + hi, n, dtype=np.int64)
@@ -647,7 +649,7 @@ def _hold_bits(got, want):
 
 
 @pytest.mark.parametrize("attr", range(len(_DRC_ATTRS)))
-@pytest.mark.parametrize("nmax", [1, 3, 1001, 4096])
+@pytest.mark.parametrize("nmax", [1, 3, 1001, 4096, 4097])
 def test_drc_fused_batch_kernel_matches_twin(card, attr, nmax):
     """K8 against its twin bit for bit, NaN positions included: every mode
     and kind, value counts off every group size and off a CTA's 1,024,
@@ -679,6 +681,78 @@ def test_drc_fused_batch_kernel_on_a_whole_window(card, pad):
         _hold_bits(g, w)
     with pytest.raises(ValueError, match="at most"):
         dd.fused_batch(packed.to(card), specs + specs[:1], mo, ml)
+
+
+def _on_card_at(card, packed: torch.Tensor, base: int) -> torch.Tensor:
+    """The window on the card as a view whose first byte lies `base` bytes
+    past a 16-byte boundary (the caching allocator's blocks are 512-aligned)."""
+    big = torch.zeros(len(packed) + 32, dtype=torch.uint8, device=card)
+    view = big[base:base + len(packed)]
+    view.copy_(packed.to(card))
+    assert view.data_ptr() % 16 == base
+    return view
+
+
+def _hold_k8(card, packed, specs, mo, ml, base):
+    from uvol_tpu_torch.models import drc_device as dd
+
+    got = dd.fused_batch(_on_card_at(card, packed, base), specs, mo, ml)
+    for g, w in zip(got, dd.fused_batch_plain(packed, specs, mo, ml), strict=True):
+        assert g.is_contiguous() and g.data_ptr() % 16 == 0
+        _hold_bits(g, w)
+    return got
+
+
+@pytest.mark.parametrize("nmax", [1, 3, 1001, 4096, 4097])
+@pytest.mark.parametrize("nc", [1, 2, 3, 4])
+@pytest.mark.parametrize("mode", [8, 10, 12, 16, 32])
+def test_drc_fused_batch_kernel_at_every_component_count(card, mode, nc, nmax):
+    """Kind 1 at 1-4 components, frames that CTAs cross (all but 4,096),
+    the attribute at a residue mod 16 and the window off a 16-byte boundary."""
+    lead = (mode * 7 + nc * 3 + nmax) % 16
+    packed, specs, mo, ml = _drc_window([(1, mode, 1 << min(mode, 31), nc)], 3, nmax,
+                                        mode + nc + nmax, lead=lead)
+    _hold_k8(card, packed, specs, mo, ml, (4 - mo) % 4 + 4 * (nmax % 4))
+
+
+@pytest.mark.parametrize("lead", range(16))
+def test_drc_fused_batch_kernel_at_every_offset_residue(card, lead):
+    """Four attributes, the first at each residue mod 16, the window at two
+    offsets from a 16-byte boundary."""
+    packed, specs, mo, ml = _drc_window([(1, 12, 1 << 12), (1, 10, 1 << 10, 2), (2, 8, 255),
+                                         (1, 16, 1 << 16, 4)], 2, 4096, lead, pad=lead % 4,
+                                        lead=lead)
+    for base in ((4 - mo) % 4, (4 - mo) % 4 + 8):
+        _hold_k8(card, packed, specs, mo, ml, base)
+
+
+@pytest.mark.parametrize("base", range(0, 16, 4))
+@pytest.mark.parametrize("nmax", [1001, 1003])
+def test_drc_fused_batch_kernel_on_a_window_that_ends_in_its_metadata(card, nmax, base):
+    """One frame of normals: 4 bytes of metadata after the attribute, so
+    the 16-byte piece of its last bytes reaches past the window's end."""
+    packed, specs, mo, ml = _drc_window([(2, 8, 255)], 1, nmax, nmax + base)
+    _hold_k8(card, packed, specs, mo, ml, base)
+
+
+def test_drc_fused_batch_caches_its_plan_and_checks_every_window(card):
+    """A cache hit and a miss on a new meta_len give the outputs of a fresh
+    call; a window one byte short of a cached key raises ValueError."""
+    from uvol_tpu_torch.models import drc_device as dd
+
+    packed, specs, mo, ml = _drc_window([(1, 12, 1 << 12), (2, 8, 255)], 8, 4096, 5)
+    dd._PLANS.clear()
+    fresh = _hold_k8(card, packed, specs, mo, ml, 0)
+    hit = _hold_k8(card, packed, specs, mo, ml, 4)
+    assert len(dd._PLANS) == 1
+    longer = torch.cat([packed, torch.zeros(4, dtype=torch.uint8)])
+    miss = _hold_k8(card, longer, specs, mo, ml + 1, 0)
+    assert len(dd._PLANS) == 2
+    for a, b, c in zip(fresh, hit, miss, strict=True):
+        _hold_bits(a, b)
+        _hold_bits(a, c)
+    with pytest.raises(ValueError, match="outside a window"):
+        dd.fused_batch(packed.to(card)[:-1], specs, mo, ml)
 
 
 def _grid_blobs(count: int, ny: int = 9, nx: int = 13):

@@ -131,7 +131,7 @@ def get_lib() -> ctypes.CDLL:
                                                     ci, ci, ci, vp, vp, vp],
                 "uvt_geometry_minmax": [vp, vp, vp, vp, ci, ci, ci, vp],
                 "uvt_quantize_delta_zigzag": [vp, vp, vp, vp, vp, ci, vp, vp, ci, ci, ci, vp],
-                "uvt_drc_fused_batch": [vp, vp, ci, ctypes.c_int64, vp, vp],
+                "uvt_drc_fused_batch": [vp, ctypes.c_int64, vp, ci, ctypes.c_int64, vp, vp],
                 "uvt_uastc_device_fit": [vp, vp, ci, ctypes.c_int64] + [vp] * 7,
                 "uvt_uastc_weight_index": [vp, ctypes.c_int64, ci, vp, vp, vp],
             }
@@ -147,12 +147,18 @@ def get_lib() -> ctypes.CDLL:
         return _lib
 
 
-def launch(fn: str, device: torch.device, *args) -> None:
-    """Call the library's entry point `fn(*args, stream)` on `device`'s
-    current stream; raises if the launch is refused. The caller has
-    checked that `device` is a CUDA device."""
-    lib = _lib or get_lib()
-    call = getattr(lib, fn)  # ctypes keeps the bound function, argtypes set, on the library
+def entry(name: str):
+    """The library's entry point `name`, argtypes set (built and loaded at
+    first use)."""
+    return getattr(_lib or get_lib(), name)
+
+
+def launch(fn, device: torch.device, *args) -> None:
+    """Call the library's entry point `fn` (its name, or the function
+    `entry` returned) as `fn(*args, stream)` on `device`'s current stream;
+    raises if the launch is refused. The caller has checked that `device`
+    is a CUDA device."""
+    call = entry(fn) if isinstance(fn, str) else fn
     current = torch.cuda.current_device()
     index = current if device.index is None else device.index
     stream = (_raw_stream(index) if _raw_stream is not None
@@ -163,8 +169,8 @@ def launch(fn: str, device: torch.device, *args) -> None:
         with torch.cuda.device(index):
             err = call(*args, stream)
     if err != 0:
-        msg = lib.uvt_cuda_error_string(err).decode()
-        raise RuntimeError(f"{fn} launch failed: {msg} ({err})")
+        msg = _lib.uvt_cuda_error_string(err).decode()
+        raise RuntimeError(f"{call.__name__} launch failed: {msg} ({err})")
 
 
 def kernel_attrs() -> dict:

@@ -14,13 +14,17 @@ the normals' `maxv`) on its tail, 4-aligned. On the card that buffer is
 one copy from pinned host memory and one launch of K8
 (`csrc/drc.cu`, `drc_fused_batch_kernel`): unpack, dequantize and
 normals for every attribute of the window, into one allocation viewed as
-one `[F, nmax, C]` float32 tensor per attribute.
+one `[F, nmax, C]` float32 tensor per attribute, each starting on a
+16-byte boundary (K8 stores 16 bytes at a time).
 
 `fused_batch(packed, specs, meta_off, meta_len)` is the device stage,
 the counterpart of the reference's `_fused_batch_fn(key)(packed)`: a CUDA
 `packed` launches K8 (a failure raises; nothing falls back), a CPU one
 runs the plain twin `fused_batch_plain`. Each K8 launch adds one to
-`LAUNCHES["drc_fused_batch"]`; twin calls are not counted.
+`LAUNCHES["drc_fused_batch"]`; twin calls are not counted. The windows of
+a stream repeat a few spec keys, so the checks of a key and K8's spec
+table are built once and kept (`_plan`, at most `PLANS_MAX` keys); the
+window itself is checked on every call.
 
 The arithmetic, in K8 and in the twin alike:
 
@@ -53,9 +57,11 @@ to free there.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -74,6 +80,10 @@ LAUNCHES = {"drc_fused_batch": 0}
 
 #: most float attributes one window (one K8 launch) carries: K8's spec table
 MAX_SPECS = 4
+
+#: most values an attribute of a K8 launch holds (`kMaxValues` of csrc/drc.cu:
+#: its indices are 32-bit)
+K8_MAX_VALUES = 0xFFFFF000
 
 #: vertex-count bucket of the padded window shapes. The port has no
 #: compile to save, but the padded [F, nmax, C] shape and the padding rows
@@ -250,23 +260,75 @@ class _Spec(ctypes.Structure):
                 ("off", ctypes.c_int64), ("moff", ctypes.c_int64), ("out_off", ctypes.c_int64)]
 
 
-def _check_specs(packed: Tensor, specs: Sequence[tuple], meta_off: int, meta_len: int) -> None:
-    if packed.dtype != torch.uint8 or packed.ndim != 1:
-        raise ValueError(f"expected a 1-D uint8 window, got {tuple(packed.shape)} {packed.dtype}")
-    if packed.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {packed.device}")
-    size = packed.numel()
-    if meta_off < 0 or meta_len < 0 or meta_off + 4 * meta_len > size:
-        raise ValueError(f"metadata [{meta_off}, +{4 * meta_len}) outside a window of {size} bytes")
-    for spec in specs:
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    """A spec key's checked layout: what `fused_batch` needs of a window,
+    K8's spec table, and where each output lies in the one allocation
+    (every attribute at a multiple of 4 floats, so K8's float4 stores are
+    16-byte aligned)."""
+
+    meta_end: int  # bytes the metadata needs: meta_off + 4 * meta_len
+    spec_ends: Tuple[int, ...]  # bytes each attribute needs
+    data_end: int  # the most of them
+    table: Optional[ctypes.Array]  # K8's spec table; None past its limits
+    total: int  # floats of the output allocation, every attribute padded to 4
+    views: Tuple[Tuple[Tuple[int, int, int], Tuple[int, int, int], int], ...]  # shape, stride, at
+
+
+#: spec keys whose plans `fused_batch` keeps: a corpus's bucketed shapes are
+#: few, a hostile caller's are not
+PLANS_MAX = 64
+_PLANS: "collections.OrderedDict[tuple, _Plan]" = collections.OrderedDict()
+_plans_lock = threading.Lock()
+
+
+def _make_plan(specs: Tuple[tuple, ...], meta_off: int, meta_len: int) -> _Plan:
+    if meta_off < 0 or meta_len < 0:
+        raise ValueError(f"metadata [{meta_off}, +{4 * meta_len}) is not a byte range")
+    ends, views = [], []
+    fits = len(specs) <= MAX_SPECS and all(f * nmax * nc <= K8_MAX_VALUES
+                                            for _t, _k, _m, f, nmax, nc, *_r in specs)
+    table = (_Spec * MAX_SPECS)() if fits else None
+    at = 0
+    for i, spec in enumerate(specs):
         _t, kind, mode, f, nmax, nc, off, _ml, moff = spec
         need = {1: moff + f * nc + f, 2: moff + f}.get(kind)
         if need is None or mode not in _MODE_GROUP or (kind == 2 and nc != 2):
             raise ValueError(f"unsupported spec {spec}")
         if min(f, nmax, nc, off, moff) < 0 or need > meta_len:
             raise ValueError(f"spec {spec} outside its metadata of {meta_len} floats")
-        if off + _packed_nbytes(f * nmax * nc, mode) > size:
-            raise ValueError(f"spec {spec} outside a window of {size} bytes")
+        ends.append(off + _packed_nbytes(f * nmax * nc, mode))
+        w = nc if kind == 1 else 3
+        if table is not None:
+            row = table[i]
+            row.kind, row.mode, row.f, row.nmax, row.nc = kind, mode, f, nmax, nc
+            row.off, row.moff, row.out_off = off, moff, at
+        views.append(((f, nmax, w), (nmax * w, w, 1), at))
+        at += -(-f * nmax * w // 4) * 4
+    return _Plan(meta_off + 4 * meta_len, tuple(ends), max(ends, default=0), table, at,
+                 tuple(views))
+
+
+def _plan(specs: Sequence[tuple], meta_off: int, meta_len: int) -> _Plan:
+    """The checked plan of a spec key, from a bounded cache (least recently
+    used out); raises ValueError on a key K8 cannot take."""
+    key = (tuple(map(tuple, specs)), meta_off, meta_len)
+    with _plans_lock:
+        plan = _PLANS.get(key)
+        if plan is not None:
+            _PLANS.move_to_end(key)
+            return plan
+    plan = _make_plan(*key)
+    with _plans_lock:
+        _PLANS[key] = plan
+        while len(_PLANS) > PLANS_MAX:
+            _PLANS.popitem(last=False)
+    return plan
+
+
+@functools.cache
+def _k8():
+    return _build.entry("uvt_drc_fused_batch")
 
 
 def fused_batch(packed: Tensor, specs: Sequence[tuple], meta_off: int,
@@ -276,30 +338,35 @@ def fused_batch(packed: Tensor, specs: Sequence[tuple], meta_off: int,
     off, mlen, moff), `off` the attribute's byte offset in the window and
     `moff` its first float of the metadata at byte `meta_off` (a multiple
     of 4; `meta_len` floats). Returns one [f, nmax, C] float32 tensor per
-    spec, views of one allocation on the card."""
-    _check_specs(packed, specs, meta_off, meta_len)
+    spec, contiguous views of one allocation on the card, each 16-byte
+    aligned. The checks of a spec key are cached; the window's own (type,
+    size, alignment) are made on every call."""
+    if packed.dtype != torch.uint8 or packed.ndim != 1:
+        raise ValueError(f"expected a 1-D uint8 window, got {tuple(packed.shape)} {packed.dtype}")
+    if packed.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {packed.device}")
+    plan = _plan(specs, meta_off, meta_len)
+    size = packed.numel()
+    if plan.meta_end > size:
+        raise ValueError(f"metadata [{meta_off}, +{4 * meta_len}) outside a window of {size} bytes")
+    if plan.data_end > size:
+        spec = next(s for s, end in zip(specs, plan.spec_ends) if end > size)
+        raise ValueError(f"spec {spec} outside a window of {size} bytes")
     if packed.device.type == "cpu":
         return fused_batch_plain(packed, specs, meta_off, meta_len)
-    if len(specs) > MAX_SPECS:
-        raise ValueError(f"K8 takes at most {MAX_SPECS} float attributes, got {len(specs)}")
+    if plan.table is None:
+        raise ValueError(f"K8 takes at most {MAX_SPECS} float attributes of at most "
+                         f"{K8_MAX_VALUES} values each, got {len(specs)}")
     packed = packed.contiguous()
-    if (packed.data_ptr() + meta_off) % 4:
+    ptr = packed.data_ptr()
+    if (ptr + meta_off) % 4:
         raise ValueError("the window's metadata is not 4-byte aligned on the card")
-    widths = [nc if kind == 1 else 3 for _t, kind, _m, _f, _n, nc, *_r in specs]
-    sizes = [f * nmax * w for (_t, _k, _m, f, nmax, *_r), w in zip(specs, widths)]
-    out = torch.empty(sum(sizes), dtype=torch.float32, device=packed.device)
-    table = (_Spec * MAX_SPECS)()
-    start = 0
-    for row, (_t, kind, mode, f, nmax, nc, off, _ml, moff), size in zip(table, specs, sizes):
-        row.kind, row.mode, row.f, row.nmax, row.nc = kind, mode, f, nmax, nc
-        row.off, row.moff, row.out_off = off, moff, start
-        start += size
-    if start:
-        _build.launch("uvt_drc_fused_batch", packed.device, packed.data_ptr(),
-                      ctypes.addressof(table), len(specs), meta_off, out.data_ptr())
+    out = torch.empty(plan.total, dtype=torch.float32, device=packed.device)
+    if plan.total:
+        _build.launch(_k8(), packed.device, ptr, size, ctypes.addressof(plan.table), len(specs),
+                      meta_off, out.data_ptr())
         LAUNCHES["drc_fused_batch"] += 1
-    return tuple(o.view(f, nmax, w) for o, (_t, _k, _m, f, nmax, *_r), w
-                 in zip(out.split(sizes), specs, widths))
+    return tuple(out.as_strided(shape, stride, at) for shape, stride, at in plan.views)
 
 
 # ---- uploads on the card ----------------------------------------------------------------
