@@ -99,6 +99,21 @@ etc2-eac words whose ETC1 fit is K1 (it must launch), every `ok` tick
 held to the decoders' output; its segments transcoded to etc2-eac and
 etc1 on the card and on the CPU give the same words.
 
+Its phase `multidevice_path` runs after `cli_player_path`: the sequence
+codecs (the bench's batch and a ragged cut of 30 frames) and the ETC1S
+segment encode (256/256 and 1024/1024) with `mesh=` on ranks of
+`uvol_tpu_torch.parallel` spawned as processes of their own, all on
+cuda:0: one rank (a one-rank NCCL group), then 4 ranks sharing the card
+over gloo (NCCL refuses two ranks on one GPU; the gathers go through
+host copies). Every rank must write the one-device port's `.uvtg` and
+`.ktx2` bytes and decodes, the same ETC1S bytes as every other rank and
+on a rerun (one rank: the one device's bytes) within 0.5 dB of one
+device's PSNR, launch K1-K6, the minimum/maximum and the segment sum,
+and load nothing of JAX. It prints each rank's launches, the
+rank-ordered gather and sum times, an int32 `all_reduce` over gloo on
+CUDA tensors (the transport not taken) and the encodes' wall times
+beside one device's: ranks sharing one card, not a scaling figure.
+
 Each phase prints one JSON line; then come the card's `nvidia-smi`
 name/power-limit line, the kernels line (each kernel's launches on its
 main path, worst difference from its twin, call time, its twin's time,
@@ -264,6 +279,20 @@ UASTC_CPU_SIDE = 256
 #: U1 at the main path's blocks and modes on four block classes (`uastc_classes`)
 UASTC_CLASSES = ("bench_gradient", "random", "flat", "two_colour")
 UASTC_WEIGHT_CHUNK = 1 << 25  # floats of one comparison of the closed-form weight index
+#: multidevice_path: the ranks of `uvol_tpu_torch.parallel` on cuda:0 — one rank
+#: (a one-rank NCCL group), then MD_SHARED ranks sharing the card over gloo (NCCL
+#: refuses two ranks on one GPU); the bench's batch at full width and a ragged cut
+#: that does not divide over MD_SHARED, the ETC1S segment at both palettes
+MD_SHARED = 4
+MD_RAGGED = 30
+MD_PALETTES = (ETC1S_PALETTE, ETC1S_DELTA_PALETTE)
+MD_TIMEOUT = 900  # seconds a group of ranks may take, its start and build included
+#: the kernels every rank must launch on the multi-device path
+MD_KERNELS = ("etc1_encode", "etc1_decode", "quantize_delta_zigzag", "geometry_minmax",
+              *ETC1S_BUILD_KERNELS)
+#: what `all_sum_in_rank_order` is timed on: a segment sum's partial at the
+#: selector update's k and D (SEG_TIMED)
+MD_SUM_SHAPE = (256, 64)
 #: K3's and the minimum/maximum's kernel names in a profiler trace (csrc/geometry.cu)
 K3_KERNEL_NAME = WRAPPER_KERNELS["quantize_delta_zigzag"][0]
 MINMAX_KERNEL_NAME = WRAPPER_KERNELS["geometry_minmax"][0]
@@ -2196,6 +2225,208 @@ def uastc_project_path(torch, textures) -> dict:
     return totals
 
 
+def sha256(*parts) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in parts:
+        h.update(p if isinstance(p, bytes) else np.ascontiguousarray(p).tobytes())
+    return h.hexdigest()
+
+
+def wall_ms(torch, fn, reps: int = REPS) -> float:
+    """Median host-clock ms of `fn` to the end of its device work, after a
+    warmup: for calls that block on the host (a collective over gloo)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def psnr_db(decoded: np.ndarray, frames: np.ndarray) -> float:
+    mse = float(((decoded.astype(np.float64) - frames) ** 2).mean())
+    return float(10 * np.log10(255.0**2 / mse))
+
+
+def sequence_run(torch, batch: tuple, geo, texc_of) -> dict:
+    """Encode and decode the bench batch and its ragged cut with the
+    sequence codecs (mesh-sharded or not): hashes of every artifact and
+    each encode's host-clock seconds, per cut."""
+    from uvol_tpu_torch.models.sequence import GeometryFrameSet, read_ktx2
+
+    positions, uvs, counts, faces, textures = batch
+    out = {}
+    for cut in (F, MD_RAGGED):
+        fs = GeometryFrameSet(positions[:cut], uvs[:cut], counts[:cut], faces[:cut])
+        texc = texc_of(cut)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        blobs = geo.encode(fs)
+        geo_s = time.perf_counter() - t
+        t = time.perf_counter()
+        tex_blob = texc.encode_segment(textures[:cut])
+        tex_s = time.perf_counter() - t
+        dec = geo.decode(blobs)
+        tdec = texc.decode_segment(read_ktx2(tex_blob))
+        out[cut] = {"uvtg": sha256(*blobs), "ktx2": sha256(tex_blob),
+                    "positions": sha256(dec.positions), "uvs": sha256(dec.uvs),
+                    "layers": sha256(tdec), "encode_s": {"geometry": geo_s, "texture": tex_s}}
+    return out
+
+
+def etc1s_run(torch, textures, **kw) -> dict:
+    """The ETC1S segment encoded twice at each of MD_PALETTES: bytes'
+    hash, equal on the rerun, transcoded PSNR, seconds of each encode."""
+    from uvol_tpu_torch.codecs.basis.etc1s_encode import (
+        encode_ktx2_etc1s, read_ktx2, transcode_ktx2_etc1s)
+
+    frames = textures[:ETC1S_LAYERS]
+    out = {}
+    for pal in MD_PALETTES:
+        runs, secs = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            runs.append(encode_ktx2_etc1s(frames, num_endpoints=pal, num_selectors=pal, **kw))
+            secs.append(time.perf_counter() - t)
+        dec = transcode_ktx2_etc1s(read_ktx2(runs[0]))[..., :3]
+        out[pal] = {"sha": sha256(runs[0]), "rerun_equal": runs[1] == runs[0],
+                    "bytes": len(runs[0]), "psnr_db": psnr_db(dec, frames), "encode_s": secs}
+    return out
+
+
+def multidevice_rank() -> dict:
+    """One rank of `multidevice_path` (spawned by `parallel.ranks.run_ranks`,
+    its group already joined): the sequence codecs and the ETC1S segment
+    encode over a mesh of every rank, each wrapper's launches from a reset
+    just before to just after, the rank-ordered gather and sum timed, and
+    what this process has loaded of JAX."""
+    import torch
+    import torch.distributed as dist
+
+    from uvol_tpu_torch.models.sequence import GeometrySequenceCodec, TextureSequenceCodec
+    from uvol_tpu_torch.parallel.mesh import (
+        all_gather_in_rank_order, all_sum_in_rank_order, make_mesh, mesh_device, transport)
+
+    mesh = make_mesh()
+    dev = mesh_device(mesh)
+    world = dist.get_world_size()
+    batch = bench_batch()
+    geo = GeometrySequenceCodec(11, 10, mesh=mesh)
+
+    def texc_of(cut):
+        return TextureSequenceCodec(sequence_size=cut, mesh=mesh)
+
+    sequence_run(torch, batch, geo, texc_of)  # warmup: library, allocator
+    reset_all_launches()
+    seq = sequence_run(torch, batch, geo, texc_of)
+    etc = etc1s_run(torch, batch[4], mesh=mesh)
+    torch.cuda.synchronize()
+    launches = all_launches()
+
+    shard = torch.zeros((F // world, 3, N), dtype=torch.int32, device=dev)  # a symbols shard
+    partial = torch.rand(MD_SUM_SHAPE, device=dev)
+    ms = {"gather_ms": wall_ms(torch, lambda: all_gather_in_rank_order(mesh, shard)),
+          "sum_ms": wall_ms(torch, lambda: all_sum_in_rank_order(mesh, partial)),
+          "gather_bytes": shard.numel() * 4 * world, "sum_shape": list(MD_SUM_SHAPE)}
+    if dist.get_backend() == "gloo":
+        # the transport not taken: an int32 all_reduce over gloo on CUDA tensors
+        # (a zero-filled [world, ...] buffer, this rank's row filled), timed
+        # beside the host copies that `choose_transport` picks for gloo
+        buf = torch.zeros((world, *shard.shape), dtype=torch.int32, device=dev)
+
+        def reduce_gather():
+            buf[dist.get_rank()] = shard
+            dist.all_reduce(buf)
+
+        ms["gloo_cuda_int_all_reduce_ms"] = wall_ms(torch, reduce_gather)
+    return {"rank": dist.get_rank(), "world": world, "backend": dist.get_backend(),
+            "transport": transport(mesh), "device": str(dev), "launches": launches,
+            "sequence": seq, "etc1s": etc, "collectives": ms,
+            "jax_loaded": sorted(m for m in sys.modules
+                                 if m.split(".")[0] in ("jax", "uvol_tpu"))}
+
+
+def multidevice_path(torch, batch, t_start: float) -> dict:
+    """The sequence codecs and the ETC1S segment encode with `mesh=` on
+    ranks that share cuda:0: one rank (a one-rank NCCL group) and
+    MD_SHARED ranks (gloo), against the one-device port run here first.
+    Gates: the same `.uvtg`/`.ktx2` bytes and decodes as one device, the
+    ETC1S bytes the same on every rank and on a rerun (one rank: one
+    device's bytes) within 0.5 dB of one device's PSNR, every kernel of
+    MD_KERNELS launched on every rank, no JAX in any rank. Returns the
+    launches of each rank of the shared group."""
+    from uvol_tpu_torch.models.sequence import GeometrySequenceCodec, TextureSequenceCodec
+    from uvol_tpu_torch.parallel.ranks import run_ranks
+
+    geo = GeometrySequenceCodec(11, 10, device=DEVICE)
+
+    def texc_of(cut):
+        return TextureSequenceCodec(cut, device=DEVICE)
+
+    sequence_run(torch, batch, geo, texc_of)  # warmup, as each rank's
+    one = {"sequence": sequence_run(torch, batch, geo, texc_of),
+           "etc1s": etc1s_run(torch, batch[4], device=DEVICE)}
+    groups = {}
+    for n in (1, MD_SHARED):
+        t = time.perf_counter()
+        ranks = run_ranks(multidevice_rank, n, device_type="cuda", timeout=MD_TIMEOUT)
+        wall_s = time.perf_counter() - t
+        backend = "nccl" if n == 1 else "gloo"
+        for res in ranks:
+            check(res["backend"] == backend, f"{n} ranks ran over {res['backend']}, not {backend}")
+            check(res["transport"] == ("device" if n == 1 else "host"), "transport")
+            check(not res["jax_loaded"], f"rank {res['rank']} loaded {res['jax_loaded'][:5]}")
+            for k in MD_KERNELS:
+                check(res["launches"].get(k, 0) >= 1, f"rank {res['rank']} of {n} never "
+                      f"launched {k} on the multi-device path")
+            for cut, want in one["sequence"].items():
+                got = res["sequence"][cut]
+                for key in ("uvtg", "ktx2", "positions", "uvs", "layers"):
+                    check(got[key] == want[key], f"{n} ranks, {cut} frames: {key} differs "
+                          "from one device's")
+            for pal, want in one["etc1s"].items():
+                got = res["etc1s"][pal]
+                check(got["rerun_equal"], f"{n} ranks, {pal}/{pal}: a rerun changed the bytes")
+                check(got["sha"] == ranks[0]["etc1s"][pal]["sha"],
+                      f"{n} ranks, {pal}/{pal}: the ranks' ETC1S bytes differ")
+                check(abs(got["psnr_db"] - want["psnr_db"]) < 0.5,
+                      f"{n} ranks, {pal}/{pal}: PSNR {got['psnr_db']:.2f} against one "
+                      f"device's {want['psnr_db']:.2f}")
+                if n == 1:
+                    check(got["sha"] == want["sha"], f"one rank, {pal}/{pal}: bytes differ "
+                          "from one device's")
+        groups[n] = {
+            "backend": backend, "wall_s": wall_s,
+            "launches": [{k: res["launches"][k] for k in MD_KERNELS + ("etc1s_rate_sweep",)}
+                         for res in ranks],
+            "collectives": [res["collectives"] for res in ranks],
+            "encode_s": [{"sequence": {cut: v["encode_s"] for cut, v in res["sequence"].items()},
+                          "etc1s": {pal: v["encode_s"] for pal, v in res["etc1s"].items()}}
+                         for res in ranks],
+            "etc1s": {pal: {k: ranks[0]["etc1s"][pal][k] for k in ("bytes", "psnr_db")}
+                      for pal in MD_PALETTES},
+        }
+    emit({"phase": "multidevice_path",
+          "note": "ranks share one card (cuda:0): these are not scaling figures",
+          "frames": [F, MD_RAGGED], "vertices": N, "layers": [F, MD_RAGGED], "size": [H, W],
+          "etc1s_segment": [ETC1S_LAYERS, H, W], "palettes": list(MD_PALETTES),
+          "one_device": {
+              "encode_s": {"sequence": {cut: v["encode_s"]
+                                        for cut, v in one["sequence"].items()},
+                           "etc1s": {pal: v["encode_s"] for pal, v in one["etc1s"].items()}},
+              "etc1s": {pal: {k: v[k] for k in ("bytes", "psnr_db")}
+                        for pal, v in one["etc1s"].items()}},
+          "ranks": {str(n): g for n, g in groups.items()},
+          "total_s": time.perf_counter() - t_start})
+    return {k: [lr[k] for lr in groups[MD_SHARED]["launches"]] for k in MD_KERNELS}
+
+
 def main() -> int:
     import torch
 
@@ -2527,7 +2758,11 @@ def main() -> int:
     for k, v in uastc_cli_launches.items():
         cli_launches[k] = cli_launches.get(k, 0) + v
 
-    # ---- 11. the kernels line: main-path launches, parity, times, bounds ------
+    # ---- 11. multi-device: the codecs with `mesh=` on ranks sharing the card (one
+    # NCCL rank, then MD_SHARED gloo ranks), each in a process of its own
+    md_launches = multidevice_path(torch, (positions, uvs, counts, faces, textures), t_start)
+
+    # ---- 12. the kernels line: main-path launches, parity, times, bounds ------
     nb = F * (H // 4) * (W // 4)  # K1/K2: 32 layers of 1024^2
     nq = F * 3 * N  # K3: the positions call
     ne = ETC1S_LAYERS * (H // 4) * (W // 4)  # K4-K6: 327,680 blocks
@@ -2604,6 +2839,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"uvol_tpu_torch/csrc/{src}",
             "replaces": f"uvol_tpu/{replaces}", "launches": launches[name],
             "launches_cli_player": cli_launches.get(name, 0),
+            # each of the MD_SHARED ranks' launches on the multi-device path
+            "launches_multidevice": md_launches.get(name),
             "max_abs_err": err[name], "ms": ms[timed], "plain_ms": ms[timed + "_plain"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             # index_add_ for the segment sum; for K7 the error product

@@ -396,18 +396,26 @@ def test_encode_matches_jax_kernel_path(jax_kernel_path, monkeypatch, channels):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mesh": object()},
+    {"mesh": "one gloo rank on the CPU"},
     {"endpoint_quads": True},
     {"num_endpoints": 512, "num_selectors": 64},
 ])
 def test_unported_options_raise(jax_kernel_path, kwargs):
-    """`mesh=` is not ported and raises. The endpoint quads and the
-    delta-aware stage (512 endpoints) raised before they were ported; now
-    they encode the reference's bytes."""
+    """`mesh=`, the endpoint quads and the delta-aware stage (512
+    endpoints) raised before they were ported; now they encode the
+    reference's bytes. The mesh is a one-rank gloo group made in this
+    process (tests/test_torch_multichip.py runs 2 and 4 ranks)."""
     frames = np.random.default_rng(0).integers(0, 256, (1, 96, 96, 3)).astype(np.uint8)
     if "mesh" in kwargs:
-        with pytest.raises(NotImplementedError):
-            tenc.encode_ktx2_etc1s(frames, device="cpu", **kwargs)
+        import torch.distributed as dist
+
+        from uvol_tpu_torch.parallel.mesh import make_mesh
+
+        try:
+            got = tenc.encode_ktx2_etc1s(frames, mesh=make_mesh(device_type="cpu"))
+        finally:
+            dist.destroy_process_group()
+        assert got == jenc.encode_ktx2_etc1s(frames)
         return
     got = tenc.encode_ktx2_etc1s(frames, device="cpu", **kwargs)
     assert got == jenc.encode_ktx2_etc1s(frames, **kwargs)

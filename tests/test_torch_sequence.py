@@ -118,10 +118,11 @@ def test_bucket_frames_copy_matches_jax():
     from uvol_tpu.parallel.mesh import bucket_frames_by_count
 
     counts = np.random.default_rng(9).integers(1, 5000, 40)
-    for max_waste in (0.1, 0.25, 0.5):
-        ref = bucket_frames_by_count(counts, 1, max_waste)
-        got = tseq.bucket_frames_by_count(counts, max_waste)
-        assert [list(b) for b in got] == [list(b) for b in ref]
+    for mesh_size in (1, 2, 4):
+        for max_waste in (0.1, 0.25, 0.5):
+            ref = bucket_frames_by_count(counts, mesh_size, max_waste)
+            got = tseq.bucket_frames_by_count(counts, mesh_size, max_waste)
+            assert [list(b) for b in got] == [list(b) for b in ref]
 
 
 @pytest.mark.parametrize(
@@ -181,12 +182,14 @@ def test_from_jax_codec_same_bytes(kind):
 
 
 def test_from_jax_codec_rejects_mesh_and_strangers():
-    class Meshed:
-        mesh = object()
-        position_bits, uv_bits = 11, 10
+    """A meshed JAX codec needs the port's mesh of the same frames-axis
+    size (tests/test_torch_multichip.py converts with one); without it
+    the sizes differ and the conversion raises ValueError naming both."""
+    from uvol_tpu.parallel.mesh import make_mesh
 
-    with pytest.raises(NotImplementedError):
-        from_jax_codec(Meshed())
+    jc = jseq.GeometrySequenceCodec(position_bits=11, uv_bits=10, mesh=make_mesh(2))
+    with pytest.raises(ValueError, match="2 devices.*1 ranks"):
+        from_jax_codec(jc, device="cpu")
     with pytest.raises(TypeError):
         from_jax_codec(object())
 

@@ -16,8 +16,13 @@ obvious counterpart:
                                  etc1s.cu) and their plain twins
   codecs.basis.etc1s_encode      ETC1S/BasisLZ segment encoder
   models.sequence                Geometry/TextureSequenceCodec (.uvtg, .ktx2)
+  models.codebook                k-means codebook training step (U2)
+  parallel                       meshes on torch.distributed, the rank-
+                                 ordered gather and sum, spawned ranks,
+                                 the multi-process check (the `mesh=` paths)
   convert                        codec state from a JAX codec
-  entry                          the fused forward step of __graft_entry__
+  entry                          the fused forward step and the multi-chip
+                                 dry run of __graft_entry__
 
 The host layers (varint/buffer, rANS and symbol coding, KTX2, zstd, the
 Basis transcoder's RGBA decode, the Huffman coder, the ETC1S bit

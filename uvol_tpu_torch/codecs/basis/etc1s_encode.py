@@ -38,7 +38,15 @@ errors) is exact, so it matches the reference bit for bit; the float
 stages (features, segment sums above 2^24, the Lloyd centroids) match it
 to rounding.
 
-Not ported: `mesh=` (multi-device) raises `NotImplementedError`.
+With `mesh=` (a `parallel.mesh.make_mesh` mesh with a `frames` axis)
+the palette core runs on each rank's contiguous shard of the block axis:
+every cross-block sum that the reference takes with `psum` is summed
+over the ranks in rank order (`all_sum_in_rank_order`), the spread
+samples see the global block order through a rank-ordered gather, and
+the assignments are gathered to every rank, which then runs the refine,
+the delta stage and the host emission as on one device. Each rank's
+partial sums are the reference shard's, so at two ranks the build is the
+reference's `shard_map` build bit for bit.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -75,6 +84,13 @@ from uvol_tpu_torch.containers.ktx2 import (  # read_ktx2: the decode side's rea
 )
 from uvol_tpu_torch._device import DeviceLike, f32, require_full_f32, resolve_device
 from uvol_tpu_torch.codecs.basis import etc1s_cuda as kern
+from uvol_tpu_torch.parallel.mesh import (
+    all_gather_in_rank_order,
+    all_sum_in_rank_order,
+    axis_size,
+    resolve_mesh_device,
+    shard_frames,
+)
 
 Tensor = torch.Tensor
 
@@ -161,18 +177,20 @@ def block_features(blocks: Tensor) -> Tensor:
     return torch.cat([means, contrast[:, None]], 1)
 
 
-def _bisect_leaves(x: Tensor, target: int) -> Tuple[Tensor, Tensor]:
+def _bisect_leaves(x: Tensor, target: int, gsum=None) -> Tuple[Tensor, Tensor]:
     """Hierarchical bisection of the rows of x [N, D] (the reference's
     `hierarchical_init`): every round splits each cluster along its
     highest-variance dimension at the cluster mean. Returns the means
     [target, D] of the `target` heaviest leaves and whether each leaf
-    is non-empty."""
+    is non-empty. `gsum`, where given, sums the cluster statistics over
+    the ranks of a mesh."""
+    gsum = gsum or (lambda t: t)
     n, d = x.shape
     aug = torch.cat([x, x * x, x.new_ones((n, 1))], 1)
     assign = torch.zeros(n, dtype=torch.int64, device=x.device)
     k = 1
     for _ in range(max(1, math.ceil(math.log2(target)))):
-        red = kern.segment_sum(assign, k, aug)
+        red = gsum(kern.segment_sum(assign, k, aug))
         den = torch.clamp(red[:, 2 * d], min=1.0)[:, None]
         mean = red[:, :d] / den
         var = _fma(-mean, mean, red[:, d : 2 * d] / den)
@@ -181,7 +199,7 @@ def _bisect_leaves(x: Tensor, target: int) -> Tuple[Tensor, Tensor]:
         f_sel = x.gather(1, dim[assign][:, None])[:, 0]
         assign = assign * 2 + (f_sel > thr[assign]).to(torch.int64)
         k *= 2
-    red = kern.segment_sum(assign, k, aug)
+    red = gsum(kern.segment_sum(assign, k, aug))
     cnt = red[:, 2 * d]
     mean = red[:, :d] / torch.clamp(cnt, min=1.0)[:, None]
     order = torch.argsort(-cnt, stable=True)[:target]  # ties: lowest leaf first
@@ -194,13 +212,21 @@ def _spread(x: Tensor, target: int) -> Tensor:
 
 
 def palette_core(
-    blocks: Tensor, num_endpoints: int, num_selectors: int, kmeans_iters: int
+    blocks: Tensor, num_endpoints: int, num_selectors: int, kmeans_iters: int,
+    *, mesh=None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
-    """The reference's `_palette_core_fn` on one device, Pallas branch.
+    """The reference's `_palette_core_fn`, Pallas branch.
 
     blocks: [N, 16, 3] uint8 on the device that runs the build. Returns
     int32 tensors (base5 [E, 3], inten [E], sel_cb [S, 16], assign [N],
-    sel_assign [N]). Requires N >= max(E, S).
+    sel_assign [N]). Requires N >= max(E, S) over all ranks.
+
+    With a mesh, `blocks` is this rank's shard of the block axis (its
+    `frames` axis, contiguous, the same size on every rank): the
+    cross-block sums are summed over the ranks in rank order, the spread
+    samples gathered, and assign/sel_assign come back gathered for every
+    block of every rank (the reference's `shard_map` body with
+    `axis_name`).
 
     The selector errors and the pair refine are float32 products of
     integers below 2^24, exact only in full float32: raises if TF32 has
@@ -213,12 +239,19 @@ def palette_core(
     pxf = blocks.to(torch.float32)
     mods_e = kern.inten_tables(dev)  # [8, 4]
 
+    def gsum(x: Tensor) -> Tensor:  # a cross-block sum over the ranks (`psum`)
+        return x if mesh is None else all_sum_in_rank_order(mesh, x)
+
+    def gathered(x: Tensor) -> Tensor:  # every rank's rows in block order
+        return x if mesh is None else all_gather_in_rank_order(mesh, x)
+
     # ---- endpoint clustering in (mean color, contrast) space ------------
     feats = block_features(blocks)
-    cb0, good = _bisect_leaves(feats, e_n)
-    cb = torch.where(good[:, None], cb0, _spread(feats, e_n))
+    cb0, good = _bisect_leaves(feats, e_n, gsum)
+    cb = torch.where(good[:, None], cb0, _spread(gathered(feats), e_n))
     for _ in range(kmeans_iters):
         sums, counts, _ = kern.kmeans_iter(feats, cb)
+        sums, counts = gsum(sums), gsum(counts)
         cb = torch.where(counts[:, None] > 0,
                          sums / torch.clamp(counts, min=1.0)[:, None], cb)
 
@@ -237,7 +270,7 @@ def palette_core(
     def cluster_inten(assign: Tensor, base: Tensor) -> Tensor:
         """Per-cluster intensity table of least total exact error."""
         err = kern.inten_errors(blocks, base[assign]).float()  # [N, 8]
-        return torch.argmin(kern.segment_sum(assign, e_n, err), 1).to(torch.int32)
+        return torch.argmin(gsum(kern.segment_sum(assign, e_n, err)), 1).to(torch.int32)
 
     def exact_assign(base: Tensor, inten: Tensor) -> Tensor:
         return kern.assign_endpoints(blocks, kern.endpoint_table(base, inten))
@@ -262,8 +295,8 @@ def palette_core(
         sel_px = torch.argmin(ce, -1)  # [N, 16]
         me_px = me_b.gather(1, sel_px[:, :, None].expand(n, 16, 3))  # [N, 16, 3]
         resid_mean = (pxf - me_px.float()).sum(1) * 0.0625  # exact
-        red = kern.segment_sum(assign, e_n,
-                               torch.cat([resid_mean, resid_mean.new_ones((n, 1))], 1))
+        red = gsum(kern.segment_sum(assign, e_n,
+                                    torch.cat([resid_mean, resid_mean.new_ones((n, 1))], 1)))
         sums, counts = red[:, :3], red[:, 3]
         new_mean = torch.where(counts[:, None] > 0,
                                sums / torch.clamp(counts, min=1.0)[:, None], base.float())
@@ -287,13 +320,13 @@ def palette_core(
                           for i in range(0, n, step)]).to(torch.int32)
 
     def sel_update(sel_assign: Tensor) -> Tensor:
-        c_kpj = kern.segment_sum(sel_assign, s_n, ce.reshape(n, 64).to(torch.float32))
+        c_kpj = gsum(kern.segment_sum(sel_assign, s_n, ce.reshape(n, 64).to(torch.float32)))
         return torch.argmin(c_kpj.reshape(s_n, 16, 4), -1).to(torch.int32)
 
-    sel_mean, sel_good = _bisect_leaves(ideal_sel.to(torch.float32), s_n)
+    sel_mean, sel_good = _bisect_leaves(ideal_sel.to(torch.float32), s_n, gsum)
     sel_cb = torch.where(sel_good[:, None],
                          torch.clamp(torch.round(sel_mean), 0, 3).to(torch.int64),
-                         _spread(ideal_sel, s_n)).to(torch.int32)
+                         _spread(gathered(ideal_sel), s_n)).to(torch.int32)
     sel_assign = sel_exact_assign(sel_cb)
     for _ in range(max(2, kmeans_iters // 2)):
         sel_cb = sel_update(sel_assign)
@@ -325,7 +358,7 @@ def palette_core(
     assign = torch.cat(parts).to(torch.int32)
     ce, _ = block_ce(base, inten, assign)  # selector re-pick under the refined endpoints
     sel_assign = sel_exact_assign(sel_cb)
-    return base5, inten, sel_cb, assign, sel_assign
+    return base5, inten, sel_cb, gathered(assign), gathered(sel_assign)
 
 
 def build_palettes(
@@ -348,9 +381,12 @@ def build_palettes(
     One uint8 upload of the segment's [F*nb, 16, 3] blocks feeds the
     palette core, the refine and, with `delta_window > 0` and 512
     endpoints or more, the delta-aware stage. `device` as
-    `_device.resolve_device`."""
-    if mesh is not None:
-        raise NotImplementedError("build_palettes: mesh= (multi-device) is not ported")
+    `_device.resolve_device`.
+
+    `mesh`: the palette core runs on each rank's shard of the block axis
+    (the module's docstring); every rank gets the same palettes. A block
+    count that does not divide by the mesh's frame axis warns and runs on
+    one device, as the reference does."""
     f, h, w, _ = frames.shape
     nb = (h // 4) * (w // 4)
     blocks = _blocks_of(frames)
@@ -362,10 +398,16 @@ def build_palettes(
             raise ValueError(f"build_palettes: {arg}={v} exceeds the {kern.SEG_MAX_K} entries "
                              "a palette may have (etc1s_cuda.SEG_MAX_K: the segments the "
                              "segment-sum kernel and the centroids K6 take)")
-    dev = resolve_device(device)
+    dev = resolve_mesh_device(device, mesh)
+    if mesh is not None and n % axis_size(mesh) != 0:
+        warnings.warn(
+            f"build_palettes: {n} blocks not divisible by the {axis_size(mesh)}-rank "
+            "frame axis; running single-device", RuntimeWarning)
+        mesh = None
     dev_blocks = torch.from_numpy(blocks).to(dev)
     base5, inten, sel_cb, assign, sel_assign = palette_core(
-        dev_blocks, num_endpoints, num_selectors, kmeans_iters
+        dev_blocks if mesh is None else shard_frames(mesh, dev_blocks),
+        num_endpoints, num_selectors, kmeans_iters, mesh=mesh,
     )
     pal = Palettes(
         color5=base5.cpu().numpy().astype(np.uint8),
@@ -1278,9 +1320,11 @@ def encode_ktx2_etc1s(
     slice sharing the codebooks. The quality floor rebuilds the palette
     at gentler delta lambdas while the palette PSNR is under
     `min_psnr_db`, exactly as the reference does (below 512 endpoints a
-    rebuild repeats the same build)."""
-    if mesh is not None:
-        raise NotImplementedError("encode_ktx2_etc1s: mesh= (multi-device) is not ported")
+    rebuild repeats the same build).
+
+    `mesh`: the palette builds run sharded over it (`build_palettes`);
+    every rank writes the same bytes."""
+    device = resolve_mesh_device(device, mesh)
     f, h, w, nch = frames.shape
     nbx, nby = w // 4, h // 4
     if num_endpoints == "auto" or num_selectors == "auto":
@@ -1308,6 +1352,7 @@ def encode_ktx2_etc1s(
             delta_lambda=lam_try,
             # the alpha chain starts a fresh I-slice at index f
             rdo_chain_breaks=(f,) if has_alpha else (),
+            mesh=mesh,
             device=device,
         )
         if len(lam_ladder) == 1:

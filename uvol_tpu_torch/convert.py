@@ -15,25 +15,41 @@ from uvol_tpu_torch.models.sequence import (
     GeometrySequenceCodec,
     TextureSequenceCodec,
 )
+from uvol_tpu_torch.parallel.mesh import FRAME_AXIS, axis_size
+
+
+def _frames_axis(jax_mesh) -> int:
+    """The size of a JAX mesh's `frames` axis (`mesh.shape` maps axis
+    names to sizes); 1 for no mesh."""
+    if jax_mesh is None:
+        return 1
+    shape = getattr(jax_mesh, "shape", None)
+    if not hasattr(shape, "get") or FRAME_AXIS not in shape:
+        raise TypeError(f"not a mesh with a {FRAME_AXIS!r} axis: {type(jax_mesh).__name__}")
+    return int(shape[FRAME_AXIS])
 
 
 def from_jax_codec(
-    codec, *, device: DeviceLike = None
+    codec, *, device: DeviceLike = None, mesh=None
 ) -> Union[GeometrySequenceCodec, TextureSequenceCodec]:
     """A `uvol_tpu.models.sequence` codec → the equivalent port codec.
 
-    Raises NotImplementedError for a codec with a `mesh` (multi-device is
-    not ported yet) and TypeError for anything else."""
-    if getattr(codec, "mesh", None) is not None:
-        raise NotImplementedError(
-            "codecs with a device mesh are not ported yet (ROADMAP.md)"
-        )
+    A JAX mesh cannot become a process group, so a meshed codec takes the
+    port's mesh (`parallel.mesh.make_mesh`) as `mesh`: the sizes of the two
+    meshes' `frames` axes must be equal (no mesh counts as 1), or this
+    raises ValueError naming both. Raises TypeError for anything that is
+    not a sequence codec."""
+    want = _frames_axis(getattr(codec, "mesh", None))
+    got = axis_size(mesh) if mesh is not None else 1
+    if want != got:
+        raise ValueError(f"the JAX codec's mesh has {want} devices on its {FRAME_AXIS!r} axis, "
+                         f"the port's mesh {got} ranks")
     if hasattr(codec, "position_bits") and hasattr(codec, "uv_bits"):
         return GeometrySequenceCodec(
-            int(codec.position_bits), int(codec.uv_bits), device=device
+            int(codec.position_bits), int(codec.uv_bits), device=device, mesh=mesh
         )
     if hasattr(codec, "sequence_size") and hasattr(codec, "supercompression"):
         return TextureSequenceCodec(
-            int(codec.sequence_size), str(codec.supercompression), device=device
+            int(codec.sequence_size), str(codec.supercompression), device=device, mesh=mesh
         )
     raise TypeError(f"not a sequence codec: {type(codec).__name__}")

@@ -12,7 +12,14 @@
 
 Wire bytes are identical to the reference codecs'. The host layers
 (rANS symbol coding, buffers, KTX2, zstd) are the port's copies of the
-reference's. Multi-device (`mesh=`) is not ported yet.
+reference's.
+
+With `mesh=` (a `parallel.mesh.make_mesh` mesh with a `frames` axis)
+every rank runs the device stages on its contiguous slice of the frame
+(layer) axis, padded to the mesh multiple, and the results are gathered
+to every rank in rank order; every rank then runs the host stages on the
+whole batch, as every process of the reference does, and writes the
+same bytes as one device.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import numpy as np
 import torch
 
 from uvol_tpu_torch import native
-from uvol_tpu_torch._device import DeviceLike, resolve_device, synchronize
+from uvol_tpu_torch._device import DeviceLike, synchronize
 from uvol_tpu_torch.codecs.basis.etc import pack_etc1_payload, unpack_etc1_payload
 from uvol_tpu_torch.codecs.basis.etc_cuda import (
     decode_etc1_images,
@@ -49,9 +56,16 @@ from uvol_tpu_torch.ops.pallas_kernels import geometry_quantize_stage
 from uvol_tpu_torch.ops.prediction import delta_decode
 from uvol_tpu_torch.ops.quantize import (
     dequantize_scaled,
-    symbols_from_numpy,
     symbols_to_numpy,
     zigzag_decode,
+)
+from uvol_tpu_torch.parallel.mesh import (
+    axis_size,
+    bucket_frames_by_count,
+    pad_frames_to_mesh,
+    replicate_to_host,
+    resolve_mesh_device,
+    shard_frames,
 )
 
 Tensor = torch.Tensor
@@ -69,35 +83,6 @@ class GeometryFrameSet:
     uvs: Optional[Any]  # [F, N, 2]
     counts: np.ndarray  # [F] valid vertex count per frame
     faces: List[np.ndarray]  # per-frame [Mf, 3] int32
-
-
-def bucket_frames_by_count(counts, max_waste: float = 0.25):
-    """Group frame indices into padding buckets for ragged sequences.
-
-    Copy of `uvol_tpu.parallel.mesh.bucket_frames_by_count` for one
-    device (`mesh_size=1`): frames are sorted by count and cut greedily
-    so each bucket's padded waste (1 - sum(counts)/(len*max)) stays
-    under `max_waste`."""
-    counts = np.asarray(counts, np.int64)
-    order = np.argsort(counts, kind="stable")
-    buckets = []
-    start = 0
-    n = len(order)
-    while start < n:
-        end = start + 1
-        total = int(counts[order[start]])
-        while end < n:
-            c = int(counts[order[end]])
-            new_total = total + c
-            # order is count-sorted, so c IS the running max
-            waste = 1.0 - new_total / ((end - start + 1) * max(c, 1))
-            if waste > max_waste:
-                break
-            total = new_total
-            end += 1
-        buckets.append(order[start:end])
-        start = end
-    return buckets
 
 
 def _syms(xt: Tensor, bits: int, mask: Tensor):
@@ -153,19 +138,47 @@ def _fan_out(fn, items, f: int):
     return [fn(x) for x in items]
 
 
-class GeometrySequenceCodec:
-    """Batched quantize + delta + entropy codec for mesh attribute sequences.
+class _FrameBatches:
+    """The device boundary of a codec, one device or a mesh's frame axis."""
 
-    `device`: where the device stages run (see `resolve_device`)."""
-
-    def __init__(self, position_bits: int = 11, uv_bits: int = 10, *,
-                 device: DeviceLike = None):
-        self.position_bits = position_bits
-        self.uv_bits = uv_bits
-        self.device = resolve_device(device)
+    device: torch.device
+    mesh: Any
 
     def _to_dev(self, a: np.ndarray) -> Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _frames_in(self, a: np.ndarray) -> Tensor:
+        """A host batch [F, ...] on the device: the whole batch, or with a
+        mesh this rank's slice of it padded to the mesh multiple."""
+        if self.mesh is None:
+            return self._to_dev(a)
+        return shard_frames(self.mesh, pad_frames_to_mesh(a, self.mesh)[0])
+
+    def _frames_out(self, tree, f: int):
+        """The device results of `_frames_in` batches, first f frames: as
+        they are, or with a mesh every rank's slices gathered in rank
+        order, on the host."""
+        if self.mesh is None:
+            return tree
+        gathered = replicate_to_host(self.mesh, tree)
+        if isinstance(gathered, dict):
+            return {k: v[:f] for k, v in gathered.items()}
+        return type(gathered)(v[:f] for v in gathered)
+
+
+class GeometrySequenceCodec(_FrameBatches):
+    """Batched quantize + delta + entropy codec for mesh attribute sequences.
+
+    `device`: where the device stages run (see `resolve_device`). `mesh`:
+    a `parallel.mesh.make_mesh` mesh with a `frames` axis; each rank then
+    runs the device stages on its frame slice (the module's docstring)."""
+
+    def __init__(self, position_bits: int = 11, uv_bits: int = 10, *,
+                 device: DeviceLike = None, mesh=None):
+        self.position_bits = position_bits
+        self.uv_bits = uv_bits
+        self.mesh = mesh
+        self.device = resolve_mesh_device(device, mesh)
 
     # -- encode --------------------------------------------------------------
     def encode(self, frames: GeometryFrameSet) -> List[bytes]:
@@ -173,17 +186,17 @@ class GeometrySequenceCodec:
         f, n, _ = frames.positions.shape
         mask = np.arange(n)[None, :] < np.asarray(frames.counts)[:, None]
         def planar(a):  # [F, N, C] → the device stage's planar [F, C, N] f32
-            return self._to_dev(np.asarray(a, np.float32).transpose(0, 2, 1))
+            return self._frames_in(np.asarray(a, np.float32).transpose(0, 2, 1))
 
         dev = encode_device(
             planar(frames.positions),
             planar(frames.uvs) if frames.uvs is not None else None,
-            self._to_dev(mask),
+            self._frames_in(mask),
             self.position_bits, self.uv_bits,
         )
         host = {
             k: symbols_to_numpy(v) if k.endswith("_syms") else v.cpu().numpy()
-            for k, v in dev.items()
+            for k, v in self._frames_out(dev, f).items()
         }
         return _fan_out(lambda i: self._frame_blob(frames, host, i), range(f), f)
 
@@ -221,12 +234,14 @@ class GeometrySequenceCodec:
     def encode_bucketed(self, positions, uvs, faces, *,
                         max_waste: float = 0.25) -> List[bytes]:
         """Ragged-sequence encode: frames of differing vertex counts are
-        bucketed so each device batch pads to its own max count. Blobs
-        come back in input order, byte-identical to any other batching
-        (quantization is per frame)."""
+        bucketed so each device batch pads to its own max count, bucket
+        lengths rounded to the mesh's frame-axis size where one is set.
+        Blobs come back in input order, byte-identical to any other
+        batching (quantization is per frame)."""
         counts = np.array([len(p) for p in positions], np.int64)
+        mesh_size = axis_size(self.mesh) if self.mesh is not None else 1
         out: List[Optional[bytes]] = [None] * len(counts)
-        for idx in bucket_frames_by_count(counts, max_waste):
+        for idx in bucket_frames_by_count(counts, mesh_size, max_waste):
             nmax = int(counts[idx].max())
             pos = np.zeros((len(idx), nmax, 3), np.float32)
             uv = np.zeros((len(idx), nmax, 2), np.float32) if uvs is not None else None
@@ -270,7 +285,8 @@ class GeometrySequenceCodec:
     def decode(self, blobs: Sequence[bytes], *, as_numpy: bool = True
                ) -> GeometryFrameSet:
         """`as_numpy=False` leaves the decoded attributes on the device as
-        planar [F, C, N] tensors (after the device has finished)."""
+        planar [F, C, N] tensors (after the device has finished; with a
+        mesh every rank holds all frames)."""
         f = len(blobs)
         parsed = _fan_out(self._frame_parse, blobs, f)
         counts = np.array([p[0] for p in parsed], np.int64)
@@ -292,11 +308,11 @@ class GeometrySequenceCodec:
                 uv_batch[i, :, :count] = us.T
                 umin[i] = meta["umin"]
                 uscale[i] = meta["urange"] / ((1 << meta["ubits"]) - 1)
-        pos, uv = decode_device(
-            symbols_from_numpy(pos_batch, self.device), self._to_dev(pmin),
-            self._to_dev(pscale), symbols_from_numpy(uv_batch, self.device),
-            self._to_dev(umin), self._to_dev(uscale),
-        )
+        pos, uv = self._frames_out(decode_device(
+            self._frames_in(pos_batch.view(np.int32)), self._frames_in(pmin),
+            self._frames_in(pscale), self._frames_in(uv_batch.view(np.int32)),
+            self._frames_in(umin), self._frames_in(uscale),
+        ), f)
         if not any_uv:
             uv = None  # UV-less streams: honor the Optional contract
         if as_numpy:
@@ -305,18 +321,20 @@ class GeometrySequenceCodec:
             uv = (np.ascontiguousarray(uv.cpu().numpy().transpose(0, 2, 1))
                   if uv is not None else None)
         else:
+            pos, uv = pos.to(self.device), uv.to(self.device) if uv is not None else None
             synchronize(self.device)
         return GeometryFrameSet(positions=pos, uvs=uv, counts=counts,
                                 faces=[p[4] for p in parsed])
 
 
-class TextureSequenceCodec:
+class TextureSequenceCodec(_FrameBatches):
     """ETC1/ETC2 block encode + KTX2 batching of `sequence_size` layers.
 
-    `supercompression="zstd"` wraps the level in Zstandard."""
+    `supercompression="zstd"` wraps the level in Zstandard. `mesh`: each
+    rank encodes and decodes its slice of the layer axis."""
 
     def __init__(self, sequence_size: int = 5, supercompression: str = "none",
-                 *, device: DeviceLike = None):
+                 *, device: DeviceLike = None, mesh=None):
         if supercompression not in ("none", "zstd"):
             raise ValueError(
                 f"unknown supercompression {supercompression!r} "
@@ -324,12 +342,15 @@ class TextureSequenceCodec:
             )
         self.sequence_size = sequence_size
         self.supercompression = supercompression
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_mesh_device(device, mesh)
 
     def encode_words(self, frames: np.ndarray) -> Tensor:
-        """[L, H, W, 3] uint8 host layers → [L*nb, 2] int32 words on the device."""
-        x = torch.from_numpy(np.ascontiguousarray(frames, dtype=np.uint8))
-        return encode_etc1_images(x.to(self.device))
+        """[L, H, W, 3] uint8 host layers → [L*nb, 2] int32 words on the
+        device (with a mesh: every rank's words, gathered on the host)."""
+        l, h, w, _ = frames.shape
+        words = encode_etc1_images(self._frames_in(np.asarray(frames, dtype=np.uint8)))
+        return self._frames_out((words,), l * (h // 4) * (w // 4))[0]
 
     def segment_from_words(self, words: Tensor, l: int, h: int, w: int) -> bytes:
         """[L*nb, 2] int32 words → one `.ktx2` (layers = frames, ETC2 RGB)."""
@@ -366,9 +387,11 @@ class TextureSequenceCodec:
         nb = (h // 4) * (w // 4)
         data = ktx2.level_payload(0)
         words = unpack_etc1_payload(data[: l * nb * 8]).reshape(l, nb, 2)
-        dev_words = torch.from_numpy(unpack_words2(words)).to(self.device)
-        out = decode_etc1_images(dev_words, l, h, w)
+        dev_words = self._frames_in(unpack_words2(words).reshape(l, nb, 2)).reshape(-1, 2)
+        out = self._frames_out((decode_etc1_images(dev_words, dev_words.shape[0] // nb, h, w),),
+                               l)[0]
         if as_numpy:
             return out.cpu().numpy()
+        out = out.to(self.device)
         synchronize(self.device)
         return out
