@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from `uvol_tpu_torch/csrc/` (nvcc, sm_90a,
-one process per source), holds each kernel (K1-K8, U1, the fixed-order
+one process per source), holds each kernel (K1-K8, U1, U3-U5, the fixed-order
 segment sum and the geometry stage's minimum/maximum) bit-for-bit against
 its plain PyTorch twin (the geometry stage on ragged masks, a frame of one
 vertex, of equal values, without a valid vertex, rows whose minimum is both
@@ -114,6 +114,28 @@ rank-ordered gather and sum times, an int32 `all_reduce` over gloo on
 CUDA tensors (the transport not taken) and the encodes' wall times
 beside one device's: ranks sharing one card, not a scaling figure.
 
+Its phase `pointcloud_trajectory_path` (after the UASTC device fit, before
+project D: run before `profile`, it left that phase's texture-encode traces
+empty five times in a row, as `cli_player_path` once did) drives
+the mesh and point-cloud ops and models, whose kernels are U3-U5
+(`csrc/mesh_ops.cu`): U3 (`estimate_normals`), U4 (the point-cloud
+stage's quantize and Morton keys) and U5 (`parallelogram_decode`) are
+held bit for bit against their twins on edge cases (-1 face
+rows, isolated and degenerate faces, a vertex in 1,000 faces; coordinates
+at 0 and 2^21 - 1, duplicates, N = 1 and off every CTA size; forward and
+out-of-range indices, a = -1 with any b and c, values near +-2^31, 1 to 4
+components, N = 1). Then, on 32 displaced 83 x 315 grids (26,145
+vertices, 51,496 faces), counted from 0: `PointCloudSequenceCodec`
+encode and decode (the CPU port's `.crt` bytes), `fit_trajectories`
+(samples against the CPU port's), `estimate_normals` per frame, and
+`parallelogram_encode`/`parallelogram_decode` of the positions at 11 bits
+and the UVs at 10 with the grid's own parallelograms (the decode gives
+back its input); U3, U4 and U5 must each launch. The point-cloud stage
+runs again on 8 x 1,048,576 points (a captured cloud's scale). It prints
+each kernel's time per call and alone, its twin's time, launches per
+call, the stable sort's time beside U4's and the `.crt` host encode and
+decode in seconds a frame.
+
 Each phase prints one JSON line; then come the card's `nvidia-smi`
 name/power-limit line, the kernels line (each kernel's launches on its
 main path, worst difference from its twin, call time, its twin's time,
@@ -192,6 +214,9 @@ WRAPPER_KERNELS = {
     "etc1s_rate_sweep": ("rate_sweep_frame_kernel",),
     "drc_fused_batch": ("drc_fused_batch_kernel",),
     "uastc_device_fit": ("uastc_device_fit_kernel",),
+    "estimate_normals": ("estimate_normals_kernel",),
+    "morton_keys": ("morton_keys_kernel",),
+    "parallelogram_decode": ("parallelogram_decode_kernel",),
 }
 #: the segment sums of one palette build at 256/256 (etc1s_encode.py): (k, D)
 #: of the bisections (endpoints D = 9, selectors D = 33, k doubling to 256),
@@ -293,6 +318,24 @@ MD_KERNELS = ("etc1_encode", "etc1_decode", "quantize_delta_zigzag", "geometry_m
 #: what `all_sum_in_rank_order` is timed on: a segment sum's partial at the
 #: selector update's k and D (SEG_TIMED)
 MD_SUM_SHAPE = (256, 64)
+#: pointcloud_trajectory_path: the point-cloud codec, the trajectory fit, the
+#: normals and the parallelogram pair on PC_FRAMES displaced DRC_GRID grids, the
+#: positions and UVs quantized at PC_BITS; the point-cloud stage at a captured
+#: cloud's scale (frames, points); U4 and U5 on their edge shapes: (frames,
+#: points) off every CTA size, (vertices, components) of the chains
+PC_FRAMES = F
+PC_BITS = (11, 10)
+PC_CLOUD = (8, 1 << 20)
+U4_EDGE_SHAPES = ((1, 1), (3, 255), (2, 257), (1, 1000))
+U5_EDGE_SHAPES = ((1, 1), (1, 2), (97, 1), (1025, 2), (2048, 3), (3001, 4))
+#: trajectory samples on the card against the CPU port's: within this share of
+#: the positions' scale (the float64 solve amplifies V^T y's float32 sum order)
+TRAJ_REL_TOL = 1e-4
+#: U5's dependent chain: per step two dependent shared-memory loads (the index,
+#: then the prefix value) and the stored sum the next step may read, assumed
+#: ~30 cycles each at the H100 SXM's 1,980 MHz boost clock
+U5_STEP_CYCLES = 90
+SM_CLOCK_HZ = 1.98e9
 #: K3's and the minimum/maximum's kernel names in a profiler trace (csrc/geometry.cu)
 K3_KERNEL_NAME = WRAPPER_KERNELS["quantize_delta_zigzag"][0]
 MINMAX_KERNEL_NAME = WRAPPER_KERNELS["geometry_minmax"][0]
@@ -354,7 +397,23 @@ OPS = {
     # divisions, the fold (~10), 3 products, 2 sums, a square root, a maximum
     # and 3 divisions (csrc/drc.cu, K8)
     "drc_fused_batch": 10,
+    # per point: per coordinate a subtract, multiply, add, floor, two clamps
+    # and the conversion (21); the spread of 10 bits (9) for 3 coordinates of
+    # 2 words (54); the words' shifts and ors (10), the top word (9) and the
+    # key (4) (csrc/mesh_ops.cu, U4)
+    "morton_keys": 98,
+    # per value: the a >= 0 test, 2 maxima, 3 minima, 3 loads, an add, a
+    # subtract, the select and the residual's add (csrc/mesh_ops.cu, U5)
+    "parallelogram_decode": 13,
 }
+
+
+def estimate_normals_ops(nv: int, nf: int) -> int:
+    """FLOP of U3's function: per face 6 differences, 3 products and 3 FMA
+    (2 each) and 3 products by the validity (18); per corner 3 adds; per
+    vertex the norm (1 product, 2 FMA, a square root: 6), a compare and 3
+    divisions (10)."""
+    return 18 * nf + 9 * nf + 10 * nv
 
 
 def uastc_fit_ops(modes) -> int:
@@ -1694,6 +1753,252 @@ def drc_device_path(torch, dev, positions, uvs, median_cuda_ms) -> tuple:
 # ---------------------------------------------------------------------------
 
 
+def grid_parallelograms(ny: int, nx: int) -> np.ndarray:
+    """[ny * nx, 3] int32: the grid's own parallelograms, (i - 1, i - nx,
+    i - nx - 1) for the vertex (r, c) = divmod(i, nx) with r, c >= 1, else
+    -1 (the previous vertex predicts)."""
+    i = np.arange(ny * nx)
+    inner = (i >= nx) & (i % nx >= 1)
+    return np.where(inner[:, None], np.stack([i - 1, i - nx, i - nx - 1], 1), -1).astype(np.int32)
+
+
+def mesh_op_cases(r) -> tuple:
+    """The edge cases U3-U5 are held on: (U3 meshes, U4 batches, U5 chains),
+    each a dict of name -> numpy arguments."""
+    from uvol_tpu_torch.codecs.draco.grid import grid_mesh
+
+    pos, _, _, faces = grid_mesh(7, 9, 0)
+    u3 = {
+        "minus_one_rows_isolated_degenerate": (
+            np.concatenate([pos, r.normal(size=(4, 3)).astype(np.float32)]),
+            np.concatenate([faces, np.full((5, 3), -1), [[3, 3, 3], [2, 4, 2], [0, 1, 1]]]
+                           ).astype(np.int32)),
+        # vertex 0 in 1,000 faces, in every corner position in turn
+        "vertex_in_1000_faces": (
+            r.normal(size=(1002, 3)).astype(np.float32) * 100,
+            np.array([np.roll([0, j + 1, j + 2], j % 3) for j in range(1000)], np.int32)),
+        "random_shared": (r.normal(size=(60, 3)).astype(np.float32),
+                          r.integers(0, 60, (4000, 3)).astype(np.int32)),
+    }
+    u4 = {}
+    for f, n in U4_EDGE_SHAPES:
+        x = (r.normal(size=(f, n, 3)) * 30).astype(np.float32)
+        u4[f"random_{f}x{n}"] = (x, 11)
+        u4[f"duplicates_{f}x{n}"] = (r.integers(0, 4, (f, n, 3)).astype(np.float32), 11)
+    corners = np.zeros((1, 8, 3), np.float32)
+    corners[0, 1:] = [[1, 1, 1], [1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 1, 0], [0.5, 0.5, 0.5],
+                      [1, 0, 1]]
+    u4["coordinates_0_and_2^21-1"] = (corners, 21)
+    u5 = {}
+    for n, d in U5_EDGE_SHAPES:
+        res = r.integers(-(1 << 31), (1 << 31) - 1, (2, n, d), dtype=np.int64)
+        near = np.array([(1 << 31) - 1, -(1 << 31), (1 << 31) - 2, -(1 << 31) + 1])
+        res[:, : min(n, 4)] = near[: min(n, 4), None]  # values near +-2^31
+        i = np.arange(n)
+        a = np.where(r.random((2, n)) < 0.2, -1, i - r.integers(-3, 5, (2, n)))  # forward too
+        b = np.where(r.random((2, n)) < 0.1, n - 1, i - r.integers(-2, 6, (2, n)))
+        c = np.where(r.random((2, n)) < 0.1, 0, i + r.integers(-5, 40, (2, n)))  # past N too
+        u5[f"chain_{n}x{d}"] = (res.astype(np.int32), np.stack([a, b, c], -1).astype(np.int32))
+    return u3, u4, u5
+
+
+def same_bits(torch, err: dict, name: str, got, want) -> None:
+    """Fail unless the kernel's output equals its twin's bit for bit (float32
+    as int32 bits, the sign of a zero included; int64 keys as they are)."""
+    got, want = got.cpu(), want.cpu()
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    check(got.shape == want.shape and torch.equal(got, want), f"{name} differs from its plain twin")
+    err[name] = max(err.get(name, 0), 0.0)
+
+
+def pointcloud_trajectory_path(torch, dev, median_cuda_ms) -> tuple:
+    """U3-U5 and the point-cloud and trajectory models at full width: the
+    kernels held bit for bit against their twins on the edge cases, then the
+    main paths on PC_FRAMES displaced DRC_GRID grids (point-cloud encode and
+    decode against the CPU port's bytes, the trajectory fit against the CPU
+    port's, normals per frame, parallelogram encode and decode of the
+    quantized positions and UVs), the point-cloud stage at a captured
+    cloud's scale, and the times. Returns (launches, err, ms, work)."""
+    from uvol_tpu_torch.codecs.draco.grid import grid_mesh
+    from uvol_tpu_torch.models import trajectory as ttraj
+    from uvol_tpu_torch.models.pointcloud import PointCloudSequenceCodec
+    from uvol_tpu_torch.ops import mesh_cuda as mc
+    from uvol_tpu_torch.ops.prediction import parallelogram_decode, parallelogram_encode
+    from uvol_tpu_torch.ops.quantize import compute_quantization_transform, quantize
+    from uvol_tpu_torch._device import true_div
+
+    t0 = time.perf_counter()
+    r = np.random.default_rng(15)
+    err, ms = {}, {}
+    td = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+
+    def inv_of(x, bits):
+        mn, rng = compute_quantization_transform(x)
+        return mn, true_div(1.0, true_div(rng, (1 << bits) - 1))
+
+    # ---- the edge cases: each kernel on the card against its twin (U4's on the
+    # card; U3's and U5's, loops of many small launches, on the CPU)
+    u3, u4, u5 = mesh_op_cases(r)
+    for name, (p, f) in u3.items():
+        same_bits(torch, err, "estimate_normals", mc.estimate_normals(td(p), td(f)),
+                  mc.estimate_normals_plain(torch.from_numpy(p), torch.from_numpy(f)))
+    for name, (x, bits) in u4.items():
+        xd = td(x)
+        mn, inv = inv_of(xd, bits)
+        if name.startswith("coordinates"):
+            mn, inv = torch.zeros_like(mn), torch.full_like(inv, float((1 << 21) - 1))
+        keys = mc.morton_keys(xd, mn, inv, bits)
+        same_bits(torch, err, "morton_keys", keys, mc.morton_keys_plain(xd, mn, inv, bits))
+        if name.startswith("coordinates"):
+            check(int(keys.max()) == (1 << 63) - 1 and int(keys.min()) == 0,
+                  "the Morton key at coordinates 0 and 2^21 - 1")
+    for name, (res, p) in u5.items():
+        same_bits(torch, err, "parallelogram_decode", mc.parallelogram_decode(td(res), td(p)),
+                  mc.parallelogram_decode_plain(torch.from_numpy(res), torch.from_numpy(p)))
+    edge_s = time.perf_counter() - t0
+
+    # ---- the main paths at full width, counted from 0
+    ny, nx = DRC_GRID
+    grids = [grid_mesh(ny, nx, 1000 + k) for k in range(PC_FRAMES)]
+    pos = np.stack([g[0] for g in grids])
+    uvs = np.stack([g[1] for g in grids])
+    faces = grids[0][3]
+    check(all(np.array_equal(g[3], faces) for g in grids), "the grids' faces differ")
+    nv, nf = pos.shape[1], len(faces)
+    pos_d, uv_d, faces_d = td(pos), td(uvs), td(faces)
+    pidx = td(np.broadcast_to(grid_parallelograms(ny, nx), (PC_FRAMES, nv, 3)))
+    codec = PointCloudSequenceCodec(PC_BITS[0], device=DEVICE)
+    codec.decode(codec.encode(pos[:1]))  # warm: the host Corto library's build (g++) and load
+    mc.reset_launches()
+    t = time.perf_counter()
+    blobs = codec.encode(pos)
+    crt_encode_s = time.perf_counter() - t
+    t = time.perf_counter()
+    decoded = codec.decode(blobs)
+    crt_decode_s = time.perf_counter() - t
+    group = ttraj.fit_trajectories(pos, 4, device=DEVICE)
+    normals = [mc.estimate_normals(pos_d[k], faces_d) for k in range(PC_FRAMES)]
+    q_pos = quantize(pos_d, PC_BITS[0]).values
+    q_uv = quantize(uv_d, PC_BITS[1]).values
+    res_pos = parallelogram_encode(q_pos, pidx)
+    res_uv = parallelogram_encode(q_uv, pidx)
+    back_pos = parallelogram_decode(res_pos, pidx)
+    back_uv = parallelogram_decode(res_uv, pidx)
+    torch.cuda.synchronize()
+    launches = dict(mc.LAUNCHES)
+    check(launches == {"estimate_normals": PC_FRAMES, "morton_keys": 1,
+                       "parallelogram_decode": 2},
+          f"the point-cloud, trajectory, normals and parallelogram paths launched {launches}")
+
+    # their outputs: the CPU port's bytes and values, the kernels' twins
+    cpu_codec = PointCloudSequenceCodec(PC_BITS[0], device="cpu")
+    check(cpu_codec.encode(pos) == blobs, ".crt bytes differ between CUDA and CPU")
+    sorted_cpu, _ = cpu_codec.device_stage(torch.from_numpy(pos))
+    step = float(max((pos[k].max(0) - pos[k].min(0)).max() for k in range(PC_FRAMES))) / 2047
+    for k, d in enumerate(decoded):
+        check(d.shape == (nv, 3) and bool(np.isfinite(d).all()), "decoded point cloud shape")
+        check(float(np.abs(d - sorted_cpu[k].numpy()).max()) <= step, "decoded points off by a step")
+    pos_cpu = torch.from_numpy(pos)
+    mn, inv = inv_of(pos_d, PC_BITS[0])
+    same_bits(torch, err, "morton_keys", mc.morton_keys(pos_d, mn, inv, PC_BITS[0]),
+              mc.morton_keys_plain(pos_cpu, *inv_of(pos_cpu, PC_BITS[0]), PC_BITS[0]))
+    cpu_group = ttraj.fit_trajectories(pos, 4, device="cpu")
+    vty = ttraj._vty(pos_d, 4).double().cpu()
+    vty_cpu = ttraj._vty(pos_cpu, 4).double()
+    vand = ttraj.vandermonde(PC_FRAMES, 4, torch.device("cpu")).double().abs()
+    mag = vand.t() @ pos_cpu.reshape(PC_FRAMES, -1).double().abs()
+    eps = float(np.finfo(np.float32).eps)
+    check(bool(((vty - vty_cpu).abs() <= 2 * PC_FRAMES * eps * mag).all()),
+          "V^T y on the card is off the CPU's by more than float32 summation error")
+    scale = float(np.abs(pos).max())
+    traj_err = max(float(np.abs(group.sample(k) - cpu_group.sample(k)).max())
+                   for k in (0, PC_FRAMES // 2, PC_FRAMES - 1, 7.5))
+    check(traj_err <= TRAJ_REL_TOL * scale, f"trajectory samples off the CPU port's by {traj_err}")
+    fit_err = ttraj.reconstruction_error(pos, group)
+    for k in range(PC_FRAMES):
+        same_bits(torch, err, "estimate_normals", normals[k],
+                  mc.estimate_normals_plain(pos_cpu[k], torch.from_numpy(faces)))
+        nn = normals[k].cpu().norm(dim=1)
+        check(bool(((nn - 1).abs() < 1e-5).all()), "normals are not unit vectors")
+    check(torch.equal(back_pos, q_pos) and torch.equal(back_uv, q_uv),
+          "the parallelogram decode did not give back its input")
+    for back, res in ((back_pos, res_pos), (back_uv, res_uv)):
+        same_bits(torch, err, "parallelogram_decode", back,
+                  mc.parallelogram_decode_plain(res.cpu(), pidx.cpu()))
+
+    # ---- a captured cloud's scale: the point-cloud stage on PC_CLOUD points
+    fc, ncl = PC_CLOUD
+    gen = torch.Generator(device=dev).manual_seed(15)
+    cloud = torch.randn((fc, ncl, 3), generator=gen, device=dev) * 2.0
+    mc.reset_launches()
+    sorted_cloud, perm = codec.device_stage(cloud)
+    torch.cuda.synchronize()
+    check(mc.LAUNCHES["morton_keys"] == 1, "the captured cloud's stage did not launch U4 once")
+    cmn, cinv = inv_of(cloud, PC_BITS[0])
+    ckeys = mc.morton_keys(cloud, cmn, cinv, PC_BITS[0])
+    same_bits(torch, err, "morton_keys", ckeys, mc.morton_keys_plain(cloud, cmn, cinv, PC_BITS[0]))
+    check(bool((ckeys.gather(1, perm.long()).diff(dim=1) >= 0).all()), "the cloud is not sorted")
+    check(torch.equal(perm[0].cpu(), cpu_codec.device_stage(cloud[0:1].cpu())[1][0]),
+          "the captured cloud's order differs between CUDA and CPU")
+
+    # ---- times: per call (CUDA events), alone (profiler), twin, library
+    p0 = pos_d[0]
+    fn3 = mc.face_normals_plain(p0, faces_d).repeat(3, 1)
+    corners = faces_d.t().reshape(-1).long()
+    acc = torch.zeros_like(p0)
+    calls = {
+        "estimate_normals": (lambda: mc.estimate_normals(p0, faces_d),
+                             lambda: mc.estimate_normals_plain(p0, faces_d)),
+        "morton_keys": (lambda: mc.morton_keys(cloud, cmn, cinv, PC_BITS[0]),
+                        lambda: mc.morton_keys_plain(cloud, cmn, cinv, PC_BITS[0])),
+        "morton_keys_grid": (lambda: mc.morton_keys(pos_d, mn, inv, PC_BITS[0]),
+                             lambda: mc.morton_keys_plain(pos_d, mn, inv, PC_BITS[0])),
+        "parallelogram_decode": (lambda: mc.parallelogram_decode(res_pos, pidx), None),
+        "parallelogram_decode_uv": (lambda: mc.parallelogram_decode(res_uv, pidx), None),
+    }
+    kernel_of = {"estimate_normals": "estimate_normals_kernel",
+                 "morton_keys": "morton_keys_kernel", "morton_keys_grid": "morton_keys_kernel",
+                 "parallelogram_decode": "parallelogram_decode_kernel",
+                 "parallelogram_decode_uv": "parallelogram_decode_kernel"}
+    per_call = {}
+    for key, (fn, twin) in calls.items():
+        mc.reset_launches()
+        fn()
+        per_call[key] = sum(mc.LAUNCHES.values())
+        ms[key] = median_cuda_ms(fn, REPS)
+        if twin is not None:
+            ms[key + "_plain"] = median_cuda_ms(twin, REPS)
+        ms[key + "_kernel"], _ = kernel_only_ms(torch, fn, (kernel_of[key],))
+    ms["estimate_normals_library"] = median_cuda_ms(
+        lambda: acc.index_add_(0, corners, fn3), REPS)  # index_add_ of the corner normals
+    ms["estimate_normals_csr"] = median_cuda_ms(lambda: mc.normals_csr(faces_d, nv), REPS)
+    ms["morton_keys_sort"] = median_cuda_ms(lambda: torch.sort(ckeys, dim=-1, stable=True), REPS)
+    ms["morton_keys_grid_sort"] = median_cuda_ms(
+        lambda: torch.sort(mc.morton_keys(pos_d, mn, inv, PC_BITS[0]), dim=-1, stable=True), REPS)
+    ms["pointcloud_device_stage_cloud"] = median_cuda_ms(lambda: codec.device_stage(cloud), REPS)
+    ms["trajectory_vty"] = median_cuda_ms(lambda: ttraj._vty(pos_d, 4), REPS)
+    ms["parallelogram_encode"] = median_cuda_ms(lambda: parallelogram_encode(q_pos, pidx), REPS)
+    # last, after this phase's traces: U5's twin on the card, a Python loop of
+    # ~300,000 small launches, timed once
+    t = time.perf_counter()
+    twin_pos = mc.parallelogram_decode_plain(res_pos, pidx)
+    torch.cuda.synchronize()
+    ms["parallelogram_decode_plain"] = (time.perf_counter() - t) * 1e3
+    same_bits(torch, err, "parallelogram_decode", back_pos, twin_pos)
+    emit({"phase": "pointcloud_trajectory_path", "frames": PC_FRAMES, "vertices": nv,
+          "faces": nf, "cloud": [fc, ncl], "launches": launches,
+          "launches_per_call": per_call, "crt_bytes": sum(map(len, blobs)),
+          "crt_encode_s_per_frame": crt_encode_s / PC_FRAMES,
+          "crt_decode_s_per_frame": crt_decode_s / PC_FRAMES,
+          "trajectory_sample_max_abs_diff_vs_cpu": traj_err,
+          "trajectory_fit_max_abs_error": fit_err, "edge_cases_s": edge_s,
+          "edge_cases": {"u3": list(u3), "u4": list(u4), "u5": list(u5)},
+          "ms": ms, "seconds": time.perf_counter() - t0})
+    work = {"nv": nv, "nf": nf, "cloud": (fc, ncl), "chain": (PC_FRAMES, nv, 3)}
+    return launches, err, ms, work
+
+
 def write_png(path, img: np.ndarray) -> None:
     """[H, W, 3] uint8 -> an RGB PNG with zlib alone (the card machine has
     no Pillow); the rows take the None, Sub and Up filters in turn."""
@@ -2749,6 +3054,14 @@ def main() -> int:
     launches.update(uastc_launches)
     ms.update(uastc_ms)
     err.update(uastc_err)
+
+    # ---- 9b. the point-cloud, trajectory, normals and parallelogram paths
+    # (U3-U5), after every phase but its own that reads a trace: run before
+    # `profile`, it left that phase's texture-encode traces empty five times
+    pc_launches, pc_err, pc_ms, pc_work = pointcloud_trajectory_path(torch, dev, median_cuda_ms)
+    launches.update(pc_launches)
+    ms.update(pc_ms)
+    err.update(pc_err)
     uastc_cli_launches = uastc_project_path(torch, textures)
 
     # ---- 10. the port's entry points: the encoder CLI and the player. Last: it
@@ -2777,6 +3090,8 @@ def main() -> int:
     from uvol_tpu_torch.codecs.basis.uastc import MODES as UASTC_MODES
 
     nu = F * (H // 4) * (W // 4)
+    fpc, npc = pc_work["cloud"][0], pc_work["cloud"][0] * pc_work["cloud"][1]
+    nch, dch = pc_work["chain"][0] * pc_work["chain"][1], pc_work["chain"][2]
     u1_ops = uastc_fit_ops([UASTC_MODES[m] for m in UASTC_MODE_SETS["rgb"]])
     work = {  # name: (source, replaces, bytes moved once, operations, their rate)
         "etc1_encode": ("etc1.cu", "codecs/basis/etc_pallas.py:230", nb * 48 + nb * 8,
@@ -2822,12 +3137,26 @@ def main() -> int:
         # planes (2 x 16) and error (4) out once
         "uastc_device_fit": ("uastc.cu", "codecs/basis/uastc.py:609",
                              nu * 64 + nu * (1 + 8 + 32 + 4), u1_ops * nu, INT_OPS_PER_S),
+        # U3-U5 replace XLA programs of the reference, not Pallas sites. U3 per
+        # frame: the positions and faces in once, the normals out once (the
+        # wrapper's CSR is not the function's traffic)
+        "estimate_normals": ("mesh_ops.cu", "ops/normals.py:66",
+                             pc_work["nv"] * 24 + pc_work["nf"] * 12,
+                             estimate_normals_ops(pc_work["nv"], pc_work["nf"]), F32_FLOP_PER_S),
+        # U4 at a captured cloud's scale: the points in, the keys out
+        "morton_keys": ("mesh_ops.cu", "models/pointcloud.py:31", npc * 12 + npc * 8 + fpc * 16,
+                        OPS["morton_keys"] * npc, INT_OPS_PER_S),
+        # U5 on the positions: residuals and index triples in, values out
+        "parallelogram_decode": ("mesh_ops.cu", "ops/prediction.py:56",
+                                 nch * dch * 8 + nch * 12, OPS["parallelogram_decode"] * nch * dch,
+                                 INT_OPS_PER_S),
     }
     attrs = _build.kernel_attrs()
     for fn in ("etc1_encode_kernel", "etc1_decode_kernel", "inten_errors_kernel",
                "rate_sweep_frame_kernel", "drc_fused_batch_kernel", "uastc_device_fit_kernel",
                "weight_index_kernel", "seg_sum_chunk_kernel", "seg_sum_tree_kernel",
-               "seg_sum_tree_kernel_small", *STAGE_KERNEL_NAMES):
+               "seg_sum_tree_kernel_small", "estimate_normals_kernel", "morton_keys_kernel",
+               "parallelogram_decode_kernel", *STAGE_KERNEL_NAMES):
         check(attrs[fn]["stack_bytes"] == 0, f"{fn} uses stack memory")
     # K3's times are those of the call the main path makes (offsets taken in)
     timed_as = {"quantize_delta_zigzag": "quantize_from_bounds"}
@@ -2843,15 +3172,23 @@ def main() -> int:
             "launches_multidevice": md_launches.get(name),
             "max_abs_err": err[name], "ms": ms[timed], "plain_ms": ms[timed + "_plain"],
             "bound_ms": bound_ms, "bound_by": bound_by,
-            # index_add_ for the segment sum; for K7 the error product
-            # `feat @ mat.T`, the one piece of its stage a library call
-            # computes; no single PyTorch call computes any of the others
+            # index_add_ for the segment sum and for U3's sums (in no fixed
+            # order); for K7 the error product `feat @ mat.T`, the one piece
+            # of its stage a library call computes; no single PyTorch call
+            # computes any of the others
             # (none takes a mask, sums in a fixed order, scans a column at a
             # time, unpacks bit-packed values or fits a UASTC block's modes)
             "library_ms": ms.get(name + "_library"),
             "kernel_ms": ms[timed + "_kernel"],
             "kernel_attrs": {fn: attrs[fn] for fn in WRAPPER_KERNELS[name]},
         })
+    # U5's other bound: its steps one after another, each waiting out
+    # U5_STEP_CYCLES; U4's stable sort of the keys, a PyTorch call of the codec
+    extra = {"parallelogram_decode": {"chain_bound_ms": pc_work["chain"][1] * U5_STEP_CYCLES
+                                      / SM_CLOCK_HZ * 1e3},
+             "morton_keys": {"sort_ms": ms["morton_keys_sort"]}}
+    for row in rows:
+        row.update(extra.get(row["name"], {}))
     check_full_f32()
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": rows})

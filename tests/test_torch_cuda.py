@@ -1036,3 +1036,69 @@ def test_uastc_encode_and_transcode_on_card_match_cpu(card, legacy):
         got = uastc.transcode_uastc(f, target, device=card)
         assert etc_cuda.LAUNCHES["etc1_encode"] == before + 1  # one K1 call per file
         np.testing.assert_array_equal(got, uastc.transcode_uastc(f, target, device="cpu"))
+
+
+# ---- U3-U5: the mesh and point-cloud ops (ops/mesh_cuda.py) --------------------
+
+
+def _grid_faces(ny, nx):
+    i = (np.arange(ny - 1)[:, None] * nx + np.arange(nx - 1)[None, :]).ravel()
+    faces = np.concatenate([np.stack([i, i + 1, i + nx], 1), np.stack([i + 1, i + nx + 1, i + nx], 1)])
+    return faces.astype(np.int32)
+
+
+def _u3_cases():
+    r = np.random.default_rng(4)
+    pos = r.normal(size=(83 * 315, 3)).astype(np.float32) * 10
+    faces = _grid_faces(83, 315)
+    yield "grid", pos, faces
+    padded = np.concatenate([faces[:500], np.full((7, 3), -1), [[3, 3, 3], [2, 4, 2], [1, 10 ** 6, 2]]])
+    yield "padded_degenerate_out_of_range", pos[:600], padded.astype(np.int32)
+    fan = np.stack([np.zeros(1000), np.arange(1, 1001), np.arange(2, 1002)], 1).astype(np.int32)
+    yield "fan_1000", r.normal(size=(1005, 3)).astype(np.float32), fan  # 3 isolated vertices
+    yield "random", r.normal(size=(70, 3)).astype(np.float32), r.integers(0, 70, (5000, 3)).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["grid", "padded_degenerate_out_of_range", "fan_1000", "random"])
+def test_estimate_normals_kernel_matches_twin(card, case):
+    from uvol_tpu_torch.ops import mesh_cuda
+
+    _, pos, faces = next(c for c in _u3_cases() if c[0] == case)
+    p, f = torch.from_numpy(pos), torch.from_numpy(faces)
+    before = mesh_cuda.LAUNCHES["estimate_normals"]
+    got = mesh_cuda.estimate_normals(p.to(card), f.to(card))
+    torch.cuda.synchronize()
+    assert mesh_cuda.LAUNCHES["estimate_normals"] == before + 1
+    want = mesh_cuda.estimate_normals_plain(p, f)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("f,n,bits", [(1, 1, 11), (3, 255, 11), (2, 257, 21), (32, 26145, 11),
+                                      (2, 1000, 1)])
+def test_morton_keys_kernel_matches_twin(card, f, n, bits):
+    from uvol_tpu_torch._device import true_div
+    from uvol_tpu_torch.ops import mesh_cuda
+    from uvol_tpu_torch.ops.quantize import compute_quantization_transform
+
+    r = np.random.default_rng(n)
+    x = torch.from_numpy((r.normal(size=(f, n, 3)) * 30).astype(np.float32))
+    x[:, n // 2:] = x[:, : n - n // 2]  # duplicate points
+    mn, rng = compute_quantization_transform(x)
+    inv = true_div(1.0, true_div(rng, (1 << bits) - 1))
+    got = mesh_cuda.morton_keys(x.to(card), mn.to(card), inv.to(card), bits)
+    assert torch.equal(got.cpu(), mesh_cuda.morton_keys_plain(x, mn, inv, bits))
+
+
+@pytest.mark.parametrize("f,n,d", [(1, 1, 1), (2, 1025, 2), (3, 2048, 3), (1, 3000, 4)])
+def test_parallelogram_decode_kernel_matches_twin(card, f, n, d):
+    from uvol_tpu_torch.ops import mesh_cuda
+
+    r = np.random.default_rng(n + d)
+    res = r.integers(-(1 << 31), (1 << 31) - 1, (f, n, d), dtype=np.int64).astype(np.int32)
+    i = np.arange(n)
+    a = np.where(r.random((f, n)) < 0.2, -1, i - r.integers(-3, 5, (f, n)))  # forward refs too
+    b, c = i - r.integers(-2, 6, (f, n)), i + r.integers(-5, 40, (f, n))  # past N as well
+    p = torch.from_numpy(np.stack([a, b, c], -1).astype(np.int32))
+    res = torch.from_numpy(res)
+    got = mesh_cuda.parallelogram_decode(res.to(card), p.to(card))
+    assert torch.equal(got.cpu(), mesh_cuda.parallelogram_decode_plain(res, p))

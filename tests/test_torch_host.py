@@ -40,7 +40,9 @@ def path(request, monkeypatch):
     if request.param == "python":
         monkeypatch.setattr(jnative, "get_lib", lambda: None)
         monkeypatch.setattr(jnative, "get_etc1s_lib", lambda: None)
+        monkeypatch.setattr(jnative, "get_corto_lib", lambda: None)
         monkeypatch.setattr(tnative, "get_lib", lambda: None)
+        monkeypatch.setattr(tnative, "get_corto_lib", lambda: None)
     else:
         assert tnative.get_lib() is not None  # g++ builds the port's library
     return request.param
@@ -1037,3 +1039,106 @@ def test_png_reader_refuses_what_it_does_not_read(tmp_path, case, match):
     path.write_bytes(data)
     with pytest.raises(ValueError, match=match):
         timage.read_png(str(path))
+
+
+# ---- the Corto codec (codecs/corto/ and native/corto_*.cpp) ------------------------
+
+
+def _corto_grid(w, seed=0):
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:w, 0:w]
+    pos = np.stack([xx.ravel() * 0.1, yy.ravel() * 0.1,
+                    r.normal(size=w * w) * 0.05], -1).astype(np.float32)
+    faces = [[y * w + x, y * w + x + 1, y * w + x + w] for y in range(w - 1) for x in range(w - 1)]
+    faces += [[y * w + x + 1, y * w + x + w + 1, y * w + x + w]
+              for y in range(w - 1) for x in range(w - 1)]
+    return pos, np.asarray(faces, np.int64)
+
+
+def _corto_case(case):
+    """(positions, faces, keyword arguments) of one `encode_crt` call, and
+    the keyword arguments built from the `CrtCustomAttr` of the package
+    given (each package has its own class)."""
+    r = np.random.default_rng(5)
+    if case == "point_cloud":
+        pos = (r.normal(size=(3000, 3)) * 4).astype(np.float32)
+        return pos, np.zeros((0, 3), np.int64), {"colors": r.integers(0, 256, (3000, 4))}
+    pos, faces = _corto_grid(14 if case != "multigroup" else 16)
+    n = len(pos)
+    nrm = r.normal(size=(n, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    kw = {"uvs": r.uniform(0, 1, (n, 2)).astype(np.float32), "normals": nrm,
+          "colors": r.integers(0, 256, (n, 4))}
+    if case == "multigroup":
+        kw["groups"] = [100, 250, len(faces)]
+    elif case.startswith("entropy_"):
+        kw["entropy"] = int(case.split("_")[1])
+    elif case.startswith("normals_"):
+        kw["normal_prediction"] = case.split("_")[1]
+    elif case == "custom":
+        kw["custom_attributes"] = {
+            "heat": (r.normal(size=(n, 1)).astype(np.float32), {"step": 1e-3}),
+            "flags": (r.integers(-5, 200, (n, 2)).astype(np.int64), {}),
+            "auto": (r.normal(size=(n, 1)).astype(np.float32) * 40, {"bits": 14}),
+        }
+    elif case == "trajectory":  # polynomial coefficients as xPos/yPos/zPos (16 bits)
+        coef = r.normal(size=(3, n, 4)).astype(np.float32)
+        kw["custom_attributes"] = {name: (np.ascontiguousarray(coef[a]), {"bits": 16})
+                                   for a, name in enumerate(("xPos", "yPos", "zPos"))}
+    return pos, faces, kw
+
+
+def _with_custom(kw, attr_cls):
+    kw = dict(kw)
+    if "custom_attributes" in kw:
+        kw["custom_attributes"] = {k: attr_cls(v, **o) for k, (v, o) in
+                                   kw["custom_attributes"].items()}
+    return kw
+
+
+CORTO_CASES = ["mesh", "point_cloud", "multigroup", "entropy_0", "entropy_3", "entropy_4",
+               "normals_estimated", "normals_border", "custom", "trajectory"]
+
+
+def _same_mesh(a, b):
+    assert (a.nvert, a.nface) == (b.nvert, b.nface)
+    np.testing.assert_array_equal(np.asarray(a.faces), np.asarray(b.faces))
+    assert set(a.attributes) == set(b.attributes)
+    for k, v in a.attributes.items():
+        assert v.dtype == b.attributes[k].dtype
+        np.testing.assert_array_equal(v, b.attributes[k])
+
+
+@pytest.mark.parametrize("case", CORTO_CASES)
+def test_corto_copy_bytes_match(path, case):
+    """`encode_crt` of the copy writes the original's bytes, and both
+    decoders give the same mesh, on the native and the Python paths."""
+    from uvol_tpu.codecs import corto as jcorto
+    from uvol_tpu.codecs.corto.encoder import CrtCustomAttr as JAttr
+    from uvol_tpu_torch.codecs import corto as tcorto
+    from uvol_tpu_torch.codecs.corto.encoder import CrtCustomAttr as TAttr
+
+    pos, faces, kw = _corto_case(case)
+    blob = tcorto.encode_crt(pos, faces, **_with_custom(kw, TAttr))
+    assert blob == jcorto.encode_crt(pos, faces, **_with_custom(kw, JAttr))
+    _same_mesh(tcorto.decode_crt(blob), jcorto.decode_crt(blob))
+
+
+@pytest.mark.parametrize("staged", [False, True])
+def test_corto_copy_decodes_the_fixture(path, staged, monkeypatch):
+    """tests/fixtures/grid.crt through both decoders, whole-frame and staged
+    (`UVT_CRT_STAGED=1`)."""
+    from uvol_tpu.codecs import corto as jcorto
+    from uvol_tpu_torch.codecs import corto as tcorto
+
+    if staged:
+        monkeypatch.setenv("UVT_CRT_STAGED", "1")
+    blob = (Path(__file__).parent / "fixtures" / "grid.crt").read_bytes()
+    got = tcorto.decode_crt(blob)
+    _same_mesh(got, jcorto.decode_crt(blob))
+    assert got.nface > 0 and got.attributes["position"].shape == (got.nvert, 3)
+
+
+def test_corto_native_library_builds():
+    """g++ builds the port's Corto library (zlib linked)."""
+    assert tnative.get_corto_lib() is not None

@@ -14,9 +14,9 @@ import torch
 
 from uvol_tpu_torch._device import true_div
 from uvol_tpu_torch.ops import prediction as tpred
-from uvol_tpu_torch.ops import quantize as tq
 
-# uvol_tpu.ops re-exports functions under the submodules' names
+# both packages' ops re-export functions under the submodules' names
+tq = importlib.import_module("uvol_tpu_torch.ops.quantize")
 jpred = importlib.import_module("uvol_tpu.ops.prediction")
 jq = importlib.import_module("uvol_tpu.ops.quantize")
 

@@ -40,7 +40,7 @@ NVCC_FLAGS = [
 
 #: one per source: `fn(which, out, name)` of `csrc/func_attrs.cuh`
 _FUNC_ATTRS = ("uvt_etc1_func_attrs", "uvt_etc1s_func_attrs", "uvt_geometry_func_attrs",
-               "uvt_drc_func_attrs", "uvt_uastc_func_attrs")
+               "uvt_drc_func_attrs", "uvt_uastc_func_attrs", "uvt_mesh_func_attrs")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -134,6 +134,9 @@ def get_lib() -> ctypes.CDLL:
                 "uvt_drc_fused_batch": [vp, ctypes.c_int64, vp, ci, ctypes.c_int64, vp, vp],
                 "uvt_uastc_device_fit": [vp, vp, ci, ctypes.c_int64] + [vp] * 7,
                 "uvt_uastc_weight_index": [vp, ctypes.c_int64, ci, vp, vp, vp],
+                "uvt_estimate_normals": [vp, vp, vp, vp, vp, ci, vp],
+                "uvt_morton_keys": [vp, vp, vp, ci, vp, ci, ci, vp],
+                "uvt_parallelogram_decode": [vp, vp, vp, ci, ci, ci, vp],
             }
             attrs = [ci, ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_char_p)]
             signatures.update({fn: attrs for fn in _FUNC_ATTRS})

@@ -20,7 +20,8 @@ moves a floor/round boundary and changes the bytes.
 
 A multiply that feeds an add is one fused multiply-add in what XLA
 compiles the reference into on the CPU (and `__fmaf_rn` in the kernels):
-`fma_f32` rounds `a * b + c` once, as both do.
+`fma_f32` rounds `a * b + c` once, as both do, and `xla_norm3` is the
+three-component norm in XLA's own order of those operations.
 """
 
 from __future__ import annotations
@@ -108,3 +109,14 @@ def fma_f32(a, b, c) -> Tensor:
     inf = torch.full_like(s, math.inf)
     odd = torch.nextafter(s, torch.where(err > 0, inf, -inf))
     return torch.where((err != 0) & (s.view(torch.int64) % 2 == 0), odd, s).float()
+
+
+def xla_norm3(v: Tensor) -> Tensor:
+    """The Euclidean norm over the last axis of a float32 [..., 3] tensor as
+    XLA compiles `jnp.linalg.norm(v, axis=-1)` on the CPU: the squares
+    summed as x * x, then fma(y, y, .), then fma(z, z, .), and a correctly
+    rounded square root (taken in float64: PyTorch's CPU float32 `sqrt` is
+    not correctly rounded)."""
+    x, y, z = v.unbind(-1)
+    s = fma_f32(z, z, fma_f32(y, y, x * x))
+    return torch.sqrt(s.double()).float()

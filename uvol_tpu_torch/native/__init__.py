@@ -20,6 +20,12 @@ device decode (`models/drc_device.py`) needs its portable frame decode
 and its window packer, and the smoke and tests make their frames with
 its encoder.
 
+The Corto `.crt` codec (`corto_native.cpp`, `corto_frame.cpp`, unchanged
+copies of the reference's) is a third library, linked with `entropy.cpp`
+(its Tunstall expand) and zlib as the reference links it, built by
+`get_corto_lib()`: the copied `codecs/corto/` takes it first and its
+Python paths (identical bytes) without it.
+
 A failed build is not remembered: `get_lib()` and `get_draco_lib()`
 return None, the callers take their Python paths (identical bytes,
 slower) or, for a `.drc` frame, raise, and the next call tries again.
@@ -47,29 +53,35 @@ _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "entropy.cpp", _HERE / "etc1s_native.cpp")
 DRACO_SOURCES = (_HERE / "draco_native.cpp", _HERE / "draco_frame.cpp",
                  _HERE / "draco_frame_enc.cpp", _HERE / "entropy.cpp")
+CORTO_SOURCES = (_HERE / "corto_native.cpp", _HERE / "corto_frame.cpp", _HERE / "entropy.cpp")
+CORTO_LIBS = ("-lz",)  # the ZLIB entropy mode of corto_frame.cpp
 BUILD_DIR = _HERE.parents[1] / "build" / "uvol_tpu_torch"
 GXX_FLAGS = ["-O3", "-ffp-contract=off", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _draco_lib: Optional[ctypes.CDLL] = None
+_corto_lib: Optional[ctypes.CDLL] = None
 
 
-def library_path(sources: Optional[Sequence[Path]] = None, stem: str = "host") -> Path:
-    """The library of `sources` (default `SOURCES`), named after their hash."""
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+def library_path(sources: Optional[Sequence[Path]] = None, stem: str = "host",
+                 libs: Sequence[str] = ()) -> Path:
+    """The library of `sources` (default `SOURCES`) linked with `libs`,
+    named after their hash."""
+    h = hashlib.sha256(" ".join([*GXX_FLAGS, *libs]).encode())
     for src in SOURCES if sources is None else sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libuvol_tpu_torch_{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build(sources: Optional[Sequence[Path]] = None, stem: str = "host") -> Optional[Path]:
-    """Compile the sources (default `SOURCES`) if the library for their
-    hash is missing; returns its path, or None when g++ is missing or
-    fails."""
+def build(sources: Optional[Sequence[Path]] = None, stem: str = "host",
+          libs: Sequence[str] = ()) -> Optional[Path]:
+    """Compile the sources (default `SOURCES`), linked with `libs`, if the
+    library for their hash is missing; returns its path, or None when g++
+    is missing or fails."""
     sources = SOURCES if sources is None else sources
-    so = library_path(sources, stem)
+    so = library_path(sources, stem, libs)
     if so.exists():
         return so
     gxx = shutil.which("g++")
@@ -79,7 +91,7 @@ def build(sources: Optional[Sequence[Path]] = None, stem: str = "host") -> Optio
     try:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         proc = subprocess.run(
-            [gxx, *GXX_FLAGS, *map(str, sources), "-o", str(tmp)],
+            [gxx, *GXX_FLAGS, *map(str, sources), "-o", str(tmp), *libs],
             capture_output=True,
         )
         if proc.returncode != 0:
@@ -106,6 +118,7 @@ def _bind(lib: ctypes.CDLL) -> None:
                                                c.c_int64]),
         "uvt_rans_stream_decode": (c.c_int64, [u8p, c.c_int64, c.c_int64, c.c_int,
                                                c.c_int64, u32p]),
+        "uvt_tunstall_expand": (c.c_int, [u8p, i32p, i32p, u8p, c.c_int, u8p, c.c_int]),
         "uvt_etc1s_slice": (c.c_int64, [i32p, i32p, vp, vp, c.c_int64, c.c_int64,
                                         c.c_int, c.c_int, c.c_int, c.c_int]
                             + [vp] * 13 + [c.c_int64]),
@@ -217,6 +230,25 @@ def rans_stream_decode(data, end: int, pos: int, precision_bits: int, n: int):
     if new_pos < 0:
         return None
     return out, int(new_pos)
+
+
+def tunstall_expand_native(
+    words: bytes, index: np.ndarray, lengths: np.ndarray, comp: bytes, out_size: int
+) -> Optional[np.ndarray]:
+    lib = get_lib()
+    if lib is None:
+        return None
+    out = np.empty(out_size, np.uint8)
+    rc = lib.uvt_tunstall_expand(
+        np.frombuffer(words, np.uint8),
+        np.ascontiguousarray(index, np.int32),
+        np.ascontiguousarray(lengths, np.int32),
+        np.frombuffer(comp, np.uint8),
+        len(comp),
+        out,
+        out_size,
+    )
+    return out if rc == 0 else None
 
 
 # ---------------------------------------------------------------------------
@@ -588,3 +620,338 @@ def drc_encode_native(faces, attributes: Sequence[AttributeToEncode],
     if rc < 0:
         return None
     return out[:rc].tobytes()
+
+
+# ---------------------------------------------------------------------------
+# The Corto codec (corto_native.cpp, corto_frame.cpp): the reference's
+# wrappers, each returning None (or False) without the library
+# ---------------------------------------------------------------------------
+
+
+def _bind_corto(lib: ctypes.CDLL) -> None:
+    c = ctypes
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    vp = c.c_void_p
+    signatures = {
+        "uvt_corto_unpack_values": (c.c_int, [u32p, c.c_int64, u8p, c.c_int64, c.c_int, i32p]),
+        "uvt_corto_unpack_tuples": (c.c_int, [u32p, c.c_int64, u8p, c.c_int64, c.c_int, i32p]),
+        "uvt_corto_unpack_indices": (c.c_int, [u32p, c.c_int64, u8p, c.c_int64, i32p]),
+        "uvt_corto_pack_values": (c.c_int64, [i64p, c.c_int64, c.c_int, u8p, u32p, c.c_int64]),
+        "uvt_corto_pack_tuples": (c.c_int64, [i64p, c.c_int64, c.c_int, u8p, u32p, c.c_int64]),
+        "uvt_corto_pack_indices": (c.c_int64, [i64p, c.c_int64, u8p, u32p, c.c_int64]),
+        "uvt_corto_decode_faces": (c.c_int, [u8p, c.c_int64, u32p, c.c_int64, i64p, c.c_int,
+                                             c.c_int, c.c_int64, i32p, i32p]),
+        "uvt_corto_delta_decode": (c.c_int, [i32p, c.c_int64, c.c_int, vp, c.c_int]),
+        "uvt_corto_build_topology": (c.c_int, [i32p, c.c_int64, c.c_int64, i32p]),
+        "uvt_corto_enc_new": (vp, [i32p, i32p, c.c_int64, c.c_int64, c.c_int]),
+        "uvt_corto_enc_free": (None, [vp]),
+        "uvt_corto_enc_group": (c.c_int, [vp, c.c_int64, c.c_int64]),
+        "uvt_corto_enc_nclers": (c.c_int64, [vp]),
+        "uvt_corto_enc_nwords": (c.c_int64, [vp]),
+        "uvt_corto_enc_nverts": (c.c_int64, [vp]),
+        "uvt_corto_enc_maxfront": (c.c_int64, [vp]),
+        "uvt_corto_enc_get": (c.c_int, [vp, u8p, u32p, i32p, i32p]),
+        "uvt_tunstall_parse": (c.c_int64, [u8p, i32p, i32p, c.c_int, u8p, c.c_int64, u8p,
+                                           c.c_int64]),
+        "uvt_tunstall_tables": (c.c_int, [u8p, u8p, c.c_int, u8p, c.c_int64, i32p, i32p]),
+        "uvt_corto_normals_dequant": (c.c_int, [i32p, c.c_int64, c.c_float, f32p]),
+        "uvt_crt_decode": (vp, [u8p, c.c_int64, i64p]),
+        "uvt_crt_attr_info": (c.c_int, [vp, c.c_int, i64p]),
+        "uvt_crt_attr_name": (c.c_int, [vp, c.c_int, c.c_char_p]),
+        "uvt_crt_attr_fetch": (c.c_int, [vp, c.c_int, vp]),
+        "uvt_crt_faces_fetch": (c.c_int, [vp, i32p]),
+        "uvt_crt_free": (None, [vp]),
+    }
+    for name, (restype, argtypes) in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+
+
+def get_corto_lib() -> Optional[ctypes.CDLL]:
+    """Build (if needed) and load the Corto library once per process;
+    None when it cannot be built (tried again on the next call)."""
+    global _corto_lib
+    if _corto_lib is not None:
+        return _corto_lib
+    with _lock:
+        if _corto_lib is None:
+            so = build(CORTO_SOURCES, "corto", CORTO_LIBS)
+            if so is None:
+                return None
+            lib = ctypes.CDLL(str(so))
+            _bind_corto(lib)
+            _corto_lib = lib
+        return _corto_lib
+
+
+def corto_unpack_values(words, logs, size, n):
+    lib = get_corto_lib()
+    if lib is None:
+        return None
+    out = np.empty((size, n), np.int32)
+    w = np.ascontiguousarray(words, np.uint32)
+    lg = np.ascontiguousarray(logs, np.uint8)
+    if lg.size < size * n:  # malformed: Tunstall logs shorter than claimed
+        raise ValueError("corto value stream: log bytes underrun")
+    if lib.uvt_corto_unpack_values(w, len(w), lg, size, n, out) != 0:
+        raise ValueError("corto value stream: malformed bit stream")
+    return out
+
+
+def corto_unpack_tuples(words, logs, size, n):
+    lib = get_corto_lib()
+    if lib is None:
+        return None
+    out = np.empty((size, n), np.int32)
+    w = np.ascontiguousarray(words, np.uint32)
+    lg = np.ascontiguousarray(logs, np.uint8)
+    if lg.size < size:
+        raise ValueError("corto value stream: log bytes underrun")
+    if lib.uvt_corto_unpack_tuples(w, len(w), lg, size, n, out) != 0:
+        raise ValueError("corto value stream: malformed bit stream")
+    return out
+
+
+def corto_unpack_indices(words, logs, size):
+    lib = get_corto_lib()
+    if lib is None:
+        return None
+    out = np.empty(size, np.int32)
+    w = np.ascontiguousarray(words, np.uint32)
+    lg = np.ascontiguousarray(logs, np.uint8)
+    if lg.size < size:
+        raise ValueError("corto value stream: log bytes underrun")
+    if lib.uvt_corto_unpack_indices(w, len(w), lg, size, out) != 0:
+        raise ValueError("corto value stream: malformed bit stream")
+    return out
+
+
+def corto_pack_values(values, size, n):
+    """Returns (logs [n, size] u8, words u32) or None."""
+    lib = get_corto_lib()
+    if lib is None:
+        return None
+    v = np.ascontiguousarray(values, np.int64).reshape(size, n)
+    logs = np.empty((n, size), np.uint8)
+    cap = size * n + 2
+    words = np.empty(cap, np.uint32)
+    nw = lib.uvt_corto_pack_values(v, size, n, logs.reshape(-1), words, cap)
+    if nw < 0:
+        return None
+    return logs, words[:nw]
+
+
+def corto_pack_tuples(values, size, n):
+    """Returns (logs [size] u8, words u32) or None."""
+    lib = get_corto_lib()
+    if lib is None:
+        return None
+    v = np.ascontiguousarray(values, np.int64).reshape(size, n)
+    logs = np.empty(size, np.uint8)
+    cap = size * n + 2
+    words = np.empty(cap, np.uint32)
+    nw = lib.uvt_corto_pack_tuples(v, size, n, logs, words, cap)
+    if nw < 0:
+        return None
+    return logs, words[:nw]
+
+
+def corto_pack_indices(values, size):
+    lib = get_corto_lib()
+    if lib is None:
+        return None
+    v = np.ascontiguousarray(values, np.int64)
+    logs = np.empty(size, np.uint8)
+    cap = size + 2
+    words = np.empty(cap, np.uint32)
+    nw = lib.uvt_corto_pack_indices(v, size, logs, words, cap)
+    if nw < 0:
+        return None
+    return logs, words[:nw]
+
+
+def corto_decode_faces(clers, words, group_ends, splitbits, nvert, nface):
+    """Returns (faces i32[3F], prediction i32[nvert,3], vertex_count) or None."""
+    lib = get_corto_lib()
+    if lib is None:
+        return None
+    cl = np.ascontiguousarray(clers, np.uint8)
+    w = np.ascontiguousarray(words, np.uint32)
+    ge = np.ascontiguousarray(group_ends, np.int64)
+    # corrupt group tables must not index past the face buffer
+    if len(ge) == 0 or (np.diff(ge) < 0).any() or ge[0] < 0 or ge[-1] > nface:
+        raise ValueError("corto group table out of range")
+    if not 0 <= splitbits <= 32:
+        raise ValueError("corto splitbits out of range")
+    faces = np.zeros(3 * nface, np.int32)
+    prediction = np.zeros((nvert, 3), np.int32)
+    rc = lib.uvt_corto_decode_faces(
+        cl, len(cl), w, len(w), ge, len(ge), splitbits, nvert, faces, prediction
+    )
+    if rc < 0:
+        raise ValueError(f"corto CLER decode failed (rc={rc})")
+    return faces, prediction, rc
+
+
+def corto_delta_decode(values, prediction, mode):
+    """In-place delta integration on int32 [size, n]. Returns False if the
+    native library is unavailable (caller falls back)."""
+    lib = get_corto_lib()
+    if lib is None:
+        return False
+    assert values.dtype == np.int32 and values.flags.c_contiguous
+    if prediction is None:
+        pred_ptr = None
+    else:
+        prediction = np.ascontiguousarray(prediction, np.int32)
+        pred_ptr = prediction.ctypes.data_as(ctypes.c_void_p)
+    size, n = values.shape
+    if pred_ptr is not None and len(prediction) < size:
+        raise ValueError("corto prediction table shorter than value count")
+    if lib.uvt_corto_delta_decode(values, size, n, pred_ptr, mode) != 0:
+        raise ValueError("corto delta decode: corrupt prediction indices")
+    return True
+
+
+def corto_build_topology(faces, nvert):
+    """Returns opposite i32 [F, 3, 2] or None."""
+    lib = get_corto_lib()
+    if lib is None:
+        return None
+    f = np.ascontiguousarray(faces, np.int32).reshape(-1, 3)
+    opp = np.empty((len(f), 3, 2), np.int32)
+    lib.uvt_corto_build_topology(f, len(f), nvert, opp)
+    return opp
+
+
+class CortoEncoderNative:
+    """Native CLER front machine (encode side); state persists across
+    per-group calls like the reference's Encoder::encodeFaces."""
+
+    def __init__(self, faces, topology, nvert, splitbits):
+        self._lib = get_corto_lib()
+        if self._lib is None:
+            raise RuntimeError("native corto library unavailable")
+        self._faces = np.ascontiguousarray(faces, np.int32).reshape(-1, 3)
+        self._topo = np.ascontiguousarray(topology, np.int32)
+        self._h = self._lib.uvt_corto_enc_new(
+            self._faces, self._topo, len(self._faces), nvert, splitbits
+        )
+        self._nvert = nvert
+
+    def encode_group(self, start, end):
+        rc = self._lib.uvt_corto_enc_group(self._h, start, end)
+        if rc != 0:
+            raise ValueError(f"native corto encode failed (rc={rc})")
+
+    def finish(self):
+        """Returns (clers u8, words u32, encoded i32[nvert], prediction
+        i32[new_nvert, 4], new_nvert, max_front)."""
+        lib = self._lib
+        nclers = lib.uvt_corto_enc_nclers(self._h)
+        nwords = lib.uvt_corto_enc_nwords(self._h)
+        nverts = lib.uvt_corto_enc_nverts(self._h)
+        maxfront = lib.uvt_corto_enc_maxfront(self._h)
+        clers = np.empty(nclers, np.uint8)
+        words = np.empty(nwords, np.uint32)
+        encoded = np.empty(self._nvert, np.int32)
+        prediction = np.empty((nverts, 4), np.int32)
+        lib.uvt_corto_enc_get(self._h, clers, words, encoded, prediction)
+        return clers, words, encoded, prediction, int(nverts), int(maxfront)
+
+    def __del__(self):
+        if getattr(self, "_h", None) and self._lib is not None:
+            self._lib.uvt_corto_enc_free(self._h)
+            self._h = None
+
+
+def tunstall_parse_native(words, index, lengths, data):
+    """Greedy Tunstall dictionary parse. Returns bytes or None."""
+    lib = get_corto_lib()
+    if lib is None:
+        return None
+    w = np.frombuffer(words, np.uint8)
+    idx = np.ascontiguousarray(index, np.int32)
+    ln = np.ascontiguousarray(lengths, np.int32)
+    d = np.ascontiguousarray(data, np.uint8)
+    out = np.empty(len(d) + 16, np.uint8)
+    n = lib.uvt_tunstall_parse(w, idx, ln, len(idx), d, len(d), out, len(out))
+    if n < 0:
+        return None
+    return out[:n].tobytes()
+
+
+def tunstall_tables_native(probabilities):
+    """createDecodingTables2 in C++: [(symbol, prob)] -> (words bytes,
+    index i32[n], lengths i32[n]) or None."""
+    lib = get_corto_lib()
+    if lib is None:
+        return None
+    syms = np.asarray([s for s, _ in probabilities], np.uint8)
+    probs = np.asarray([p for _, p in probabilities], np.uint8)
+    cap = 256 * 260
+    words = np.empty(cap, np.uint8)
+    index = np.empty(256, np.int32)
+    lengths = np.empty(256, np.int32)
+    n = lib.uvt_tunstall_tables(syms, probs, len(syms), words, cap, index, lengths)
+    if n < 0:
+        return None
+    total = int(index[n - 1] + lengths[n - 1]) if n else 0
+    return words[:total].tobytes(), index[:n], lengths[:n]
+
+
+def corto_normals_dequant_native(st: np.ndarray, unit: float):
+    """[N, 2] int -> [N, 3] float32 unit normals, or None."""
+    lib = get_corto_lib()
+    if lib is None:
+        return None
+    s = np.ascontiguousarray(st, np.int32)
+    out = np.empty((len(s), 3), np.float32)
+    lib.uvt_corto_normals_dequant(s, len(s), float(unit), out)
+    return out
+
+
+def crt_decode_frame_native(data: bytes):
+    """Whole-frame `.crt` decode in one C call (corto_frame.cpp).
+
+    Returns (faces int32 [nface, 3], {name: ndarray}, nvert, nface) or
+    None — the caller (codecs/corto/decoder.decode_crt) falls back to the
+    staged pipeline, which stays the bit-exact oracle for this path.
+    """
+    lib = get_corto_lib()
+    if lib is None:
+        return None
+    buf = np.frombuffer(data, np.uint8)
+    info = np.zeros(4, np.int64)
+    h = lib.uvt_crt_decode(buf, len(buf), info)
+    if not h:
+        return None
+    try:
+        nattrs, nvert, nface = int(info[1]), int(info[2]), int(info[3])
+        attrs = {}
+        info4 = np.zeros(4, np.int64)
+        for idx in range(nattrs):
+            if lib.uvt_crt_attr_info(h, idx, info4) != 0:
+                return None
+            comps, dtype_code, name_len = int(info4[1]), int(info4[2]), int(info4[3])
+            name_buf = ctypes.create_string_buffer(name_len + 1)
+            if lib.uvt_crt_attr_name(h, idx, name_buf) != 0:
+                return None
+            name = name_buf.raw[:name_len].decode()
+            dt = {0: np.float32, 1: np.int64, 2: np.uint8}[dtype_code]
+            out = np.empty((nvert, comps), dt)
+            if lib.uvt_crt_attr_fetch(h, idx, out.ctypes.data_as(ctypes.c_void_p)) != 0:
+                return None
+            attrs[name] = out
+        faces = np.zeros((nface, 3), np.int32)
+        if nface:
+            if lib.uvt_crt_faces_fetch(h, faces.reshape(-1)) != 0:
+                return None
+        return faces, attrs, nvert, nface
+    finally:
+        lib.uvt_crt_free(h)

@@ -1,12 +1,14 @@
 // uvol-tpu native entropy hot loops (C ABI, ctypes-bound).
 //
-// The port's copy of the reference's native/entropy.cpp, unchanged but for
-// the Corto Tunstall loop it leaves out: the sequential host serialization
-// loops that Python is too slow for at production frame rates, here the
-// Draco-format rANS symbol decode/encode (codecs/rans.py and
-// codecs/symbol_coding.py are the bit-exact Python paths these mirror).
+// The port's copy of the reference's native/entropy.cpp, unchanged: the
+// sequential host serialization loops that Python is too slow for at
+// production frame rates, the Draco-format rANS symbol decode/encode
+// (codecs/rans.py and codecs/symbol_coding.py are the bit-exact Python
+// paths these mirror) and the Corto Tunstall expand
+// (codecs/corto/tunstall.py).
 //
-// Built by uvol_tpu_torch/native/__init__.py together with etc1s_native.cpp.
+// Built by uvol_tpu_torch/native/__init__.py together with etc1s_native.cpp,
+// and linked into the Draco and the Corto libraries.
 
 #include <algorithm>
 #include <cstdint>
@@ -147,6 +149,32 @@ int uvt_rans_encode(const uint32_t* probs, int num_probs, int precision_bits,
     memcpy(out, renorm.data(), renorm.size());
     memcpy(out + renorm.size(), marker, mlen);
     return total;
+}
+
+// ---------------------------------------------------------------------------
+// Tunstall decompress (Corto): words/lengths tables are built in Python
+// (format-critical); this is just the byte-expansion hot loop.
+// ---------------------------------------------------------------------------
+
+// words: concatenated dictionary words; index/lengths: per-symbol extents.
+int uvt_tunstall_expand(const uint8_t* words, const int32_t* index,
+                        const int32_t* lengths, const uint8_t* comp,
+                        int comp_len, uint8_t* out, int out_size) {
+    if (comp_len == 0) return 0;
+    int pos = 0;
+    for (int k = 0; k < comp_len - 1; k++) {
+        int s = comp[k];
+        int len = lengths[s];
+        if (pos + len > out_size) return -1;
+        memcpy(out + pos, words + index[s], len);
+        pos += len;
+    }
+    int s = comp[comp_len - 1];
+    int rest = out_size - pos;
+    if (rest < 0) return -1;
+    memcpy(out + pos, words + index[s],
+           rest < lengths[s] ? rest : lengths[s]);
+    return 0;
 }
 
 // ---------------------------------------------------------------------------

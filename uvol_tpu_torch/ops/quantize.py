@@ -16,12 +16,13 @@ few operations.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from uvol_tpu_torch._device import true_div
+from uvol_tpu_torch._device import f32, true_div, xla_norm3
 
 Tensor = torch.Tensor
 
@@ -105,6 +106,41 @@ def dequantize_scaled(values: Tensor, min_value: Tensor, scale: Tensor) -> Tenso
     `min_value` [..., D], `scale` [...] = range / (2^qbits - 1). The
     product is rounded before the add (no FMA)."""
     return min_value[..., None, :] + values.to(torch.float32) * scale[..., None, None]
+
+
+def xla_cbrt(x: Tensor) -> Tensor:
+    """`jnp.cbrt` of float32 `x` as XLA computes it on the CPU:
+    copysign(pow(|x|, f32(1/3)), x). The power is taken in float64 and
+    rounded once; XLA's own float32 `pow` differs from that by one ulp on
+    0.07% of the integers 1 .. 2^21 (and of random floats), so this is
+    within one ulp of the reference, not bit for bit."""
+    third = f32(1.0 / 3.0)
+    return torch.copysign(torch.pow(torch.abs(x).double(), third).float(), x)
+
+
+def corto_quantization_step(x: Tensor, nvert: int, level: int = 0) -> Tensor:
+    """Corto's bbox/vertex-count quantization-step heuristic: the bounding
+    box's diagonal / sqrt(2) / cbrt(nvert) * 2^level / 20, per frame of
+    x [..., N, 3] → [...]. Each operation is rounded as the reference's
+    eager calls round it (the norm as `jnp.linalg.norm`, the divisions
+    IEEE, the cube root as `xla_cbrt`, within one ulp), so the step is
+    within two ulps of the reference's."""
+    mn = x.amin(dim=-2)
+    mx = x.amax(dim=-2)
+    diag = xla_norm3(mx - mn)
+    side = true_div(diag, f32(math.sqrt(2.0)))
+    root = xla_cbrt(torch.tensor(float(nvert), dtype=x.dtype, device=x.device))
+    return true_div(true_div(side, root) * (2.0 ** level), 20.0)
+
+
+def quantize_step(x: Tensor, step: Tensor) -> Tensor:
+    """Fixed-step integer quantization (Corto semantics): round(v / step),
+    halves to even, per frame: x [..., N, D], step [...] → int32."""
+    return torch.round(true_div(x, step[..., None, None])).to(torch.int32)
+
+
+def dequantize_step(q: Tensor, step: Tensor) -> Tensor:
+    return q.to(torch.float32) * step[..., None, None]
 
 
 def zigzag_encode(v: Tensor) -> Tensor:
