@@ -136,6 +136,25 @@ each kernel's time per call and alone, its twin's time, launches per
 call, the stable sort's time beside U4's and the `.crt` host encode and
 decode in seconds a frame.
 
+Its phase `wide_palette_path` (after `pointcloud_trajectory_path`, no
+trace) holds the kernels past their former limits bit for bit against
+their twins: the segment sum (random and skewed), K4, K6 and K7 (with and
+without a previous frame, ties at lam 0) at 2,049, 4,096 and 16,128
+entries, which the segment sum and K6 take in windows of 2,048 and K7 on
+its wide path; U5 at [8, 200,000, 3] and [1, 54,017, 2] (the prefix in
+device memory) and at 65,536 frames, against the CPU twin. It encodes
+B's segment (5 layers of 1024^2) at 4,096/4,096 endpoints and selectors:
+K4-K7 and the segment sum must launch, the encode must repeat its bytes,
+and the card's bytes must equal the CPU port's on the bench texture's
+first 256^2 at the same widths; it prints the build and encode ms and
+the wide calls' times beside their twins and bounds, which the kernels
+line repeats under `wide`. Its phase `python_draco_path` encodes a short
+V2 project with the CLI, rewrites its `.drc` frames with the standard
+edge coder, which only the copied Python decoder takes, plays it on the
+card with every `ok` tick held to the decoder's output, and times one
+26,145-vertex frame's decode on the native path, the staged Python path
+and the Python path alone.
+
 Each phase prints one JSON line; then come the card's `nvidia-smi`
 name/power-limit line, the kernels line (each kernel's launches on its
 main path, worst difference from its twin, call time, its twin's time,
@@ -328,6 +347,32 @@ PC_BITS = (11, 10)
 PC_CLOUD = (8, 1 << 20)
 U4_EDGE_SHAPES = ((1, 1), (3, 255), (2, 257), (1, 1000))
 U5_EDGE_SHAPES = ((1, 1), (1, 2), (97, 1), (1025, 2), (2048, 3), (3001, 4))
+#: wide palettes (`wide_palette_path`): the kernels past one window of the
+#: segment-sum and K6 kernels (2,048 segments or centroids) and past K7's
+#: register path (2,048 entries), bit for bit against their twins at
+#: WIDE_ENTRIES on WIDE_ROWS rows (blocks, features) and K7 frames of
+#: WIDE_K7_FRAME blocks; B's segment (ETC1S_LAYERS layers of 1024^2) built and
+#: encoded at WIDE_PALETTE endpoints and selectors, whose card bytes must
+#: equal the CPU port's on the bench texture's first WIDE_CPU_SIDE^2 (4,096
+#: blocks: the palette is not capped); the kernels timed at WIDE_TIMED
+#: entries on the main path's shapes (SEG_TIMED's rows and D, B's 327,680
+#: blocks, one 1024^2 frame for K7)
+WIDE_ENTRIES = (2049, 4096, 16128)
+WIDE_ROWS = 65536
+WIDE_K7_FRAME = (64, 256)
+WIDE_PALETTE = 4096
+WIDE_CPU_SIDE = 256
+WIDE_TIMED = (4096, 16128)
+#: U5 past one CTA's shared-memory prefix (54,016 vertices) and past one
+#: launch's 65,535 frames: (frames, vertices, components), each held against
+#: the CPU twin; the first is timed
+U5_WIDE_SHAPES = ((8, 200000, 3), (1, 54017, 2), (65536, 3, 1))
+#: `python_draco_path`: PYDRC_FRAMES OBJ frames of DRC_GRID grids and their
+#: layers at PYDRC_SIDE^2 encoded by the CLI (draco + etc), the `.drc` frames
+#: then rewritten with the standard edge coder, which only the copied Python
+#: decoder takes, and played on the card
+PYDRC_FRAMES = 4
+PYDRC_SIDE = 256
 #: trajectory samples on the card against the CPU port's: within this share of
 #: the positions' scale (the float64 solve amplifies V^T y's float32 sum order)
 TRAJ_REL_TOL = 1e-4
@@ -1999,6 +2044,247 @@ def pointcloud_trajectory_path(torch, dev, median_cuda_ms) -> tuple:
     return launches, err, ms, work
 
 
+def u5_chain(r, f: int, n: int, d: int) -> tuple:
+    """Residuals [f, n, d] and index triples [f, n, 3] of a U5 chain: a
+    the previous vertex mostly, else random earlier ones, forward
+    references (which read 0) and a = -1 rows."""
+    i = np.arange(n)
+    a = np.where(r.random((f, n)) < 0.6, i - 1, i - r.integers(1, 1 << 16, (f, n)))
+    a = np.where(r.random((f, n)) < 0.05, -1, np.where(r.random((f, n)) < 0.01, i + 3, a))
+    b, c = i - r.integers(1, 1 << 12, (f, n)), i - r.integers(-2, 1 << 12, (f, n))
+    p = np.stack([a, np.maximum(b, -1), c], -1).astype(np.int32)
+    res = r.integers(-(1 << 12), 1 << 12, (f, n, d)).astype(np.int32)
+    return res, p
+
+
+def once_ms(torch, fn) -> float:
+    """Host-clock ms of one call of `fn` to the end of its device work: for
+    the twins, too slow to repeat."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3
+
+
+def wide_palette_path(torch, dev, textures, median_cuda_ms) -> tuple:
+    """The segment sum, K6 and K7 past one window (2,048) and U5 past its
+    shared prefix and one launch's frames: each bit for bit against its
+    twin; B's segment built and encoded at WIDE_PALETTE/WIDE_PALETTE on the
+    card (K4-K7 and the segment sum must launch), its bytes against the CPU
+    port's on a smaller segment at the same widths; the wide calls timed
+    beside their twins and bounds. Returns (err, ms, wide, launches)."""
+    from uvol_tpu_torch import _build
+    from uvol_tpu_torch.codecs.basis import etc1s_cuda as k
+    from uvol_tpu_torch.codecs.basis.etc1s_encode import (
+        build_palettes, encode_ktx2_etc1s, read_ktx2, transcode_ktx2_etc1s)
+    from uvol_tpu_torch.ops import mesh_cuda as mc
+
+    t0 = time.perf_counter()
+    r = np.random.default_rng(16)
+    err, ms, wide = {}, {}, {}
+    sn, _sk, sd = SEG_TIMED
+
+    # ---- parity at every wide width
+    blocks = torch.from_numpy(r.integers(0, 256, (WIDE_ROWS, 16, 3), dtype=np.uint8)).to(dev)
+    feats = torch.from_numpy((r.random((WIDE_ROWS, 4)) * 255).astype(np.float32)).to(dev)
+    x = torch.from_numpy((r.normal(size=(WIDE_ROWS, sd)) * 1e3).astype(np.float32)).to(dev)
+    x[:, ::7] = -0.0
+    for e in WIDE_ENTRIES:
+        idx = torch.from_numpy(r.integers(0, e, WIDE_ROWS)).to(dev)
+        skew = torch.where(torch.rand(WIDE_ROWS, device=dev) < 0.9, e - 1, idx)
+        for name, ix in (("random", idx), ("skewed", skew)):
+            hold_bits(torch, err, "etc1s_segment_sum", k.segment_sum(ix, e, x),
+                      k.segment_sum_plain(ix, e, x))
+        cb = feats[torch.from_numpy(r.choice(WIDE_ROWS, e, replace=False)).to(dev)] + 0.25
+        cb[-1] = cb[0]  # a duplicate past the first window: ties go to the first
+        hold_bits(torch, err, "etc1s_kmeans_iter", k.kmeans_iter(feats, cb),
+                  k.kmeans_iter_plain(feats, cb))
+        base = torch.from_numpy(r.integers(0, 256, (e, 3)).astype(np.int32)).to(dev)
+        inten = torch.from_numpy(r.integers(0, 8, e).astype(np.int32)).to(dev)
+        table = k.endpoint_table(base, inten)
+        hold(err, "etc1s_assign_endpoints", k.assign_endpoints(blocks, table),
+             k.assign_endpoints_plain(blocks, table))
+        nby, nbx = WIDE_K7_FRAME
+        for lam, dup, prev, flat in ((60.0, False, True, "mixed"), (0.0, True, True, "mixed"),
+                                     (60.0, False, False, "none")):
+            args = to_device(sweep_frame(torch, r, nby, nbx, e, dup, prev, flat), dev)
+            hold(err, "etc1s_rate_sweep", k.rate_sweep_frame(*args, 0, lam, 1.5, nbx),
+                 k.rate_sweep_frame_plain(*args, 0, lam, 1.5, nbx))
+    for f, n, d in U5_WIDE_SHAPES:
+        res, p = u5_chain(r, f, n, d)
+        got = mc.parallelogram_decode(torch.from_numpy(res).to(dev), torch.from_numpy(p).to(dev))
+        same_bits(torch, err, "parallelogram_decode", got,
+                  mc.parallelogram_decode_plain(torch.from_numpy(res), torch.from_numpy(p)))
+    parity_s = time.perf_counter() - t0
+
+    # ---- B's segment at WIDE_PALETTE/WIDE_PALETTE: launches, bytes, times
+    frames = textures[:ETC1S_LAYERS]
+    kw = {"num_endpoints": WIDE_PALETTE, "num_selectors": WIDE_PALETTE}
+    k.reset_launches()
+    blob = encode_ktx2_etc1s(frames, device=DEVICE, **kw)
+    torch.cuda.synchronize()
+    launches = dict(k.LAUNCHES)
+    for name in ETC1S_BUILD_KERNELS + ("etc1s_rate_sweep",):
+        check(launches[name] >= 1, f"the {WIDE_PALETTE}-entry segment never launched {name}")
+    check(encode_ktx2_etc1s(frames, device=DEVICE, **kw) == blob,
+          f"the {WIDE_PALETTE}-entry segment encode is not deterministic")
+    pal = build_palettes(frames, device=DEVICE, **kw)
+    check(len(pal.color5) == WIDE_PALETTE and len(pal.selectors) == WIDE_PALETTE,
+          "the wide palettes are not WIDE_PALETTE entries")
+    ms["etc1s_wide_build_palettes"] = wall_ms(
+        torch, lambda: build_palettes(frames, device=DEVICE, **kw), ETC1S_REPS)
+    ms["etc1s_wide_segment_encode"] = wall_ms(
+        torch, lambda: encode_ktx2_etc1s(frames, device=DEVICE, **kw), ETC1S_REPS)
+    psnr = psnr_db(transcode_ktx2_etc1s(read_ktx2(blob))[..., :3], frames)
+    small = textures[:1, :WIDE_CPU_SIDE, :WIDE_CPU_SIDE]
+    t = time.perf_counter()
+    cpu_blob = encode_ktx2_etc1s(small, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t
+    check(encode_ktx2_etc1s(small, device=DEVICE, **kw) == cpu_blob,
+          f"the card's bytes differ from the CPU port's at {WIDE_PALETTE} entries")
+
+    # ---- the wide calls on the main path's shapes: per call, twin, bound
+    bd = torch.from_numpy(np.ascontiguousarray(
+        frames.reshape(ETC1S_LAYERS, H // 4, 4, W // 4, 4, 3).transpose(0, 1, 3, 2, 4, 5)
+        .reshape(-1, 16, 3))).to(dev)
+    ne = bd.shape[0]
+    feats_b = bd.float().mean(1)
+    feats_b = torch.cat([feats_b, bd.float().std(1).mean(1, keepdim=True)], 1).contiguous()
+    xs = torch.from_numpy((r.normal(size=(sn, sd)) * 1e3).astype(np.float32)).to(dev)
+    nr = (H // 4) * (W // 4)
+    for e in WIDE_TIMED:
+        idx = torch.from_numpy(r.integers(0, e, sn)).to(dev)
+        key = f"etc1s_segment_sum_k{e}"
+        ms[key] = median_cuda_ms(lambda: k.segment_sum(idx, e, xs), REPS)
+        ms[key + "_plain"] = once_ms(torch, lambda: k.segment_sum_plain(idx, e, xs))
+        wide.setdefault("etc1s_segment_sum", {})[f"k{e}"] = {
+            "shape": [sn, e, sd], "ms": ms[key], "plain_ms": ms[key + "_plain"],
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                sn * (sd + 1) * 4 + e * sd * 4, OPS["etc1s_segment_sum"] * sn * sd,
+                F32_FLOP_PER_S)))}
+    e = WIDE_TIMED[0]
+    cb = feats_b[torch.from_numpy(r.choice(ne, e, replace=False)).to(dev)] + 0.25
+    key = f"etc1s_kmeans_iter_k{e}"
+    ms[key] = median_cuda_ms(lambda: k.kmeans_iter(feats_b, cb), REPS)
+    ms[key + "_plain"] = once_ms(torch, lambda: k.kmeans_iter_plain(feats_b, cb))
+    wide["etc1s_kmeans_iter"] = {f"k{e}": {
+        "shape": [ne, e], "ms": ms[key], "plain_ms": ms[key + "_plain"],
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            ne * 16 + e * 16 + ne * 4 + e * 20, OPS["etc1s_kmeans_iter"] * ne * e,
+            F32_FLOP_PER_S)))}}
+    base = torch.from_numpy(r.integers(0, 256, (e, 3)).astype(np.int32)).to(dev)
+    table = k.endpoint_table(base, torch.from_numpy(r.integers(0, 8, e).astype(np.int32)).to(dev))
+    key = f"etc1s_assign_endpoints_e{e}"
+    ms[key] = median_cuda_ms(lambda: k.assign_endpoints(bd, table), REPS)
+    wide["etc1s_assign_endpoints"] = {f"e{e}": {
+        "shape": [ne, e], "ms": ms[key],
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            ne * 48 + e * 80 + ne * 4, OPS["etc1s_assign_endpoints"] * ne * e,
+            INT_OPS_PER_S)))}}
+    args = to_device(sweep_frame(torch, r, H // 4, W // 4, e, False, True, "mixed"), dev)
+    key = f"etc1s_rate_sweep_e{e}"
+    ms[key] = median_cuda_ms(lambda: k.rate_sweep_frame(*args, 0, 60.0, 1.5, W // 4), REPS)
+    ms[key + "_plain"] = once_ms(
+        torch, lambda: k.rate_sweep_frame_plain(*args, 0, 60.0, 1.5, W // 4))
+    wide["etc1s_rate_sweep"] = {f"e{e}": {
+        "shape": [nr, e], "ms": ms[key], "plain_ms": ms[key + "_plain"],
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            nr * 48 + e * (12 + 16 + 4) + 8 * 64 + nr * 4 * 4 + nr * 2 * 4,
+            OPS["etc1s_rate_sweep"] * nr * e, INT_OPS_PER_S)))}}
+    f, n, d = U5_WIDE_SHAPES[0]
+    res, p = u5_chain(r, f, n, d)
+    res_d, p_d = torch.from_numpy(res).to(dev), torch.from_numpy(p).to(dev)
+    key = f"parallelogram_decode_n{n}"
+    ms[key] = median_cuda_ms(lambda: mc.parallelogram_decode(res_d, p_d), REPS)
+    ms[key + "_plain"] = once_ms(
+        torch, lambda: mc.parallelogram_decode_plain(torch.from_numpy(res), torch.from_numpy(p)))
+    wide["parallelogram_decode"] = {f"n{n}": {
+        "shape": [f, n, d], "ms": ms[key], "plain_ms": ms[key + "_plain"],
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            f * n * d * 8 + f * n * 12, OPS["parallelogram_decode"] * f * n * d, INT_OPS_PER_S))),
+        "chain_bound_ms": n * U5_STEP_CYCLES / SM_CLOCK_HZ * 1e3}}
+    attrs = _build.kernel_attrs()
+    wide_attrs = {fn: attrs[fn] for fn in ("rate_sweep_frame_kernel_wide", "sweep_table_kernel",
+                                           "parallelogram_decode_kernel_global")}
+    emit({"phase": "wide_palette_path", "entries": WIDE_ENTRIES, "rows": WIDE_ROWS,
+          "kernel_attrs": wide_attrs,
+          "k7_frame": WIDE_K7_FRAME, "u5_shapes": U5_WIDE_SHAPES, "parity_s": parity_s,
+          "segment": {"layers": ETC1S_LAYERS, "size": [H, W], "palette": WIDE_PALETTE,
+                      "launches": launches, "ktx2_bytes": len(blob),
+                      "transcoded_psnr_db": psnr, "cpu_side": WIDE_CPU_SIDE,
+                      "cpu_bytes_equal": True, "cpu_s": cpu_s},
+          "max_abs_err": err, "ms": ms, "wide": wide, "seconds": time.perf_counter() - t0})
+    return err, ms, wide, launches
+
+
+def python_draco_path(torch, textures) -> None:
+    """The copied Python Draco decoder on the card's host: a V2 project (the
+    CLI's draco + etc on PYDRC_FRAMES frames of DRC_GRID grids) whose `.drc`
+    frames are rewritten with the standard edge coder, which the native
+    decoder refuses; played sync on the card, every `ok` tick held to the
+    decoder's output. One 26,145-vertex frame decoded on each path: the
+    native whole-frame decoder (the valence coder), the staged Python
+    decoder with its native helpers (the standard coder), and the Python
+    decoder alone (`UVT_DISABLE_NATIVE_DRACO=1`)."""
+    import os
+    import shutil
+
+    from uvol_tpu_torch import native
+    from uvol_tpu_torch.codecs.draco import constants as K
+    from uvol_tpu_torch.codecs.draco.decoder import decode_drc
+    from uvol_tpu_torch.codecs.draco.encoder import AttributeToEncode, encode_drc
+    from uvol_tpu_torch.codecs.draco.grid import grid_attributes
+    from uvol_tpu_torch.io.meshio import load_mesh
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "python_draco_path"
+    shutil.rmtree(root, ignore_errors=True)
+    inputs = cli_inputs(root / "inputs", PYDRC_FRAMES, DRC_GRID,
+                        textures[:PYDRC_FRAMES, :PYDRC_SIDE, :PYDRC_SIDE])
+    cfg = cli_config(root / "E.json", inputs, root / "E", TEXTURE_CODEC="etc", ENCODE_WORKERS=1)
+    cli_encode(torch, cfg)
+    c = json.loads(open(cfg).read())
+    qp, qt, qn = c["Q_POSITION_ATTR"], c["Q_TEXTURE_ATTR"], c["Q_NORMAL_ATTR"]
+    for i in range(PYDRC_FRAMES):
+        m = load_mesh(inputs[0].replace("[#####]", f"{i:05d}"))
+        atts = [AttributeToEncode(K.ATT_POSITION, m.positions, m.faces.reshape(-1), qp),
+                AttributeToEncode(K.ATT_TEX_COORD, m.uvs, np.asarray(m.uv_faces).reshape(-1), qt),
+                AttributeToEncode(K.ATT_NORMAL, m.normals,
+                                  np.asarray(m.normal_faces).reshape(-1), qn)]
+        blob = encode_drc(np.asarray(m.faces), atts, traversal_encoding="standard")
+        check(native.drc_decode_native(blob) is None,
+              "a standard-coder frame took the native whole-frame decoder")
+        (root / "E" / "geometry_draco" / f"{i:05d}.drc").write_bytes(blob)
+    manifest = str(root / "E" / "smoke.uvol.json")
+    ticks, v2, decode_ms, play_launches = play(torch, manifest, False)
+    ok = hold_playback(ticks, v2, PYDRC_FRAMES, c["KTX2_BATCH_SIZE"])
+    check(play_launches.get("etc1_decode", 0) >= 1, "the Python-Draco project never launched K2")
+
+    faces, atts = grid_attributes(*DRC_GRID, 0, DRC_BITS)
+    val = encode_drc(faces, atts)
+    std = encode_drc(faces, atts, traversal_encoding="standard")
+    check(native.drc_decode_native(val) is not None and native.drc_decode_native(std) is None,
+          "the valence frame left, or the standard frame took, the native decoder")
+    ms = {"native_valence": wall_ms(torch, lambda: decode_drc(val)),
+          "python_staged_standard": wall_ms(torch, lambda: decode_drc(std))}
+    pure = []
+    os.environ["UVT_DISABLE_NATIVE_DRACO"] = "1"
+    try:
+        ms["python_alone_standard"] = once_ms(torch, lambda: pure.append(decode_drc(std)))
+    finally:
+        os.environ.pop("UVT_DISABLE_NATIVE_DRACO")
+    pure, want = pure[0], decode_drc(std)
+    check(np.array_equal(pure.faces, want.faces) and all(
+        np.array_equal(a.values, b.values) for a, b in zip(pure.attributes, want.attributes)),
+        "the Python decoder alone differs from the staged one")
+    emit({"phase": "python_draco_path", "frames": PYDRC_FRAMES, "grid": DRC_GRID,
+          "ok_ticks": ok, "ticks": len(ticks), "decode_ms_playback": decode_ms,
+          "playback_launches": play_launches, "frame_decode_ms": ms,
+          "vertices": int(want.num_points), "seconds": time.perf_counter() - t0})
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def write_png(path, img: np.ndarray) -> None:
     """[H, W, 3] uint8 -> an RGB PNG with zlib alone (the card machine has
     no Pillow); the rows take the None, Sub and Up filters in turn."""
@@ -3062,6 +3348,15 @@ def main() -> int:
     launches.update(pc_launches)
     ms.update(pc_ms)
     err.update(pc_err)
+
+    # ---- 9c. palettes past one window of the kernels and U5 past its shared
+    # prefix (CUDA events, no trace), then the copied Python Draco decoder
+    wide_err, wide_ms, wide, wide_launches = wide_palette_path(torch, dev, textures,
+                                                               median_cuda_ms)
+    for name, v in wide_err.items():
+        err[name] = max(err.get(name, 0), v)
+    ms.update(wide_ms)
+    python_draco_path(torch, textures)
     uastc_cli_launches = uastc_project_path(torch, textures)
 
     # ---- 10. the port's entry points: the encoder CLI and the player. Last: it
@@ -3189,6 +3484,10 @@ def main() -> int:
              "morton_keys": {"sort_ms": ms["morton_keys_sort"]}}
     for row in rows:
         row.update(extra.get(row["name"], {}))
+        if row["name"] in wide:  # the wide shapes' times and bounds, and launches
+            row["wide"] = wide[row["name"]]
+            if row["name"] in wide_launches:
+                row["wide"]["launches_segment"] = wide_launches[row["name"]]
     check_full_f32()
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": rows})

@@ -42,19 +42,19 @@ from uvol_tpu_torch.codecs.basis import etc1s_cuda as k  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 LOOPS = 20
-PRICE = """          int dm = k - origin;
-          if (dm < 0) dm += e;
-          float b = s_bits[dm];"""
+PRICE = """            int dm = k - origin;
+            if (dm < 0) dm += e;
+            float b = s_bits[dm];"""
 VARIANTS = {
     "as_is": [],
     "bits_twice": [
         ("  for (int k = tid; k < e; k += nthreads) s_bits[k] = bits[k];",
          "  __shared__ float s_bits2[2 * kSegMaxK];\n"
          "  for (int k = tid; k < 2 * e; k += nthreads) s_bits2[k] = bits[k < e ? k : k - e];"),
-        (PRICE, "          float b = s_bits2[k - origin + e];"),
+        (PRICE, "            float b = s_bits2[k - origin + e];"),
     ],
-    "no_errors": [("    errs[j] = __int2float_rn(acc - 2 * (int)dot);",
-                   "    errs[j] = (float)(j + f.p_sq);")],
+    "no_errors": [("  return __int2float_rn(acc - 2 * (int)dot);",
+                   "  return (float)(t.sq[0] + f.p_sq);")],
 }
 
 
@@ -75,7 +75,7 @@ def build(name: str):
     at = next(i for i, line in enumerate(lines) if "Compiling" in line and "rate_sweep_frame" in line)
     lib = ctypes.CDLL(str(so))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.uvt_etc1s_rate_sweep.argtypes = [vp] * 9 + [ci, ci, cf, cf, ci, ci, ci, vp, vp, vp]
+    lib.uvt_etc1s_rate_sweep.argtypes = [vp] * 9 + [ci, ci, cf, cf, ci, ci, ci, vp, vp, vp, vp]
     return lib, [line.split(":", 1)[-1].strip() for line in lines[at + 2:at + 4]]
 
 
@@ -101,7 +101,7 @@ def main() -> int:
             o_ep, o_sel = torch.empty_like(ep), torch.empty_like(sel)
 
             def call():
-                err = lib.uvt_etc1s_rate_sweep(*ptrs, 1, 0, 60.0, 1.5, 256, 256, e,
+                err = lib.uvt_etc1s_rate_sweep(*ptrs, 1, 0, 60.0, 1.5, 256, 256, e, None,
                                                o_ep.data_ptr(), o_sel.data_ptr(),
                                                torch.cuda.current_stream().cuda_stream)
                 assert err == 0, err

@@ -209,7 +209,7 @@ def _etc1s_inputs(n: int, e: int, seed: int):
     return blocks, base, inten
 
 
-@pytest.mark.parametrize("e", [256, 1024, 2048])
+@pytest.mark.parametrize("e", [256, 1024, 2048, 2049, 4096, 16128])
 def test_etc1s_assign_endpoints_kernel_matches_twin(card, e):
     blocks, base, inten = _etc1s_inputs(2304, e, e)
     table = etc1s_cuda.endpoint_table(base, inten)
@@ -229,7 +229,7 @@ def test_etc1s_inten_errors_kernel_matches_twin(card):
                                   etc1s_cuda.inten_errors_plain(blocks, base).numpy())
 
 
-@pytest.mark.parametrize("k", [256, 1024, 2048])
+@pytest.mark.parametrize("k", [256, 1024, 2048, 2049, 4096, 16128])
 def test_etc1s_kmeans_iter_kernel_matches_twin(card, k):
     r = np.random.default_rng(k)
     feats = torch.from_numpy((r.random((70001, 4)) * 255).astype(np.float32))
@@ -261,7 +261,8 @@ def _seg_inputs(n: int, k: int, d: int, seed: int):
 
 
 @pytest.mark.parametrize("k,d", [(1, 9), (128, 33), (256, 9), (256, 33), (256, 8), (256, 4),
-                                 (256, 64), (2048, 64)])
+                                 (256, 64), (2048, 64), (2049, 64), (4096, 9), (4096, 64),
+                                 (16128, 64)])
 @pytest.mark.parametrize("n", [65, 20000])
 def test_segment_sum_kernel_matches_twin(card, n, k, d):
     """Bit for bit, signed zeros included, at the palette build's (k, D)."""
@@ -275,7 +276,7 @@ def test_segment_sum_kernel_matches_twin(card, n, k, d):
 
 
 @pytest.mark.parametrize("n,k", [(1, 256), (63, 256), (65, 256), (1025, 256), (70001, 256),
-                                 (1025, 1), (1025, 2048)])
+                                 (1025, 1), (1025, 2048), (1025, 2049), (3, 16128)])
 def test_etc1s_kmeans_iter_kernel_at_odd_rows(card, n, k):
     r = np.random.default_rng(n + k)
     feats = torch.from_numpy((r.random((n, 4)) * 255).astype(np.float32))
@@ -536,7 +537,7 @@ def _on(card, args):
 
 @pytest.mark.parametrize("prev", [True, False])
 @pytest.mark.parametrize("nby,nbx", [(1, 1), (1, 300), (257, 3), (64, 256)])
-@pytest.mark.parametrize("e", [17, 512, 2048])
+@pytest.mark.parametrize("e", [17, 512, 2048, 2049, 4096, 16128])
 def test_rate_sweep_kernel_matches_twin(card, e, nby, nbx, prev):
     """New entries and selectors bit for bit, one launch per frame, with
     and without a previous frame; on a frame with one, some blocks keep
@@ -557,7 +558,7 @@ def test_rate_sweep_kernel_matches_twin(card, e, nby, nbx, prev):
         assert kept.any() and not kept.all()
 
 
-@pytest.mark.parametrize("e", [40, 512, 2048])
+@pytest.mark.parametrize("e", [40, 512, 2048, 4096])
 def test_rate_sweep_kernel_breaks_ties_to_the_first_entry(card, e):
     """lam 0 over a palette whose second half repeats its first: every tie
     between two equal entries goes to the first, on the card as in the
@@ -1074,7 +1075,7 @@ def test_estimate_normals_kernel_matches_twin(card, case):
 
 
 @pytest.mark.parametrize("f,n,bits", [(1, 1, 11), (3, 255, 11), (2, 257, 21), (32, 26145, 11),
-                                      (2, 1000, 1)])
+                                      (2, 1000, 1), (65537, 3, 11)])
 def test_morton_keys_kernel_matches_twin(card, f, n, bits):
     from uvol_tpu_torch._device import true_div
     from uvol_tpu_torch.ops import mesh_cuda
@@ -1089,7 +1090,9 @@ def test_morton_keys_kernel_matches_twin(card, f, n, bits):
     assert torch.equal(got.cpu(), mesh_cuda.morton_keys_plain(x, mn, inv, bits))
 
 
-@pytest.mark.parametrize("f,n,d", [(1, 1, 1), (2, 1025, 2), (3, 2048, 3), (1, 3000, 4)])
+@pytest.mark.parametrize("f,n,d", [(1, 1, 1), (2, 1025, 2), (3, 2048, 3), (1, 3000, 4),
+                                   (1, 54016, 3), (2, 54017, 2), (8, 200000, 3), (65536, 3, 1),
+                                   (70001, 2, 2)])
 def test_parallelogram_decode_kernel_matches_twin(card, f, n, d):
     from uvol_tpu_torch.ops import mesh_cuda
 

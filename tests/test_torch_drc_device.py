@@ -30,6 +30,7 @@ from uvol_tpu.codecs.draco.decoder import decode_drc
 from uvol_tpu.models import drc_device as jd
 from uvol_tpu_torch import native as tnative
 from uvol_tpu_torch.codecs.draco import constants as K
+from uvol_tpu_torch.codecs.draco.encoder import AttributeToEncode
 from uvol_tpu_torch.codecs.draco.grid import grid_attributes, grid_drc
 from uvol_tpu_torch.models import drc_device as td
 
@@ -277,8 +278,7 @@ def test_decode_drc_batch_as_numpy_and_on_one_frame():
 def test_integer_attributes_stay_host_lists():
     faces, atts = grid_attributes(5, 7, 3)
     gen = (np.arange(35, dtype=np.int32).reshape(-1, 1) * 3) % 17
-    atts.append(tnative.AttributeToEncode(K.ATT_GENERIC, gen, faces.reshape(-1), 8,
-                                          integer=True))
+    atts.append(AttributeToEncode(K.ATT_GENERIC, gen, faces.reshape(-1), 8, integer=True))
     blobs = [tnative.drc_encode_native(faces, atts)] * 2
     got = td.decode_drc_batch(blobs, device="cpu")
     assert isinstance(got.values[K.ATT_GENERIC], list)
@@ -316,7 +316,7 @@ def test_16bit_quantization_high_values_survive_upload():
             faces += [[a, b, c], [a, c, d]]
     faces = np.array(faces, np.int32)
     blob = tnative.drc_encode_native(
-        faces, [tnative.AttributeToEncode(K.ATT_POSITION, pos, faces.reshape(-1), 16)])
+        faces, [AttributeToEncode(K.ATT_POSITION, pos, faces.reshape(-1), 16)])
     q = decode_drc(blob).attribute_by_type(JK.ATT_POSITION)
     batch = td.decode_drc_batch([blob], device="cpu", as_numpy=True)
     n = int(batch.counts[K.ATT_POSITION][0])

@@ -117,17 +117,20 @@ def _psnr(blob: bytes, frames: np.ndarray) -> float:
 
 
 def test_log_table_is_xla_log():
-    """L[k] = log(1 + k), k = 0..1024, bit for bit as XLA's CPU `log`
-    returns it: the correctly rounded float32 but at `_XLA_LOG_ULPS`."""
-    k = np.arange(1025)
+    """L[k] = log(1 + k), k = 0..32,768 (the index distances of palettes
+    up to 65,536 entries), bit for bit as XLA's CPU `log` returns it:
+    `_xla_log`, Cephes' polynomial with XLA's FMAs, which is one ulp off
+    the correctly rounded value at ~1% of them."""
+    k = np.arange(32769)
     want = np.asarray(jax.jit(jnp.log)(jnp.asarray((1.0 + k).astype(np.float32))))
-    got = tenc._xla_log1p_table()
+    got = tenc._xla_log1p_table(32768)
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(tenc._xla_log1p_table()[:1025], got[:1025])
     rounded = np.log((1.0 + k).astype(np.float64)).astype(np.float32)
-    assert sorted(np.nonzero(rounded != want)[0]) == sorted(tenc._XLA_LOG_ULPS)
+    assert 100 < np.count_nonzero(rounded != want) < 1000
 
 
-@pytest.mark.parametrize("e_n", [512, 777, 1024, 1536, 2048])
+@pytest.mark.parametrize("e_n", [512, 777, 1024, 1536, 2048, 2049, 3000, 4096, 16128])
 def test_sweep_bits_table_matches_xla(e_n):
     """The reference's expression (etc1s_encode.py:1270-1282) jitted: XLA
     folds 1.5 * log2 into one constant and contracts `+ 5.0` into an FMA;
@@ -205,6 +208,19 @@ def test_delta_pass_matches_jax(name, e_n, lam_bits, breaks):
     assert cr.any() and not (ep == pal().block_endpoint).all()
     if breaks:  # an I-slice: nothing is taken from the previous frame for being there
         assert not ((ep[2] == ep[1]) & (sel[2] == sel[1])).all()
+
+
+@pytest.mark.parametrize("name", ["delta_bias_assignments", "rate_sweep_assignments"])
+def test_delta_pass_matches_jax_above_the_window(name):
+    """The flips and the sweep (K7's twin) at E = 3,000, past the
+    kernels' window of 2,048 entries, as above."""
+    blocks, pal, nby, nbx = _pass_inputs(3000, seed=3000)
+    pal0 = pal()
+    pal0.block_endpoint[:, ::2] = 2048 + pal0.block_endpoint[:, ::2] % 952  # entries past 2,047
+    got = _run_pass(name, blocks, lambda: copy.deepcopy(pal0), nby, nbx, lam_bits=60.0,
+                    lam_cr=1.5, chain_breaks=(2,))
+    assert not (got.block_endpoint == pal0.block_endpoint).all()
+    assert (got.block_endpoint >= 2048).any()
 
 
 @pytest.mark.parametrize("e_n", [512, 1024])
@@ -308,9 +324,12 @@ def test_rate_sweep_wrapper_refuses_other_shapes():
     args = (blocks, base, mods, sel_cb, bits, z, z, (z, z), 0, 60.0, 1.5)
     with pytest.raises(ValueError, match="rows of 5"):
         kern.rate_sweep_frame(*args, 5)
-    with pytest.raises(ValueError, match="palette entries"):
-        big = torch.zeros((kern.SEG_MAX_K + 1, 3), dtype=torch.int32)
-        kern.rate_sweep_frame(blocks, big, *args[2:], 4)
+    # a palette past the kernel's register path (2,048 entries) is taken
+    wide = [torch.zeros((2049, c), dtype=torch.int32) for c in (3, 4)]
+    got = kern.rate_sweep_frame(blocks, *wide, sel_cb, torch.zeros(2049), *args[5:], 4)
+    assert [t.shape for t in got] == [(12,), (12,)]
+    with pytest.raises(ValueError, match="palette entry"):
+        kern.rate_sweep_frame(blocks, base[:0], *args[2:], 4)
     with pytest.raises(ValueError, match="uint8 blocks"):
         kern.rate_sweep_frame(blocks.int(), *args[1:], 4)
     with pytest.raises(ValueError, match="bits"):

@@ -2,8 +2,9 @@
 
 Every module the port copied (varint/buffer, rANS and symbol coding, the
 native library, KTX2, the Huffman coder, the ETC1S host emission, the
-transcoder's RGBA decode, zstd) must emit the same bytes as the
-original, on the native path and on the Python path. The `path` fixture
+transcoder's RGBA decode, zstd; the Python Draco codec in
+tests/test_torch_draco.py) must emit the same bytes as the original, on
+the native path and on the Python path. The `path` fixture
 switches both packages together: "python" makes each package's native
 loader report no library, so both take their Python code.
 """
@@ -41,8 +42,10 @@ def path(request, monkeypatch):
         monkeypatch.setattr(jnative, "get_lib", lambda: None)
         monkeypatch.setattr(jnative, "get_etc1s_lib", lambda: None)
         monkeypatch.setattr(jnative, "get_corto_lib", lambda: None)
+        monkeypatch.setattr(jnative, "get_draco_lib", lambda: None)
         monkeypatch.setattr(tnative, "get_lib", lambda: None)
         monkeypatch.setattr(tnative, "get_corto_lib", lambda: None)
+        monkeypatch.setattr(tnative, "get_draco_lib", lambda: None)
     else:
         assert tnative.get_lib() is not None  # g++ builds the port's library
     return request.param
@@ -854,13 +857,92 @@ def test_decode_drc_matches_the_reference_on_the_fixture():
 
 def test_decode_drc_of_a_stream_off_the_native_path_raises():
     """grid_std.drc uses the standard edgebreaker coder, which the native
-    decoder does not take: the reference falls back to its Python stages,
-    the port names the ROADMAP item."""
+    decoder does not take: both packages fall back to their Python stages
+    (the port raised before it copied them) and return the same arrays
+    (tests/test_torch_draco.py holds every stream kind on both paths)."""
     data = (FIXTURES / "grid_std.drc").read_bytes()
     assert tnative.drc_decode_native(data) is None
-    assert jdrc.decode_drc(data).num_points > 0
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tdrc.decode_drc(data)
+    got, want = tdrc.decode_drc(data), jdrc.decode_drc(data)
+    assert got.num_points == want.num_points > 0
+    np.testing.assert_array_equal(got.faces, want.faces)
+    for a, b in zip(got.attributes, want.attributes, strict=True):
+        assert a.values.dtype == b.values.dtype
+        np.testing.assert_array_equal(a.values, b.values)
+        np.testing.assert_array_equal(a.corner_to_value, b.corner_to_value)
+
+
+@pytest.mark.parametrize("n", [0, 1, 200, 5000])
+def test_rans_bit_coder_identical(path, n):
+    """The binary rABS coder the Draco stack calls, copied: the same bytes
+    (the native emit above 256 bits) and the same bits back."""
+    from uvol_tpu.codecs import rans as jrans
+    from uvol_tpu_torch.codecs import rans as trans
+
+    bits = (np.random.default_rng(n).random(n) < 0.3).astype(np.uint8)
+    blobs = []
+    for rans, buf in ((jrans, jbuffer), (trans, tbuffer)):
+        enc = rans.RansBitEncoder()
+        enc.encode_bits(bits[: n // 2])
+        for b in bits[n // 2:]:
+            enc.encode_bit(int(b))
+        out = buf.EncoderBuffer()
+        enc.flush(out)
+        blobs.append(out.getvalue())
+    assert blobs[1] == blobs[0]
+    dec = trans.RansBitDecoder(tbuffer.DecoderBuffer(blobs[1]))
+    assert [dec.decode_bit() for _ in range(n)] == bits.tolist()
+
+
+def test_python_draco_codec_runs_without_jax_or_the_reference(tmp_path):
+    """The copied Draco codec alone: a subprocess that refuses `jax` and
+    `uvol_tpu` and holds every Draco caller on its Python path
+    (`UVT_DISABLE_NATIVE_DRACO=1`) decodes grid_std.drc and encodes and
+    decodes a grid, and loads nothing of either."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+
+    script = textwrap.dedent("""
+        import importlib.abc, sys
+
+        class Refuse(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "uvol_tpu"):
+                    raise ImportError(f"refused: {name}")
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        import numpy as np
+        from uvol_tpu_torch import native
+        from uvol_tpu_torch.codecs.draco.decoder import decode_drc
+        from uvol_tpu_torch.codecs.draco.grid import grid_attributes
+        from uvol_tpu_torch.codecs.draco.encoder import encode_drc
+        assert native.get_draco_lib() is None
+        assert decode_drc(open(sys.argv[1], "rb").read()).num_points == 72
+        faces, atts = grid_attributes(6, 9, 1)
+        mesh = decode_drc(encode_drc(faces, atts, traversal_encoding="standard"))
+        assert mesh.num_points == 54 and len(mesh.faces) == len(faces)
+        loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "uvol_tpu")]
+        assert not loaded, loaded
+        print("ok")
+        """)
+    env = dict(os.environ, PYTHONPATH=str(FIXTURES.parents[1]), UVT_DISABLE_NATIVE_DRACO="1")
+    proc = subprocess.run([sys.executable, "-c", script, str(FIXTURES / "grid_std.drc")],
+                          cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_signed_symbol_converters_identical():
+    v = np.random.default_rng(1).integers(-(1 << 30), 1 << 30, 1000)
+    v[:4] = [0, -1, 1, -(1 << 30)]
+    sym = tsym.convert_signed_to_symbols(v)
+    np.testing.assert_array_equal(sym, jsym.convert_signed_to_symbols(v))
+    assert sym.dtype == np.uint32
+    np.testing.assert_array_equal(tsym.convert_symbols_to_signed(sym),
+                                  jsym.convert_symbols_to_signed(sym))
+    np.testing.assert_array_equal(tsym.convert_symbols_to_signed(sym), v)
 
 
 def test_srgb_vertex_colors_match():

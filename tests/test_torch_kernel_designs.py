@@ -176,6 +176,35 @@ def _kernel_model(idx: np.ndarray, k: int, x: np.ndarray) -> np.ndarray:
     return tree(roots)
 
 
+def _window_model(idx: np.ndarray, k: int, x: np.ndarray, window: int) -> np.ndarray:
+    """The kernel past one window: `_kernel_model` once per window of
+    `window` segments, the rows of other segments keyed to a spare segment
+    past the window (they sort after the window's rows in their tile, as
+    kNoSegment does) and dropped."""
+    outs = []
+    for s0 in range(0, k, window):
+        kw = min(window, k - s0)
+        inw = (idx >= s0) & (idx < s0 + kw)
+        outs.append(_kernel_model(np.where(inw, idx - s0, kw), kw + 1, x)[:kw])
+    return np.concatenate(outs)
+
+
+@pytest.mark.parametrize("k,window", [(2049, 2048), (4100, 2048), (300, 64), (130, 7)])
+@pytest.mark.parametrize("n", [1025, 3077])
+def test_kernel_windows_match_segment_sum_plain(k, window, n):
+    """Bit-exact: a sum over k segments taken window by window, each
+    window's pass dropping the other rows, equals the twin's one tree, and
+    so does the twin taken window by window."""
+    r = np.random.default_rng(k + n + window)
+    idx = r.integers(0, k, n)
+    idx[: n // 3] = np.sort(idx[: n // 3])
+    x = _values(r, n, 9)
+    want = kern.segment_sum_plain(torch.from_numpy(idx), k, torch.from_numpy(x), _window=1 << 30)
+    np.testing.assert_array_equal(_bits(_window_model(idx, k, x, window)), _bits(want))
+    got = kern.segment_sum_plain(torch.from_numpy(idx), k, torch.from_numpy(x), _window=window)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
 def _hold_model(idx: np.ndarray, k: int, x: np.ndarray) -> None:
     want = kern.segment_sum_plain(torch.from_numpy(idx), k, torch.from_numpy(x))
     np.testing.assert_array_equal(_bits(_kernel_model(idx, k, x)), _bits(want))
@@ -234,8 +263,12 @@ def test_segment_sum_wrapper_on_the_cpu_takes_the_twin():
     np.testing.assert_array_equal(_bits(kern.segment_sum(idx, 9, x)),
                                   _bits(kern.segment_sum_plain(idx, 9, x)))
     assert kern.LAUNCHES == before
+    # past one window of the kernel (refused until it summed by windows)
+    wide = kern.segment_sum(idx, kern.SEG_WINDOW + 1, x)
+    np.testing.assert_array_equal(_bits(wide[:9]), _bits(kern.segment_sum_plain(idx, 9, x)))
+    assert not wide[9:].any()
     with pytest.raises(ValueError):
-        kern.segment_sum(idx, kern.SEG_MAX_K + 1, x)
+        kern.segment_sum(idx, 0, x)
     with pytest.raises(ValueError):
         kern.segment_sum(idx[:-1], 9, x)
     with pytest.raises(ValueError):
@@ -709,10 +742,12 @@ def _k7_pair_error(blocks, base, mods, sel_cb, ep, sel) -> np.ndarray:
 def _k7_model(blocks, base, mods, sel_cb, bits, ep, sel, prev, s0_index, lam, lam_cr, nbx):
     """`rate_sweep_frame_kernel` written out in numpy: the rows go together,
     the columns in order; threads = 32 * ceil(E / 128), thread t holding
-    entries t + j * threads."""
+    entries t + j * threads (j < 4); past 2,048 entries (the wide path) 512
+    threads, thread t pricing every entry t + j * 512 in turn."""
     e, nb = len(base), len(ep)
     nby = nb // nbx
-    threads = 32 * -(-e // (32 * K7_PER))
+    threads = 32 * -(-e // (32 * K7_PER)) if e <= kern.SWEEP_REG_MAX_E else 512
+    per = K7_PER if e <= kern.SWEEP_REG_MAX_E else -(-e // threads)
     lam, lam_cr = np.float32(lam), np.float32(lam_cr)
     # the thread's entries in registers: col(k, c) as bytes (12, code-major),
     # |col(k, c)|^2 (4)
@@ -744,7 +779,7 @@ def _k7_model(blocks, base, mods, sel_cb, bits, ep, sel, prev, s0_index, lam, la
     errs, e_cr, pe_g = grid(errs), grid(cost_cr), grid(pe)
     ep_g = grid(ep)
     above = np.concatenate([ep_g[:1], ep_g[:-1]])
-    slots = np.arange(K7_PER * threads)  # slot t + j * threads is entry t + j * threads
+    slots = np.arange(per * threads)  # slot t + j * threads is entry t + j * threads
     live = slots < e
     left = ep_g[:, 0].astype(np.int64)
     choice, cr_all = np.zeros((nby, nbx), np.int64), np.zeros((nby, nbx), bool)
@@ -761,7 +796,7 @@ def _k7_model(blocks, base, mods, sel_cb, bits, ep, sel, prev, s0_index, lam, la
         # a thread's first minimum over its ascending entries, then the warp's
         # and the CTA's: the least ordered cost, then the least entry among
         # the lanes that hold it (two redux.sync minima each time)
-        per_thread = cost.reshape(nby, K7_PER, threads)
+        per_thread = cost.reshape(nby, per, threads)
         jbest = np.argmin(per_thread, 1)  # first minimum: the lowest j
         key = _ordered(np.take_along_axis(per_thread, jbest[:, None, :], 1)[:, 0])
         entry = (jbest * threads + np.arange(threads)).astype(np.uint64)
@@ -796,6 +831,8 @@ K7_CASES = {
     "e1": dict(nby=2, nbx=6, e=1, seed=4),
     "e17": dict(nby=3, nbx=4, e=17, seed=5),
     "e2048": dict(nby=2, nbx=3, e=2048, seed=6),
+    "e2049_wide": dict(nby=2, nbx=3, e=2049, seed=12),
+    "e3000_wide_ties": dict(nby=3, nbx=4, e=3000, seed=13, dup=True),
     "one_column": dict(nby=6, nbx=1, e=64, seed=7),
     "frame0_or_break": dict(nby=3, nbx=5, e=200, seed=8, prev=False),
     "all_flat": dict(nby=3, nbx=5, e=96, seed=9, flat="all"),

@@ -80,6 +80,8 @@ def _inputs() -> dict:
                     "ragged": r.integers(0, 256, (5, 32, 32, 3)).astype(np.uint8)},
         "bucketed": _ragged_frames(7),
         "etc1s": _etc1s_frames(),
+        # 2,052 blocks: a palette of 2,049 endpoints, one past the kernels' window
+        "etc1s_wide": r.integers(0, 256, (1, 108, 304, 3)).astype(np.uint8),
         "indivisible": r.integers(0, 256, (3, 12, 12, 3)).astype(np.uint8),  # 27 blocks
         "kmeans_blocks": r.integers(0, 256, (8, 64, 48)).astype(np.float32),
         "kmeans_codebook": r.integers(0, 256, (128, 48)).astype(np.float32),
@@ -152,6 +154,9 @@ def rank_job(inputs: dict, standins: dict) -> dict:
         pal = build_palettes(inputs["indivisible"], 16, 16, 2, rdo=False, mesh=mesh)
     out["indivisible"] = {"palettes": _pal_dict(pal),
                           "warnings": [(w.category.__name__, str(w.message)) for w in caught]}
+    if torch.distributed.get_world_size() == 2:
+        out["etc1s_wide"] = _pal_dict(build_palettes(inputs["etc1s_wide"], 2049, 64, 2,
+                                                     rdo=False, mesh=mesh))
 
     step = make_sharded_train_step(mesh)
     local = shard_frames(mesh, inputs["kmeans_blocks"])
@@ -359,6 +364,23 @@ def test_etc1s_four_ranks_quality_parity(ranks, jax_pallas_builds, rdo):
     for res in ranks[4][1:]:
         for field in PAL_FIELDS:
             np.testing.assert_array_equal(res["etc1s"][rdo][field], res0[field])
+
+
+def test_etc1s_two_ranks_past_one_window(ranks):
+    """2,049 endpoints on 2 ranks: the kernels' windows of 2,048, each
+    window's partials summed over the ranks. The palette is built (it was
+    refused before the windows), the same on both ranks, and within 0.5 dB
+    of the one-device build, the sharded build's contract."""
+    from uvol_tpu_torch.codecs.basis.etc1s_encode import build_palettes
+
+    frames = INPUTS["etc1s_wide"]
+    one = _pal_dict(build_palettes(frames, 2049, 64, 2, rdo=False, device="cpu"))
+    res0 = ranks[2][0]["etc1s_wide"]
+    assert len(res0["color5"]) == len(one["color5"]) == 2049
+    assert abs(_palette_psnr(frames, res0) - _palette_psnr(frames, one)) < 0.5
+    for res in ranks[2][1:]:
+        for field in PAL_FIELDS:
+            np.testing.assert_array_equal(res["etc1s_wide"][field], res0[field])
 
 
 @pytest.mark.parametrize("k", SIZES)

@@ -380,6 +380,21 @@ def test_parallelogram_decode_jitted_reference():
     np.testing.assert_array_equal(back.numpy(), np.asarray(jback))
 
 
+@pytest.mark.parametrize("shape", [(54017, 2), (65537, 3, 1)])
+def test_parallelogram_decode_past_the_card_launch_limits(shape):
+    """A chain of 54,017 vertices (one past the card's shared-memory
+    prefix) and 65,537 frames (past one launch's grid): the twin, which
+    the card is held to, equals the reference's jitted scan."""
+    r = np.random.default_rng(len(shape))
+    *batch, n, d = shape
+    p = _pidx(r, n, tuple(batch))
+    p[..., n // 2, :] = [n - 1, n - 1, n // 2 + 7]  # forward references read 0
+    res = r.integers(-(1 << 20), 1 << 20, shape).astype(np.int32)
+    want = jax.jit(jpred.parallelogram_decode)(jnp.asarray(res), jnp.asarray(p))
+    got = tpred.parallelogram_decode(_t(res), _t(p))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 # ---- trajectory fit (U6) ---------------------------------------------------------
 
 

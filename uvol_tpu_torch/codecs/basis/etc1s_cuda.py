@@ -21,8 +21,12 @@ Each wrapper call that launches adds one to `LAUNCHES[name]` (K6 and
 The kernels take at most `SEG_MAX_ROWS` rows a launch. Above that,
 `segment_sum` and `kmeans_iter` (kernel and twin alike) sum consecutive
 chunks of `SEG_MAX_ROWS` rows and add the chunk results in order, first
-to last; at or below it nothing is chunked. `SEG_MAX_K` segments or
-centroids is the limit of both routes.
+to last; at or below it nothing is chunked. Within a launch they sum
+windows of `SEG_WINDOW` segments (K6: centroids) one after another, and so
+does the twin: a segment's sum depends only on its own rows in tile order,
+so a window's result is the bits of one pass over every segment. K7 keeps
+the palette in registers up to `SWEEP_REG_MAX_E` entries and reads it from a
+table in device memory above.
 
 K7 computes its errors in int32 (exact: the reference's float32 product
 holds integers below 2^24) and prices with one fused multiply-add per
@@ -74,8 +78,13 @@ INTEN_TABLES = tuple(tuple(int(v) for v in row) for row in _INTEN_TABLES)
 SEG_TILE = 64
 #: tiles per pass-1 chunk of the segment-sum kernel (kChunkTiles)
 SEG_CHUNK_TILES = 16
-#: most segments the kernel takes (its shared-memory map); K6's centroids
-SEG_MAX_K = KMEANS_MAX_K = 2048
+#: segments (K6: centroids) one window of the kernels sums, the width of
+#: their shared-memory map; a wider sum takes ceil(k / SEG_WINDOW) windows,
+#: two launches each, on both routes in the same order
+SEG_WINDOW = 2048
+#: most palette entries K7 keeps in a CTA's registers; wider palettes take
+#: its wide path (an entry table in device memory, written first)
+SWEEP_REG_MAX_E = 2048
 #: most rows one launch takes (pass 2 reduces at most 64 x 256 chunk
 #: partials); longer inputs are summed in chunks of this many rows
 SEG_MAX_ROWS = 1 << 24
@@ -143,14 +152,17 @@ def _check_blocks(blocks: Tensor) -> None:
 
 
 def segment_sum_plain(idx: Tensor, k: int, x: Tensor,
-                      _chunk_rows: Optional[int] = None) -> Tensor:
+                      _chunk_rows: Optional[int] = None,
+                      _window: Optional[int] = None) -> Tensor:
     """Plain twin of the segment-sum kernel: `out[s] = sum of x[i] over
     idx[i] == s`, x [N, D] f32, idx [N] in [0, k) → [k, D] f32, in one
     order on every device and every run.
 
     Above `SEG_MAX_ROWS` rows (`_chunk_rows`, for the tests of that order)
     the sum is that of consecutive chunks of so many rows, each summed as
-    below, added in order (`_add_in_order`).
+    below, added in order (`_add_in_order`). Above `SEG_WINDOW` segments
+    each window of so many is summed apart (`_window`, for the tests), rows
+    of other segments dropped: the same bits, in less memory.
 
     Rows are added in order within consecutive tiles of `SEG_TILE` rows,
     starting from 0.0; the tile partials are then added pairwise, level
@@ -160,9 +172,16 @@ def segment_sum_plain(idx: Tensor, k: int, x: Tensor,
     flip argmins between runs."""
     n, d = x.shape
     rows = SEG_MAX_ROWS if _chunk_rows is None else _chunk_rows
+    window = SEG_WINDOW if _window is None else _window
     if n > rows:
-        return _add_in_order(segment_sum_plain(idx[a:b], k, x[a:b])
+        return _add_in_order(segment_sum_plain(idx[a:b], k, x[a:b], _window=_window)
                              for a, b in _row_chunks(n, rows))
+    if k > window:  # rows of other windows go to the spare segment
+        idx = idx.to(torch.int64)
+        return torch.cat([
+            segment_sum_plain(torch.where((idx >= s0) & (idx < s0 + kw), idx - s0, kw), kw, x,
+                              _chunk_rows=rows)
+            for s0, kw in ((s0, min(window, k - s0)) for s0 in range(0, k, window))])
     nt = max(1, -(-n // SEG_TILE))
     pad = nt * SEG_TILE - n
     idx = idx.to(torch.int64)
@@ -186,17 +205,18 @@ def segment_sum_plain(idx: Tensor, k: int, x: Tensor,
 
 def segment_sum(idx: Tensor, k: int, x: Tensor) -> Tensor:
     """The fixed-order segment sum of `segment_sum_plain`: idx [N] integer
-    in [0, k), k <= SEG_MAX_K, x [N, D] f32 → [k, D] f32. A CUDA tensor
-    launches the kernel of `csrc/etc1s.cu` (pass 1 over chunks of
-    `SEG_CHUNK_TILES` tiles, pass 2 over the chunk partials: two
-    launches up to `SEG_MAX_ROWS` rows, two per chunk of so many rows
-    above), a CPU tensor takes the twin; both give the same bits."""
+    in [0, k), x [N, D] f32 → [k, D] f32. A CUDA tensor launches the
+    kernel of `csrc/etc1s.cu` (pass 1 over chunks of `SEG_CHUNK_TILES`
+    tiles, pass 2 over the chunk partials: two launches per window of
+    `SEG_WINDOW` segments up to `SEG_MAX_ROWS` rows, and so per chunk of so
+    many rows above), a CPU tensor takes the twin; both give the same
+    bits."""
     if x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] < 1:
         raise ValueError(f"expected [N, D] float32 values, got {tuple(x.shape)} {x.dtype}")
     if idx.ndim != 1 or idx.shape[0] != x.shape[0]:
         raise ValueError(f"expected [{x.shape[0]}] indices, got {tuple(idx.shape)}")
-    if not 0 < k <= SEG_MAX_K:
-        raise ValueError(f"segment_sum takes 1 <= k <= {SEG_MAX_K}, got {k}")
+    if k <= 0:
+        raise ValueError(f"segment_sum takes k >= 1, got {k}")
     if not _route(x):
         return segment_sum_plain(idx, k, x)
     x = x.contiguous()
@@ -211,7 +231,7 @@ def _segment_sum_launch(idx: Tensor, k: int, x: Tensor) -> Tensor:
     contiguous, N <= SEG_MAX_ROWS."""
     n, d = x.shape
     chunks = max(1, -(-n // (SEG_TILE * SEG_CHUNK_TILES)))
-    part = torch.empty((chunks, k, d), dtype=torch.float32, device=x.device)
+    part = torch.empty((chunks, min(k, SEG_WINDOW), d), dtype=torch.float32, device=x.device)
     out = torch.empty((k, d), dtype=torch.float32, device=x.device)
     _launch("etc1s_segment_sum", "uvt_etc1s_segment_sum", x.device,
             idx.data_ptr(), x.data_ptr(), n, d, k, part.data_ptr(), out.data_ptr())
@@ -279,24 +299,24 @@ def endpoint_table(base: Tensor, inten: Tensor) -> Tensor:
 
 def assign_endpoints_plain(blocks: Tensor, table: Tensor) -> Tensor:
     """Plain twin of K4: blocks [N, 16, 3] uint8, table [E, 20] int32 →
-    [N] int32, the first endpoint of least exact block error."""
+    [N] int32, the first endpoint of least exact block error. The
+    per-pixel candidates q_j + p . (-2 me_j) come from one float64 product
+    per chunk of blocks: every term is an integer far below 2^53, so each
+    sum is exact, in any order."""
     e = table.shape[0]
-    px = blocks.to(torch.int32)
+    px = blocks.to(torch.float64)
     psum = px.sum(1)  # [N, 3]
-    t = table.to(torch.int32)
+    t = table.to(torch.float64)
     m = t[:, :16].reshape(e, 4, 4)
-    chunk = max(1, _TWIN_ELEMS // (16 * e))
+    w = m[:, :, :3].reshape(e * 4, 3).T.contiguous()  # [3, E * 4]
+    q = m[:, :, 3].reshape(e * 4)
+    chunk = max(1, _TWIN_ELEMS // (16 * 4 * e))
     out = []
     for s in range(0, px.shape[0], chunk):
-        p = px[s : s + chunk, :, None, :]  # [B, 16, 1, 3]
-        best = None
-        for j in range(4):
-            cand = (m[:, j, 3] + p[..., 0] * m[:, j, 0] + p[..., 1] * m[:, j, 1]
-                    + p[..., 2] * m[:, j, 2])  # [B, 16, E]
-            best = cand if best is None else torch.minimum(best, cand)
-        ps = psum[s : s + chunk]
-        err = best.sum(1) + (t[:, 19] + ps[:, 0:1] * t[:, 16] + ps[:, 1:2] * t[:, 17]
-                             + ps[:, 2:3] * t[:, 18])
+        p = px[s : s + chunk]
+        cand = torch.addmm(q, p.reshape(-1, 3), w)  # [B * 16, E * 4]
+        best = cand.view(p.shape[0], 16, e, 4).amin(3).sum(1)  # [B, E]
+        err = best + (t[:, 19] + psum[s : s + chunk] @ t[:, 16:19].T)
         out.append(torch.argmin(err, dim=1))
     return torch.cat(out).to(torch.int32)
 
@@ -354,15 +374,16 @@ def kmeans_iter_plain(feats: Tensor, cb: Tensor) -> Tuple[Tensor, Tensor, Tensor
 
 
 def kmeans_iter(feats: Tensor, cb: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-    """K6: feats [N, 4] f32, cb [K, 4] f32 (K <= 2048) → (sums [K, 4],
-    counts [K], assign [N] int32).
-    Above `SEG_MAX_ROWS` rows: one launch per chunk of so many rows, the
+    """K6: feats [N, 4] f32, cb [K, 4] f32 → (sums [K, 4], counts [K],
+    assign [N] int32). The kernel assigns every row in its first window's
+    launch (the centroids staged 2,048 at a time) and sums each window of
+    `SEG_WINDOW` centroids in its own launch.
+    Above `SEG_MAX_ROWS` rows: one call per chunk of so many rows, the
     sums and counts added in order as `segment_sum` adds them."""
     if feats.dtype != torch.float32 or feats.ndim != 2 or feats.shape[1] != 4:
         raise ValueError(f"expected [N, 4] float32 feats, got {tuple(feats.shape)} {feats.dtype}")
-    if cb.ndim != 2 or cb.shape[1] != 4 or not 0 < cb.shape[0] <= KMEANS_MAX_K:
-        raise ValueError(f"expected [K, 4] centroids with K <= {KMEANS_MAX_K}, "
-                         f"got {tuple(cb.shape)}")
+    if cb.ndim != 2 or cb.shape[1] != 4 or cb.shape[0] == 0:
+        raise ValueError(f"expected [K, 4] centroids with K >= 1, got {tuple(cb.shape)}")
     if feats.shape[0] == 0:
         raise ValueError("kmeans_iter needs at least one row")
     if not _route(feats):
@@ -382,7 +403,7 @@ def _kmeans_launch(feats: Tensor, cb: Tensor, assign: Tensor) -> Tensor:
     n, k = feats.shape[0], cb.shape[0]
     feats = _aligned(feats)
     chunks = -(-n // (SEG_TILE * SEG_CHUNK_TILES))
-    part = torch.empty((chunks, k, 5), dtype=torch.float32, device=feats.device)
+    part = torch.empty((chunks, min(k, SEG_WINDOW), 5), dtype=torch.float32, device=feats.device)
     sums = torch.empty((k, 5), dtype=torch.float32, device=feats.device)
     _launch("etc1s_kmeans_iter", "uvt_etc1s_kmeans_iter", feats.device,
             feats.data_ptr(), cb.data_ptr(), n, k, part.data_ptr(),
@@ -509,16 +530,18 @@ def rate_sweep_frame(blocks: Tensor, base: Tensor, mods: Tensor, sel_cb: Tensor,
     """K7: the rate sweep on one frame, the reference's `_rate_sweep_fn`
     frame body in one launch of nby CTAs. blocks [nb, 16, 3] uint8 (rows of
     nbx blocks in raster order), base [E, 3] and mods [E, 4] int32 (8-bit
-    colors and intensity modifiers, 1 <= E <= `SEG_MAX_K`), sel_cb [S, 16]
+    colors and intensity modifiers, E >= 1), sel_cb [S, 16]
     int32 codes, bits [E] f32 (`etc1s_encode.sweep_bits_table`), ep and sel
     [nb] int32 (the incoming pairs), prev the previous frame's (ep, sel)
     [nb] int32 or None, s0_index the uniform selector row, lam the bits'
     weight, lam_cr the CR snap's → (ep, sel) [nb] int32, as
-    `rate_sweep_frame_plain`."""
+    `rate_sweep_frame_plain`. Above `SWEEP_REG_MAX_E` entries the launch
+    is preceded by one that writes the palette's entry table (a scratch of
+    E x 32 bytes)."""
     _check_blocks(blocks)
     nb = blocks.shape[0]
-    if not 0 < base.shape[0] <= SEG_MAX_K:
-        raise ValueError(f"expected 1 to {SEG_MAX_K} palette entries, got {base.shape[0]}")
+    if base.ndim != 2 or base.shape[0] == 0:
+        raise ValueError(f"expected at least one palette entry, got {tuple(base.shape)}")
     e = base.shape[0]
     if nbx <= 0 or nb % nbx:
         raise ValueError(f"{nb} blocks are not rows of {nbx}")
@@ -539,7 +562,10 @@ def rate_sweep_frame(blocks: Tensor, base: Tensor, mods: Tensor, sel_cb: Tensor,
         args += args[-2:]
     out_ep = torch.empty(nb, dtype=torch.int32, device=blocks.device)
     out_sel = torch.empty(nb, dtype=torch.int32, device=blocks.device)
+    table = (torch.empty((e, 8), dtype=torch.int32, device=blocks.device)
+             if e > SWEEP_REG_MAX_E else None)
     _launch("etc1s_rate_sweep", "uvt_etc1s_rate_sweep", blocks.device,
             *(t.data_ptr() for t in args), int(prev is not None), int(s0_index), f32(lam),
-            f32(lam_cr), nb // nbx, nbx, e, out_ep.data_ptr(), out_sel.data_ptr())
+            f32(lam_cr), nb // nbx, nbx, e, None if table is None else table.data_ptr(),
+            out_ep.data_ptr(), out_sel.data_ptr())
     return out_ep, out_sel

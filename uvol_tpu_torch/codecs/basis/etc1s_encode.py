@@ -82,7 +82,7 @@ from uvol_tpu_torch.containers.ktx2 import (  # read_ktx2: the decode side's rea
     read_ktx2,
     write_ktx2,
 )
-from uvol_tpu_torch._device import DeviceLike, f32, require_full_f32, resolve_device
+from uvol_tpu_torch._device import DeviceLike, f32, fma_f32, require_full_f32, resolve_device
 from uvol_tpu_torch.codecs.basis import etc1s_cuda as kern
 from uvol_tpu_torch.parallel.mesh import (
     all_gather_in_rank_order,
@@ -121,10 +121,12 @@ _PAIR_CHUNK = 32768
 _SLACK = 16.0 * 4.0
 #: f32(1.5 / ln 2): XLA folds the sweep's `1.5 * log2(y)` into `log(y) * 2.1640425`
 _LOG2_X15 = f32(1.5 / math.log(2.0))
-#: k where XLA's CPU `log(1 + k)` (k = 0..1024) is one float32 ulp above (+1)
-#: or below (-1) the correctly rounded value; everywhere else it is that value
-_XLA_LOG_ULPS = {6: 1, 46: 1, 48: 1, 178: -1, 334: 1, 382: 1, 401: 1, 428: -1, 433: 1,
-                 625: -1, 714: 1, 715: -1, 720: -1, 729: -1, 794: -1, 857: 1}
+#: XLA's CPU float32 `log`: the Cephes polynomial, its coefficients p0..p8
+_LOG_P = tuple(f32(v) for v in (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+                                -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+                                2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1))
+#: ... and ln 2 split as q2 + q1
+_LOG_Q1, _LOG_Q2 = f32(-2.12194440e-4), f32(0.693359375)
 
 
 def _fma(a, b, c) -> Tensor:
@@ -393,11 +395,6 @@ def build_palettes(
     n = blocks.shape[0]
     num_endpoints = min(num_endpoints, n)
     num_selectors = min(num_selectors, n)
-    for arg, v in (("num_endpoints", num_endpoints), ("num_selectors", num_selectors)):
-        if v > kern.SEG_MAX_K:
-            raise ValueError(f"build_palettes: {arg}={v} exceeds the {kern.SEG_MAX_K} entries "
-                             "a palette may have (etc1s_cuda.SEG_MAX_K: the segments the "
-                             "segment-sum kernel and the centroids K6 take)")
     dev = resolve_mesh_device(device, mesh)
     if mesh is not None and n % axis_size(mesh) != 0:
         warnings.warn(
@@ -550,14 +547,40 @@ def _rdo_refine(dev_blocks: Tensor, dev_assign: Tensor, dev_sel_assign: Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _xla_log(x: Tensor) -> Tensor:
+    """XLA's CPU float32 `log` of x >= 1 (float32 CPU tensor), bit for bit:
+    Cephes' `logf` (x = m 2^e, m moved into [sqrt(1/2), sqrt(2)) - 1, a
+    degree-8 polynomial in three parts) with the multiply-adds XLA contracts
+    into FMAs (`fma_f32`); about 1% of its values are one ulp off the
+    correctly rounded log."""
+    m, e = torch.frexp(x)
+    e = e.to(torch.float32)
+    low = m < f32(0.707106781186547524)
+    tmp = torch.where(low, m, torch.zeros_like(m))
+    m = m - 1.0
+    e = e - low.to(torch.float32)
+    m = m + tmp
+    x2 = m * m
+    x3 = x2 * m
+    p = _LOG_P
+    y = fma_f32(fma_f32(m, p[0], p[1]), m, p[2])
+    y1 = fma_f32(fma_f32(m, p[3], p[4]), m, p[5])
+    y2 = fma_f32(fma_f32(m, p[6], p[7]), m, p[8])
+    y = fma_f32(fma_f32(y, x3, y1), x3, y2)
+    y = fma_f32(y, x3, e * _LOG_Q1)
+    m = m - x2 * 0.5
+    m = m + y
+    return m + e * _LOG_Q2
+
+
 @functools.lru_cache(maxsize=None)
-def _xla_log1p_table() -> np.ndarray:
-    """[1025] float32: log(1 + k) for k = 0..1024 as XLA's CPU `log` returns
-    it (the sweep's index distances reach E / 2 <= 1024)."""
-    table = np.array([math.log(1.0 + k) for k in range(1025)]).astype(np.float32)
-    ulps = np.zeros(1025, np.int32)
-    ulps[list(_XLA_LOG_ULPS)] = list(_XLA_LOG_ULPS.values())
-    return (table.view(np.int32) + ulps).view(np.float32)
+def _xla_log1p_table(n: int = 1024) -> np.ndarray:
+    """[n + 1] float32: log(1 + k) for k = 0..n as XLA's CPU `log` returns
+    it (the sweep's index distances reach E / 2). Read only."""
+    k = torch.arange(n + 1, dtype=torch.float32)
+    table = _xla_log(1.0 + k).numpy()
+    table.setflags(write=False)
+    return table
 
 
 @functools.lru_cache(maxsize=None)
@@ -568,7 +591,7 @@ def sweep_bits_table(e_n: int) -> np.ndarray:
     dm = 1, else fma(L[min(dm, E - dm)], f32(1.5 / ln 2), 5.0) (`L` =
     `_xla_log1p_table`), plus 0.5 where dm > E // 2. Read only."""
     dm = np.arange(e_n)
-    log = _xla_log1p_table()[np.minimum(dm, e_n - dm)].astype(np.float64)
+    log = _xla_log1p_table(max(1024, e_n // 2))[np.minimum(dm, e_n - dm)].astype(np.float64)
     bits = (log * _LOG2_X15 + 5.0).astype(np.float32)  # exact in float64: one rounding
     bits = (bits + np.where(dm > e_n // 2, 0.5, 0.0)).astype(np.float32)
     bits[:2] = np.float32([1.2, 2.0])[: e_n]

@@ -1,3 +1,4 @@
-"""Draco: the constants the port's `.drc` paths use and the player's frame
-decoder (`decoder.decode_drc`); the frame codec itself is the native
-library of `uvol_tpu_torch/native`."""
+"""Draco: the port's copy of the reference's `.drc` codec (the staged
+Python decoder and encoder, with their native helpers and whole-frame
+fast paths in `uvol_tpu_torch.native`) and the synthetic grids the smoke
+and tests encode (`grid.py`)."""

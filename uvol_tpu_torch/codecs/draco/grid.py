@@ -1,5 +1,5 @@
 """Synthetic `.drc` frames: a displaced grid mesh with positions,
-texcoords and normals, encoded by the port's native Draco encoder.
+texcoords and normals, encoded by the port's Draco encoder.
 
 The inputs of the `.drc` decode's smoke run and tests (the reference's
 liam corpus is not in the repository). A frame of `ny x nx` vertices has
@@ -14,8 +14,8 @@ from typing import Tuple
 
 import numpy as np
 
-from uvol_tpu_torch import native
 from uvol_tpu_torch.codecs.draco import constants as K
+from uvol_tpu_torch.codecs.draco.encoder import AttributeToEncode, encode_drc
 
 
 def grid_mesh(ny: int, nx: int, seed: int) -> Tuple[np.ndarray, ...]:
@@ -40,18 +40,15 @@ def grid_mesh(ny: int, nx: int, seed: int) -> Tuple[np.ndarray, ...]:
 
 def grid_attributes(ny: int, nx: int, seed: int, bits: Tuple[int, int, int] = (11, 10, 8)):
     """(faces, [AttributeToEncode] of positions, texcoords and normals at
-    `bits`) for `native.drc_encode_native`."""
+    `bits`) for `encoder.encode_drc`."""
     pos, uv, nrm, faces = grid_mesh(ny, nx, seed)
     c2v = faces.reshape(-1)
-    return faces, [native.AttributeToEncode(K.ATT_POSITION, pos, c2v, bits[0]),
-                   native.AttributeToEncode(K.ATT_TEX_COORD, uv, c2v, bits[1]),
-                   native.AttributeToEncode(K.ATT_NORMAL, nrm, c2v, bits[2])]
+    return faces, [AttributeToEncode(K.ATT_POSITION, pos, c2v, bits[0]),
+                   AttributeToEncode(K.ATT_TEX_COORD, uv, c2v, bits[1]),
+                   AttributeToEncode(K.ATT_NORMAL, nrm, c2v, bits[2])]
 
 
 def grid_drc(ny: int, nx: int, seed: int, bits: Tuple[int, int, int] = (11, 10, 8)) -> bytes:
-    """One grid frame as `.drc` bytes; raises where the native Draco
-    library cannot be built (the port has no Python Draco encoder)."""
-    blob = native.drc_encode_native(*grid_attributes(ny, nx, seed, bits))
-    if blob is None:
-        raise RuntimeError("the native Draco library is unavailable (g++ builds it)")
-    return blob
+    """One grid frame as `.drc` bytes, by `encoder.encode_drc` (the native
+    whole-frame encoder, else the staged Python encoder: the same bytes)."""
+    return encode_drc(*grid_attributes(ny, nx, seed, bits))

@@ -1,18 +1,24 @@
 """rANS entropy codec with Draco wire layout (host serialization layer).
 
-The port's copy of the multi-symbol coder of the reference's
-`codecs/rans.py`, unchanged; the binary rABS coder (Draco only) is left
-out.
+The port's copy of `uvol_tpu/codecs/rans.py`, unchanged in what it emits; it
+calls the port's own native library (`uvol_tpu_torch.native`).
+
+Implements the asymmetric-numeral-system coder family used by the Draco
+bitstream (the reference consumes it through `draco_decoder.wasm`,
+`src/lib/DRACOLoader.js:483`; our build replaces that WASM with a native
+decode path and must therefore speak the same wire format):
 
   - `RansSymbolDecoder` / `RansSymbolEncoder` — multi-symbol rANS with an
     explicit probability table, precision bits clamp(3·L/2, 12, 20)
+  - `RansBitDecoder` / `RansBitEncoder` — binary rABS coder with 8-bit
+    probability, L_BASE 4096
   - buffer conventions: renormalization bytes stream forward, the final
     state is appended with a 2-bit length marker, and the decoder walks the
     byte stream backwards from that marker
 
-Python implementation — bit-exact oracle for the C++ hot path
-(`uvol_tpu_torch/native`), and the path taken where that library cannot
-be built.
+Python reference implementation — bit-exact oracle for tests and for the
+C++ hot path (`uvol_tpu_torch/native`). Throughput-critical decode is batched
+per frame across CPU workers / moved to native; TPU work stays in ops/.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ import numpy as np
 from uvol_tpu_torch.codecs.buffer import DecoderBuffer, EncoderBuffer
 
 IO_BASE = 256
+L_BASE_BITS = 4096  # rABS (binary) coder base
+P8_PRECISION = 256
 
 
 def rans_precision_bits(symbols_bit_length: int) -> int:
@@ -287,3 +295,100 @@ class RansSymbolEncoder:
         payload = bytes(renorm) + _write_final_state(state, self.l_base)
         out.varint(len(payload))
         out.raw(payload)
+
+
+# ---------------------------------------------------------------------------
+# Binary rABS coder (probability-of-zero in 1/256 units)
+# ---------------------------------------------------------------------------
+
+
+class RansBitDecoder:
+    """Wire layout: u8 prob_zero, varint size, rABS bytes (+marker)."""
+
+    def __init__(self, buf: DecoderBuffer):
+        self.prob_zero = buf.u8()
+        size = buf.varint()
+        self._buf = buf.raw(size)
+        self.state, self.offset = _read_final_state(self._buf, L_BASE_BITS)
+
+    def decode_bit(self) -> int:
+        p0 = self.prob_zero
+        p = P8_PRECISION - p0
+        state = self.state
+        while state < L_BASE_BITS and self.offset > 0:
+            self.offset -= 1
+            state = state * IO_BASE + self._buf[self.offset]
+        quot, rem = divmod(state, P8_PRECISION)
+        xn = quot * p
+        if rem < p:
+            self.state = xn + rem
+            return 1
+        self.state = state - xn - p
+        return 0
+
+
+class RansBitEncoder:
+    """Accumulates bits; flush computes prob_zero and emits the stream.
+
+    Bits are stored as numpy chunks (single-bit appends are batched) so
+    bulk seam/flip streams never cross per-element Python calls."""
+
+    def __init__(self) -> None:
+        self._chunks: List[np.ndarray] = []
+        self._singles: List[int] = []
+
+    def encode_bit(self, bit: int) -> None:
+        self._singles.append(1 if bit else 0)
+
+    def encode_bits(self, bits) -> None:
+        """Bulk append (numpy array or iterable of 0/1)."""
+        if self._singles:
+            self._chunks.append(np.asarray(self._singles, np.uint8))
+            self._singles = []
+        self._chunks.append(
+            (np.asarray(bits).ravel() != 0).astype(np.uint8)
+        )
+
+    def _all_bits(self) -> np.ndarray:
+        if self._singles:
+            self._chunks.append(np.asarray(self._singles, np.uint8))
+            self._singles = []
+        if not self._chunks:
+            return np.zeros(0, np.uint8)
+        if len(self._chunks) > 1:
+            self._chunks = [np.concatenate(self._chunks)]
+        return self._chunks[0]
+
+    def flush(self, out: EncoderBuffer) -> None:
+        bits = self._all_bits()
+        total = len(bits)
+        zeros = total - int(bits.sum())
+        if total == 0:
+            prob_zero = 128
+        else:
+            prob_zero = min(255, max(1, (zeros * 256 + total // 2) // total))
+        out.u8(prob_zero)
+        if total > 256:  # native C++ emit (identical wire bytes)
+            from uvol_tpu_torch import native
+
+            payload_native = native.rabs_encode_bits_native(bits, prob_zero)
+            if payload_native is not None:
+                out.varint(len(payload_native))
+                out.raw(payload_native)
+                self._chunks = []
+                return
+        p = P8_PRECISION - prob_zero
+        state = L_BASE_BITS
+        renorm = bytearray()
+        for bit in reversed(bits.tolist()):
+            l_s = p if bit else prob_zero
+            bound = (L_BASE_BITS // P8_PRECISION) * IO_BASE * l_s
+            while state >= bound:
+                renorm.append(state % IO_BASE)
+                state //= IO_BASE
+            quot, rem = divmod(state, l_s)
+            state = quot * P8_PRECISION + rem + (0 if bit else p)
+        payload = bytes(renorm) + _write_final_state(state, L_BASE_BITS)
+        out.varint(len(payload))
+        out.raw(payload)
+        self._chunks = []

@@ -1,5 +1,8 @@
 """Draco-layout symbol encoding/decoding (tagged & raw rANS schemes).
 
+The port's copy of `uvol_tpu/codecs/symbol_coding.py`, unchanged in what it emits; it
+calls the port's own native library (`uvol_tpu_torch.native`).
+
 Wire format:
   u8 scheme — 0 = TAGGED, 1 = RAW
   TAGGED: rANS over per-value bit lengths (precision from L=5), then an
@@ -8,10 +11,9 @@ Wire format:
   RAW:    u8 max_bit_length, then one rANS symbol per value with
           precision bits clamp(3·L/2, 12, 20).
 
-The port's copy of the reference's `codecs/symbol_coding.py`, unchanged
-but for the library it calls (`uvol_tpu_torch.native`) and the
-signed/symbol converters it leaves out (the port zigzags on the device,
-`ops.quantize.zigzag_encode`).
+The signed↔symbol mapping is the zigzag used across the reference's codecs
+(Draco ConvertSignedIntsToSymbols; Corto encodeDiff — see
+`uvol_tpu_torch.ops.quantize.zigzag_encode`).
 """
 
 from __future__ import annotations
@@ -137,3 +139,15 @@ def _encode_tagged(symbols: np.ndarray, num_components: int, out: EncoderBuffer)
         for v in row:
             out.put_bits(int(v), bl)
     out.end_bit_encoding(encode_size=False)
+
+
+def convert_symbols_to_signed(symbols: np.ndarray) -> np.ndarray:
+    """zigzag⁻¹: 0,1,2,3,4 → 0,-1,1,-2,2 (Draco ConvertSymbolToSignedInt)."""
+    symbols = symbols.astype(np.uint32)
+    mag = (symbols >> 1).astype(np.int32)
+    return np.where((symbols & 1) == 0, mag, -mag - 1)
+
+
+def convert_signed_to_symbols(values: np.ndarray) -> np.ndarray:
+    values = values.astype(np.int64)
+    return np.where(values >= 0, values << 1, (-values << 1) - 1).astype(np.uint32)

@@ -108,6 +108,14 @@
 // segments a chunk holds made pass 2 slower than the dense reads it
 // saved (PERF.md section 6).
 //
+// Wider sums than kSegMaxK segments (K6: centroids) go by windows of
+// kSegMaxK segments, two launches a window: a window's pass 1 drops the
+// rows of other segments, and a segment's partials depend only on its own
+// rows in tile order, so the bits are those of one launch; each window
+// reads the rows again. K6's window 0 assigns every row (the centroids
+// staged kKmChunk at a time, the first minimum carried across chunks) and
+// writes the assignment; its later windows read it back.
+//
 // Pass 2 (seg_sum_tree_kernel, K6's and the segment sum's): the levels
 // above, over the chunk partials of each element: a CTA reduces 32
 // consecutive elements (coalesced reads) in pieces of 256 leaves in
@@ -153,8 +161,14 @@
 //     it, are computed before the barrier; left is an entry, so dm needs no
 //     division;
 //   - the epilogue, a thread per block, computes e_new and the snap.
-// Shared memory (static, any E): bits 8 KB (E <= 2048), 256 blocks' features
-// 12 KB, 5 per-block words 5 KB, CR flags and keys 0.5 KB. The FMAs are
+// Shared memory (static): bits 8 KB, 256 blocks' features 12 KB, 5 per-block
+// words 5 KB, CR flags and keys 0.5 KB. Above kSweepMaxE = 2,048 entries the
+// palette does not fit a CTA's registers (7 words an entry): the wide path
+// (kWide) takes 512 threads, each pricing every 512th entry per column, reads
+// the entries from a table of 32 bytes an entry that sweep_table_kernel
+// writes first (L1/L2 resident: 128 KB at 4,096 entries), and stages the
+// bits in 4 * E bytes of dynamic shared memory; the per-column first minimum
+// of (cost bits, entry) is unchanged. The FMAs are
 // __fmaf_rn, as XLA contracts them on the CPU. Bound: operations, 21 a
 // (block, entry) (the 11 above, the table index and its load, the ABOVE
 // test, the FMA, the running minimum); its bytes (blocks, palette,
@@ -178,8 +192,9 @@ constexpr int kIntenThreads = 128;  // K5: blocks (threads) per tile
 constexpr int kIntenCtasPerSm = 4;  // K5: resident CTAs per SM (up to 128 registers a thread)
 constexpr int kEpChunk = 256;   // endpoints per shared-memory chunk: 20 KB
 constexpr int kSegTile = 64;    // rows per fixed-order partial sum
-constexpr int kSegMaxK = 2048;  // most segments (K6: centroids) a sum takes
+constexpr int kSegMaxK = 2048;  // segments one pass-1 launch sums: wider sums go by windows
 constexpr int kKmCols = 5;      // K6's 4 features ++ 1.0 (the count)
+constexpr int kKmChunk = 2048;  // K6: centroids staged in shared memory at a time
 
 // ---- K5 ---------------------------------------------------------------
 
@@ -426,7 +441,7 @@ struct ChunkSmem {
 };
 
 constexpr int kRowBits = 10;  // kChunkRows = 2^10
-constexpr int kNoSegment = kSegMaxK << kRowBits;  // sorts after every segment
+constexpr int kNoSegment = kSegMaxK << kRowBits;  // sorts after every segment of a window
 
 __host__ __device__ inline size_t chunk_smem_bytes(int pitch, int k) {
   return (size_t)kChunkRows * (pitch * 4 + 4) + (size_t)k * 2;
@@ -690,7 +705,9 @@ __device__ __forceinline__ void sort_tile(int& v0, int& v1) {
 }
 
 // Pass 1 of `segment_sum`: one CTA per chunk of kChunkRows rows, every
-// column. idx: [n] int32 (rows outside [0, k) are dropped); x: [n, d] f32,
+// column, over the window of k <= kSegMaxK segments from seg0: segment
+// seg0 + s is the window's s. idx: [n] int32 (rows outside the window are
+// dropped); x: [n, d] f32,
 // read in `groups` groups of dc columns (the last may hold fewer), each
 // staged at a pitch of 4 * ceil(dc / 4) floats; lq = log2 of a power of two
 // >= dc / 4 (the quads a walk item takes), lc that of the copies a staged
@@ -698,8 +715,8 @@ __device__ __forceinline__ void sort_tile(int& v0, int& v1) {
 // does not hold).
 __global__ void __launch_bounds__(kSegThreads)
     seg_sum_chunk_kernel(const int32_t* __restrict__ idx, const float* __restrict__ x, int n,
-                         int d, int k, int dc, int groups, int pitch, int lq, int lc, bool vec,
-                         float* __restrict__ part) {
+                         int d, int k, int seg0, int dc, int groups, int pitch, int lq, int lc,
+                         bool vec, float* __restrict__ part) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int slots = min(k, kSegMaxSlots);
   const SegSmem s = seg_smem(smem, slots);
@@ -724,8 +741,8 @@ __global__ void __launch_bounds__(kSegThreads)
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int r = t * kSegTile + 32 * j + lane;
-      const int sg = r < rows ? idx[row0 + r] : -1;
-      v[j] = sg >= 0 && sg < k ? (sg << kRowBits | r) : kNoSegment;
+      const unsigned sg = r < rows ? (unsigned)idx[row0 + r] - (unsigned)seg0 : ~0u;
+      v[j] = sg < (unsigned)k ? ((int)sg << kRowBits | r) : kNoSegment;
     }
     sort_tile(v[0], v[1]);
     // a run starts where the segment changes (no segment counts as one)
@@ -860,25 +877,21 @@ __global__ void __launch_bounds__(kSegThreads)
 
 // K6: one CTA per chunk of kChunkRows rows. The nearest centroid of each
 // row (4 rows per thread, each centroid's weights one 16-byte shared
-// load, c2 beside them), then pass 1 of the fixed-order sum of
-// [feats, 1.0] by assignment. cb: [k] float4 centroids; part: [m, k, 5].
+// load, c2 beside them; the centroids staged kKmChunk at a time, the first
+// minimum carried from chunk to chunk), then pass 1 of the fixed-order sum
+// of [feats, 1.0] by assignment over the window of kw <= kSegMaxK segments
+// from seg0. The launch of window 0 computes the assignment and writes
+// `assign`; those of later windows (k > kSegMaxK) read it back. cb: [k]
+// float4 centroids; part: [m, kw, 5].
 __global__ void kmeans_chunk_kernel(const float4* __restrict__ feats,
-                                    const float4* __restrict__ cb, int n, int k,
-                                    float* __restrict__ part, int32_t* __restrict__ assign) {
+                                    const float4* __restrict__ cb, int n, int k, int seg0,
+                                    int kw, float* __restrict__ part, int32_t* __restrict__ assign) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int kc_max = min(k, kKmChunk);
   float4* s_w = (float4*)smem;
-  float* s_c2 = (float*)(s_w + k);
+  float* s_c2 = (float*)(s_w + kc_max);
   constexpr int kPitchLog = 3;  // kKmCols = 5 columns in a pitch of 8
-  const ChunkSmem s = chunk_smem((unsigned char*)(s_c2 + ((k + 3) & ~3)), 1 << kPitchLog, k);
-  // the rows of etc1s_cuda.centroid_rows: -2*cb, and c2 summed in order
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    const float4 c = cb[j];
-    s_w[j] = make_float4(__fmul_rn(-2.f, c.x), __fmul_rn(-2.f, c.y), __fmul_rn(-2.f, c.z),
-                         __fmul_rn(-2.f, c.w));
-    s_c2[j] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(c.x, c.x), __fmul_rn(c.y, c.y)),
-                                  __fmul_rn(c.z, c.z)), __fmul_rn(c.w, c.w));
-  }
-  __syncthreads();
+  const ChunkSmem s = chunk_smem((unsigned char*)(s_c2 + ((kc_max + 3) & ~3)), 1 << kPitchLog, kw);
 
   constexpr int kRows = kChunkRows / kThreads;
   const int64_t row0 = (int64_t)blockIdx.x * kChunkRows;
@@ -890,22 +903,35 @@ __global__ void kmeans_chunk_kernel(const float4* __restrict__ feats,
     const int64_t g = row0 + q * kThreads + threadIdx.x;
     f[q] = g < n ? feats[g] : make_float4(0.f, 0.f, 0.f, 0.f);
     best[q] = 0.f;
-    bi[q] = 0;
+    bi[q] = g < n && seg0 > 0 ? assign[g] : 0;
   }
-  // dist = c2 + f0*w0 + f1*w1 + f2*w2 + f3*w3, every step rounded; the
-  // first minimum wins (strict <)
-  for (int kk = 0; kk < k; ++kk) {
-    const float4 w = s_w[kk];
-    const float c2 = s_c2[kk];
+  for (int c0 = 0; seg0 == 0 && c0 < k; c0 += kKmChunk) {
+    const int kc = min(kKmChunk, k - c0);
+    if (c0) __syncthreads();  // the last chunk's centroids are read
+    // the rows of etc1s_cuda.centroid_rows: -2*cb, and c2 summed in order
+    for (int j = threadIdx.x; j < kc; j += blockDim.x) {
+      const float4 c = cb[c0 + j];
+      s_w[j] = make_float4(__fmul_rn(-2.f, c.x), __fmul_rn(-2.f, c.y), __fmul_rn(-2.f, c.z),
+                           __fmul_rn(-2.f, c.w));
+      s_c2[j] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(c.x, c.x), __fmul_rn(c.y, c.y)),
+                                    __fmul_rn(c.z, c.z)), __fmul_rn(c.w, c.w));
+    }
+    __syncthreads();
+    // dist = c2 + f0*w0 + f1*w1 + f2*w2 + f3*w3, every step rounded; the
+    // first minimum wins (strict <)
+    for (int kk = 0; kk < kc; ++kk) {
+      const float4 w = s_w[kk];
+      const float c2 = s_c2[kk];
 #pragma unroll
-    for (int q = 0; q < kRows; ++q) {
-      float d = __fadd_rn(c2, __fmul_rn(f[q].x, w.x));
-      d = __fadd_rn(d, __fmul_rn(f[q].y, w.y));
-      d = __fadd_rn(d, __fmul_rn(f[q].z, w.z));
-      d = __fadd_rn(d, __fmul_rn(f[q].w, w.w));
-      if (kk == 0 || d < best[q]) {
-        best[q] = d;
-        bi[q] = kk;
+      for (int q = 0; q < kRows; ++q) {
+        float d = __fadd_rn(c2, __fmul_rn(f[q].x, w.x));
+        d = __fadd_rn(d, __fmul_rn(f[q].y, w.y));
+        d = __fadd_rn(d, __fmul_rn(f[q].z, w.z));
+        d = __fadd_rn(d, __fmul_rn(f[q].w, w.w));
+        if (c0 + kk == 0 || d < best[q]) {
+          best[q] = d;
+          bi[q] = c0 + kk;
+        }
       }
     }
   }
@@ -913,8 +939,9 @@ __global__ void kmeans_chunk_kernel(const float4* __restrict__ feats,
   for (int q = 0; q < kRows; ++q) {
     const int r = q * kThreads + threadIdx.x;
     const bool live = row0 + r < n;
-    if (live) assign[row0 + r] = bi[q];
-    s.key[r] = live ? (bi[q] << kRowBits | r) : kNoSegment;
+    if (live && seg0 == 0) assign[row0 + r] = bi[q];
+    const unsigned sg = (unsigned)(bi[q] - seg0);
+    s.key[r] = live && sg < (unsigned)kw ? ((int)sg << kRowBits | r) : kNoSegment;
     float* xr = s.x + (r << kPitchLog);
     xr[0] = f[q].x;
     xr[1] = f[q].y;
@@ -923,13 +950,14 @@ __global__ void kmeans_chunk_kernel(const float4* __restrict__ feats,
     xr[4] = 1.f;
   }
   __syncthreads();
-  chunk_sums(s, kPitchLog, kKmCols, k, part + (int64_t)blockIdx.x * k * kKmCols, kKmCols);
+  chunk_sums(s, kPitchLog, kKmCols, kw, part + (int64_t)blockIdx.x * kw * kKmCols, kKmCols);
 }
 
 // ---- K7 -------------------------------------------------------------------
 
-constexpr int kSweepPer = 4;                            // entries a thread prices
+constexpr int kSweepPer = 4;                            // entries a thread keeps in registers
 constexpr int kSweepMaxThreads = kSegMaxK / kSweepPer;  // 512 at 2,048 entries
+constexpr int kSweepMaxE = kSegMaxK;                    // most entries of the register path
 constexpr int kSweepMaxWarps = kSweepMaxThreads / 32;
 constexpr int kSweepCols = 256;          // block columns one pass of a row stages
 constexpr float kSweepAboveBits = 1.4f;  // the price of matching the block above
@@ -998,42 +1026,101 @@ struct __align__(16) SweepBlock {
   int p_sq;
 };
 
-// The errors of one block against the thread's kSweepPer entries,
+// The error of one block against one entry,
 // err = |p|^2 + sum_c n_c |col_c|^2 - 2 sum_v S_v col_v: 4 multiply-adds,
 // 6 two-way 16 x 8-bit dot products (__dp2a) and one multiply-add, exact in
 // int32; the same integer as the reference's float32 product, whose every
 // partial sum is an integer below 2^24. Then converted (exactly) to float32.
+__device__ __forceinline__ float entry_error(const SweepBlock& f, const SweepEntry& t) {
+  const int acc = f.p_sq + f.n[0] * t.sq[0] + f.n[1] * t.sq[1] + f.n[2] * t.sq[2] +
+                  f.n[3] * t.sq[3];
+  unsigned dot = 0;
+#pragma unroll
+  for (int q = 0; q < 6; ++q)
+    dot = (q & 1) ? __dp2a_hi(f.s[q], t.col[q >> 1], dot) : __dp2a_lo(f.s[q], t.col[q >> 1], dot);
+  return __int2float_rn(acc - 2 * (int)dot);
+}
+
+// The errors of one block against the thread's kSweepPer entries.
 __device__ __forceinline__ void column_errors(const SweepBlock& f,
                                               const SweepEntry (&tab)[kSweepPer],
                                               float (&errs)[kSweepPer]) {
 #pragma unroll
-  for (int j = 0; j < kSweepPer; ++j) {
-    const SweepEntry& t = tab[j];
-    const int acc = f.p_sq + f.n[0] * t.sq[0] + f.n[1] * t.sq[1] + f.n[2] * t.sq[2] +
-                    f.n[3] * t.sq[3];
-    unsigned dot = 0;
-#pragma unroll
-    for (int q = 0; q < 6; ++q)
-      dot = (q & 1) ? __dp2a_hi(f.s[q], t.col[q >> 1], dot) : __dp2a_lo(f.s[q], t.col[q >> 1], dot);
-    errs[j] = __int2float_rn(acc - 2 * (int)dot);
-  }
+  for (int j = 0; j < kSweepPer; ++j) errs[j] = entry_error(f, tab[j]);
 }
 
-// One CTA per block row, 32 * ceil(e / 128) threads: thread t prices entries
-// t + j * blockDim.x (j < kSweepPer). blocks: the frame's [nby * nbx, 16, 3]
+// Entry k of the palette as the scan reads it (all zero where !live).
+__device__ __forceinline__ SweepEntry make_entry(const int32_t* __restrict__ base,
+                                                 const int32_t* __restrict__ mods, int k,
+                                                 bool live) {
+  SweepEntry t;
+  int b[3], m[4];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) b[c] = live ? base[k * 3 + c] : 0;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) m[c] = live ? mods[k * 4 + c] : 0;
+#pragma unroll
+  for (int w = 0; w < 3; ++w) t.col[w] = 0;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    int sq = 0;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const int v = live ? min(max(b[ch] + m[c], 0), 255) : 0;
+      t.col[(3 * c + ch) >> 2] |= (unsigned)v << (8 * ((3 * c + ch) & 3));
+      sq += v * v;
+    }
+    t.sq[c] = sq;
+  }
+  return t;
+}
+
+// Above kSweepMaxE entries the palette does not fit the registers of one
+// CTA: the wide path reads each entry from a table in device memory (L1 and
+// L2 hold it), 32 bytes an entry, written once per call by this kernel.
+__global__ void sweep_table_kernel(const int32_t* __restrict__ base,
+                                   const int32_t* __restrict__ mods, int e,
+                                   int4* __restrict__ table) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= e) return;
+  const SweepEntry t = make_entry(base, mods, k, true);
+  table[2 * k] = make_int4((int)t.col[0], (int)t.col[1], (int)t.col[2], t.sq[0]);
+  table[2 * k + 1] = make_int4(t.sq[1], t.sq[2], t.sq[3], 0);
+}
+
+__device__ __forceinline__ SweepEntry load_entry(const int4* __restrict__ table, int k) {
+  const int4 a = table[2 * k], b = table[2 * k + 1];
+  SweepEntry t;
+  t.col[0] = (unsigned)a.x;
+  t.col[1] = (unsigned)a.y;
+  t.col[2] = (unsigned)a.z;
+  t.sq[0] = a.w;
+  t.sq[1] = b.x;
+  t.sq[2] = b.y;
+  t.sq[3] = b.z;
+  return t;
+}
+
+// One CTA per block row, 32 * ceil(e / 128) threads (kWide: kSweepMaxThreads):
+// thread t prices entries t + j * blockDim.x (j < kSweepPer; kWide: every j
+// with an entry, read from `table`). blocks: the frame's [nby * nbx, 16, 3]
 // uint8; base [e, 3], mods [e, 4] int32 (8-bit colors, intensity modifiers);
-// sel_cb [S, 16] int32 codes; bits [e] f32; ep, sel, prev_ep, prev_sel
-// [nby * nbx] int32 (the previous pair read only with has_prev). Writes the
-// frame's new ep and sel.
+// sel_cb [S, 16] int32 codes; bits [e] f32 (kWide: staged in e floats of
+// dynamic shared memory); ep, sel, prev_ep, prev_sel [nby * nbx] int32 (the
+// previous pair read only with has_prev); table: kWide's [e] entries of
+// sweep_table_kernel. Writes the frame's new ep and sel.
+template <bool kWide>
 __global__ void __launch_bounds__(kSweepMaxThreads)
 rate_sweep_frame_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restrict__ base,
                         const int32_t* __restrict__ mods, const int32_t* __restrict__ sel_cb,
                         const float* __restrict__ bits, const int32_t* __restrict__ ep,
                         const int32_t* __restrict__ sel, const int32_t* __restrict__ prev_ep,
                         const int32_t* __restrict__ prev_sel, bool has_prev, int s0_index,
-                        float lam, float lam_cr, int nbx, int e, int32_t* __restrict__ out_ep,
-                        int32_t* __restrict__ out_sel) {
-  __shared__ float s_bits[kSegMaxK];
+                        float lam, float lam_cr, int nbx, int e, const int4* __restrict__ table,
+                        int32_t* __restrict__ out_ep, int32_t* __restrict__ out_sel) {
+  __shared__ float s_bits_regs[kWide ? 1 : kSweepMaxE];
+  extern __shared__ float s_bits_wide[];
+  float* s_bits = kWide ? s_bits_wide : s_bits_regs;
   __shared__ SweepBlock s_feat[kSweepCols];
   __shared__ int s_above[kSweepCols], s_prev_ep[kSweepCols], s_choice[kSweepCols];
   __shared__ float s_cost_cr[kSweepCols], s_e_prev[kSweepCols];
@@ -1047,27 +1134,11 @@ rate_sweep_frame_kernel(const uint8_t* __restrict__ blocks, const int32_t* __res
   for (int k = tid; k < e; k += nthreads) s_bits[k] = bits[k];
   // the thread's entries: col(k, c) per code and channel, then |col(k, c)|^2
   SweepEntry tab[kSweepPer];
+  if constexpr (!kWide) {
 #pragma unroll
-  for (int j = 0; j < kSweepPer; ++j) {
-    const int k = tid + j * nthreads;
-    const bool live = k < e;
-    int b[3], m[4];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) b[c] = live ? base[k * 3 + c] : 0;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) m[c] = live ? mods[k * 4 + c] : 0;
-#pragma unroll
-    for (int w = 0; w < 3; ++w) tab[j].col[w] = 0;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      int sq = 0;
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) {
-        const int v = live ? min(max(b[ch] + m[c], 0), 255) : 0;
-        tab[j].col[(3 * c + ch) >> 2] |= (unsigned)v << (8 * ((3 * c + ch) & 3));
-        sq += v * v;
-      }
-      tab[j].sq[c] = sq;
+    for (int j = 0; j < kSweepPer; ++j) {
+      const int k = tid + j * nthreads;
+      tab[j] = make_entry(base, mods, k, k < e);
     }
   }
   int left = ep[row0];  // column 0 prices against its own incoming entry
@@ -1109,7 +1180,7 @@ rate_sweep_frame_kernel(const uint8_t* __restrict__ blocks, const int32_t* __res
     __syncthreads();
     // the column scan: one barrier per column
     float errs[kSweepPer];
-    column_errors(s_feat[0], tab, errs);
+    if constexpr (!kWide) column_errors(s_feat[0], tab, errs);
     for (int c = 0; c < cols; ++c) {
       int origin = left;  // dm = (k - left) mod e, the floor modulo
       if ((unsigned)origin >= (unsigned)e) {  // an incoming entry out of range
@@ -1119,18 +1190,33 @@ rate_sweep_frame_kernel(const uint8_t* __restrict__ blocks, const int32_t* __res
       const int above = s_above[c];
       float best = INFINITY;
       int best_e = 0x7fffffff;
-#pragma unroll
-      for (int j = 0; j < kSweepPer; ++j) {
-        const int k = tid + j * nthreads;
-        if (k < e) {
+      if constexpr (kWide) {
+        const SweepBlock& f = s_feat[c];
+        for (int k = tid; k < e; k += nthreads) {
           int dm = k - origin;
           if (dm < 0) dm += e;
           float b = s_bits[dm];
           if (k == above) b = fminf(b, kSweepAboveBits);
-          const float cost = __fmaf_rn(lam, b, errs[j]);
+          const float cost = __fmaf_rn(lam, b, entry_error(f, load_entry(table, k)));
           if (cost < best) {  // entries ascend: the thread's first minimum
             best = cost;
             best_e = k;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kSweepPer; ++j) {
+          const int k = tid + j * nthreads;
+          if (k < e) {
+            int dm = k - origin;
+            if (dm < 0) dm += e;
+            float b = s_bits[dm];
+            if (k == above) b = fminf(b, kSweepAboveBits);
+            const float cost = __fmaf_rn(lam, b, errs[j]);
+            if (cost < best) {  // entries ascend: the thread's first minimum
+              best = cost;
+              best_e = k;
+            }
           }
         }
       }
@@ -1140,7 +1226,9 @@ rate_sweep_frame_kernel(const uint8_t* __restrict__ blocks, const int32_t* __res
         s_key[c & 1][warp] = key;
         s_entry[c & 1][warp] = entry;
       }
-      if (c + 1 < cols) column_errors(s_feat[c + 1], tab, errs);  // before the wait
+      if constexpr (!kWide) {
+        if (c + 1 < cols) column_errors(s_feat[c + 1], tab, errs);  // before the wait
+      }
       __syncthreads();
       // every warp reduces the warps' minima and decides CR itself: the new
       // left entry needs no second barrier (the minima are double-buffered)
@@ -1226,12 +1314,15 @@ int uvt_etc1s_assign_endpoints(const void* blocks, const void* table, void* out,
   return (int)cudaGetLastError();
 }
 
-// idx: [n] int32 (n <= 2^24); x: [n, d] f32; part: scratch of ceil(n/1024) * k * d f32
-// (k*d for n = 0); out: [k, d] f32. Two launches, whatever n.
+// idx: [n] int32 (n <= 2^24); x: [n, d] f32; part: scratch of ceil(n/1024) *
+// min(k, kSegMaxK) * d f32 (min(k, kSegMaxK) * d for n = 0); out: [k, d] f32.
+// Two launches per window of kSegMaxK segments, whatever n: each window's
+// pass 1 drops the rows outside it, so a segment's partials are those of its
+// own rows in tile order, as in one launch; windows reuse `part` in stream
+// order.
 int uvt_etc1s_segment_sum(const void* idx, const void* x, int n, int d, int k, void* part,
                           void* out, void* stream) {
-  if (n < 0 || n > kSegMaxRows || d <= 0 || k <= 0 || k > kSegMaxK)
-    return (int)cudaErrorInvalidValue;
+  if (n < 0 || n > kSegMaxRows || d <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int m = chunks_for(n);
   const int groups = (d + kSegGroupCols - 1) / kSegGroupCols;
@@ -1241,52 +1332,85 @@ int uvt_etc1s_segment_sum(const void* idx, const void* x, int n, int d, int k, v
   int lq = 0, lc = 0;  // powers of two >= the quads and the copies of a row
   while ((1 << lq) < quads) ++lq;
   while ((1 << lc) < (vec ? quads : dc)) ++lc;
-  const size_t smem = seg_meta_bytes(min(k, kSegMaxSlots)) +
-                      (size_t)min(groups, 2) * kChunkRows * quads * 16;
-  cudaError_t err = cudaFuncSetAttribute(seg_sum_chunk_kernel, kSmemLimit, (int)smem);
+  const size_t stage = (size_t)min(groups, 2) * kChunkRows * quads * 16;
+  // the first window is the widest: its bytes are the limit of every launch
+  cudaError_t err = cudaFuncSetAttribute(
+      seg_sum_chunk_kernel, kSmemLimit, (int)(seg_meta_bytes(min(k, kSegMaxSlots)) + stage));
   if (err != cudaSuccess) return (int)err;
-  seg_sum_chunk_kernel<<<(unsigned)m, kSegThreads, smem, s>>>(
-      (const int32_t*)idx, (const float*)x, n, d, k, dc, groups, 4 * quads, lq, lc, vec,
-      (float*)part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_tree((const float*)part, m, (int64_t)k * d, (float*)out, s);
+  for (int seg0 = 0; seg0 < k; seg0 += kSegMaxK) {
+    const int kw = min(kSegMaxK, k - seg0);
+    seg_sum_chunk_kernel<<<(unsigned)m, kSegThreads, seg_meta_bytes(min(kw, kSegMaxSlots)) + stage,
+                           s>>>((const int32_t*)idx, (const float*)x, n, d, kw, seg0, dc, groups,
+                                4 * quads, lq, lc, vec, (float*)part);
+    err = cudaGetLastError();
+    if (err == cudaSuccess)
+      err = launch_tree((const float*)part, m, (int64_t)kw * d, (float*)out + (int64_t)seg0 * d, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
-// feats: [n, 4] f32 and cb: [k, 4] f32 (k <= 2048), both 16-byte aligned; part: scratch of ceil(n/1024) * k * 5 f32; sums:
-// [k, 5] f32 (features ++ count); assign: [n] int32. Two launches.
+// feats: [n, 4] f32 and cb: [k, 4] f32, both 16-byte aligned; part: scratch of
+// ceil(n/1024) * min(k, kSegMaxK) * 5 f32; sums: [k, 5] f32 (features ++
+// count); assign: [n] int32. Two launches per window of kSegMaxK centroids:
+// window 0's pass 1 assigns every row, later ones read `assign` back.
 int uvt_etc1s_kmeans_iter(const void* feats, const void* cb, int n, int k, void* part,
                           void* sums, void* assign, void* stream) {
-  if (n <= 0 || n > kSegMaxRows || k <= 0 || k > kSegMaxK) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || n > kSegMaxRows || k <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int m = chunks_for(n);
-  const size_t smem = (size_t)k * 16 + (size_t)((k + 3) & ~3) * 4 + chunk_smem_bytes(8, k);
+  const int m = chunks_for(n), kc = min(k, kKmChunk), kw_max = min(k, kSegMaxK);
+  const size_t smem =
+      (size_t)kc * 16 + (size_t)((kc + 3) & ~3) * 4 + chunk_smem_bytes(8, kw_max);
   cudaError_t err = cudaFuncSetAttribute(kmeans_chunk_kernel, kSmemLimit, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kmeans_chunk_kernel<<<(unsigned)m, kThreads, smem, s>>>(
-      (const float4*)feats, (const float4*)cb, n, k, (float*)part, (int32_t*)assign);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_tree((const float*)part, m, (int64_t)k * kKmCols, (float*)sums, s);
+  for (int seg0 = 0; seg0 < k; seg0 += kSegMaxK) {
+    const int kw = min(kSegMaxK, k - seg0);
+    kmeans_chunk_kernel<<<(unsigned)m, kThreads, smem, s>>>(
+        (const float4*)feats, (const float4*)cb, n, k, seg0, kw, (float*)part, (int32_t*)assign);
+    err = cudaGetLastError();
+    if (err == cudaSuccess)
+      err = launch_tree((const float*)part, m, (int64_t)kw * kKmCols,
+                        (float*)sums + (int64_t)seg0 * kKmCols, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
-// K7 on one frame. blocks: [nby * nbx, 16, 3] uint8; base: [e, 3], mods: [e, 4] int32
-// (e <= 2048); sel_cb: [S, 16] int32; bits: [e] f32; ep, sel, prev_ep, prev_sel, out_ep,
-// out_sel: [nby * nbx] int32 (prev_ep and prev_sel are read only with has_prev). One
-// launch of nby CTAs.
+// K7 on one frame. blocks: [nby * nbx, 16, 3] uint8; base: [e, 3], mods: [e, 4] int32;
+// sel_cb: [S, 16] int32; bits: [e] f32; ep, sel, prev_ep, prev_sel, out_ep, out_sel:
+// [nby * nbx] int32 (prev_ep and prev_sel are read only with has_prev); table: scratch
+// of e * 8 int32, 16-byte aligned, used above kSweepMaxE entries. One launch of nby
+// CTAs (above kSweepMaxE: the entry table's launch first).
 int uvt_etc1s_rate_sweep(const void* blocks, const void* base, const void* mods,
                          const void* sel_cb, const void* bits, const void* ep, const void* sel,
                          const void* prev_ep, const void* prev_sel, int has_prev, int s0_index,
-                         float lam, float lam_cr, int nby, int nbx, int e, void* out_ep,
-                         void* out_sel, void* stream) {
-  if (nby < 0 || nbx < 0 || e <= 0 || e > kSegMaxK) return (int)cudaErrorInvalidValue;
-  const int threads = 32 * ((e + 32 * kSweepPer - 1) / (32 * kSweepPer));
-  if (nby > 0 && nbx > 0)
-    rate_sweep_frame_kernel<<<(unsigned)nby, threads, 0, (cudaStream_t)stream>>>(
+                         float lam, float lam_cr, int nby, int nbx, int e, void* table,
+                         void* out_ep, void* out_sel, void* stream) {
+  if (nby < 0 || nbx < 0 || e <= 0) return (int)cudaErrorInvalidValue;
+  if (nby == 0 || nbx == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (e <= kSweepMaxE) {
+    const int threads = 32 * ((e + 32 * kSweepPer - 1) / (32 * kSweepPer));
+    rate_sweep_frame_kernel<false><<<(unsigned)nby, threads, 0, s>>>(
         (const uint8_t*)blocks, (const int32_t*)base, (const int32_t*)mods,
         (const int32_t*)sel_cb, (const float*)bits, (const int32_t*)ep, (const int32_t*)sel,
         (const int32_t*)prev_ep, (const int32_t*)prev_sel, has_prev != 0, s0_index, lam, lam_cr,
-        nbx, e, (int32_t*)out_ep, (int32_t*)out_sel);
+        nbx, e, nullptr, (int32_t*)out_ep, (int32_t*)out_sel);
+    return (int)cudaGetLastError();
+  }
+  if ((uintptr_t)table & 15) return (int)cudaErrorMisalignedAddress;
+  const size_t smem = (size_t)e * 4;
+  cudaError_t err = cudaFuncSetAttribute(rate_sweep_frame_kernel<true>, kSmemLimit, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  sweep_table_kernel<<<(unsigned)((e + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      (const int32_t*)base, (const int32_t*)mods, e, (int4*)table);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  rate_sweep_frame_kernel<true><<<(unsigned)nby, kSweepMaxThreads, smem, s>>>(
+      (const uint8_t*)blocks, (const int32_t*)base, (const int32_t*)mods, (const int32_t*)sel_cb,
+      (const float*)bits, (const int32_t*)ep, (const int32_t*)sel, (const int32_t*)prev_ep,
+      (const int32_t*)prev_sel, has_prev != 0, s0_index, lam, lam_cr, nbx, e,
+      (const int4*)table, (int32_t*)out_ep, (int32_t*)out_sel);
   return (int)cudaGetLastError();
 }
 
@@ -1296,7 +1420,9 @@ int uvt_etc1s_func_attrs(int which, int* out, const char** name) {
       UVT_KERNEL(kmeans_chunk_kernel), UVT_KERNEL(seg_sum_chunk_kernel),
       KernelRef{(const void*)seg_sum_tree_kernel<kTreeRows>, "seg_sum_tree_kernel"},
       KernelRef{(const void*)seg_sum_tree_kernel<kTreeRowsSmall>, "seg_sum_tree_kernel_small"},
-      UVT_KERNEL(rate_sweep_frame_kernel)};
+      KernelRef{(const void*)rate_sweep_frame_kernel<false>, "rate_sweep_frame_kernel"},
+      KernelRef{(const void*)rate_sweep_frame_kernel<true>, "rate_sweep_frame_kernel_wide"},
+      UVT_KERNEL(sweep_table_kernel)};
   return fill_func_attrs(ks, which, out, name);
 }
 

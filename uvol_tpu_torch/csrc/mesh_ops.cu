@@ -39,10 +39,15 @@
 // 8-byte store. Bound: bytes (12 in, 8 out per point).
 //
 // U5. Each component of each frame is an independent chain: out[i][d]
-// depends only on column d. One CTA takes one (frame, component) chain and
+// depends only on column d. One CTA takes one (frame, component) chain
+// (blockIdx.x = frame * D + component, so any frame count fits the grid) and
 // keeps the chain's whole prefix in shared memory (N int32, zero-filled, so
 // a read of out[k] with k >= i reads 0 as the scan's zero-filled carry
-// does); tiles of 1,024 steps are staged: every thread loads the tile's
+// does) while N is at most kChainMaxVertices; a longer chain keeps its
+// prefix in its own output column in device memory, zero-filled by the CTA
+// first, and thread 0 reads and writes it there (each step then waits for
+// L2 instead of shared memory). Tiles of 1,024 steps are staged: every
+// thread loads the tile's
 // residuals and index triples into shared memory, thread 0 runs the tile's
 // steps, every thread stores the tile's outputs. Indices: a < 0 predicts
 // from the previous output (0 at i = 0), b and c below 0 read out[0], and
@@ -60,11 +65,12 @@
 namespace {
 
 constexpr int kThreads = 256;        // U3 and U4: threads per CTA
-constexpr int kMaxGridY = 65535;     // U4: frames of a batch; U5: chains' frames
+constexpr int kMaxGridY = 65535;     // U4: frames of one launch (more go in slices)
 constexpr int kChainThreads = 128;   // U5: threads per CTA (one chain)
 constexpr int kChainTile = 1024;     // U5: steps staged per tile
 constexpr int kMaxSharedBytes = 232448;  // what one CTA may take on sm_90
 constexpr int kChainMaxVertices = (kMaxSharedBytes - kChainTile * 16) / 4;
+constexpr int kChainsPerLaunch = 1 << 30;  // U5: gridDim.x of one launch, at most
 
 // ---------------------------------------------------------------------------
 // U3: area-weighted vertex normals in the reference's sum order
@@ -155,22 +161,24 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 
 // res: [f, n, d] int32; idx: [f, n, 3] int32; out: [f, n, d] int32.
-// blockIdx.x is the component, blockIdx.y the frame. Dynamic shared memory:
-// n + 4 * kChainTile words.
+// Chain chain0 + blockIdx.x is (frame, component) = divmod(chain, d).
+// Dynamic shared memory: n (kShared only) + 4 * kChainTile words.
+template <bool kShared>
 __global__ void __launch_bounds__(kChainThreads)
     parallelogram_decode_kernel(const int32_t* __restrict__ res, const int32_t* __restrict__ idx,
-                                int32_t* __restrict__ out, int n, int d) {
+                                int32_t* __restrict__ out, int n, int d, int64_t chain0) {
   extern __shared__ uint32_t smem[];
-  uint32_t* prefix = smem;
-  int32_t* ta = (int32_t*)(smem + n);
+  const int64_t chain = chain0 + blockIdx.x, frame = chain / d, comp = chain % d;
+  const int32_t* r = res + frame * n * d + comp;
+  const int32_t* ix = idx + frame * n * 3;
+  int32_t* o = out + frame * n * d + comp;
+  uint32_t* prefix = kShared ? smem : (uint32_t*)o;  // kShared: stride 1, else d
+  const int64_t stride = kShared ? 1 : d;
+  int32_t* ta = (int32_t*)(smem + (kShared ? n : 0));
   int32_t* tb = ta + kChainTile;
   int32_t* tc = tb + kChainTile;
   uint32_t* tr = (uint32_t*)(tc + kChainTile);
-  const int64_t frame = blockIdx.y;
-  const int32_t* r = res + frame * n * d + blockIdx.x;
-  const int32_t* ix = idx + frame * n * 3;
-  int32_t* o = out + frame * n * d + blockIdx.x;
-  for (int i = threadIdx.x; i < n; i += kChainThreads) prefix[i] = 0u;
+  for (int i = threadIdx.x; i < n; i += kChainThreads) prefix[i * stride] = 0u;
   const int last = n - 1;
   uint32_t prev = 0u;  // the scan's carry: only thread 0 uses it
   for (int t0 = 0; t0 < n; t0 += kChainTile) {
@@ -189,14 +197,17 @@ __global__ void __launch_bounds__(kChainThreads)
         uint32_t pred = prev;
         if (a >= 0) {
           const int b = max(tb[j], 0), c = max(tc[j], 0);
-          pred = prefix[min(a, last)] + prefix[min(b, last)] - prefix[min(c, last)];
+          pred = prefix[min(a, last) * stride] + prefix[min(b, last) * stride] -
+                 prefix[min(c, last) * stride];
         }
         prev = tr[j] + pred;
-        prefix[t0 + j] = prev;
+        prefix[(t0 + j) * stride] = prev;
       }
     }
     __syncthreads();  // the tile's outputs are in the prefix
-    for (int j = threadIdx.x; j < len; j += kChainThreads) o[(int64_t)(t0 + j) * d] = (int32_t)prefix[t0 + j];
+    if (kShared)
+      for (int j = threadIdx.x; j < len; j += kChainThreads)
+        o[(int64_t)(t0 + j) * d] = (int32_t)prefix[t0 + j];
     __syncthreads();  // the tile's arrays are free for the next tile
   }
 }
@@ -218,40 +229,60 @@ int uvt_estimate_normals(const void* pos, const void* faces, const void* row,
 }
 
 // x: [f, n, 3] float32; mn: [f, 3] float32; inv: [f] float32; key: [f, n]
-// int64; bits in 1..21.
+// int64; bits in 1..21. One launch per kMaxGridY frames.
 int uvt_morton_keys(const void* x, const void* mn, const void* inv, int bits, void* key, int f,
                     int n, void* stream) {
-  if (f <= 0 || f > kMaxGridY || n <= 0 || bits < 1 || bits > 21)
-    return (int)cudaErrorInvalidValue;
-  morton_keys_kernel<<<dim3((unsigned)((n + kThreads - 1) / kThreads), (unsigned)f), kThreads, 0,
-                       (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)mn, (const float*)inv, (float)((1 << bits) - 1),
-      (int64_t*)key, n);
-  return (int)cudaGetLastError();
-}
-
-// res: [f, n, d] int32; idx: [f, n, 3] int32; out: [f, n, d] int32; n at
-// most kChainMaxVertices (the chain's prefix lives in shared memory).
-int uvt_parallelogram_decode(const void* res, const void* idx, void* out, int f, int n, int d,
-                             void* stream) {
-  if (f <= 0 || f > kMaxGridY || n <= 0 || n > kChainMaxVertices || d <= 0 || d > 65535)
-    return (int)cudaErrorInvalidValue;
-  const int bytes = (n + 4 * kChainTile) * 4;
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        parallelogram_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (f <= 0 || n <= 0 || bits < 1 || bits > 21) return (int)cudaErrorInvalidValue;
+  for (int f0 = 0; f0 < f; f0 += kMaxGridY) {
+    const int64_t p0 = (int64_t)f0 * n;
+    morton_keys_kernel<<<dim3((unsigned)((n + kThreads - 1) / kThreads),
+                              (unsigned)min(kMaxGridY, f - f0)),
+                         kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)x + 3 * p0, (const float*)mn + 3 * (int64_t)f0, (const float*)inv + f0,
+        (float)((1 << bits) - 1), (int64_t*)key + p0, n);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  parallelogram_decode_kernel<<<dim3((unsigned)d, (unsigned)f), kChainThreads, bytes,
-                                (cudaStream_t)stream>>>(
-      (const int32_t*)res, (const int32_t*)idx, (int32_t*)out, n, d);
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
+}
+
+// res: [f, n, d] int32; idx: [f, n, 3] int32; out: [f, n, d] int32; one CTA
+// per chain (f * d of them), a launch per kChainsPerLaunch. The prefix lives
+// in shared memory up to kChainMaxVertices, in `out` above.
+int uvt_parallelogram_decode(const void* res, const void* idx, void* out, int f, int n, int d,
+                             void* stream) {
+  if (f <= 0 || n <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
+  const bool shared = n <= kChainMaxVertices;
+  const int bytes = ((shared ? n : 0) + 4 * kChainTile) * 4;
+  const void* kernel = shared ? (const void*)parallelogram_decode_kernel<true>
+                              : (const void*)parallelogram_decode_kernel<false>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int64_t chains = (int64_t)f * d;
+  for (int64_t c0 = 0; c0 < chains; c0 += kChainsPerLaunch) {
+    const unsigned grid = (unsigned)min((int64_t)kChainsPerLaunch, chains - c0);
+    if (shared)
+      parallelogram_decode_kernel<true><<<grid, kChainThreads, bytes, (cudaStream_t)stream>>>(
+          (const int32_t*)res, (const int32_t*)idx, (int32_t*)out, n, d, c0);
+    else
+      parallelogram_decode_kernel<false><<<grid, kChainThreads, bytes, (cudaStream_t)stream>>>(
+          (const int32_t*)res, (const int32_t*)idx, (int32_t*)out, n, d, c0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 int uvt_mesh_func_attrs(int which, int* out, const char** name) {
   static const KernelRef ks[] = {UVT_KERNEL(estimate_normals_kernel),
                                  UVT_KERNEL(morton_keys_kernel),
-                                 UVT_KERNEL(parallelogram_decode_kernel)};
+                                 KernelRef{(const void*)parallelogram_decode_kernel<true>,
+                                           "parallelogram_decode_kernel"},
+                                 KernelRef{(const void*)parallelogram_decode_kernel<false>,
+                                           "parallelogram_decode_kernel_global"}};
   return fill_func_attrs(ks, which, out, name);
 }
 

@@ -17,10 +17,12 @@ unset runs on the CUDA card and raises where there is none; `cpu` runs
 on the CPU. Every device codec the CLI builds is given that device (the
 `uastc` texture codec is the spec wire's host encode, as in the
 reference). Draco frames
-go through the port's native whole-frame encoder in a spawned process
-pool (the workers import `io.meshio` and the C encoder, no torch: the
-CLI's own process may hold a CUDA context and threads, which a fork
-would copy); images are read as PNG by `io.image`, without Pillow.
+go through the copied `codecs/draco/encoder.encode_drc` in a spawned
+process pool, as the reference's workers call it (the native whole-frame
+encoder, else the staged Python encoder; the workers import `io.meshio`,
+the encoder and the C library, no torch: the CLI's own process may hold a
+CUDA context and threads, which a fork would copy); images are read as
+PNG by `io.image`, without Pillow.
 
 Refused before any output is written: an `ABCFilePath` input
 (ROADMAP.md §1 item 5).
@@ -202,11 +204,13 @@ def _holds(path: str, text: str) -> bool:
 
 
 def _encode_draco_frame(args):
-    """Worker: one OBJ/PLY frame → .drc bytes (numpy and the C encoder
-    only: it runs in spawned processes, which import no torch)."""
+    """Worker: one OBJ/PLY frame → .drc bytes by the copied `encode_drc`
+    (the native whole-frame encoder, else the staged Python encoder with
+    the native helpers; numpy and C only: it runs in spawned processes,
+    which import no torch)."""
     path, qp, qt, qn = args
-    from uvol_tpu_torch import native
     from uvol_tpu_torch.codecs.draco import constants as K
+    from uvol_tpu_torch.codecs.draco.encoder import AttributeToEncode, encode_drc
     from uvol_tpu_torch.io.meshio import load_mesh
 
     m = load_mesh(path)
@@ -220,28 +224,23 @@ def _encode_draco_frame(args):
     )
     faces = faces[good]
     atts = [
-        native.AttributeToEncode(K.ATT_POSITION, m.positions, faces.reshape(-1), qp)
+        AttributeToEncode(K.ATT_POSITION, m.positions, faces.reshape(-1), qp)
     ]
     if m.uvs is not None:
         atts.append(
-            native.AttributeToEncode(
+            AttributeToEncode(
                 K.ATT_TEX_COORD, m.uvs,
                 np.asarray(m.uv_faces)[good].reshape(-1), qt,
             )
         )
     if m.normals is not None:
         atts.append(
-            native.AttributeToEncode(
+            AttributeToEncode(
                 K.ATT_NORMAL, m.normals,
                 np.asarray(m.normal_faces)[good].reshape(-1), qn,
             )
         )
-    blob = native.drc_encode_native(faces, atts)
-    if blob is None:
-        raise RuntimeError(
-            f"{path}: the native Draco encoder refused the frame; the port has no "
-            "Python Draco encoder (ROADMAP.md §1 item 5)")
-    return blob
+    return encode_drc(faces, atts)
 
 
 def load_image(path: str) -> np.ndarray:
@@ -260,9 +259,8 @@ def _encode_geometry_draco(cfg: Dict, objs: List[str], out_dir: str) -> str:
     from uvol_tpu_torch import native
 
     # built here, before the pool, so the workers find the library built
-    if native.get_draco_lib() is None:
-        raise RuntimeError("the native Draco library could not be built (g++); the port "
-                           "has no Python Draco encoder (ROADMAP.md §1 item 5)")
+    # (without g++ the workers take the Python encoder: the same bytes)
+    native.get_draco_lib()
     geo_dir = os.path.join(out_dir, "geometry_draco")
     os.makedirs(geo_dir, exist_ok=True)
     resume = _ResumeIndex(geo_dir)

@@ -15,10 +15,13 @@ file.
 The Draco frame codec (`draco_native.cpp`, `draco_frame.cpp`,
 `draco_frame_enc.cpp`, unchanged copies of the reference's) is a second
 library, linked with `entropy.cpp` as the reference links it, built the
-same way by `get_draco_lib()` (~20 s of g++ at first use): the `.drc`
-device decode (`models/drc_device.py`) needs its portable frame decode
-and its window packer, and the smoke and tests make their frames with
-its encoder.
+same way by `get_draco_lib()` (~20 s of g++ at first use): the whole-frame
+decode and encode, the `.drc` device decode's portable frame decode and
+window packer (`models/drc_device.py`), and the staged helpers of the
+copied Python codec (`codecs/draco/`). The reference's switches hold:
+`UVT_DISABLE_NATIVE_DRACO=1` turns the whole library off (every Draco
+caller takes its Python path), `UVT_DISABLE_NATIVE_FRAME=1` only the
+whole-frame decode and encode.
 
 The Corto `.crt` codec (`corto_native.cpp`, `corto_frame.cpp`, unchanged
 copies of the reference's) is a third library, linked with `entropy.cpp`
@@ -28,7 +31,7 @@ Python paths (identical bytes) without it.
 
 A failed build is not remembered: `get_lib()` and `get_draco_lib()`
 return None, the callers take their Python paths (identical bytes,
-slower) or, for a `.drc` frame, raise, and the next call tries again.
+slower), and the next call tries again.
 Without g++ on PATH they return None at once. Every wrapper below
 returns None (or False) where its library is unavailable, as the
 reference's do.
@@ -43,7 +46,6 @@ import shutil
 import subprocess
 import sys
 import threading
-from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -57,6 +59,7 @@ CORTO_SOURCES = (_HERE / "corto_native.cpp", _HERE / "corto_frame.cpp", _HERE / 
 CORTO_LIBS = ("-lz",)  # the ZLIB entropy mode of corto_frame.cpp
 BUILD_DIR = _HERE.parents[1] / "build" / "uvol_tpu_torch"
 GXX_FLAGS = ["-O3", "-ffp-contract=off", "-shared", "-fPIC"]
+_I64P = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -412,8 +415,9 @@ def etc1s_words_native(blocks, word1_of, word2_of) -> Optional[np.ndarray]:
 def _bind_draco(lib: ctypes.CDLL) -> None:
     c = ctypes
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
-    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    i64p = _I64P
     f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
     vp = c.c_void_p
     signatures = {
@@ -430,6 +434,45 @@ def _bind_draco(lib: ctypes.CDLL) -> None:
                                        c.c_int64, i32p, u8p, i32p, i32p, i32p, i64p,
                                        f64p, i64p, i64p, i64p,
                                        i64p, c.c_int, u8p, c.c_int64]),
+        # the staged decoder's and encoder's helpers (the reference's bindings)
+        "uvt_rabs_decode_bits": (c.c_int, [c.c_uint32, u8p, c.c_int64, u8p, c.c_int64]),
+        "uvt_eb_valence_machine": (c.c_int, [u32p, i64p, c.c_int64, c.c_int64, c.c_int64,
+                                             i64p, i64p, u8p, c.c_int64,
+                                             c.c_uint32, u8p, c.c_int64,
+                                             i32p, i32p, i32p, i32p, i64p]),
+        "uvt_seam_pass": (c.c_int, [i32p, c.c_int64, c.c_int64, u32p, u8p, i64p, i32p, i64p]),
+        "uvt_attr_corner_table": (c.c_int, [i32p, i32p, i32p, c.c_int64, c.c_int64, u8p, u8p,
+                                            i32p, i32p, vp, i64p]),
+        "uvt_traverse_depth_first": (c.c_int, [i32p, i32p, vp, c.c_int64, c.c_int64, i32p,
+                                               c.c_int64, vp, i32p, i32p, i64p]),
+        "uvt_decode_parallelogram": (c.c_int, [i64p, c.c_int64, c.c_int, c.c_int64, c.c_int64,
+                                               i32p, i32p, vp, i32p, i32p, i64p]),
+        "uvt_texcoords_predict": (c.c_int, [i64p, c.c_int64, c.c_int64, c.c_int64,
+                                            i32p, i32p, i32p, i64p, i32p, u8p, c.c_int64,
+                                            i64p]),
+        "uvt_normals_predict": (c.c_int, [i64p, c.c_int64, c.c_int64, c.c_int64,
+                                          i32p, i32p, vp, i32p, i64p, i32p,
+                                          c.c_uint32, u8p, c.c_int64, c.c_int64, vp, i64p]),
+        "uvt_encoder_corner_table": (c.c_int64, [i64p, c.c_int64, c.c_int64, i32p, i32p,
+                                                 i32p]),
+        "uvt_parallelogram_encode": (c.c_int, [i64p, c.c_int64, c.c_int, c.c_int64,
+                                               c.c_int64, i32p, i32p, vp, i32p, i32p, i64p]),
+        "uvt_texcoords_encode": (c.c_int64, [i64p, c.c_int64, c.c_int64, c.c_int64,
+                                             i32p, i32p, i32p, i64p, i32p, i64p, u8p]),
+        "uvt_normals_encode": (c.c_int, [i64p, c.c_int64, c.c_int64, i32p, i32p, vp, i32p,
+                                         i64p, i32p, i64p, u8p, c.c_int64, vp]),
+        "uvt_quantize_normals": (c.c_int, [f64p, c.c_int64, c.c_int, i64p]),
+        "uvt_eb_replay_machine": (c.c_int, [u8p, c.c_int64, c.c_int64, c.c_int64,
+                                            i64p, i64p, u8p, c.c_int64, u8p, c.c_int64,
+                                            i32p, i32p, i32p, i32p, i32p, i64p]),
+        "uvt_rabs_encode_bits": (c.c_int64, [u8p, c.c_int64, c.c_uint32, u8p, c.c_int64]),
+        "uvt_point_assembly": (c.c_int64, [i32p, c.c_int64, c.c_int, i32p, i32p]),
+        "uvt_eb_traverse": (c.c_int, [i32p, i32p, i64p, c.c_int64, c.c_int64, c.c_int64,
+                                      u8p, i32p, u8p, i64p, i64p, u8p, i32p, i32p, i64p]),
+        "uvt_eb_encode_maps": (c.c_int, [c.c_int64, c.c_int64, c.c_int64,
+                                         i64p, i32p, i32p, i32p, i32p, i64p,
+                                         c.c_int64, i64p,
+                                         i64p, i64p, u8p, i64p, i64p, i64p]),
     }
     for name, (restype, argtypes) in signatures.items():
         fn = getattr(lib, name)
@@ -439,8 +482,12 @@ def _bind_draco(lib: ctypes.CDLL) -> None:
 
 def get_draco_lib() -> Optional[ctypes.CDLL]:
     """Build (if needed) and load the Draco library once per process;
-    None when it cannot be built (tried again on the next call)."""
+    None when it cannot be built (tried again on the next call) or when
+    `UVT_DISABLE_NATIVE_DRACO=1` holds every Draco caller on its Python
+    path, as in the reference."""
     global _draco_lib
+    if os.environ.get("UVT_DISABLE_NATIVE_DRACO") == "1":
+        return None
     if _draco_lib is not None:
         return _draco_lib
     with _lock:
@@ -511,7 +558,11 @@ def drc_decode_native(data: bytes, *, portable: bool = False):
     octahedral normal ints) and appends each attribute's dequantize
     parameters, (kind, bits, oct_max_quantized, range, mins[nc]): the
     host half of the split whose device half is `models/drc_device.py`.
+    `UVT_DISABLE_NATIVE_FRAME=1` refuses every frame, as in the reference
+    (the staged helpers stay on).
     """
+    if os.environ.get("UVT_DISABLE_NATIVE_FRAME") == "1":
+        return None
     lib = get_draco_lib()
     if lib is None:
         return None
@@ -551,24 +602,15 @@ def drc_decode_native(data: bytes, *, portable: bool = False):
         lib.uvt_drc_free(h)
 
 
-@dataclass
-class AttributeToEncode:
-    """One attribute for `drc_encode_native`: the fields it reads of the
-    reference encoder's record of the same name."""
-
-    attribute_type: int  # constants.ATT_POSITION / ATT_TEX_COORD / ...
-    values: np.ndarray  # [N, C] float32 (or ints for integer attributes)
-    corner_to_value: np.ndarray  # [3F] value index per corner
-    quantization_bits: int = 11
-    integer: bool = False  # SEQ_INTEGER (no quantization header)
-
-
-def drc_encode_native(faces, attributes: Sequence[AttributeToEncode],
-                      standard_traversal: bool = False) -> Optional[bytes]:
-    """Whole-frame `.drc` encode in one native call (draco_frame_enc.cpp);
-    `attributes[0]` must be the positions. Returns the encoded bytes, or
-    None when the library is unavailable or the frame uses a feature
-    outside the native path."""
+def drc_encode_native(faces, attributes: Sequence, standard_traversal: bool = False
+                      ) -> Optional[bytes]:
+    """Whole-frame `.drc` encode in one native call (draco_frame_enc.cpp) of
+    `codecs/draco/encoder.AttributeToEncode` records; `attributes[0]` must
+    be the positions. Returns the encoded bytes, or
+    None when the library is unavailable, the frame uses a feature outside
+    the native path or `UVT_DISABLE_NATIVE_FRAME=1`."""
+    if os.environ.get("UVT_DISABLE_NATIVE_FRAME") == "1":
+        return None
     lib = get_draco_lib()
     if lib is None:
         return None
@@ -620,6 +662,503 @@ def drc_encode_native(faces, attributes: Sequence[AttributeToEncode],
     if rc < 0:
         return None
     return out[:rc].tobytes()
+
+
+# ---------------------------------------------------------------------------
+# The staged Draco decoder's and encoder's helpers (draco_native.cpp,
+# draco_frame_enc.cpp): the reference's wrappers, each returning None
+# without the library
+# ---------------------------------------------------------------------------
+
+def _u8(buf) -> np.ndarray:
+    return np.ascontiguousarray(np.frombuffer(buf, np.uint8))
+
+
+def _mask_ptr(seam_mask):
+    if seam_mask is None:
+        return None
+    arr = np.ascontiguousarray(seam_mask, np.uint8)
+    return arr.ctypes.data_as(ctypes.c_void_p), arr  # keep alive
+
+
+def rabs_decode_bits_native(prob_zero: int, buf: bytes, n: int):
+    lib = get_draco_lib()
+    if lib is None:
+        return None
+    out = np.empty(n, np.uint8)
+    rc = lib.uvt_rabs_decode_bits(prob_zero, _u8(buf), len(buf), out, n)
+    return out if rc == 0 else None
+
+
+def eb_valence_machine_native(
+    context_symbols, num_symbols, num_faces, max_vertices,
+    splits, sf_prob_zero, sf_buf,
+):
+    lib = get_draco_lib()
+    if lib is None:
+        return None
+    offs = [0]
+    parts = []
+    for arr in context_symbols:
+        a = (
+            np.zeros(0, np.uint32)
+            if arr is None
+            else np.ascontiguousarray(arr, np.uint32)
+        )
+        parts.append(a)
+        offs.append(offs[-1] + len(a))
+    ctx = np.concatenate(parts) if offs[-1] else np.zeros(1, np.uint32)
+    ctx_off = np.asarray(offs, np.int64)
+    ssrc = np.asarray([s.source_symbol_id for s in splits], np.int64)
+    sid = np.asarray([s.split_symbol_id for s in splits], np.int64)
+    sedge = np.asarray([s.source_edge for s in splits], np.uint8)
+    if len(splits) == 0:
+        ssrc = np.zeros(1, np.int64)
+        sid = np.zeros(1, np.int64)
+        sedge = np.zeros(1, np.uint8)
+    opposite = np.empty(3 * num_faces, np.int32)
+    vertex = np.empty(3 * num_faces, np.int32)
+    vertex_corner = np.empty(max_vertices, np.int32)
+    processed = np.empty(num_faces, np.int32)
+    counts = np.zeros(4, np.int64)
+    rc = lib.uvt_eb_valence_machine(
+        np.ascontiguousarray(ctx), ctx_off, num_symbols, num_faces,
+        max_vertices, ssrc, sid, sedge, len(splits),
+        sf_prob_zero, _u8(sf_buf), len(sf_buf),
+        opposite, vertex, vertex_corner, processed, counts,
+    )
+    if rc != 0:
+        raise ValueError(f"native edgebreaker machine failed (rc={rc})")
+    return opposite, vertex, vertex_corner, processed, counts
+
+
+def seam_pass_native(opposite, num_faces, streams):
+    """streams: list of (prob_zero, payload bytes) per attribute-data."""
+    lib = get_draco_lib()
+    if lib is None:
+        return None
+    n = len(streams)
+    if n == 0:
+        return []
+    probs = np.asarray([s[0] for s in streams], np.uint32)
+    offs = [0]
+    for _, b in streams:
+        offs.append(offs[-1] + len(b))
+    bufs = np.frombuffer(b"".join(b for _, b in streams) or b"\x00", np.uint8)
+    cap = 6 * num_faces
+    out = np.empty(n * cap, np.int32)
+    counts = np.zeros(n, np.int64)
+    rc = lib.uvt_seam_pass(
+        np.ascontiguousarray(opposite, np.int32), num_faces, n, probs,
+        np.ascontiguousarray(bufs), np.asarray(offs, np.int64), out, counts,
+    )
+    if rc != 0:
+        raise ValueError(f"native seam pass failed (rc={rc})")
+    return [out[i * cap : i * cap + counts[i]].copy() for i in range(n)]
+
+
+def attr_corner_table_native(
+    opposite, vertex, vertex_corner, num_vertices, num_corners,
+    seam_mask, vertex_on_seam,
+):
+    lib = get_draco_lib()
+    if lib is None:
+        return None
+    c2v = np.empty(num_corners, np.int32)
+    v2c = np.empty(num_corners, np.int32)
+    nout = np.zeros(1, np.int64)
+    rc = lib.uvt_attr_corner_table(
+        np.ascontiguousarray(opposite, np.int32),
+        np.ascontiguousarray(vertex, np.int32),
+        np.ascontiguousarray(vertex_corner, np.int32),
+        num_vertices, num_corners,
+        np.ascontiguousarray(seam_mask, np.uint8),
+        np.ascontiguousarray(vertex_on_seam, np.uint8),
+        c2v, v2c, None, nout,
+    )
+    if rc != 0:
+        raise ValueError(f"native attr corner table failed (rc={rc})")
+    return c2v, v2c[: nout[0]]
+
+
+def traverse_native(
+    opposite, view_vertex, seam_mask, num_faces, num_view_vertices,
+    corner_order,
+):
+    lib = get_draco_lib()
+    if lib is None:
+        return None
+    v2d = np.empty(num_view_vertices, np.int32)
+    d2c = np.empty(max(num_view_vertices, 1), np.int32)
+    nout = np.zeros(1, np.int64)
+    ptr_keep = _mask_ptr(seam_mask)
+    rc = lib.uvt_traverse_depth_first(
+        np.ascontiguousarray(opposite, np.int32),
+        np.ascontiguousarray(view_vertex, np.int32),
+        ptr_keep[0] if ptr_keep else None,
+        num_faces, num_view_vertices,
+        np.ascontiguousarray(corner_order, np.int32), len(corner_order),
+        None, v2d, d2c, nout,
+    )
+    if rc != 0:
+        raise ValueError(f"native traversal failed (rc={rc})")
+    return v2d, d2c[: nout[0]]
+
+
+def parallelogram_native(
+    corr, nc, mn, mx, opposite, view_vertex, seam_mask, vertex_to_data,
+    data_to_corner,
+):
+    lib = get_draco_lib()
+    if lib is None:
+        return None
+    n = corr.size // nc
+    out = np.empty(n * nc, np.int64)
+    ptr_keep = _mask_ptr(seam_mask)
+    rc = lib.uvt_decode_parallelogram(
+        np.ascontiguousarray(corr.reshape(-1), np.int64), n, nc, mn, mx,
+        np.ascontiguousarray(opposite, np.int32),
+        np.ascontiguousarray(view_vertex, np.int32),
+        ptr_keep[0] if ptr_keep else None,
+        np.ascontiguousarray(vertex_to_data, np.int32),
+        np.ascontiguousarray(data_to_corner, np.int32),
+        out,
+    )
+    if rc != 0:
+        raise ValueError(f"native parallelogram failed (rc={rc})")
+    return out.reshape(n, nc)
+
+
+def texcoords_native(
+    corr, mn, mx, view_vertex, vertex_to_data, data_to_corner,
+    positions, pos_data_of_corner, orientations,
+):
+    lib = get_draco_lib()
+    if lib is None:
+        return None
+    n = corr.size // 2
+    out = np.empty(n * 2, np.int64)
+    ori = np.ascontiguousarray(orientations, np.uint8)
+    if len(ori) == 0:
+        ori = np.zeros(1, np.uint8)
+    rc = lib.uvt_texcoords_predict(
+        np.ascontiguousarray(corr.reshape(-1), np.int64), n, mn, mx,
+        np.ascontiguousarray(view_vertex, np.int32),
+        np.ascontiguousarray(vertex_to_data, np.int32),
+        np.ascontiguousarray(data_to_corner, np.int32),
+        np.ascontiguousarray(positions.reshape(-1), np.int64),
+        np.ascontiguousarray(pos_data_of_corner, np.int32),
+        ori, len(orientations), out,
+    )
+    if rc != 0:
+        raise ValueError(f"native texcoords predictor failed (rc={rc})")
+    return out.reshape(n, 2)
+
+
+def normals_native(
+    corr, max_quantized_value, center_value, opposite, view_vertex,
+    seam_mask, data_to_corner, positions, pos_data_of_corner,
+    flip_prob_zero, flip_buf,
+):
+    lib = get_draco_lib()
+    if lib is None:
+        return None
+    n = corr.size // 2
+    out = np.empty(n * 2, np.int64)
+    ptr_keep = _mask_ptr(seam_mask)
+    rc = lib.uvt_normals_predict(
+        np.ascontiguousarray(corr.reshape(-1), np.int64), n,
+        max_quantized_value, center_value,
+        np.ascontiguousarray(opposite, np.int32),
+        np.ascontiguousarray(view_vertex, np.int32),
+        ptr_keep[0] if ptr_keep else None,
+        np.ascontiguousarray(data_to_corner, np.int32),
+        np.ascontiguousarray(positions.reshape(-1), np.int64),
+        np.ascontiguousarray(pos_data_of_corner, np.int32),
+        flip_prob_zero, _u8(flip_buf), len(flip_buf),
+        len(opposite) // 3, None, out,
+    )
+    if rc != 0:
+        raise ValueError(f"native normals predictor failed (rc={rc})")
+    return out.reshape(n, 2)
+
+
+# ---------------------------------------------------------------------------
+# Encode-side wrappers (encoder.py hot loops)
+
+
+def encoder_corner_table_native(faces: np.ndarray, num_positions: int):
+    lib = get_draco_lib()
+    if lib is None:
+        return None
+    faces = np.ascontiguousarray(faces.reshape(-1), np.int64)
+    n = len(faces)
+    opposite = np.empty(n, np.int32)
+    corner_vertex = np.empty(n, np.int32)
+    vertex_corner = np.empty(max(n, 1), np.int32)
+    nv = lib.uvt_encoder_corner_table(
+        faces, n // 3, num_positions, opposite, corner_vertex, vertex_corner
+    )
+    if nv < 0:
+        raise ValueError(f"native encoder corner table failed ({nv})")
+    return opposite, corner_vertex, vertex_corner[:nv]
+
+
+def parallelogram_encode_native(
+    values, nc, mn, mx, opposite, view_vertex, seam_mask, vertex_to_data,
+    data_to_corner,
+):
+    lib = get_draco_lib()
+    if lib is None:
+        return None
+    n = values.size // nc
+    corr = np.empty(n * nc, np.int64)
+    ptr_keep = _mask_ptr(seam_mask)
+    rc = lib.uvt_parallelogram_encode(
+        np.ascontiguousarray(values.reshape(-1), np.int64), n, nc, mn, mx,
+        np.ascontiguousarray(opposite, np.int32),
+        np.ascontiguousarray(view_vertex, np.int32),
+        ptr_keep[0] if ptr_keep else None,
+        np.ascontiguousarray(vertex_to_data, np.int32),
+        np.ascontiguousarray(data_to_corner, np.int32),
+        corr,
+    )
+    if rc != 0:
+        raise ValueError("native parallelogram encode failed")
+    return corr.reshape(n, nc)
+
+
+def texcoords_encode_native(
+    values, mn, mx, view_vertex, vertex_to_data, data_to_corner,
+    positions, pos_data_of_corner,
+):
+    lib = get_draco_lib()
+    if lib is None:
+        return None
+    n = values.size // 2
+    corr = np.empty(n * 2, np.int64)
+    orients = np.empty(max(n, 1), np.uint8)
+    n_or = lib.uvt_texcoords_encode(
+        np.ascontiguousarray(values.reshape(-1), np.int64), n, mn, mx,
+        np.ascontiguousarray(view_vertex, np.int32),
+        np.ascontiguousarray(vertex_to_data, np.int32),
+        np.ascontiguousarray(data_to_corner, np.int32),
+        np.ascontiguousarray(positions.reshape(-1), np.int64),
+        np.ascontiguousarray(pos_data_of_corner, np.int32),
+        corr, orients,
+    )
+    if n_or < 0:
+        raise ValueError("native texcoords encode failed")
+    return corr.reshape(n, 2), orients[:n_or]
+
+
+def normals_encode_native(
+    oct_coords, max_quantized_value, opposite, view_vertex, seam_mask,
+    data_to_corner, positions, pos_data_of_corner,
+    num_faces=0, vertex_to_data=None,
+):
+    """num_faces + vertex_to_data (the attr corner table's vertex→data
+    map) enable the linear-pass face-normal accumulation; omitted, the
+    per-vertex fan walk runs (bit-identical sums either way)."""
+    lib = get_draco_lib()
+    if lib is None:
+        return None
+    n = oct_coords.size // 2
+    corr = np.empty(n * 2, np.int64)
+    flips = np.empty(max(n, 1), np.uint8)
+    ptr_keep = _mask_ptr(seam_mask)
+    v2d_keep = None  # (ptr, arr): the arr ref keeps the copy alive
+    if vertex_to_data is not None:
+        arr = np.ascontiguousarray(vertex_to_data, np.int32)
+        v2d_keep = (arr.ctypes.data_as(ctypes.c_void_p), arr)
+    rc = lib.uvt_normals_encode(
+        np.ascontiguousarray(oct_coords.reshape(-1), np.int64), n,
+        max_quantized_value,
+        np.ascontiguousarray(opposite, np.int32),
+        np.ascontiguousarray(view_vertex, np.int32),
+        ptr_keep[0] if ptr_keep else None,
+        np.ascontiguousarray(data_to_corner, np.int32),
+        np.ascontiguousarray(positions.reshape(-1), np.int64),
+        np.ascontiguousarray(pos_data_of_corner, np.int32),
+        corr, flips,
+        int(num_faces),
+        v2d_keep[0] if v2d_keep else None,
+    )
+    if rc != 0:
+        raise ValueError("native normals encode failed")
+    return corr.reshape(n, 2), flips[:n]
+
+
+def quantize_normals_native(normals: np.ndarray, bits: int):
+    lib = get_draco_lib()
+    if lib is None:
+        return None
+    n = len(normals)
+    out = np.empty(n * 2, np.int64)
+    rc = lib.uvt_quantize_normals(
+        np.ascontiguousarray(normals, np.float64), n, bits, out
+    )
+    if rc != 0:
+        raise ValueError("native quantize normals failed")
+    return out.reshape(n, 2)
+
+
+def eb_replay_machine_native(
+    symbols_decode_order, num_faces, max_vertices, splits, sf_bits,
+):
+    lib = get_draco_lib()
+    if lib is None:
+        return None
+    syms = np.ascontiguousarray(symbols_decode_order, np.uint8)
+    num_symbols = len(syms)
+    ssrc = np.asarray([s.source_symbol_id for s in splits] or [0], np.int64)
+    sid = np.asarray([s.split_symbol_id for s in splits] or [0], np.int64)
+    sedge = np.asarray([s.source_edge for s in splits] or [0], np.uint8)
+    sfb = np.ascontiguousarray(sf_bits, np.uint8)
+    if len(sfb) == 0:
+        sfb = np.zeros(1, np.uint8)
+    opposite = np.empty(3 * num_faces, np.int32)
+    vertex = np.empty(3 * num_faces, np.int32)
+    vertex_corner = np.empty(max_vertices, np.int32)
+    processed = np.empty(num_faces, np.int32)
+    contexts = np.empty(max(num_symbols, 1), np.int32)
+    counts = np.zeros(4, np.int64)
+    rc = lib.uvt_eb_replay_machine(
+        syms, num_symbols, num_faces, max_vertices,
+        ssrc, sid, sedge, len(splits),
+        sfb, len(sf_bits),
+        opposite, vertex, vertex_corner, processed, contexts, counts,
+    )
+    if rc != 0:
+        raise ValueError(f"native replay machine failed (rc={rc})")
+    return opposite, vertex, vertex_corner, processed, contexts, counts
+
+
+def rabs_encode_bits_native(bits, prob_zero: int):
+    lib = get_draco_lib()
+    if lib is None:
+        return None
+    b = np.ascontiguousarray(bits, np.uint8)
+    out = np.empty(len(b) + 1024, np.uint8)
+    n = lib.uvt_rabs_encode_bits(b, len(b), prob_zero, out, len(out))
+    if n < 0:
+        return None
+    return out[:n].tobytes()
+
+
+def point_assembly_native(keys: np.ndarray, value_counts):
+    """Corner-key rows -> (point_of_corner, num_points), first-appearance
+    numbering. `value_counts[a]` bounds column a's values (bit width source).
+    Returns None when unavailable or keys overflow 63 packed bits."""
+    lib = get_draco_lib()
+    if lib is None:
+        return None
+    k = np.ascontiguousarray(keys, np.int32)
+    widths = np.asarray(
+        [max(int(n - 1).bit_length(), 1) for n in value_counts], np.int32
+    )
+    out = np.empty(len(k), np.int32)
+    n = lib.uvt_point_assembly(k, len(k), k.shape[1], widths, out)
+    if n < 0:
+        return None
+    return out, int(n)
+
+
+def eb_traverse_native(vertex, opposite, hole_of, num_faces, num_vertices,
+                       num_holes):
+    """Encoder-side Edgebreaker DFS. Returns (symbols u8, symbol_corners
+    i32, start_face_bits u8, (split_src, split_id, split_edge),
+    init_face_corners i32, interior_start_corners i32, n_split_symbols)
+    or None."""
+    lib = get_draco_lib()
+    if lib is None:
+        return None
+    v = np.ascontiguousarray(vertex, np.int32)
+    o = np.ascontiguousarray(opposite, np.int32)
+    h = np.ascontiguousarray(hole_of, np.int64)
+    f = int(num_faces)
+    symbols = np.empty(max(f, 1), np.uint8)
+    corners = np.empty(max(f, 1), np.int32)
+    sf_bits = np.empty(max(f, 1), np.uint8)
+    s_src = np.empty(max(f, 1), np.int64)
+    s_id = np.empty(max(f, 1), np.int64)
+    s_edge = np.empty(max(f, 1), np.uint8)
+    initc = np.empty(max(f, 1), np.int32)
+    starts = np.empty(max(f, 1), np.int32)
+    cnt = np.zeros(5, np.int64)
+    rc = lib.uvt_eb_traverse(
+        v, o, h, f, int(num_vertices), int(num_holes),
+        symbols, corners, sf_bits, s_src, s_id, s_edge, initc, starts, cnt,
+    )
+    if rc != 0:
+        return None
+    ns, nb, nsp, ni = int(cnt[0]), int(cnt[1]), int(cnt[2]), int(cnt[3])
+    return (
+        symbols[:ns], corners[:ns], sf_bits[:nb],
+        (s_src[:nsp], s_id[:nsp], s_edge[:nsp]),
+        initc[:ni], starts[:ni], int(cnt[4]),
+    )
+
+
+def eb_encode_maps_native(
+    num_faces: int,
+    num_symbols: int,
+    symbol_corners_rev: np.ndarray,
+    dvert: np.ndarray,
+    enc_vertex: np.ndarray,
+    enc_opposite: np.ndarray,
+    opp_d: np.ndarray,
+    interior_start_corners: np.ndarray,
+    c2v_list,
+    num_vertex_slots: int,
+):
+    """Encoder dec<->enc corner maps + per-attribute seam bits in one C
+    pass (encoder.py's maps+seams region). Returns (dec2enc int64[3F],
+    cs int64[n_edges], bits list[u8[n_edges]], pairs list[i64],
+    boundary int64[n_b]) or None when the lib is unavailable. Raises
+    AssertionError for the same inconsistency conditions the Python
+    region asserts."""
+    lib = get_draco_lib()
+    if lib is None:
+        return None
+    n = 3 * num_faces
+    na = len(c2v_list)
+    c2v_all = (
+        np.ascontiguousarray(np.stack(c2v_list)).astype(np.int64)
+        if na
+        else np.zeros((0, n), np.int64)
+    )
+    dec2enc = np.empty(n, np.int64)
+    cs = np.empty(n, np.int64)
+    bits = np.empty((max(na, 1), n), np.uint8)
+    pairs = np.empty((max(na, 1), 2 * n), np.int64)
+    boundary = np.empty(n, np.int64)
+    counts = np.zeros(2 + max(na, 1), np.int64)
+    rc = lib.uvt_eb_encode_maps(
+        num_faces, num_symbols, num_vertex_slots,
+        np.ascontiguousarray(symbol_corners_rev, np.int64),
+        np.ascontiguousarray(dvert, np.int32),
+        np.ascontiguousarray(enc_vertex, np.int32),
+        np.ascontiguousarray(enc_opposite, np.int32),
+        np.ascontiguousarray(opp_d, np.int32),
+        np.ascontiguousarray(interior_start_corners, np.int64),
+        na, c2v_all.reshape(-1),
+        dec2enc, cs, bits.reshape(-1), pairs.reshape(-1), boundary, counts,
+    )
+    if rc == -2:
+        raise AssertionError("inconsistent vertex correspondence")
+    if rc == -3:
+        raise AssertionError("init face vertex unmapped")
+    if rc in (-4, -5):
+        raise AssertionError("incomplete corner correspondence")
+    if rc != 0:
+        return None
+    n_edges, n_b = int(counts[0]), int(counts[1])
+    bit_list = [bits[a, :n_edges].copy() for a in range(na)]
+    pair_list = [
+        pairs[a, : int(counts[2 + a])].copy() for a in range(na)
+    ]
+    return dec2enc, cs[:n_edges].copy(), bit_list, pair_list, boundary[:n_b].copy()
 
 
 # ---------------------------------------------------------------------------

@@ -44,12 +44,14 @@ Tensor = torch.Tensor
 #: kernel launches since the last reset
 LAUNCHES = {"estimate_normals": 0, "morton_keys": 0, "parallelogram_decode": 0}
 
-#: most frames of one U4 or U5 call on the card (the kernels' gridDim.y)
-MAX_FRAMES = 65535
-#: most vertices of one U5 chain on the card: the chain's prefix (4 bytes a
-#: vertex) and its staged tile of 1,024 steps (16 KB) in the 232,448 bytes of
-#: shared memory one CTA may take (kChainMaxVertices in csrc/mesh_ops.cu)
-PARALLELOGRAM_MAX_VERTICES = (232448 - 1024 * 16) // 4
+#: frames of one U4 launch (its gridDim.y); a call of more launches once per
+#: slice of so many frames
+MORTON_LAUNCH_FRAMES = 65535
+#: U5's switch point: a chain of at most so many vertices keeps its prefix (4
+#: bytes a vertex) beside its staged tile of 1,024 steps (16 KB) in the
+#: 232,448 bytes of shared memory one CTA may take; a longer one keeps it in
+#: its output column in device memory (kChainMaxVertices in csrc/mesh_ops.cu)
+PARALLELOGRAM_SHARED_MAX_VERTICES = (232448 - 1024 * 16) // 4
 #: the Morton key's coordinate bits (morton63: 21 bits a coordinate)
 MORTON_MAX_BITS = 21
 
@@ -188,12 +190,11 @@ def morton_keys_plain(x: Tensor, mn: Tensor, inv: Tensor, bits: int) -> Tensor:
 def morton_keys(x: Tensor, mn: Tensor, inv: Tensor, bits: int) -> Tensor:
     """U4: points x [F, N, 3] float32, each frame's minimum mn [F, 3] and
     inv [F] = 1 / delta → [F, N] int64 Morton keys of the quantized
-    points, as `morton_keys_plain`; one launch."""
+    points, as `morton_keys_plain`; one launch per `MORTON_LAUNCH_FRAMES`
+    frames."""
     f, n = _check_keys(x, mn, inv, bits)
     if not _route(x):
         return morton_keys_plain(x, mn, inv, bits)
-    if f > MAX_FRAMES:
-        raise ValueError(f"the card takes at most {MAX_FRAMES} frames per call, got {f}")
     key = torch.empty((f, n), dtype=torch.int64, device=x.device)
     if key.numel() == 0:
         return key
@@ -247,8 +248,9 @@ def parallelogram_decode_plain(residuals: Tensor, pred_indices: Tensor) -> Tenso
 def parallelogram_decode(residuals: Tensor, pred_indices: Tensor) -> Tensor:
     """U5: residuals [..., N, D] int32, pred_indices [..., N, 3] int32 →
     the decoded values [..., N, D] int32, as `parallelogram_decode_plain`;
-    one launch (a CTA per frame and component, N at most
-    `PARALLELOGRAM_MAX_VERTICES`)."""
+    one launch, a CTA per frame and component, the chain's prefix in shared
+    memory up to `PARALLELOGRAM_SHARED_MAX_VERTICES` vertices and in the
+    output above."""
     _check_chain(residuals, pred_indices)
     if not _route(residuals):
         return parallelogram_decode_plain(residuals, pred_indices)
@@ -257,9 +259,6 @@ def parallelogram_decode(residuals: Tensor, pred_indices: Tensor) -> Tensor:
     if out.numel() == 0:
         return out
     f = out.numel() // (n * d)
-    if n > PARALLELOGRAM_MAX_VERTICES or f > MAX_FRAMES or d > 65535:
-        raise ValueError(f"the card takes chains of at most {PARALLELOGRAM_MAX_VERTICES} "
-                         f"vertices, {MAX_FRAMES} frames and 65,535 components, got {n}, {f}, {d}")
     res, pidx = residuals.contiguous(), pred_indices.contiguous()
     _launch("parallelogram_decode", "uvt_parallelogram_decode", res.device,
             res.data_ptr(), pidx.data_ptr(), out.data_ptr(), f, n, d)
