@@ -57,7 +57,7 @@ the L2 cache overwritten), `stream_frames` as a median of REPS with its
 minimum and maximum, beside the same windows given pinned, and the traced
 split of one window.
 
-Its last phase, `cli_player_path`, drives the port's own entry points on
+Its phase `cli_player_path` drives the port's own entry points on
 the card: `uvol_tpu_torch.encoder_cli.main` in process and the facade
 `Player`. Project A is the CLI's defaults (`TEMPLATE`: Draco at
 11/10/8 in 8 spawned workers while CUDA is live, ETC1S at 1024/1024, 5
@@ -155,6 +155,30 @@ card with every `ok` tick held to the decoder's output, and times one
 26,145-vertex frame's decode on the native path, the staged Python path
 and the Python path alone.
 
+Its phase `abc_v1_path` runs after `cli_player_path` (no trace; run
+before `profile`, such phases left its traces empty). It writes an
+Alembic archive of 8 of those 83 x 315 grids with their UVs and 8 PNG
+layers of the bench texture and encodes it through `python -m
+uvol_tpu_torch.encoder_cli`'s own entry (`runpy`, in process, so the
+wrappers' counters are read) at the CLI's defaults, beside the same
+project given as OBJ: the OBJs the ABC stage extracts must equal the OBJ
+project's, every other file must be the same bytes, and both encodes
+must launch the same kernels as often; a 3-frame cut of 20 x 30 grids
+and 64^2 layers must give the same bytes on the card and on the CPU. It
+writes a V1 track, 30 grids as Corto `.crt` frames in a `.drcs` with
+its `.manifest` and the bench texture's first 30 layers as a 1024^2
+H.264 MP4 (qp 28, a sync sample every 30 frames, CAVLC), and plays it
+through the facade `Player` on a virtual clock at 1/60 s: every frame
+must show, each `ok` tick's baked counter must name its frame and its
+geometry equal `decode_crt`'s; each decoded frame's counter must read
+back its index, and the Python H.264 decode must equal the native one on
+2 frames of 256^2. It runs `python -m uvol_tpu_torch.corto_cli` on one
+grid OBJ (exit 0, the counts). It prints the ABC stage's s a frame, both
+projects' frames/s, the Corto and H.264 decodes' ms a frame, the
+facade's ms a tick, the H.264 encode's s a frame and `corto_cli`'s
+ratio, bits a vertex and MT/s; no module of JAX, the JAX package or
+Pillow may be loaded by its end.
+
 Each phase prints one JSON line; then come the card's `nvidia-smi`
 name/power-limit line, the kernels line (each kernel's launches on its
 main path, worst difference from its twin, call time, its twin's time,
@@ -176,6 +200,7 @@ import contextlib
 import copy
 import io
 import json
+import re
 import struct
 import subprocess
 import sys
@@ -305,6 +330,22 @@ CLI_C_FRAMES = 6
 CLI_C_GRID = (20, 30)
 CLI_C_SIDE = 256
 CLI_C_CODECS = "etc1s,etc"
+#: the last host paths (`abc_v1_path`): an Alembic archive of ABC_FRAMES DRC_GRID
+#: grids with UVs and ABC_FRAMES layers of the bench texture through the CLI's
+#: defaults, beside the same project given as OBJ; card against CPU on
+#: ABC_CPU_FRAMES grids of ABC_CPU_GRID and layers of ABC_CPU_SIDE^2. A V1 track:
+#: V1_FRAMES grids as Corto `.crt` in a `.drcs`, and an H.264 MP4 of as many bench
+#: layers at 1024^2 (the player's `video_size`), V1_QP, a sync sample every V1_GOP,
+#: CAVLC; the Python decode path timed on V1_PY_FRAMES frames of V1_PY_SIDE^2
+ABC_FRAMES = 8
+ABC_CPU_FRAMES = 3
+ABC_CPU_GRID = (20, 30)
+ABC_CPU_SIDE = 64
+V1_FRAMES = 30
+V1_QP = 28
+V1_GOP = 30
+V1_PY_FRAMES = 2
+V1_PY_SIDE = 256
 #: UASTC (`uastc_path`): project D is the CLI's `TEMPLATE` with `TEXTURE_CODEC`
 #: "uastc" (quality 0: the spec wire's host encode) on UASTC_FRAMES OBJ frames of
 #: DRC_GRID grids and the bench texture's first UASTC_FRAMES layers at 1024^2, two
@@ -2370,9 +2411,10 @@ def tree(root) -> dict:
             for p in sorted(root.rglob("*")) if p.is_file()}
 
 
-def cli_encode(torch, cfg_path: str) -> dict:
-    """One in-process run of the port's CLI on `cfg_path`: its wall time,
-    stage times (`STATS`) and every kernel's launches."""
+def cli_encode(torch, cfg_path: str, run=None) -> dict:
+    """One in-process run of the port's CLI on `cfg_path` (`main`, or
+    `run()`): its wall time, stage times (`STATS`) and every kernel's
+    launches."""
     from uvol_tpu_torch.encoder_cli import main as cli_main
     from uvol_tpu_torch.utils.stats import STATS
 
@@ -2382,7 +2424,7 @@ def cli_encode(torch, cfg_path: str) -> dict:
     printed = io.StringIO()  # the CLI's progress lines stay off the smoke's stdout
     t = time.perf_counter()
     with contextlib.redirect_stdout(printed):
-        rc = cli_main([cfg_path])
+        rc = run() if run is not None else cli_main([cfg_path])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     check(rc == 0, f"the encoder CLI returned {rc} on {cfg_path}: {printed.getvalue()[-500:]}")
@@ -2604,6 +2646,283 @@ def cli_player_path(torch, textures) -> tuple:
           "launches": totals, "total_s": time.perf_counter() - t0})
     shutil.rmtree(root, ignore_errors=True)
     return totals
+
+
+def abc_obj_text(pos, uv, faces) -> str:
+    """The OBJ text the CLI's ABC stage writes for one sample: v and vt at
+    %.6f, each face indexing both alike."""
+    lines = [f"v {a:.6f} {b:.6f} {c:.6f}" for a, b, c in pos.tolist()]
+    lines += [f"vt {a:.6f} {b:.6f}" for a, b in uv.tolist()]
+    lines += ["f {0}/{0} {1}/{1} {2}/{2}".format(*f) for f in (faces + 1).tolist()]
+    return "\n".join(lines) + "\n"
+
+
+def abc_inputs(root, frames: int, grid: tuple, textures: np.ndarray) -> tuple:
+    """An Alembic archive of `frames` grids (`grid_mesh` seeds 0..frames-1)
+    with their UVs, the same frames as OBJ files in the text the CLI's ABC
+    stage writes, and one PNG per layer; returns (archive, OBJ template,
+    PNG template)."""
+    from uvol_tpu_torch.codecs.draco.grid import grid_mesh
+    from uvol_tpu_torch.io.alembic import PolyMeshSample, write_abc_polymesh
+
+    (root / "OBJ").mkdir(parents=True)
+    (root / "images").mkdir()
+    samples = []
+    for i in range(frames):
+        pos, uv, _nrm, faces = grid_mesh(*grid, seed=i)
+        samples.append(PolyMeshSample(pos, faces, uv))
+        (root / "OBJ" / f"{i:05d}.obj").write_text(abc_obj_text(pos, uv, faces))
+    (root / "take.abc").write_bytes(write_abc_polymesh(samples, fps=30.0))
+    for i, img in enumerate(textures):
+        write_png(root / "images" / f"{i:05d}.png", img)
+    return (str(root / "take.abc"), str(root / "OBJ" / "[#####].obj"),
+            str(root / "images" / "[#####].png"))
+
+
+def module_encode(torch, cfg_path: str) -> dict:
+    """`cli_encode` through the module's own entry, as `python -m
+    uvol_tpu_torch.encoder_cli cfg_path` runs it (`runpy`, in this process,
+    so the wrappers' counters are read)."""
+    import runpy
+    import warnings
+
+    def run():
+        saved = sys.argv
+        sys.argv = ["uvol_tpu_torch.encoder_cli", cfg_path]
+        try:
+            with warnings.catch_warnings():  # the CLI's module is imported already
+                warnings.simplefilter("ignore", RuntimeWarning)
+                runpy.run_module("uvol_tpu_torch.encoder_cli", run_name="__main__",
+                                 alter_sys=True)
+        except SystemExit as e:
+            return e.code
+        finally:
+            sys.argv = saved
+        return 0
+
+    return cli_encode(torch, cfg_path, run)
+
+
+def same_corto_mesh(a, b) -> bool:
+    return (a.nvert == b.nvert and a.nface == b.nface and np.array_equal(a.faces, b.faces)
+            and set(a.attributes) == set(b.attributes)
+            and all(np.array_equal(v, b.attributes[k]) for k, v in a.attributes.items()))
+
+
+def spread_ms(seconds: list) -> dict:
+    ms = np.asarray(seconds) * 1e3
+    return {"count": len(ms), "mean_ms": float(ms.mean()), "p50_ms": float(np.median(ms)),
+            "max_ms": float(ms.max())}
+
+
+def abc_v1_path(torch, textures) -> dict:
+    """The last host paths of the port, on the card. ABC: an Alembic
+    archive of ABC_FRAMES grids through `python -m uvol_tpu_torch.encoder_cli`
+    at the CLI's defaults, beside the same project given as OBJ: the
+    extracted OBJs equal the OBJ project's, every output file the same
+    bytes, the same kernels launched as often; card = CPU bytes on a small
+    cut. V1: V1_FRAMES grids as Corto frames in a `.drcs` with its
+    `.manifest` and a 1024^2 H.264 MP4 texture, played by the facade
+    `Player` on a virtual clock: every frame shows, each baked counter
+    reads back its frame, the geometry equals `decode_crt`'s; the native
+    and Python H.264 decodes agree. `corto_cli` on one grid OBJ. Nothing of
+    JAX, the JAX package or Pillow may be loaded by the end. Returns the
+    ABC project's launches."""
+    import os
+    import shutil
+
+    from uvol_tpu_torch.codecs.corto import decode_crt, encode_crt
+    from uvol_tpu_torch.codecs.draco.grid import grid_mesh
+    from uvol_tpu_torch.containers.drcs import DrcsReader, DrcsWriter
+    from uvol_tpu_torch.interfaces import PlayMode, parse_manifest
+    from uvol_tpu_torch.io.video import Mp4VideoTexture, encode_v1_texture_video
+    from uvol_tpu_torch.player import PlaybackClock, Player, VirtualClock
+    from uvol_tpu_torch.player.v1 import decode_baked_frame_number
+
+    root = Path(__file__).resolve().parent / "build" / "abc_v1_path"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    out = {"phase": "abc_v1_path"}
+
+    # ---- ABC: the archive through the CLI, beside the same project as OBJ ----
+    abc, objs, pngs = abc_inputs(root / "inputs", ABC_FRAMES, DRC_GRID, textures[:ABC_FRAMES])
+    runs = {}
+    for name in ("obj", "abc"):
+        over = {"ABCFilePath": abc, "OBJFilesPath": None} if name == "abc" else {}
+        cfg = cli_config(root / f"{name}.json", (objs, pngs), root / name, **over)
+        runs[name] = module_encode(torch, cfg) if name == "abc" else cli_encode(torch, cfg)
+    abc_files = {k: b for k, (b, _) in tree(root / "abc").items()}
+    obj_files = {k: b for k, (b, _) in tree(root / "obj").items()}
+    extracted = {k: b for k, b in abc_files.items() if k.startswith("OBJ/")}
+    check(extracted == {f"OBJ/{k}": b for k, (b, _) in tree(root / "inputs" / "OBJ").items()},
+          "the ABC stage's OBJs differ from the OBJ project's")
+    rest = {k: b for k, b in abc_files.items() if not k.startswith("OBJ/")}
+    check(sorted(rest) == sorted(obj_files), "the ABC project wrote other files")
+    differ = [k for k in rest if rest[k] != obj_files[k]]
+    check(not differ, f"the ABC and OBJ projects' bytes differ in {differ[:4]}")
+    check(runs["abc"]["launches"] == runs["obj"]["launches"] and runs["abc"]["launches"],
+          f"the ABC project launched {runs['abc']['launches']}, "
+          f"the OBJ project {runs['obj']['launches']}")
+    small = np.stack([np.roll(textures[i, :ABC_CPU_SIDE, :ABC_CPU_SIDE], 5 * i, axis=1)
+                      for i in range(ABC_CPU_FRAMES)])
+    abc_c = abc_inputs(root / "inputs_c", ABC_CPU_FRAMES, ABC_CPU_GRID, small)
+    cut = {}
+    for where in ("cuda", "cpu"):
+        cfg = cli_config(root / f"c_{where}.json", abc_c[1:], root / f"c_{where}",
+                         ABCFilePath=abc_c[0], OBJFilesPath=None)
+        saved = os.environ.pop("UVT_PLATFORM", None)
+        if where == "cpu":
+            os.environ["UVT_PLATFORM"] = "cpu"
+        try:
+            cut[where] = cli_encode(torch, cfg)
+        finally:
+            os.environ.pop("UVT_PLATFORM", None)
+            if saved is not None:
+                os.environ["UVT_PLATFORM"] = saved
+    card = {k: b for k, (b, _) in tree(root / "c_cuda").items()}
+    cpu = {k: b for k, (b, _) in tree(root / "c_cpu").items()}
+    check(sorted(card) == sorted(cpu) and all(card[k] == cpu[k] for k in card),
+          "the ABC cut: card and CPU bytes differ")
+    check(cut["cuda"]["launches"] and cut["cpu"]["launches"] == {},
+          "the ABC cut: the card run launched no kernel, or the CPU run launched one")
+    out["abc"] = {
+        "frames": ABC_FRAMES, "files": len(abc_files),
+        "bytes": sum(map(len, rest.values())),
+        "abc_stage_s_per_frame": runs["abc"]["stage_s"]["cli.abc_s"] / ABC_FRAMES,
+        "encode_s": {k: v["wall_s"] for k, v in runs.items()},
+        "encode_fps": {k: ABC_FRAMES / v["wall_s"] for k, v in runs.items()},
+        "stage_s": {k: v["stage_s"] for k, v in runs.items()},
+        "launches": runs["abc"]["launches"],
+        "cut": {"files": len(card), "bytes_equal": True, "card_s": cut["cuda"]["wall_s"],
+                "cpu_s": cut["cpu"]["wall_s"], "card_launches": cut["cuda"]["launches"]},
+    }
+
+    # ---- V1: Corto frames in a .drcs, a 1024^2 H.264 texture, the facade -----
+    from uvol_tpu_torch.native.h264c import get_h264_lib
+
+    v1 = root / "v1"
+    v1.mkdir()
+    t = time.perf_counter()
+    check(get_h264_lib() is not None, "g++ built no H.264 library")
+    h264_build_s = time.perf_counter() - t
+    w = DrcsWriter(frame_rate=30.0)
+    t = time.perf_counter()
+    for i in range(V1_FRAMES):
+        pos, uv, _nrm, faces = grid_mesh(*DRC_GRID, seed=i)
+        w.add_frame(encode_crt(pos, faces, uvs=uv), vertices=len(pos), faces=len(faces))
+    crt_encode_s = (time.perf_counter() - t) / V1_FRAMES
+    w.save(str(v1 / "track.drcs"))
+    layers = textures[:V1_FRAMES]
+    t = time.perf_counter()
+    mp4 = encode_v1_texture_video(layers, fps=30.0, codec="h264", qp=V1_QP, gop=V1_GOP)
+    h264_encode_s = (time.perf_counter() - t) / V1_FRAMES
+    (v1 / "track.mp4").write_bytes(mp4)
+    reader = DrcsReader.open(str(v1 / "track.drcs"))
+    meshes, crt_s = [], []
+    for i in range(V1_FRAMES):
+        data = reader.read_frame(i)
+        t = time.perf_counter()
+        meshes.append(decode_crt(data))
+        crt_s.append(time.perf_counter() - t)
+    reader.close()
+    tex, h264_s, mse = Mp4VideoTexture(mp4), [], []
+    for i in range(V1_FRAMES):
+        t = time.perf_counter()
+        rgb = tex.frame_rgb(i)
+        h264_s.append(time.perf_counter() - t)
+        check(rgb.shape == (H, W, 3), "the V1 texture's frame shape")
+        check(decode_baked_frame_number(rgb) == i, f"frame {i}'s baked counter")
+        # PSNR above the counter strip (its blocks are the baked bits)
+        body = slice(0, H - 8)
+        mse.append(float(((rgb[body].astype(np.float64) - layers[i][body]) ** 2).mean()))
+    psnr = 10 * np.log10(255.0**2 / max(np.mean(mse), 1e-12))
+    check(psnr > 30.0, f"the V1 texture's PSNR {psnr:.2f} dB")
+    # the Python decode path against the native one, on a cut
+    cut_mp4 = encode_v1_texture_video(textures[:V1_PY_FRAMES, :V1_PY_SIDE, :V1_PY_SIDE],
+                                      fps=30.0, codec="h264", qp=V1_QP, gop=V1_GOP)
+    dec_ms = {}
+    frames_by_path = {}
+    for path in ("native", "python"):
+        os.environ.pop("UVT_DISABLE_NATIVE_H264", None)
+        if path == "python":
+            os.environ["UVT_DISABLE_NATIVE_H264"] = "1"
+        try:
+            tt, secs, got = Mp4VideoTexture(cut_mp4), [], []
+            for i in range(V1_PY_FRAMES):
+                t = time.perf_counter()
+                got.append(tt.frame_rgb(i))
+                secs.append(time.perf_counter() - t)
+        finally:
+            os.environ.pop("UVT_DISABLE_NATIVE_H264", None)
+        dec_ms[path] = [s * 1e3 for s in secs]
+        frames_by_path[path] = got
+    check(all(np.array_equal(a, b) for a, b in zip(*frames_by_path.values())),
+          "the Python H.264 decode differs from the native one")
+    # the facade on a virtual clock: every tick's frame from the baked counter
+    vc = VirtualClock()
+    ended = []
+    p = Player(play_mode=PlayMode.single, paths=[str(v1 / "track.manifest")],
+               on_track_end=lambda: ended.append(1), device=DEVICE,
+               v1_player_kwargs={"clock": PlaybackClock(now=vc)})
+    p.set_track_path()
+    check(not p.is_v2 and p.v1_instance.video is not None, "the facade took no V1 texture")
+    ticks, tick_s, shown = [], [], set()
+    while not ended:
+        check(len(ticks) < 10000, "the V1 track never ended")
+        video = p.v1_instance.video
+        t = time.perf_counter()
+        r = p.update()
+        tick_s.append(time.perf_counter() - t)
+        ticks.append(r.status)
+        if r.status == "ok":
+            check(video.read_baked_frame_number() == r.frame,
+                  f"tick {len(ticks)}: the counter does not name frame {r.frame}")
+            check(same_corto_mesh(r.geometry, meshes[r.frame]),
+                  f"frame {r.frame}: the geometry differs from decode_crt's")
+            shown.add(r.frame)
+        vc.advance(CLI_TICK)
+    p.dispose()
+    check(shown == set(range(V1_FRAMES)), f"frames {set(range(V1_FRAMES)) - shown} never showed")
+    manifest = parse_manifest((v1 / "track.manifest").read_bytes())
+    out["v1"] = {
+        "frames": V1_FRAMES, "vertices": manifest.maxVertices, "faces": manifest.maxTriangles,
+        "drcs_bytes": (v1 / "track.drcs").stat().st_size, "mp4_bytes": len(mp4),
+        "texture_psnr_db": psnr, "h264_library_build_s": h264_build_s,
+        "crt_encode_s_per_frame": crt_encode_s,
+        "h264_encode_s_per_frame": h264_encode_s, "qp": V1_QP, "gop": V1_GOP,
+        "crt_decode": spread_ms(crt_s), "h264_decode_native": spread_ms(h264_s),
+        f"h264_decode_{V1_PY_SIDE}": dec_ms,
+        "ticks": len(ticks), "statuses": {s: ticks.count(s) for s in sorted(set(ticks))},
+        "first_tick_ms": tick_s[0] * 1e3, "update": spread_ms(tick_s[1:]),
+        "holds_33_ms": max(tick_s[1:]) < 1 / 30,
+    }
+
+    # ---- corto_cli on one grid OBJ, in a process of its own ------------------
+    pos, uv, nrm, faces = grid_mesh(*DRC_GRID, seed=0)
+    write_obj(v1 / "grid.obj", pos, uv, nrm, faces)
+    repo = Path(__file__).resolve().parent
+    proc = subprocess.run([sys.executable, "-m", "uvol_tpu_torch.corto_cli",
+                           str(v1 / "grid.obj"), "-o", str(v1 / "grid.crt")],
+                          cwd=repo, capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(repo)})
+    check(proc.returncode == 0, f"corto_cli exited {proc.returncode}: {proc.stderr[-500:]}")
+    lines = proc.stdout.splitlines()
+    check(lines[0] == f"loaded {v1 / 'grid.obj'}: {len(pos)} vertices, {len(faces)} faces",
+          f"corto_cli counted otherwise: {lines[0]}")
+    crt = decode_crt((v1 / "grid.crt").read_bytes())
+    check(crt.nvert == len(pos) and crt.nface == len(faces), "corto_cli's .crt counts")
+    found = re.search(r"compressed (\d+) bytes, ratio ([\d.]+)x, ([\d.]+) bits/vertex"
+                      r".*decode throughput ([\d.]+) MT/s", proc.stdout, re.S)
+    check(found is not None, f"corto_cli printed no statistics: {lines}")
+    out["corto_cli"] = {"bytes": int(found[1]), "ratio": float(found[2]),
+                        "bits_per_vertex": float(found[3]), "decode_mt_s": float(found[4]),
+                        "stdout": lines}
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "uvol_tpu", "PIL"))
+    check(not loaded, f"modules of JAX, the JAX package or Pillow loaded: {loaded[:5]}")
+    out["total_s"] = time.perf_counter() - t0
+    emit(out)
+    shutil.rmtree(root, ignore_errors=True)
+    return runs["abc"]["launches"]
 
 
 def uastc_blocks(textures) -> np.ndarray:
@@ -3366,6 +3685,11 @@ def main() -> int:
     for k, v in uastc_cli_launches.items():
         cli_launches[k] = cli_launches.get(k, 0) + v
 
+    # ---- 10b. the last host paths: an Alembic project through the CLI, a V1
+    # track through the player, `corto_cli`. After every traced phase, as the
+    # CLI's own phase: no trace
+    abc_launches = abc_v1_path(torch, textures)
+
     # ---- 11. multi-device: the codecs with `mesh=` on ranks sharing the card (one
     # NCCL rank, then MD_SHARED gloo ranks), each in a process of its own
     md_launches = multidevice_path(torch, (positions, uvs, counts, faces, textures), t_start)
@@ -3463,6 +3787,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"uvol_tpu_torch/csrc/{src}",
             "replaces": f"uvol_tpu/{replaces}", "launches": launches[name],
             "launches_cli_player": cli_launches.get(name, 0),
+            # the Alembic project's encode (`abc_v1_path`), the OBJ project's counts
+            "launches_abc": abc_launches.get(name, 0),
             # each of the MD_SHARED ranks' launches on the multi-device path
             "launches_multidevice": md_launches.get(name),
             "max_abs_err": err[name], "ms": ms[timed], "plain_ms": ms[timed + "_plain"],

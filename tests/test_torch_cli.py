@@ -260,7 +260,7 @@ def test_a_changed_input_rewrites_only_its_output(tmp_path, jax_kernel_path, on_
     _assert_same_outputs(tmp_path)
 
 
-# ---- what the port refuses, and where it runs --------------------------------
+# ---- inputs the port once refused, and where it runs ------------------------
 
 
 @pytest.mark.parametrize("quality", [1, 2])
@@ -283,11 +283,21 @@ def test_uastc_quality_writes_the_reference_files(tmp_path, on_cpu, quality):
     {"ABCFilePath": "/data/take.abc"},
 ])
 def test_unported_inputs_are_refused_before_any_output(tmp_path, capsys, on_cpu, over):
-    cfg = _make_assets(tmp_path, **over)
-    assert tcli.main([cfg]) == 1
-    out = capsys.readouterr().out
-    assert out.startswith("error: ") and "item 5" in out
-    assert not (tmp_path / "output").exists()
+    """An input the port once refused now behaves as in the reference CLI
+    (tests/test_torch_alembic.py encodes a real `ABCFilePath` project): a
+    missing archive raises the same error after the same output, an empty
+    output directory."""
+    ref, port = _both(tmp_path, **over)
+    errors, outs = [], []
+    for main, cfg, side in ((jcli.main, ref, "ref"), (tcli.main, port, "port")):
+        with pytest.raises(Exception) as e:
+            main([cfg])
+        errors.append((type(e.value), str(e.value)))
+        outs.append(capsys.readouterr().out.replace(str(tmp_path / side), "<root>"))
+    assert errors[0] == errors[1] and errors[0][0] is FileNotFoundError
+    assert outs[0] == outs[1]
+    assert _tree(tmp_path / "port" / "output") == _tree(tmp_path / "ref" / "output") == {}
+    assert (tmp_path / "port" / "output").is_dir()
 
 
 def test_cli_needs_the_card_unless_told_the_cpu(tmp_path, monkeypatch):

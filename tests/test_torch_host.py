@@ -1224,3 +1224,145 @@ def test_corto_copy_decodes_the_fixture(path, staged, monkeypatch):
 def test_corto_native_library_builds():
     """g++ builds the port's Corto library (zlib linked)."""
     assert tnative.get_corto_lib() is not None
+
+
+# ---- the last host paths: copies of the reference's modules -------------------
+
+import ast  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _code_only(path: Path, only=None) -> str:
+    """The module's syntax tree without docstrings, its `uvol_tpu` imports
+    named as the port's; `only` keeps the named top-level definitions."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef, ast.AsyncFunctionDef))
+                and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant) and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+        if isinstance(node, ast.ImportFrom) and node.module and \
+                node.module.split(".")[0] == "uvol_tpu":
+            node.module = "uvol_tpu_torch" + node.module[len("uvol_tpu"):]
+    if only is not None:
+        tree.body = [n for n in tree.body if getattr(n, "name", None) in only]
+        assert {n.name for n in tree.body} == set(only)
+    return ast.dump(tree)
+
+
+COPIES = ["io/ogawa.py", "io/alembic.py", "corto_cli.py", "containers/drcs.py",
+          "containers/mp4.py", "player/v1.py", "codecs/h264.py", "codecs/h264_intra.py",
+          "codecs/h264_cabac.py", "native/h264_cabac_tables.py", "models/decimate.py"]
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copied_module_is_the_reference_code(rel):
+    """Each copy holds the reference's code (docstrings aside) with its
+    imports pointed at the port."""
+    assert _code_only(REPO / "uvol_tpu_torch" / rel) == _code_only(REPO / "uvol_tpu" / rel)
+
+
+@pytest.mark.parametrize("rel,only", [
+    ("player/scheduler.py", ["V1RequestPacer", "get_current_frame", "plan_prefetch",
+                             "eviction_thresholds"]),
+    ("io/video.py", ["Mp4VideoTexture", "_require_pil"]),
+    ("native/h264c.py", ["encode_slice_native", "encode_p_slice_native",
+                         "native_motion_available", "encode_p_slice_motion_native",
+                         "decode_slice_native", "yuv420_to_rgb_native", "_vp"]),
+])
+def test_changed_copies_keep_the_reference_code_elsewhere(rel, only):
+    """The copies changed in one place (the H.264 library's build, where
+    Pillow is asked for) hold the reference's code in every other
+    definition."""
+    assert _code_only(REPO / "uvol_tpu_torch" / rel, only) == \
+        _code_only(REPO / "uvol_tpu" / rel, only)
+
+
+@pytest.mark.parametrize("name", ["h264_native.cpp", "h264_tables.inc"])
+def test_h264_native_sources_are_copied_byte_for_byte(name):
+    assert (REPO / "uvol_tpu_torch" / "native" / name).read_bytes() == \
+        (REPO / "uvol_tpu" / "native" / name).read_bytes()
+
+
+def _sphere(nu=24, nv=18):
+    """tests/test_models.py's tessellated sphere."""
+    verts, faces = [], []
+    for i in range(nu):
+        for j in range(nv):
+            th, ph = np.pi * (j + 0.5) / nv, 2 * np.pi * i / nu
+            verts.append([np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph), np.cos(th)])
+    idx = lambda i, j: (i % nu) * nv + max(0, min(j, nv - 1))  # noqa: E731
+    for i in range(nu):
+        for j in range(nv - 1):
+            a, b, c, d = idx(i, j), idx(i + 1, j), idx(i + 1, j + 1), idx(i, j + 1)
+            faces += [[a, b, c], [a, c, d]]
+    return np.asarray(verts, np.float32), np.asarray(faces, np.int64)
+
+
+@pytest.mark.parametrize("mesh,kw", [
+    ("sphere", {"target_vertices": 432 // 4}),
+    ("sphere", {"target_ratio": 0.7}),
+    ("grid", {"target_ratio": 0.5}),
+])
+def test_decimate_mesh_matches(mesh, kw):
+    from uvol_tpu.models.decimate import decimate_mesh as jdecimate
+    from uvol_tpu_torch.models.decimate import decimate_mesh
+
+    if mesh == "sphere":
+        pos, faces = _sphere()
+    else:
+        pos, faces = _corto_grid(16)
+    a, b = decimate_mesh(pos, faces, **kw), jdecimate(pos, faces, **kw)
+    for name in ("positions", "faces", "kept_original_ids", "collapse_map", "collapse_order"):
+        x, y = getattr(a, name), getattr(b, name)
+        assert x.dtype == y.dtype, name
+        np.testing.assert_array_equal(x, y, err_msg=name)
+    assert len(a.faces) < len(faces)
+
+
+def _obj_grid(path: Path, normals: bool):
+    pos, faces = _corto_grid(20)
+    lines = [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in pos]
+    lines += [f"vt {x / 2:.6f} {y / 2:.6f}" for x, y, _ in pos]
+    if normals:
+        lines += ["vn 0 0 1"]
+        lines += ["f {0}/{0}/1 {1}/{1}/1 {2}/{2}/1".format(*(f + 1)) for f in faces]
+    else:
+        lines += ["f {0}/{0} {1}/{1} {2}/{2}".format(*(f + 1)) for f in faces]
+    path.write_text("\n".join(lines) + "\n")
+
+
+@pytest.mark.parametrize("args,normals", [([], False), (["-v", "14"], False), (["-N"], True)])
+def test_corto_cli_matches(tmp_path, capsys, args, normals):
+    """`python -m uvol_tpu_torch.corto_cli`: the reference's `.crt` bytes,
+    exit code and printed counts (the timing lines aside)."""
+    from uvol_tpu import corto_cli as jcli
+    from uvol_tpu_torch import corto_cli as tcli
+
+    mesh = tmp_path / "grid.obj"
+    _obj_grid(mesh, normals)
+    outs = []
+    for main, name in ((tcli.main, "port.crt"), (jcli.main, "ref.crt")):
+        assert main([str(mesh), "-o", str(tmp_path / name), *args]) == 0
+        text = capsys.readouterr().out.replace(name, "<out>")
+        outs.append([ln for ln in text.splitlines() if not ln.startswith(("encoded", "decode"))])
+    assert outs[0] == outs[1]
+    assert outs[0][0] == f"loaded {mesh}: 400 vertices, 722 faces"
+    assert (tmp_path / "port.crt").read_bytes() == (tmp_path / "ref.crt").read_bytes()
+
+
+def test_corto_cli_runs_as_a_module(tmp_path):
+    """The module entry point, in a process of its own."""
+    import os
+    import subprocess
+    import sys
+
+    mesh = tmp_path / "grid.obj"
+    _obj_grid(mesh, False)
+    proc = subprocess.run([sys.executable, "-m", "uvol_tpu_torch.corto_cli", str(mesh)],
+                          cwd=tmp_path, env=dict(os.environ, PYTHONPATH=str(REPO)),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "bits/vertex" in proc.stdout and (tmp_path / "grid.crt").exists()

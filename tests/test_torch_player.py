@@ -319,14 +319,40 @@ def test_default_geometry_decoder_on_grid_fixture():
 
 
 def test_v1_manifest_raises(tmp_path):
-    v1 = {"maxVertices": 10, "maxTriangles": 10, "frameRate": 30,
-          "frameData": [{"frameNumber": 0, "keyframeNumber": 0, "startBytePosition": 0,
-                         "vertices": 3, "faces": 1, "meshLength": 10}]}
-    path = tmp_path / "track.manifest"
-    path.write_text(json.dumps(v1))
-    p = Player(play_mode=PlayMode.single, paths=[str(path)], device="cpu")
-    with pytest.raises(NotImplementedError, match="V1"):
+    """A V1 manifest, once refused by the port, plays as in the reference:
+    three Corto frames in a `.drcs` beside it, no `.mp4` (the track plays
+    on the clock, untextured), read through the default file fetcher."""
+    from uvol_tpu_torch.codecs.corto.encoder import encode_crt
+    from uvol_tpu_torch.containers.drcs import DrcsWriter
+
+    w = DrcsWriter(frame_rate=30)
+    pos = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [1, 1, 0]], np.float32)
+    faces = np.array([[0, 1, 2], [1, 3, 2]], np.int32)
+    for f in range(3):
+        w.add_frame(encode_crt(pos + 0.1 * f, faces), vertices=4, faces=2)
+    w.save(str(tmp_path / "track.drcs"))
+    path = str(tmp_path / "track.manifest")
+    runs = []
+    for make, clock, virtual, mode in (
+            (lambda **kw: Player(device="cpu", **kw), PlaybackClock, VirtualClock, PlayMode),
+            (JPlayer, JClock, JVirtual, JPlayMode)):
+        vc = virtual()
+        p = make(play_mode=mode.single, paths=[path], on_track_end=lambda: None,
+                 v1_player_kwargs={"clock": clock(now=vc)})
         p.set_track_path()
+        assert not p.is_v2 and p.v1_instance.video is None
+        ticks = []
+        for _ in range(12):
+            r = p.update()
+            if r is None:
+                break
+            geo = r.geometry
+            ticks.append((r.status, r.frame, None if geo is None else
+                          (geo.faces.tolist(), geo.attributes["position"].tolist())))
+            vc.advance(1 / 60)
+        runs.append(ticks)
+    assert runs[0] == runs[1]
+    assert [t[1] for t in runs[0] if t[0] == "ok"][-1] == 2
 
 
 @pytest.mark.parametrize("make", ["player", "v2_player"])

@@ -138,6 +138,13 @@ def test_port_imports_only_jax_free_host_modules():
             seen.add(name)
     assert "uvol_tpu_torch.codecs.symbol_coding" in seen
     assert "uvol_tpu_torch.native" in seen
+    # the last host paths' modules are among those scanned
+    for name in ("io.ogawa", "io.alembic", "containers.drcs", "containers.mp4", "player.v1",
+                 "codecs.h264", "codecs.h264_intra", "native.h264_cabac_tables",
+                 "native.h264c", "codecs.corto.decoder", "io.meshio", "io.video"):
+        assert f"uvol_tpu_torch.{name}" in seen, name
+    for rel in ("corto_cli.py", "codecs/h264_cabac.py", "models/decimate.py"):
+        assert (REPO / "uvol_tpu_torch" / rel) in files, rel
 
 
 def test_device_time_ms_sums_device_events_only():

@@ -24,8 +24,11 @@ the encoder and the C library, no torch: the CLI's own process may hold a
 CUDA context and threads, which a fork would copy); images are read as
 PNG by `io.image`, without Pillow.
 
-Refused before any output is written: an `ABCFilePath` input
-(ROADMAP.md §1 item 5).
+An `ABCFilePath` input is the primary geometry input when present, as in
+the reference: `io.alembic` reads the archive and writes one OBJ a sample
+under `OutputDirectory/OBJ/` (the reference's text, `%.6f`), which then
+take the OBJ path above (the reference UVOL's Blender stage,
+scripts/Encoder.py:207-242, without the subprocess).
 
 A script that calls `main()` itself does so under
 `if __name__ == "__main__":`: the spawned Draco workers import the
@@ -116,16 +119,6 @@ def _texture_codec_names(cfg: Dict) -> List[str]:
     ) or ["etc"]  # empty config value keeps the fast-path target
 
 
-def unported_inputs(cfg: Dict) -> List[str]:
-    """What the port refuses before it writes anything, each naming the
-    ROADMAP item that would port it."""
-    problems = []
-    if cfg.get("ABCFilePath"):
-        problems.append("ABCFilePath: the Alembic input (io/alembic.py, io/ogawa.py) is not "
-                        "ported (ROADMAP.md §1 item 5); give OBJFilesPath")
-    return problems
-
-
 def _expand(pattern: str) -> List[str]:
     from uvol_tpu_torch.utils.paths import pattern_to_glob
 
@@ -201,6 +194,40 @@ def _holds(path: str, text: str) -> bool:
             return f.read() == text.encode()
     except OSError:
         return False
+
+
+def _extract_abc_frames(cfg: Dict, out_dir: str) -> str:
+    """ABC → per-frame OBJ extraction stage, mirroring the reference's
+    Blender import/export loop (scripts/Encoder.py:207-242: per frame
+    `frame_set` + `export_scene.obj` into OutputDirectory/OBJ) — here the
+    `.abc` is read directly (io/alembic.py), no DCC subprocess. Returns
+    the OBJ path template for the downstream geometry stages. An OBJ that
+    already holds its text is left as it is."""
+    from uvol_tpu_torch.io.alembic import AbcPolyMesh, read_abc
+
+    archive = read_abc(cfg["ABCFilePath"])
+    mesh = AbcPolyMesh(archive)
+    obj_dir = os.path.join(out_dir, "OBJ")
+    os.makedirs(obj_dir, exist_ok=True)
+    for i in range(mesh.num_samples):
+        s = mesh.sample(i)
+        lines = [f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}" for p in s.positions]
+        if s.uvs is not None:
+            lines += [f"vt {u[0]:.6f} {u[1]:.6f}" for u in s.uvs]
+            lines += [
+                "f {0}/{0} {1}/{1} {2}/{2}".format(*(f + 1))
+                for f in s.faces
+            ]
+        else:
+            lines += ["f {} {} {}".format(*(f + 1)) for f in s.faces]
+        path = os.path.join(obj_dir, f"{i:05d}.obj")
+        text = "\n".join(lines) + "\n"
+        if not _holds(path, text):
+            with open(path, "w") as fh:
+                fh.write(text)
+    cfg.setdefault("GEOMETRY_FRAME_RATE", archive.fps)
+    print(f"alembic: {mesh.num_samples} samples -> {obj_dir}")
+    return os.path.join(obj_dir, "[#####].obj")
 
 
 def _encode_draco_frame(args):
@@ -450,11 +477,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         for p in problems:
             print(f"error: {p}")
         return 1
-    refused = unported_inputs(cfg)
-    if refused:
-        for p in refused:
-            print(f"error: {p}")
-        return 1
     # the card unless UVT_PLATFORM names the CPU; no card raises here,
     # before anything is written
     device = resolve_device(os.environ.get("UVT_PLATFORM") or None)
@@ -475,6 +497,12 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     # ---- geometry -----------------------------------------------------------
     n_geo = 0
+    # ABCFilePath is the primary input when present (the reference's ABC
+    # stage likewise exports per-frame OBJs that feed the rest of the
+    # pipeline, scripts/Encoder.py:207-242)
+    if cfg.get("ABCFilePath"):
+        with STATS.timer("cli.abc_s"):
+            cfg["OBJFilesPath"] = _extract_abc_frames(cfg, out_dir)
     if cfg.get("OBJFilesPath"):
         objs = _expand(cfg["OBJFilesPath"])
         if not objs:

@@ -29,6 +29,10 @@ copies of the reference's) is a third library, linked with `entropy.cpp`
 `get_corto_lib()`: the copied `codecs/corto/` takes it first and its
 Python paths (identical bytes) without it.
 
+The H.264 slice codec (`h264_native.cpp` with its `h264_tables.inc`,
+unchanged copies of the reference's) is a fourth library, loaded by
+`native/h264c.py` through `build(H264_SOURCES, "h264", headers=...)`.
+
 A failed build is not remembered: `get_lib()` and `get_draco_lib()`
 return None, the callers take their Python paths (identical bytes,
 slower), and the next call tries again.
@@ -57,6 +61,8 @@ DRACO_SOURCES = (_HERE / "draco_native.cpp", _HERE / "draco_frame.cpp",
                  _HERE / "draco_frame_enc.cpp", _HERE / "entropy.cpp")
 CORTO_SOURCES = (_HERE / "corto_native.cpp", _HERE / "corto_frame.cpp", _HERE / "entropy.cpp")
 CORTO_LIBS = ("-lz",)  # the ZLIB entropy mode of corto_frame.cpp
+H264_SOURCES = (_HERE / "h264_native.cpp",)
+H264_HEADERS = (_HERE / "h264_tables.inc",)  # #included by h264_native.cpp
 BUILD_DIR = _HERE.parents[1] / "build" / "uvol_tpu_torch"
 GXX_FLAGS = ["-O3", "-ffp-contract=off", "-shared", "-fPIC"]
 _I64P = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
@@ -68,23 +74,23 @@ _corto_lib: Optional[ctypes.CDLL] = None
 
 
 def library_path(sources: Optional[Sequence[Path]] = None, stem: str = "host",
-                 libs: Sequence[str] = ()) -> Path:
+                 libs: Sequence[str] = (), headers: Sequence[Path] = ()) -> Path:
     """The library of `sources` (default `SOURCES`) linked with `libs`,
-    named after their hash."""
+    named after their hash and that of the `headers` they include."""
     h = hashlib.sha256(" ".join([*GXX_FLAGS, *libs]).encode())
-    for src in SOURCES if sources is None else sources:
+    for src in [*(SOURCES if sources is None else sources), *headers]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libuvol_tpu_torch_{stem}_{h.hexdigest()[:16]}.so"
 
 
 def build(sources: Optional[Sequence[Path]] = None, stem: str = "host",
-          libs: Sequence[str] = ()) -> Optional[Path]:
+          libs: Sequence[str] = (), headers: Sequence[Path] = ()) -> Optional[Path]:
     """Compile the sources (default `SOURCES`), linked with `libs`, if the
-    library for their hash is missing; returns its path, or None when g++
-    is missing or fails."""
+    library for their hash (`headers` included) is missing; returns its
+    path, or None when g++ is missing or fails."""
     sources = SOURCES if sources is None else sources
-    so = library_path(sources, stem, libs)
+    so = library_path(sources, stem, libs, headers)
     if so.exists():
         return so
     gxx = shutil.which("g++")

@@ -6,9 +6,7 @@ window computation (`fetchBuffers`, :272-323), and the eviction margins
 (`update`, :533-546). Keeping this pure makes it trivially testable against
 a virtual clock and usable from both the host player and device pipelines.
 
-The port's copy of `uvol_tpu/player/scheduler.py`, cut to the V2
-player's functions (`V1RequestPacer` is left out: the V1 player is not
-ported).
+The port's copy of `uvol_tpu/player/scheduler.py`.
 """
 
 from __future__ import annotations
@@ -120,3 +118,43 @@ def eviction_thresholds(
         current_texture_segment - texture_render_count,
     )
 
+
+@dataclasses.dataclass
+class V1RequestPacer:
+    """V1 worker request pacing (src/V1/player.ts:206-246).
+
+    At most 3 requests in flight, `targetFramesToRequest`-sized ranges,
+    stop at `frameCount`; playback is allowed to start once the buffer
+    holds 3× target frames (or the track end was reached).
+    """
+
+    target_frames_to_request: int
+    frame_count: int
+    next_request_frame: int = 0
+    in_flight: int = 0
+
+    BUFFER_FULL_FACTOR = 5  # reference: stop when buffered > 5× target
+    PLAY_FACTOR = 3
+
+    def next_range(self, buffered: int) -> Tuple[int, int] | None:
+        """Returns the next inclusive (start, end) frame range or None."""
+        if self.in_flight >= 3:
+            return None
+        if buffered > self.BUFFER_FULL_FACTOR * self.target_frames_to_request:
+            return None
+        if self.next_request_frame >= self.frame_count:
+            return None
+        start = self.next_request_frame
+        end = min(start + self.target_frames_to_request - 1, self.frame_count - 1)
+        self.next_request_frame = end + 1
+        self.in_flight += 1
+        return start, end
+
+    def on_response(self) -> None:
+        self.in_flight = max(0, self.in_flight - 1)
+
+    def can_start_playback(self, buffered: int) -> bool:
+        return (
+            buffered >= self.PLAY_FACTOR * self.target_frames_to_request
+            or self.next_request_frame >= self.frame_count
+        )
