@@ -121,16 +121,25 @@ the mesh and point-cloud ops and models, whose kernels are U3-U5
 (`csrc/mesh_ops.cu`): U3 (`estimate_normals`), U4 (the point-cloud
 stage's quantize and Morton keys) and U5 (`parallelogram_decode`) are
 held bit for bit against their twins on edge cases (-1 face
-rows, isolated and degenerate faces, a vertex in 1,000 faces; coordinates
-at 0 and 2^21 - 1, duplicates, N = 1 and off every CTA size; forward and
-out-of-range indices, a = -1 with any b and c, values near +-2^31, 1 to 4
-components, N = 1). Then, on 32 displaced 83 x 315 grids (26,145
+rows, isolated and degenerate faces, a vertex in 1,000 faces, indices past
+N, one face, 2,000 padding rows on vertex 0, rows of 512 and 513 keys
+(the normals kernel's window and radix sort), three count ranges of 57,344
+vertices; coordinates at 0 and 2^21 - 1, duplicates, N = 1 and off every
+CTA size; forward and out-of-range indices, a = -1 with any b and c,
+values near +-2^31, 1 to 5 and 9 components, N = 1, references exactly 1
+to 5 steps back, the grid's parallelograms off the tile grid). Then, on
+32 displaced 83 x 315 grids (26,145
 vertices, 51,496 faces), counted from 0: `PointCloudSequenceCodec`
 encode and decode (the CPU port's `.crt` bytes), `fit_trajectories`
 (samples against the CPU port's), `estimate_normals` per frame, and
 `parallelogram_encode`/`parallelogram_decode` of the positions at 11 bits
 and the UVs at 10 with the grid's own parallelograms (the decode gives
-back its input); U3, U4 and U5 must each launch. The point-cloud stage
+back its input); U3 (3 kernels a call: count, fill, normals; a traced
+call must issue those 3 launches, no copy or memset, and no other
+device kernel), U4 and U5 must each launch. The probe kernel times a dependent integer add on the card
+(cycles, printed with the card's name and power limit), which times the
+longest path through a U5 chain (`u5_chain_depth`) gives U5's chain
+bound. The point-cloud stage
 runs again on 8 x 1,048,576 points (a captured cloud's scale). It prints
 each kernel's time per call and alone, its twin's time, launches per
 call, the stable sort's time beside U4's and the `.crt` host encode and
@@ -141,8 +150,8 @@ trace) holds the kernels past their former limits bit for bit against
 their twins: the segment sum (random and skewed), K4, K6 and K7 (with and
 without a previous frame, ties at lam 0) at 2,049, 4,096 and 16,128
 entries, which the segment sum and K6 take in windows of 2,048 and K7 on
-its wide path; U5 at [8, 200,000, 3] and [1, 54,017, 2] (the prefix in
-device memory) and at 65,536 frames, against the CPU twin. It encodes
+its wide path; U5 at [8, 200,000, 3], [1, 54,017, 2], [1, 54,016, 3],
+[1, 54,015, 5] and at 65,536 frames, against the CPU twin. It encodes
 B's segment (5 layers of 1024^2) at 4,096/4,096 endpoints and selectors:
 K4-K7 and the segment sum must launch, the encode must repeat its bytes,
 and the card's bytes must equal the CPU port's on the bench texture's
@@ -258,7 +267,7 @@ WRAPPER_KERNELS = {
     "etc1s_rate_sweep": ("rate_sweep_frame_kernel",),
     "drc_fused_batch": ("drc_fused_batch_kernel",),
     "uastc_device_fit": ("uastc_device_fit_kernel",),
-    "estimate_normals": ("estimate_normals_kernel",),
+    "estimate_normals": ("normals_count_kernel", "normals_fill_kernel", "estimate_normals_kernel"),
     "morton_keys": ("morton_keys_kernel",),
     "parallelogram_decode": ("parallelogram_decode_kernel",),
 }
@@ -404,10 +413,15 @@ WIDE_K7_FRAME = (64, 256)
 WIDE_PALETTE = 4096
 WIDE_CPU_SIDE = 256
 WIDE_TIMED = (4096, 16128)
-#: U5 past one CTA's shared-memory prefix (54,016 vertices) and past one
-#: launch's 65,535 frames: (frames, vertices, components), each held against
-#: the CPU twin; the first is timed
-U5_WIDE_SHAPES = ((8, 200000, 3), (1, 54017, 2), (65536, 3, 1))
+#: U5 on long chains (200,000 vertices, and either side of 54,016, where a
+#: chain's whole prefix no longer fits one CTA's shared memory; 5 components: a
+#: group of 4 and one of 1) and past one launch's 65,535 frames: (frames,
+#: vertices, components), each held against the CPU twin; the first is timed
+U5_WIDE_SHAPES = ((8, 200000, 3), (1, 54017, 2), (65536, 3, 1), (1, 54016, 3), (1, 54015, 5))
+#: U5 at the main path's shape on near references: a grid of DRC_GRID's
+#: 26,145 vertices in rows of 105, shorter than a tile of 128 steps, so that
+#: every tile reads the ring (DRC_GRID's rows of 315 never do)
+U5_NEAR_GRID = (249, 105)
 #: `python_draco_path`: PYDRC_FRAMES OBJ frames of DRC_GRID grids and their
 #: layers at PYDRC_SIDE^2 encoded by the CLI (draco + etc), the `.drc` frames
 #: then rewritten with the standard edge coder, which only the copied Python
@@ -417,11 +431,17 @@ PYDRC_SIDE = 256
 #: trajectory samples on the card against the CPU port's: within this share of
 #: the positions' scale (the float64 solve amplifies V^T y's float32 sum order)
 TRAJ_REL_TOL = 1e-4
-#: U5's dependent chain: per step two dependent shared-memory loads (the index,
-#: then the prefix value) and the stored sum the next step may read, assumed
-#: ~30 cycles each at the H100 SXM's 1,980 MHz boost clock
-U5_STEP_CYCLES = 90
+#: U5's chain bound: the longest path through a chain's dependence graph
+#: (`u5_chain_depth`), each step one dependent integer add, whose cycles the
+#: probe kernel times on the card, at the H100 SXM's 1,980 MHz boost clock
 SM_CLOCK_HZ = 1.98e9
+#: the kernel names of `_build.kernel_attrs()` a kernels-line row reports, where
+#: they are not WRAPPER_KERNELS' (U5's instantiations for the positions' 3 and
+#: the UVs' 2 components)
+KERNEL_ATTR_NAMES = {"parallelogram_decode": ("parallelogram_decode_kernel<3>",
+                                              "parallelogram_decode_kernel<2>")}
+#: U3's kernels a call: the count, the fill, the normals
+U3_KERNELS_PER_CALL = 3
 #: K3's and the minimum/maximum's kernel names in a profiler trace (csrc/geometry.cu)
 K3_KERNEL_NAME = WRAPPER_KERNELS["quantize_delta_zigzag"][0]
 MINMAX_KERNEL_NAME = WRAPPER_KERNELS["geometry_minmax"][0]
@@ -997,31 +1017,35 @@ def kernel_only_ms(torch, fn, names, reps: int = REPS) -> tuple:
     return sum(float(np.mean(t)) for t in times.values()), {n: len(t) for n, t in times.items()}
 
 
-def launches_per_call(torch, fn, names) -> int:
-    """Device kernels one call of fn runs, from a profiler trace of
-    `LAUNCH_COUNT_CALLS` calls; fails if the trace holds a device event
-    of another name. A trace in which some name of `names` is not seen
-    a nonzero multiple of the calls' number of times has lost events,
-    and is taken again like `kernel_only_ms`'s, `TRACE_ATTEMPTS` times
-    in all."""
+def launches_per_call(torch, fn, names) -> dict:
+    """Device work one call of fn issues, from the host side of a profiler
+    trace of `LAUNCH_COUNT_CALLS` calls: the runtime's kernel launches,
+    copies and memsets per call. The host-side records were whole in every
+    trace, also where the profiler dropped device events late in a long
+    run; the device events the trace kept are checked by name: fails if
+    one is not of `names`."""
     fn()
-    for attempt in range(TRACE_ATTEMPTS):
+    torch.cuda.synchronize()
+    with padded_trace(torch) as prof:
+        for _ in range(LAUNCH_COUNT_CALLS):
+            fn()
         torch.cuda.synchronize()
-        with padded_trace(torch) as prof:
-            for _ in range(LAUNCH_COUNT_CALLS):
-                fn()
-        kernels = [e.name for e in device_events(torch, prof)]
-        seen = {n: sum(n in kn for kn in kernels) for n in names}
-        short = [n for n, c in seen.items() if c == 0 or c % LAUNCH_COUNT_CALLS]
-        if not short:
-            break
-        TRACES_RETAKEN.append(short)
-        emit({"phase": "trace_retaken", "attempt": attempt + 1, "missing": short,
-              "seen": seen})
-    check(not short, f"the profiler lost launches of {short} in every trace: {seen}")
+    issued = {"launches": -2, "copies": 0, "memsets": 0}  # the two pad kernels
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            for key, api in (("launches", "LaunchKernel"), ("copies", "Memcpy"),
+                             ("memsets", "Memset")):
+                issued[key] += e.name.startswith(("cuda", "cu")) and api in e.name
+    kernels = [e.name for e in device_events(torch, prof)]
     check(all(any(n in kn for n in names) for kn in kernels),
           f"unexpected device events: {[kn[:60] for kn in kernels]}")
-    return len(kernels) // LAUNCH_COUNT_CALLS
+    return {k: v / LAUNCH_COUNT_CALLS for k, v in issued.items()}
+
+
+def kernels_only(launches: int) -> dict:
+    """What `launches_per_call` gives for a call of `launches` kernels and
+    no copy or memset."""
+    return {"launches": launches, "copies": 0, "memsets": 0}
 
 
 def etc1s_main_path(torch, textures) -> tuple:
@@ -1167,7 +1191,8 @@ def etc1s_times(torch, dev, textures, inten_args, median_cuda_ms) -> tuple:
                          ("etc1s_segment_sum",
                           lambda: k.segment_sum(seg_idx[:rows], sk, seg_x[:rows])))
     }
-    check(set(per_call.values()) == {2}, f"kernel launches per call: {per_call}")
+    check(all(v == kernels_only(2) for v in per_call.values()),
+          f"kernel launches per call: {per_call}")
     # the encode, and the two stages inside it: the device-resident palette
     # core, and the build (upload, core, refine, fetch, host relabel)
     kw = dict(num_endpoints=ETC1S_PALETTE, num_selectors=ETC1S_PALETTE, device=DEVICE)
@@ -1865,6 +1890,25 @@ def mesh_op_cases(r) -> tuple:
             np.array([np.roll([0, j + 1, j + 2], j % 3) for j in range(1000)], np.int32)),
         "random_shared": (r.normal(size=(60, 3)).astype(np.float32),
                           r.integers(0, 60, (4000, 3)).astype(np.int32)),
+        # U3's CSR hazards: indices past N beside -1 entries, isolated vertices,
+        # one face, 2,000 padding rows on vertex 0 (a row of 6,000+ keys: the
+        # long-row path's radix sort), and three count ranges of 57,344 vertices
+        "out_of_range": (r.normal(size=(50, 3)).astype(np.float32),
+                         np.concatenate([r.integers(-2, 60, (300, 3)), [[1, 10 ** 6, 2]]]
+                                        ).astype(np.int32)),
+        "isolated_vertices": (r.normal(size=(9, 3)).astype(np.float32),
+                              np.array([[0, 1, 2], [2, 3, 4]], np.int32)),
+        "one_face": (r.normal(size=(5, 3)).astype(np.float32), np.array([[3, 1, 2]], np.int32)),
+        "padding_on_vertex_0": (r.normal(size=(200, 3)).astype(np.float32),
+                                np.concatenate([r.integers(0, 200, (100, 3)),
+                                                np.full((2000, 3), -1)]).astype(np.int32)),
+        "three_ranges": (r.normal(size=(150000, 3)).astype(np.float32),
+                         r.integers(0, 150000, (300000, 3)).astype(np.int32)),
+        # the last row of the normals kernel's shared window, the first of its
+        # radix sort
+        **{f"fan_{k}": (r.normal(size=(k + 2, 3)).astype(np.float32),
+                        np.stack([np.zeros(k), np.arange(1, k + 1), np.arange(2, k + 2)],
+                                 1).astype(np.int32)) for k in (512, 513)},
     }
     u4 = {}
     for f, n in U4_EDGE_SHAPES:
@@ -1885,6 +1929,16 @@ def mesh_op_cases(r) -> tuple:
         b = np.where(r.random((2, n)) < 0.1, n - 1, i - r.integers(-2, 6, (2, n)))
         c = np.where(r.random((2, n)) < 0.1, 0, i + r.integers(-5, 40, (2, n)))  # past N too
         u5[f"chain_{n}x{d}"] = (res.astype(np.int32), np.stack([a, b, c], -1).astype(np.int32))
+    # U5's pipeline hazards: references exactly 1 to 5 steps back (the carry,
+    # the late reads, the first value loaded ahead), the grid's parallelograms
+    # off the tile grid, and 5 and 9 components (groups of 4 and the rest)
+    for n, d in ((3001, 3), (1500, 5), (1025, 9)):
+        i = np.arange(n)
+        lag = r.integers(1, 6, (2, n, 3))
+        res = r.integers(-(1 << 31), (1 << 31) - 1, (2, n, d), dtype=np.int64).astype(np.int32)
+        u5[f"lags_1_to_5_{n}x{d}"] = (res, (i[None, :, None] - lag).astype(np.int32))
+    res = r.integers(-(1 << 12), 1 << 12, (2, 40 * 101, 2)).astype(np.int32)
+    u5["grid_40x101"] = (res, np.broadcast_to(grid_parallelograms(40, 101), (2, 4040, 3)).copy())
     return u3, u4, u5
 
 
@@ -1973,7 +2027,7 @@ def pointcloud_trajectory_path(torch, dev, median_cuda_ms) -> tuple:
     back_uv = parallelogram_decode(res_uv, pidx)
     torch.cuda.synchronize()
     launches = dict(mc.LAUNCHES)
-    check(launches == {"estimate_normals": PC_FRAMES, "morton_keys": 1,
+    check(launches == {"estimate_normals": U3_KERNELS_PER_CALL * PC_FRAMES, "morton_keys": 1,
                        "parallelogram_decode": 2},
           f"the point-cloud, trajectory, normals and parallelogram paths launched {launches}")
 
@@ -2028,6 +2082,20 @@ def pointcloud_trajectory_path(torch, dev, median_cuda_ms) -> tuple:
     check(torch.equal(perm[0].cpu(), cpu_codec.device_stage(cloud[0:1].cpu())[1][0]),
           "the captured cloud's order differs between CUDA and CPU")
 
+    # ---- U5 on near references at the main path's shape: the positions on a
+    # U5_NEAR_GRID grid of the same vertex count, whose rows are shorter than
+    # a tile, so that every tile reads the ring (the grid's far references
+    # fold into g); the decode must give back its input and match the twin
+    nyn, nxn = U5_NEAR_GRID
+    check(nyn * nxn == nv, f"U5_NEAR_GRID {U5_NEAR_GRID} holds {nyn * nxn} vertices, not {nv}")
+    near_np = grid_parallelograms(nyn, nxn)
+    pidx_near = td(np.broadcast_to(near_np, (PC_FRAMES, nv, 3)))
+    res_near = parallelogram_encode(q_pos, pidx_near)
+    back_near = mc.parallelogram_decode(res_near, pidx_near)
+    check(torch.equal(back_near, q_pos), "the near-reference decode did not give back its input")
+    same_bits(torch, err, "parallelogram_decode", back_near[:1],
+              mc.parallelogram_decode_plain(res_near[:1].cpu(), pidx_near[:1].cpu()))
+
     # ---- times: per call (CUDA events), alone (profiler), twin, library
     p0 = pos_d[0]
     fn3 = mc.face_normals_plain(p0, faces_d).repeat(3, 1)
@@ -2042,11 +2110,14 @@ def pointcloud_trajectory_path(torch, dev, median_cuda_ms) -> tuple:
                              lambda: mc.morton_keys_plain(pos_d, mn, inv, PC_BITS[0])),
         "parallelogram_decode": (lambda: mc.parallelogram_decode(res_pos, pidx), None),
         "parallelogram_decode_uv": (lambda: mc.parallelogram_decode(res_uv, pidx), None),
+        "parallelogram_decode_near": (lambda: mc.parallelogram_decode(res_near, pidx_near), None),
     }
-    kernel_of = {"estimate_normals": "estimate_normals_kernel",
-                 "morton_keys": "morton_keys_kernel", "morton_keys_grid": "morton_keys_kernel",
-                 "parallelogram_decode": "parallelogram_decode_kernel",
-                 "parallelogram_decode_uv": "parallelogram_decode_kernel"}
+    kernel_of = {"estimate_normals": WRAPPER_KERNELS["estimate_normals"],
+                 "morton_keys": WRAPPER_KERNELS["morton_keys"],
+                 "morton_keys_grid": WRAPPER_KERNELS["morton_keys"],
+                 "parallelogram_decode": WRAPPER_KERNELS["parallelogram_decode"],
+                 "parallelogram_decode_uv": WRAPPER_KERNELS["parallelogram_decode"],
+                 "parallelogram_decode_near": WRAPPER_KERNELS["parallelogram_decode"]}
     per_call = {}
     for key, (fn, twin) in calls.items():
         mc.reset_launches()
@@ -2055,10 +2126,14 @@ def pointcloud_trajectory_path(torch, dev, median_cuda_ms) -> tuple:
         ms[key] = median_cuda_ms(fn, REPS)
         if twin is not None:
             ms[key + "_plain"] = median_cuda_ms(twin, REPS)
-        ms[key + "_kernel"], _ = kernel_only_ms(torch, fn, (kernel_of[key],))
+        ms[key + "_kernel"], _ = kernel_only_ms(torch, fn, kernel_of[key])
+    # one U3 call is its three kernels and no other device work (no PyTorch op)
+    u3_issued = launches_per_call(torch, calls["estimate_normals"][0],
+                                  WRAPPER_KERNELS["estimate_normals"])
+    check(u3_issued == kernels_only(U3_KERNELS_PER_CALL),
+          f"one estimate_normals call issued {u3_issued}")
     ms["estimate_normals_library"] = median_cuda_ms(
         lambda: acc.index_add_(0, corners, fn3), REPS)  # index_add_ of the corner normals
-    ms["estimate_normals_csr"] = median_cuda_ms(lambda: mc.normals_csr(faces_d, nv), REPS)
     ms["morton_keys_sort"] = median_cuda_ms(lambda: torch.sort(ckeys, dim=-1, stable=True), REPS)
     ms["morton_keys_grid_sort"] = median_cuda_ms(
         lambda: torch.sort(mc.morton_keys(pos_d, mn, inv, PC_BITS[0]), dim=-1, stable=True), REPS)
@@ -2072,17 +2147,55 @@ def pointcloud_trajectory_path(torch, dev, median_cuda_ms) -> tuple:
     torch.cuda.synchronize()
     ms["parallelogram_decode_plain"] = (time.perf_counter() - t) * 1e3
     same_bits(torch, err, "parallelogram_decode", back_pos, twin_pos)
+    # U5's chain bound: the grid chain's depth times one dependent add, timed
+    # on this card by the probe kernel
+    add_cycles, mad_cycles = mc.dependent_add_cycles(dev)
+    depth = u5_chain_depth(grid_parallelograms(ny, nx)[None])
+    near_depth = u5_chain_depth(near_np[None])
+    u5_near = {"grid": [nyn, nxn], "ms": ms["parallelogram_decode_near"],
+               "kernel_ms": ms["parallelogram_decode_near_kernel"], "chain_depth": near_depth,
+               "chain_bound_ms": chain_bound_ms(near_depth, add_cycles)}
+    emit({"phase": "dependent_add_probe", "cycles_per_add": add_cycles,
+          "cycles_per_mad": mad_cycles, "card": nvidia_smi_line()})
     emit({"phase": "pointcloud_trajectory_path", "frames": PC_FRAMES, "vertices": nv,
           "faces": nf, "cloud": [fc, ncl], "launches": launches,
-          "launches_per_call": per_call, "crt_bytes": sum(map(len, blobs)),
+          "launches_per_call": per_call, "u3_issued_per_call": u3_issued,
+          "u5_chain_depth": depth, "u5_chain_bound_ms": chain_bound_ms(depth, add_cycles),
+          "u5_near": u5_near,
+          "crt_bytes": sum(map(len, blobs)),
           "crt_encode_s_per_frame": crt_encode_s / PC_FRAMES,
           "crt_decode_s_per_frame": crt_decode_s / PC_FRAMES,
           "trajectory_sample_max_abs_diff_vs_cpu": traj_err,
           "trajectory_fit_max_abs_error": fit_err, "edge_cases_s": edge_s,
           "edge_cases": {"u3": list(u3), "u4": list(u4), "u5": list(u5)},
           "ms": ms, "seconds": time.perf_counter() - t0})
-    work = {"nv": nv, "nf": nf, "cloud": (fc, ncl), "chain": (PC_FRAMES, nv, 3)}
+    work = {"nv": nv, "nf": nf, "cloud": (fc, ncl), "chain": (PC_FRAMES, nv, 3),
+            "chain_depth": depth, "add_cycles": add_cycles, "u5_near": u5_near}
     return launches, err, ms, work
+
+
+def u5_chain_depth(pidx: np.ndarray) -> int:
+    """The longest path, in steps, through U5's dependence graph of the index
+    triples [F, N, 3], the most over the frames: step i depends on its
+    clamped references a, b, c (b, c below 0 read 0) where a >= 0, on i - 1
+    where a < 0; a reference at or past i reads 0 and adds no edge."""
+    f, n, _ = pidx.shape
+    p = pidx.astype(np.int64)
+    i = np.arange(n)[None, :, None]
+    refs = np.stack([np.minimum(p[..., 0], n - 1), np.clip(p[..., 1], 0, n - 1),
+                     np.clip(p[..., 2], 0, n - 1)], -1)
+    refs = np.where((p[..., 0] < 0)[..., None], i - 1, refs)
+    refs = np.where((refs >= i) | (refs < 0), n, refs)  # no edge: depth[n] = 0
+    depth = np.zeros((f, n + 1), np.int64)
+    rows = np.arange(f)[:, None]
+    for s in range(n):
+        depth[:, s] = 1 + depth[rows, refs[:, s]].max(1)
+    return int(depth[:, :n].max())
+
+
+def chain_bound_ms(depth: int, cycles_per_add: float) -> float:
+    """U5's chain bound: `depth` dependent adds at the boost clock."""
+    return depth * cycles_per_add / SM_CLOCK_HZ * 1e3
 
 
 def u5_chain(r, f: int, n: int, d: int) -> tuple:
@@ -2236,6 +2349,7 @@ def wide_palette_path(torch, dev, textures, median_cuda_ms) -> tuple:
     f, n, d = U5_WIDE_SHAPES[0]
     res, p = u5_chain(r, f, n, d)
     res_d, p_d = torch.from_numpy(res).to(dev), torch.from_numpy(p).to(dev)
+    depth, add_cycles = u5_chain_depth(p), mc.dependent_add_cycles(dev)[0]
     key = f"parallelogram_decode_n{n}"
     ms[key] = median_cuda_ms(lambda: mc.parallelogram_decode(res_d, p_d), REPS)
     ms[key + "_plain"] = once_ms(
@@ -2244,10 +2358,10 @@ def wide_palette_path(torch, dev, textures, median_cuda_ms) -> tuple:
         "shape": [f, n, d], "ms": ms[key], "plain_ms": ms[key + "_plain"],
         **dict(zip(("bound_ms", "bound_by"), bound(
             f * n * d * 8 + f * n * 12, OPS["parallelogram_decode"] * f * n * d, INT_OPS_PER_S))),
-        "chain_bound_ms": n * U5_STEP_CYCLES / SM_CLOCK_HZ * 1e3}}
+        "chain_depth": depth, "chain_bound_ms": chain_bound_ms(depth, add_cycles)}}
     attrs = _build.kernel_attrs()
     wide_attrs = {fn: attrs[fn] for fn in ("rate_sweep_frame_kernel_wide", "sweep_table_kernel",
-                                           "parallelogram_decode_kernel_global")}
+                                           "parallelogram_decode_kernel<3>")}
     emit({"phase": "wide_palette_path", "entries": WIDE_ENTRIES, "rows": WIDE_ROWS,
           "kernel_attrs": wide_attrs,
           "k7_frame": WIDE_K7_FRAME, "u5_shapes": U5_WIDE_SHAPES, "parity_s": parity_s,
@@ -3492,8 +3606,8 @@ def main() -> int:
     dev_mask = torch.ones((F, N), dtype=torch.bool, device=dev)
     stage_kernels = launches_per_call(
         torch, lambda: encode_device(dev_pos, dev_uv, dev_mask, 11, 10), STAGE_KERNEL_NAMES)
-    check(stage_kernels == ENCODE_DEVICE_KERNELS,
-          f"encode_device ran {stage_kernels} device kernels, not {ENCODE_DEVICE_KERNELS}")
+    check(stage_kernels == kernels_only(ENCODE_DEVICE_KERNELS),
+          f"encode_device issued {stage_kernels}, not {ENCODE_DEVICE_KERNELS} kernels alone")
     emit({"phase": "main_path", "frames": F, "vertices": N, "layers": F,
           "size": [H, W], "launches": launches, "encode_device_kernels": stage_kernels,
           "uvtg_bytes": sum(map(len, blobs)),
@@ -3758,7 +3872,8 @@ def main() -> int:
                              nu * 64 + nu * (1 + 8 + 32 + 4), u1_ops * nu, INT_OPS_PER_S),
         # U3-U5 replace XLA programs of the reference, not Pallas sites. U3 per
         # frame: the positions and faces in once, the normals out once (the
-        # wrapper's CSR is not the function's traffic)
+        # CSR the kernels build is this design's traffic, not the function's:
+        # the row's `csr_bytes`)
         "estimate_normals": ("mesh_ops.cu", "ops/normals.py:66",
                              pc_work["nv"] * 24 + pc_work["nf"] * 12,
                              estimate_normals_ops(pc_work["nv"], pc_work["nf"]), F32_FLOP_PER_S),
@@ -3774,8 +3889,9 @@ def main() -> int:
     for fn in ("etc1_encode_kernel", "etc1_decode_kernel", "inten_errors_kernel",
                "rate_sweep_frame_kernel", "drc_fused_batch_kernel", "uastc_device_fit_kernel",
                "weight_index_kernel", "seg_sum_chunk_kernel", "seg_sum_tree_kernel",
-               "seg_sum_tree_kernel_small", "estimate_normals_kernel", "morton_keys_kernel",
-               "parallelogram_decode_kernel", *STAGE_KERNEL_NAMES):
+               "seg_sum_tree_kernel_small", *WRAPPER_KERNELS["estimate_normals"],
+               "morton_keys_kernel", *(f"parallelogram_decode_kernel<{g}>" for g in range(1, 5)),
+               *STAGE_KERNEL_NAMES):
         check(attrs[fn]["stack_bytes"] == 0, f"{fn} uses stack memory")
     # K3's times are those of the call the main path makes (offsets taken in)
     timed_as = {"quantize_delta_zigzag": "quantize_from_bounds"}
@@ -3801,13 +3917,20 @@ def main() -> int:
             # time, unpacks bit-packed values or fits a UASTC block's modes)
             "library_ms": ms.get(name + "_library"),
             "kernel_ms": ms[timed + "_kernel"],
-            "kernel_attrs": {fn: attrs[fn] for fn in WRAPPER_KERNELS[name]},
+            "kernel_attrs": {fn: attrs[fn]
+                             for fn in KERNEL_ATTR_NAMES.get(name, WRAPPER_KERNELS[name])},
         })
-    # U5's other bound: its steps one after another, each waiting out
-    # U5_STEP_CYCLES; U4's stable sort of the keys, a PyTorch call of the codec
-    extra = {"parallelogram_decode": {"chain_bound_ms": pc_work["chain"][1] * U5_STEP_CYCLES
-                                      / SM_CLOCK_HZ * 1e3},
-             "morton_keys": {"sort_ms": ms["morton_keys_sort"]}}
+    # U5's other bound: the longest path through its chain, a dependent add a
+    # step (the probe's cycles on this card), and its times on a chain of
+    # near references; U4's stable sort of the keys, a PyTorch call of the
+    # codec; U3's CSR traffic (`local` written and read, 8 bytes a vertex;
+    # each corner's key written and read, 24 bytes a face), not in its bound
+    extra = {"parallelogram_decode": {
+                 "chain_depth": pc_work["chain_depth"], "cycles_per_add": pc_work["add_cycles"],
+                 "chain_bound_ms": chain_bound_ms(pc_work["chain_depth"], pc_work["add_cycles"]),
+                 "near": pc_work["u5_near"]},
+             "morton_keys": {"sort_ms": ms["morton_keys_sort"]},
+             "estimate_normals": {"csr_bytes": pc_work["nv"] * 8 + pc_work["nf"] * 24}}
     for row in rows:
         row.update(extra.get(row["name"], {}))
         if row["name"] in wide:  # the wide shapes' times and bounds, and launches

@@ -495,6 +495,17 @@ def test_redesigned_kernels_use_no_stack(card):
         assert attrs[fn]["stack_bytes"] == 0, (fn, attrs[fn])
 
 
+def test_mesh_kernels_use_no_stack(card):
+    """U3's register networks of 8 and 32 keys and U5's pipeline registers
+    stay in registers (constant indices once unrolled)."""
+    from uvol_tpu_torch import _build
+
+    attrs = _build.kernel_attrs()
+    for fn in ("normals_count_kernel", "normals_fill_kernel", "estimate_normals_kernel",
+               *(f"parallelogram_decode_kernel<{g}>" for g in range(1, 5))):
+        assert attrs[fn]["stack_bytes"] == 0, (fn, attrs[fn])
+
+
 # ---- K7: the rate sweep's frame stage ------------------------------------------
 
 
@@ -1058,9 +1069,30 @@ def _u3_cases():
     fan = np.stack([np.zeros(1000), np.arange(1, 1001), np.arange(2, 1002)], 1).astype(np.int32)
     yield "fan_1000", r.normal(size=(1005, 3)).astype(np.float32), fan  # 3 isolated vertices
     yield "random", r.normal(size=(70, 3)).astype(np.float32), r.integers(0, 70, (5000, 3)).astype(np.int32)
+    # the CSR's hazards: one face, isolated vertices, 2,000, 20,000 and
+    # 100,000 padding rows on vertex 0 (long rows: the radix sort, with 2 and
+    # 3 face digits), rows of 512 and 513 keys (the window's last, the radix
+    # sort's first), three count ranges of 57,344 vertices
+    yield "one_face", r.normal(size=(5, 3)).astype(np.float32), np.array([[3, 1, 2]], np.int32)
+    yield ("isolated", r.normal(size=(9, 3)).astype(np.float32),
+           np.array([[0, 1, 2], [2, 3, 4]], np.int32))
+    pad = np.concatenate([r.integers(0, 200, (100, 3)), np.full((2000, 3), -1)]).astype(np.int32)
+    yield "padding_on_vertex_0", r.normal(size=(200, 3)).astype(np.float32), pad
+    pad = np.concatenate([r.integers(0, 200, (100, 3)), np.full((20000, 3), -1)]).astype(np.int32)
+    yield "padding_20000_on_vertex_0", r.normal(size=(200, 3)).astype(np.float32), pad
+    pad = np.concatenate([r.integers(0, 200, (100, 3)), np.full((100000, 3), -1)]).astype(np.int32)
+    yield "padding_100000_on_vertex_0", r.normal(size=(200, 3)).astype(np.float32), pad
+    for k in (512, 513):  # the last row of the shared window, the first of the radix sort
+        fan = np.stack([np.zeros(k), np.arange(1, k + 1), np.arange(2, k + 2)], 1).astype(np.int32)
+        yield f"fan_{k}", r.normal(size=(k + 2, 3)).astype(np.float32), fan
+    yield ("three_ranges", r.normal(size=(150000, 3)).astype(np.float32),
+           r.integers(0, 150000, (300000, 3)).astype(np.int32))
 
 
-@pytest.mark.parametrize("case", ["grid", "padded_degenerate_out_of_range", "fan_1000", "random"])
+@pytest.mark.parametrize("case", ["grid", "padded_degenerate_out_of_range", "fan_1000", "random",
+                                  "one_face", "isolated", "padding_on_vertex_0",
+                                  "padding_20000_on_vertex_0", "padding_100000_on_vertex_0",
+                                  "fan_512", "fan_513", "three_ranges"])
 def test_estimate_normals_kernel_matches_twin(card, case):
     from uvol_tpu_torch.ops import mesh_cuda
 
@@ -1069,7 +1101,7 @@ def test_estimate_normals_kernel_matches_twin(card, case):
     before = mesh_cuda.LAUNCHES["estimate_normals"]
     got = mesh_cuda.estimate_normals(p.to(card), f.to(card))
     torch.cuda.synchronize()
-    assert mesh_cuda.LAUNCHES["estimate_normals"] == before + 1
+    assert mesh_cuda.LAUNCHES["estimate_normals"] == before + 3  # count, fill, normals
     want = mesh_cuda.estimate_normals_plain(p, f)
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
 
@@ -1105,3 +1137,40 @@ def test_parallelogram_decode_kernel_matches_twin(card, f, n, d):
     res = torch.from_numpy(res)
     got = mesh_cuda.parallelogram_decode(res.to(card), p.to(card))
     assert torch.equal(got.cpu(), mesh_cuda.parallelogram_decode_plain(res, p))
+
+
+@pytest.mark.parametrize("kind", ["lags", "grid"])
+@pytest.mark.parametrize("f,n,d", [(2, 3001, 3), (1, 1500, 5), (1, 1025, 9), (1, 54015, 1),
+                                   (1, 54016, 3), (1, 54017, 4)])
+def test_parallelogram_decode_kernel_on_pipeline_hazards(card, kind, f, n, d):
+    """References exactly 1 to 5 steps back (the carry, the late reads, the
+    first value loaded ahead) or the grid's parallelograms off the tile
+    grid; 5 and 9 components (a group of 4 and the rest: two launches)."""
+    from uvol_tpu_torch.ops import mesh_cuda
+
+    r = np.random.default_rng(n * d)
+    i = np.arange(n)
+    if kind == "lags":
+        p = (i[None, :, None] - r.integers(1, 6, (f, n, 3))).astype(np.int32)
+    else:
+        nx = 101
+        inner = (i >= nx) & (i % nx >= 1)
+        g = np.where(inner[:, None], np.stack([i - 1, i - nx, i - nx - 1], 1), -1)
+        p = np.ascontiguousarray(np.broadcast_to(g, (f, n, 3))).astype(np.int32)
+    res = torch.from_numpy(r.integers(-(1 << 31), (1 << 31) - 1, (f, n, d), dtype=np.int64)
+                           .astype(np.int32))
+    p = torch.from_numpy(p)
+    before = mesh_cuda.LAUNCHES["parallelogram_decode"]
+    got = mesh_cuda.parallelogram_decode(res.to(card), p.to(card))
+    torch.cuda.synchronize()
+    assert mesh_cuda.LAUNCHES["parallelogram_decode"] == before + (2 if d in (5, 9) else 1)
+    assert torch.equal(got.cpu(), mesh_cuda.parallelogram_decode_plain(res, p))
+
+
+def test_dependent_add_probe_times_a_chain(card):
+    """The probe's cycles per dependent add and multiply-add: at least one
+    cycle (the chain was not folded) and at most 64."""
+    from uvol_tpu_torch.ops import mesh_cuda
+
+    add, mad = mesh_cuda.dependent_add_cycles(card)
+    assert 1.0 <= add <= 64.0 and 1.0 <= mad <= 64.0

@@ -134,9 +134,10 @@ def get_lib() -> ctypes.CDLL:
                 "uvt_drc_fused_batch": [vp, ctypes.c_int64, vp, ci, ctypes.c_int64, vp, vp],
                 "uvt_uastc_device_fit": [vp, vp, ci, ctypes.c_int64] + [vp] * 7,
                 "uvt_uastc_weight_index": [vp, ctypes.c_int64, ci, vp, vp, vp],
-                "uvt_estimate_normals": [vp, vp, vp, vp, vp, ci, vp],
+                "uvt_estimate_normals": [vp, vp, vp, vp, ci, ci, vp],
                 "uvt_morton_keys": [vp, vp, vp, ci, vp, ci, ci, vp],
                 "uvt_parallelogram_decode": [vp, vp, vp, ci, ci, ci, vp],
+                "uvt_dependent_add_cycles": [vp, vp, vp],
             }
             attrs = [ci, ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_char_p)]
             signatures.update({fn: attrs for fn in _FUNC_ATTRS})

@@ -14,10 +14,19 @@ and order:
     `uvol_tpu/ops/prediction.py:56-90`): the scan over vertices.
 
 The device of the tensor decides the route: a CUDA tensor launches the
-kernel (built by `_build` at first use; a build or launch failure raises,
+kernels (built by `_build` at first use; a build or launch failure raises,
 nothing falls back), a CPU tensor takes the twin (`*_plain`), which the
 card's path never calls. Each kernel launch adds one to `LAUNCHES` under
-its name; twin calls are not counted.
+its wrapper's name (U3 launches three kernels a call, U5 one, or two where
+D is above 4 and not a multiple of 4); twin calls are not counted.
+
+U3 builds its CSR on the card: a count of each vertex's corners and its
+scan (a cluster of 8 CTAs a range of `NORMALS_RANGE_VERTICES` vertices),
+a fill that stores each corner's key `k << 30 | face` in its row in any
+order, then the normals kernel, which sorts each row's keys before it adds them, so
+the sums keep the reference's (corner, face) order (a row of more than 512
+keys by a radix sort through a second 3 M words of the scratch). `normals_csr` is the
+twin's CSR and stays PyTorch's stable sort.
 
 U3's float rules (what XLA compiles the reference into on the CPU, held
 bit for bit in the tests): the differences `p1 - p0`, `p2 - p0` rounded,
@@ -47,13 +56,22 @@ LAUNCHES = {"estimate_normals": 0, "morton_keys": 0, "parallelogram_decode": 0}
 #: frames of one U4 launch (its gridDim.y); a call of more launches once per
 #: slice of so many frames
 MORTON_LAUNCH_FRAMES = 65535
-#: U5's switch point: a chain of at most so many vertices keeps its prefix (4
-#: bytes a vertex) beside its staged tile of 1,024 steps (16 KB) in the
-#: 232,448 bytes of shared memory one CTA may take; a longer one keeps it in
-#: its output column in device memory (kChainMaxVertices in csrc/mesh_ops.cu)
-PARALLELOGRAM_SHARED_MAX_VERTICES = (232448 - 1024 * 16) // 4
+#: U3's count cluster owns so many vertices (each CTA's int32 counts of them in
+#: its shared memory);
+#: the fill's CTAs scan at most NORMALS_MAX_RANGES ranges' totals, and the
+#: keys and slots stay below 2^31 up to NORMALS_MAX_FACES faces
+#: (kRangeVertices, kMaxRanges, kMaxFaces in csrc/mesh_ops.cu)
+NORMALS_RANGE_VERTICES = 51200
+NORMALS_MAX_RANGES = 4096
+NORMALS_MAX_FACES = 1 << 29
+#: U5 steps the components of a frame in lanes of one warp, at most this many
+#: a CTA (kChainGroup); a launch takes at most 2^30 CTAs (kChainsPerLaunch)
+PARALLELOGRAM_GROUP = 4
+PARALLELOGRAM_CHAINS_PER_LAUNCH = 1 << 30
 #: the Morton key's coordinate bits (morton63: 21 bits a coordinate)
 MORTON_MAX_BITS = 21
+#: dependent adds in each chain of the probe (kProbeAdds)
+PROBE_ADDS = 4096
 
 
 def reset_launches() -> None:
@@ -70,9 +88,9 @@ def _route(t: Tensor) -> bool:
     return True
 
 
-def _launch(name: str, fn: str, device: torch.device, *args) -> None:
+def _launch(name: str, fn: str, device: torch.device, *args, kernels: int = 1) -> None:
     _build.launch(fn, device, *args)
-    LAUNCHES[name] += 1
+    LAUNCHES[name] += kernels
 
 
 def _same_device(*ts: Tensor) -> None:
@@ -144,19 +162,24 @@ def estimate_normals_plain(positions: Tensor, faces: Tensor) -> Tensor:
 def estimate_normals(positions: Tensor, faces: Tensor) -> Tensor:
     """U3: positions [N, 3] float32, faces [M, 3] int32 (rows of -1 are
     padding) → [N, 3] float32 unit vertex normals (a vertex without a face
-    gives 0). On the card: the CSR of `normals_csr` (PyTorch's sort), then
-    one launch."""
-    n = _check_mesh(positions, faces)[0]
+    gives 0). On the card: three launches (count, fill, normals) into one
+    int32 scratch of N + 2 * ranges + 6 * M words; no other device work."""
+    n, m = _check_mesh(positions, faces)
     if not _route(positions):
         return estimate_normals_plain(positions, faces)
     out = torch.empty_like(positions)
     if n == 0:
         return out
+    ranges = -(-n // NORMALS_RANGE_VERTICES)
+    if ranges > NORMALS_MAX_RANGES or m > NORMALS_MAX_FACES:
+        raise ValueError(f"estimate_normals takes at most "
+                         f"{NORMALS_MAX_RANGES * NORMALS_RANGE_VERTICES} vertices and "
+                         f"{NORMALS_MAX_FACES} faces on the card, got {n} and {m}")
     positions, faces = positions.contiguous(), faces.contiguous()
-    row, face_of = normals_csr(faces, n)
+    work = torch.empty(n + 2 * ranges + 6 * m, dtype=torch.int32, device=positions.device)
     _launch("estimate_normals", "uvt_estimate_normals", positions.device,
-            positions.data_ptr(), faces.data_ptr(), row.data_ptr(), face_of.data_ptr(),
-            out.data_ptr(), n)
+            positions.data_ptr(), faces.data_ptr(), work.data_ptr(), out.data_ptr(), n, m,
+            kernels=3)
     return out
 
 
@@ -245,12 +268,20 @@ def parallelogram_decode_plain(residuals: Tensor, pred_indices: Tensor) -> Tenso
     return out.to(torch.int32).reshape(residuals.shape)
 
 
+def _chain_launches(f: int, d: int) -> int:
+    """Kernel launches of one U5 call (`uvt_parallelogram_decode`): the
+    CTAs of whole groups of PARALLELOGRAM_GROUP components, then those of
+    the rest, each in launches of at most PARALLELOGRAM_CHAINS_PER_LAUNCH."""
+    g = PARALLELOGRAM_GROUP
+    kinds = [f] if d <= g else [f * (d // g)] + ([f] if d % g else [])
+    return sum(-(-c // PARALLELOGRAM_CHAINS_PER_LAUNCH) for c in kinds)
+
+
 def parallelogram_decode(residuals: Tensor, pred_indices: Tensor) -> Tensor:
     """U5: residuals [..., N, D] int32, pred_indices [..., N, 3] int32 →
     the decoded values [..., N, D] int32, as `parallelogram_decode_plain`;
-    one launch, a CTA per frame and component, the chain's prefix in shared
-    memory up to `PARALLELOGRAM_SHARED_MAX_VERTICES` vertices and in the
-    output above."""
+    a CTA per frame and group of up to PARALLELOGRAM_GROUP components, one
+    launch (two where D > 4 is not a multiple of 4)."""
     _check_chain(residuals, pred_indices)
     if not _route(residuals):
         return parallelogram_decode_plain(residuals, pred_indices)
@@ -261,5 +292,20 @@ def parallelogram_decode(residuals: Tensor, pred_indices: Tensor) -> Tensor:
     f = out.numel() // (n * d)
     res, pidx = residuals.contiguous(), pred_indices.contiguous()
     _launch("parallelogram_decode", "uvt_parallelogram_decode", res.device,
-            res.data_ptr(), pidx.data_ptr(), out.data_ptr(), f, n, d)
+            res.data_ptr(), pidx.data_ptr(), out.data_ptr(), f, n, d,
+            kernels=_chain_launches(f, d))
     return out
+
+
+def dependent_add_cycles(device: torch.device) -> Tuple[float, float]:
+    """The card's clock cycles per dependent integer add and per dependent
+    integer multiply-add (U5's step), from one thread's chains of 4,096 of
+    each timed with clock64 (`dependent_add_probe_kernel`). Not counted in
+    LAUNCHES: no op runs it."""
+    if torch.device(device).type != "cuda":
+        raise ValueError("the probe runs on a CUDA card")
+    seed = torch.tensor([12345, 7, 1], dtype=torch.int32).to(device)
+    out = torch.zeros(4, dtype=torch.int64, device=device)
+    _build.launch("uvt_dependent_add_cycles", out.device, seed.data_ptr(), out.data_ptr())
+    cycles = out.cpu()
+    return float(cycles[0]) / PROBE_ADDS, float(cycles[1]) / PROBE_ADDS
