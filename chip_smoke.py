@@ -155,9 +155,15 @@ its wide path; U5 at [8, 200,000, 3], [1, 54,017, 2], [1, 54,016, 3],
 B's segment (5 layers of 1024^2) at 4,096/4,096 endpoints and selectors:
 K4-K7 and the segment sum must launch, the encode must repeat its bytes,
 and the card's bytes must equal the CPU port's on the bench texture's
-first 256^2 at the same widths; it prints the build and encode ms and
-the wide calls' times beside their twins and bounds, which the kernels
-line repeats under `wide`. Its phase `python_draco_path` encodes a short
+first 256^2 at the same widths; the sparse segment sum and K7's rows
+kernel (this slice's path) must launch in that encode, and neither may
+launch at 256 or 1,024 entries. At 4,096 and 16,128 entries on the main
+path's shapes it times the segment sum (per call, alone by the profiler,
+`index_add_` beside it), K6 and K7 (per call, alone, `feat @ mat.T`
+beside it), each beside its twin and its bound; the kernels line repeats
+them under `wide`, and the rows `etc1s_segment_sum_wide` and
+`etc1s_rate_sweep_wide` give the wide kernels' launches in B's segment
+and their numbers at 4,096. Its phase `python_draco_path` encodes a short
 V2 project with the CLI, rewrites its `.drc` frames with the standard
 edge coder, which only the copied Python decoder takes, plays it on the
 card with every `ok` tick held to the decoder's output, and times one
@@ -265,6 +271,10 @@ WRAPPER_KERNELS = {
     "etc1s_kmeans_iter": ("kmeans_chunk_kernel", "seg_sum_tree_kernel"),
     "etc1s_segment_sum": ("seg_sum_chunk_kernel", "seg_sum_tree_kernel"),
     "etc1s_rate_sweep": ("rate_sweep_frame_kernel",),
+    # past 2,048 segments or entries: the sparse segment sum's passes; K7's
+    # entry table and its rows kernel
+    "etc1s_segment_sum_wide": ("seg_sum_sparse_chunk_kernel", "seg_sum_roots_kernel"),
+    "etc1s_rate_sweep_wide": ("sweep_table_kernel", "rate_sweep_rows_kernel"),
     "drc_fused_batch": ("drc_fused_batch_kernel",),
     "uastc_device_fit": ("uastc_device_fit_kernel",),
     "estimate_normals": ("normals_count_kernel", "normals_fill_kernel", "estimate_normals_kernel"),
@@ -439,7 +449,12 @@ SM_CLOCK_HZ = 1.98e9
 #: they are not WRAPPER_KERNELS' (U5's instantiations for the positions' 3 and
 #: the UVs' 2 components)
 KERNEL_ATTR_NAMES = {"parallelogram_decode": ("parallelogram_decode_kernel<3>",
-                                              "parallelogram_decode_kernel<2>")}
+                                              "parallelogram_decode_kernel<2>"),
+                     "etc1s_segment_sum_wide": ("seg_sum_sparse_chunk_kernel",
+                                                "seg_sum_roots_kernel"),
+                     "etc1s_rate_sweep_wide": ("sweep_table_kernel",
+                                               *(f"rate_sweep_rows_kernel<{r}, {b}>"
+                                                 for r in (1, 2) for b in ("true", "false")))}
 #: U3's kernels a call: the count, the fill, the normals
 U3_KERNELS_PER_CALL = 3
 #: K3's and the minimum/maximum's kernel names in a profiler trace (csrc/geometry.cu)
@@ -1070,6 +1085,7 @@ def etc1s_main_path(torch, textures) -> tuple:
     for name in ETC1S_BUILD_KERNELS:
         check(launches[name] >= 1, f"the ETC1S main path never launched {name}")
     check(launches["etc1s_rate_sweep"] == 0, "K7 ran below 512 endpoints")
+    check(launches["etc1s_segment_sum_wide"] == 0, "the sparse segment sum ran at 256 entries")
     # every palette build runs K5 three times (cluster_inten)
     builds = launches["etc1s_inten_errors"] // 3
     # the second encode keeps each kernel call's inputs (the real blocks,
@@ -1387,8 +1403,10 @@ def etc1s_delta_path(torch, dev, textures, median_cuda_ms) -> tuple:
     blob = enc.encode_ktx2_etc1s(frames, device=DEVICE, **kw)
     first_s = time.perf_counter() - t
     launches = dict(k.LAUNCHES)
-    for name, v in launches.items():
-        check(v >= 1, f"the ETC1S delta path never launched {name}")
+    for name in ETC1S_KERNELS:
+        check(launches[name] >= 1, f"the ETC1S delta path never launched {name}")
+    for name in ("etc1s_segment_sum_wide", "etc1s_rate_sweep_wide"):
+        check(launches[name] == 0, f"{name} ran at {ETC1S_DELTA_PALETTE} entries")
     builds = launches["etc1s_inten_errors"] // 3
     delta_builds = min(builds, 3)  # the floor's last rung (delta lambda 0) has no delta stage
     check(launches["etc1s_rate_sweep"] == 3 * len(frames) * delta_builds,
@@ -1401,7 +1419,8 @@ def etc1s_delta_path(torch, dev, textures, median_cuda_ms) -> tuple:
     for name, args, out in calls:
         hold(err, name, out, getattr(k, ETC1S_KERNELS[name][1])(*args))
         replayed[name] += 1
-    check(replayed == launches, f"calls differ between two encodes: {replayed}")
+    check(replayed == {name: launches[name] for name in ETC1S_KERNELS},
+          f"calls differ between two encodes: {replayed}")
     # a frame of the encode with a previous one (e_prev and the snap run)
     sweep_args = next(args for name, args, _ in calls
                       if name == "etc1s_rate_sweep" and args[7] is not None)
@@ -2248,7 +2267,7 @@ def wide_palette_path(torch, dev, textures, median_cuda_ms) -> tuple:
         idx = torch.from_numpy(r.integers(0, e, WIDE_ROWS)).to(dev)
         skew = torch.where(torch.rand(WIDE_ROWS, device=dev) < 0.9, e - 1, idx)
         for name, ix in (("random", idx), ("skewed", skew)):
-            hold_bits(torch, err, "etc1s_segment_sum", k.segment_sum(ix, e, x),
+            hold_bits(torch, err, "etc1s_segment_sum_wide", k.segment_sum(ix, e, x),
                       k.segment_sum_plain(ix, e, x))
         cb = feats[torch.from_numpy(r.choice(WIDE_ROWS, e, replace=False)).to(dev)] + 0.25
         cb[-1] = cb[0]  # a duplicate past the first window: ties go to the first
@@ -2263,7 +2282,7 @@ def wide_palette_path(torch, dev, textures, median_cuda_ms) -> tuple:
         for lam, dup, prev, flat in ((60.0, False, True, "mixed"), (0.0, True, True, "mixed"),
                                      (60.0, False, False, "none")):
             args = to_device(sweep_frame(torch, r, nby, nbx, e, dup, prev, flat), dev)
-            hold(err, "etc1s_rate_sweep", k.rate_sweep_frame(*args, 0, lam, 1.5, nbx),
+            hold(err, "etc1s_rate_sweep_wide", k.rate_sweep_frame(*args, 0, lam, 1.5, nbx),
                  k.rate_sweep_frame_plain(*args, 0, lam, 1.5, nbx))
     for f, n, d in U5_WIDE_SHAPES:
         res, p = u5_chain(r, f, n, d)
@@ -2279,7 +2298,7 @@ def wide_palette_path(torch, dev, textures, median_cuda_ms) -> tuple:
     blob = encode_ktx2_etc1s(frames, device=DEVICE, **kw)
     torch.cuda.synchronize()
     launches = dict(k.LAUNCHES)
-    for name in ETC1S_BUILD_KERNELS + ("etc1s_rate_sweep",):
+    for name in ETC1S_BUILD_KERNELS + ("etc1s_segment_sum_wide", "etc1s_rate_sweep_wide"):
         check(launches[name] >= 1, f"the {WIDE_PALETTE}-entry segment never launched {name}")
     check(encode_ktx2_etc1s(frames, device=DEVICE, **kw) == blob,
           f"the {WIDE_PALETTE}-entry segment encode is not deterministic")
@@ -2298,7 +2317,8 @@ def wide_palette_path(torch, dev, textures, median_cuda_ms) -> tuple:
     check(encode_ktx2_etc1s(small, device=DEVICE, **kw) == cpu_blob,
           f"the card's bytes differ from the CPU port's at {WIDE_PALETTE} entries")
 
-    # ---- the wide calls on the main path's shapes: per call, twin, bound
+    # ---- the wide calls on the main path's shapes: per call, alone, twin,
+    # library call, bound (the slice's rows take the first of WIDE_TIMED)
     bd = torch.from_numpy(np.ascontiguousarray(
         frames.reshape(ETC1S_LAYERS, H // 4, 4, W // 4, 4, 3).transpose(0, 1, 3, 2, 4, 5)
         .reshape(-1, 16, 3))).to(dev)
@@ -2307,26 +2327,51 @@ def wide_palette_path(torch, dev, textures, median_cuda_ms) -> tuple:
     feats_b = torch.cat([feats_b, bd.float().std(1).mean(1, keepdim=True)], 1).contiguous()
     xs = torch.from_numpy((r.normal(size=(sn, sd)) * 1e3).astype(np.float32)).to(dev)
     nr = (H // 4) * (W // 4)
+    seg_names = WRAPPER_KERNELS["etc1s_segment_sum_wide"]
+    k7_names = WRAPPER_KERNELS["etc1s_rate_sweep_wide"]
     for e in WIDE_TIMED:
         idx = torch.from_numpy(r.integers(0, e, sn)).to(dev)
         key = f"etc1s_segment_sum_k{e}"
-        ms[key] = median_cuda_ms(lambda: k.segment_sum(idx, e, xs), REPS)
+        fn = lambda idx=idx, e=e: k.segment_sum(idx, e, xs)  # noqa: E731
+        hold_bits(torch, err, "etc1s_segment_sum_wide", fn(), k.segment_sum_plain(idx, e, xs))
+        acc = torch.zeros((e, sd), dtype=torch.float32, device=dev)
+        ms[key] = median_cuda_ms(fn, REPS)
+        ms[key + "_kernel"] = kernel_only_ms(torch, fn, seg_names)[0]
         ms[key + "_plain"] = once_ms(torch, lambda: k.segment_sum_plain(idx, e, xs))
+        ms[key + "_library"] = median_cuda_ms(lambda: acc.index_add_(0, idx, xs), REPS)
         wide.setdefault("etc1s_segment_sum", {})[f"k{e}"] = {
-            "shape": [sn, e, sd], "ms": ms[key], "plain_ms": ms[key + "_plain"],
+            "shape": [sn, e, sd], "ms": ms[key], "kernel_ms": ms[key + "_kernel"],
+            "plain_ms": ms[key + "_plain"], "library_ms": ms[key + "_library"],
             **dict(zip(("bound_ms", "bound_by"), bound(
                 sn * (sd + 1) * 4 + e * sd * 4, OPS["etc1s_segment_sum"] * sn * sd,
                 F32_FLOP_PER_S)))}
+        cb = feats_b[torch.from_numpy(r.choice(ne, e, replace=False)).to(dev)] + 0.25
+        key = f"etc1s_kmeans_iter_k{e}"
+        ms[key] = median_cuda_ms(lambda cb=cb: k.kmeans_iter(feats_b, cb), REPS)
+        ms[key + "_plain"] = once_ms(torch, lambda: k.kmeans_iter_plain(feats_b, cb))
+        wide.setdefault("etc1s_kmeans_iter", {})[f"k{e}"] = {
+            "shape": [ne, e], "ms": ms[key], "plain_ms": ms[key + "_plain"],
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                ne * 16 + e * 16 + ne * 4 + e * 20, OPS["etc1s_kmeans_iter"] * ne * e,
+                F32_FLOP_PER_S)))}
+        args = to_device(sweep_frame(torch, r, H // 4, W // 4, e, False, True, "mixed"), dev)
+        fn = lambda args=args: k.rate_sweep_frame(*args, 0, 60.0, 1.5, W // 4)  # noqa: E731
+        hold(err, "etc1s_rate_sweep_wide", fn(),
+             k.rate_sweep_frame_plain(*args, 0, 60.0, 1.5, W // 4))
+        _p_sq, feat, mat = k.sweep_features(*args[:4], args[6])
+        key = f"etc1s_rate_sweep_e{e}"
+        ms[key] = median_cuda_ms(fn, REPS)
+        ms[key + "_kernel"] = kernel_only_ms(torch, fn, k7_names)[0]
+        ms[key + "_plain"] = once_ms(
+            torch, lambda: k.rate_sweep_frame_plain(*args, 0, 60.0, 1.5, W // 4))
+        ms[key + "_library"] = median_cuda_ms(lambda: feat @ mat.T, REPS)
+        wide.setdefault("etc1s_rate_sweep", {})[f"e{e}"] = {
+            "shape": [nr, e], "ms": ms[key], "kernel_ms": ms[key + "_kernel"],
+            "plain_ms": ms[key + "_plain"], "library_ms": ms[key + "_library"],
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                nr * 48 + e * (12 + 16 + 4) + 8 * 64 + nr * 4 * 4 + nr * 2 * 4,
+                OPS["etc1s_rate_sweep"] * nr * e, INT_OPS_PER_S)))}
     e = WIDE_TIMED[0]
-    cb = feats_b[torch.from_numpy(r.choice(ne, e, replace=False)).to(dev)] + 0.25
-    key = f"etc1s_kmeans_iter_k{e}"
-    ms[key] = median_cuda_ms(lambda: k.kmeans_iter(feats_b, cb), REPS)
-    ms[key + "_plain"] = once_ms(torch, lambda: k.kmeans_iter_plain(feats_b, cb))
-    wide["etc1s_kmeans_iter"] = {f"k{e}": {
-        "shape": [ne, e], "ms": ms[key], "plain_ms": ms[key + "_plain"],
-        **dict(zip(("bound_ms", "bound_by"), bound(
-            ne * 16 + e * 16 + ne * 4 + e * 20, OPS["etc1s_kmeans_iter"] * ne * e,
-            F32_FLOP_PER_S)))}}
     base = torch.from_numpy(r.integers(0, 256, (e, 3)).astype(np.int32)).to(dev)
     table = k.endpoint_table(base, torch.from_numpy(r.integers(0, 8, e).astype(np.int32)).to(dev))
     key = f"etc1s_assign_endpoints_e{e}"
@@ -2336,16 +2381,12 @@ def wide_palette_path(torch, dev, textures, median_cuda_ms) -> tuple:
         **dict(zip(("bound_ms", "bound_by"), bound(
             ne * 48 + e * 80 + ne * 4, OPS["etc1s_assign_endpoints"] * ne * e,
             INT_OPS_PER_S)))}}
-    args = to_device(sweep_frame(torch, r, H // 4, W // 4, e, False, True, "mixed"), dev)
-    key = f"etc1s_rate_sweep_e{e}"
-    ms[key] = median_cuda_ms(lambda: k.rate_sweep_frame(*args, 0, 60.0, 1.5, W // 4), REPS)
-    ms[key + "_plain"] = once_ms(
-        torch, lambda: k.rate_sweep_frame_plain(*args, 0, 60.0, 1.5, W // 4))
-    wide["etc1s_rate_sweep"] = {f"e{e}": {
-        "shape": [nr, e], "ms": ms[key], "plain_ms": ms[key + "_plain"],
-        **dict(zip(("bound_ms", "bound_by"), bound(
-            nr * 48 + e * (12 + 16 + 4) + 8 * 64 + nr * 4 * 4 + nr * 2 * 4,
-            OPS["etc1s_rate_sweep"] * nr * e, INT_OPS_PER_S)))}}
+    # the wide kernels' own rows of the kernels line, at the slice's width
+    for name, key in (("etc1s_segment_sum_wide", f"etc1s_segment_sum_k{e}"),
+                      ("etc1s_rate_sweep_wide", f"etc1s_rate_sweep_e{e}")):
+        for suffix in ("", "_kernel", "_plain", "_library"):
+            ms[name + suffix] = ms[key + suffix]
+        wide[name] = dict(wide[name.rsplit("_", 1)[0]])
     f, n, d = U5_WIDE_SHAPES[0]
     res, p = u5_chain(r, f, n, d)
     res_d, p_d = torch.from_numpy(res).to(dev), torch.from_numpy(p).to(dev)
@@ -2360,7 +2401,8 @@ def wide_palette_path(torch, dev, textures, median_cuda_ms) -> tuple:
             f * n * d * 8 + f * n * 12, OPS["parallelogram_decode"] * f * n * d, INT_OPS_PER_S))),
         "chain_depth": depth, "chain_bound_ms": chain_bound_ms(depth, add_cycles)}}
     attrs = _build.kernel_attrs()
-    wide_attrs = {fn: attrs[fn] for fn in ("rate_sweep_frame_kernel_wide", "sweep_table_kernel",
+    wide_attrs = {fn: attrs[fn] for fn in (*KERNEL_ATTR_NAMES["etc1s_segment_sum_wide"],
+                                           *KERNEL_ATTR_NAMES["etc1s_rate_sweep_wide"],
                                            "parallelogram_decode_kernel<3>")}
     emit({"phase": "wide_palette_path", "entries": WIDE_ENTRIES, "rows": WIDE_ROWS,
           "kernel_attrs": wide_attrs,
@@ -3789,6 +3831,8 @@ def main() -> int:
     for name, v in wide_err.items():
         err[name] = max(err.get(name, 0), v)
     ms.update(wide_ms)
+    for name in ("etc1s_segment_sum_wide", "etc1s_rate_sweep_wide"):  # this slice's path
+        launches[name] = wide_launches[name]
     python_draco_path(torch, textures)
     uastc_cli_launches = uastc_project_path(torch, textures)
 
@@ -3853,6 +3897,11 @@ def main() -> int:
         "etc1s_segment_sum": ("etc1s.cu", "codecs/basis/etc1s_encode.py:103",
                               sn * (sd + 1) * 4 + sk * sd * 4,
                               OPS["etc1s_segment_sum"] * sn * sd, F32_FLOP_PER_S),
+        # past one window (this slice's path: B's segment at WIDE_PALETTE), at
+        # sel_update's rows and D with k = WIDE_PALETTE: the same function
+        "etc1s_segment_sum_wide": ("etc1s.cu", "codecs/basis/etc1s_encode.py:103",
+                                   sn * (sd + 1) * 4 + WIDE_PALETTE * sd * 4,
+                                   OPS["etc1s_segment_sum"] * sn * sd, F32_FLOP_PER_S),
         # the reference's frame body is XLA (a product and a lax.scan), not a
         # Pallas site: the blocks, the palette (colors, modifiers, bits, the
         # selector rows) and 4 assignment vectors in, 2 out; no [nb, E] tile
@@ -3860,6 +3909,12 @@ def main() -> int:
                              nr * 48 + er * (12 + 16 + 4) + sweep_rows * 64 + nr * 4 * 4
                              + nr * 2 * 4,
                              OPS["etc1s_rate_sweep"] * nr * er, INT_OPS_PER_S),
+        # K7 past 2,048 entries: one 1024^2 frame at WIDE_PALETTE entries (the
+        # timed frame has 8 selector rows)
+        "etc1s_rate_sweep_wide": ("etc1s.cu", "codecs/basis/etc1s_encode.py:1211",
+                                  nr * 48 + WIDE_PALETTE * (12 + 16 + 4) + 8 * 64 + nr * 4 * 4
+                                  + nr * 2 * 4,
+                                  OPS["etc1s_rate_sweep"] * nr * WIDE_PALETTE, INT_OPS_PER_S),
         # the reference's device stage is one XLA program, not a Pallas site: the
         # packed window (values and metadata) in once, every float written once
         "drc_fused_batch": ("drc.cu", "models/drc_device.py:193",
@@ -3889,7 +3944,8 @@ def main() -> int:
     for fn in ("etc1_encode_kernel", "etc1_decode_kernel", "inten_errors_kernel",
                "rate_sweep_frame_kernel", "drc_fused_batch_kernel", "uastc_device_fit_kernel",
                "weight_index_kernel", "seg_sum_chunk_kernel", "seg_sum_tree_kernel",
-               "seg_sum_tree_kernel_small", *WRAPPER_KERNELS["estimate_normals"],
+               "seg_sum_tree_kernel_small", *KERNEL_ATTR_NAMES["etc1s_segment_sum_wide"],
+               *KERNEL_ATTR_NAMES["etc1s_rate_sweep_wide"], *WRAPPER_KERNELS["estimate_normals"],
                "morton_keys_kernel", *(f"parallelogram_decode_kernel<{g}>" for g in range(1, 5)),
                *STAGE_KERNEL_NAMES):
         check(attrs[fn]["stack_bytes"] == 0, f"{fn} uses stack memory")

@@ -470,6 +470,81 @@ def test_segment_sum_and_kmeans_above_the_row_limit_match_twins(card, monkeypatc
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
 
 
+# ---- past one window: the sparse segment sum --------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["random", "skewed"])
+@pytest.mark.parametrize("k,d", [(2049, 64), (4096, 9), (4096, 64), (16128, 64), (16128, 33)])
+@pytest.mark.parametrize("n", [1025, 65536])
+def test_sparse_segment_sum_matches_twin(card, n, k, d, kind):
+    """Past 2,048 segments: bit for bit, one wrapper launch counted on both
+    counters, random and 90%-one-segment indices, -0.0 values."""
+    idx, x = _seg_inputs(n, k, d, n + k + d)
+    if kind == "skewed":
+        idx = torch.where(torch.from_numpy(np.random.default_rng(k).random(n) < 0.9), k - 1, idx)
+    before = dict(etc1s_cuda.LAUNCHES)
+    got = etc1s_cuda.segment_sum(idx.to(card), k, x.to(card))
+    torch.cuda.synchronize()
+    assert etc1s_cuda.LAUNCHES["etc1s_segment_sum"] == before["etc1s_segment_sum"] + 1
+    assert etc1s_cuda.LAUNCHES["etc1s_segment_sum_wide"] == before["etc1s_segment_sum_wide"] + 1
+    want = etc1s_cuda.segment_sum_plain(idx, k, x)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.int32), want.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("k,kernels", [(2048, 2), (2049, 2), (16128, 2), (70000, 4)])
+def test_segment_sum_launches_a_fixed_number_of_kernels(card, k, kernels):
+    """Two kernels a call up to one window of either path (2,048 dense,
+    65,536 sparse), whatever k; past 65,536 two a window of 65,536."""
+    idx, x = _seg_inputs(5000, k, 16, k)
+    idx, x = idx.to(card), x.to(card)
+    etc1s_cuda.segment_sum(idx, k, x)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        etc1s_cuda.segment_sum(idx, k, x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "seg_sum" in e.name]
+    assert len(names) == kernels, names
+    np.testing.assert_array_equal(
+        etc1s_cuda.segment_sum(idx, k, x).cpu().numpy().view(np.int32),
+        etc1s_cuda.segment_sum_plain(idx.cpu(), k, x.cpu()).numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("e", [2049, 4096, 16128])
+def test_rate_sweep_wide_variants_match_twin(card, e):
+    """K7's wide path with one or two block rows a CTA, the entry table in
+    shared memory or in device memory: every variant the twin's bits, an
+    odd number of rows (the last CTA's second row past the frame)."""
+    from uvol_tpu_torch import _build
+
+    nby, nbx = 65, 19
+    args = _sweep_frame(nby, nbx, e, e + 3)
+    want = etc1s_cuda.rate_sweep_frame_plain(*args, 0, 60.0, 1.5, nbx)
+    dev = _on(card, args)
+    ptrs = [t.contiguous() for t in (*dev[:7], *dev[7])]
+    table = torch.empty((e, 8), dtype=torch.int32, device=card)
+    for rows in (1, 2):
+        for staged in ((0, 1) if e <= etc1s_cuda.SWEEP_STAGED_MAX_E else (0,)):
+            oe = torch.empty(nby * nbx, dtype=torch.int32, device=card)
+            os_ = torch.empty_like(oe)
+            _build.launch("uvt_etc1s_rate_sweep_variant", card, *(t.data_ptr() for t in ptrs), 1,
+                          0, 60.0, 1.5, nby, nbx, e, table.data_ptr(), oe.data_ptr(),
+                          os_.data_ptr(), rows, staged)
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(oe.cpu().numpy(), want[0].numpy())
+            np.testing.assert_array_equal(os_.cpu().numpy(), want[1].numpy())
+
+
+def test_wide_palette_kernels_use_no_stack(card):
+    """The sparse segment sum keeps its counter's pending nodes in shared
+    memory and K7's rows kernel its rows' minima in registers."""
+    from uvol_tpu_torch import _build
+
+    attrs = _build.kernel_attrs()
+    for fn in ("seg_sum_sparse_chunk_kernel", "seg_sum_roots_kernel", "sweep_table_kernel",
+               *(f"rate_sweep_rows_kernel<{r}, {b}>" for r in (1, 2) for b in ("true", "false"))):
+        assert attrs[fn]["stack_bytes"] == 0, (fn, attrs[fn])
+
+
 def test_palette_core_on_card_refuses_tf32(card):
     from uvol_tpu_torch.codecs.basis.etc1s_encode import palette_core
 

@@ -1366,3 +1366,109 @@ def test_corto_cli_runs_as_a_module(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "bits/vertex" in proc.stdout and (tmp_path / "grid.crt").exists()
+
+
+# ---- helpers the port had cut: the KTX2 path readers, the manifest of a
+# directory, the endpoint palette's sort, the host timers -----------------------
+
+
+@pytest.mark.parametrize("rel,only", [
+    ("containers/ktx2.py", ["read_ktx2_header", "read_ktx2_file"]),
+    ("containers/manifest.py", ["manifest_for_directory"]),
+    ("codecs/basis/etc1s_encode.py", ["sort_endpoint_palette"]),
+    ("utils/timing.py", ["Timer", "StageTimer"]),
+])
+def test_copied_helpers_are_the_reference_code(rel, only):
+    """Each helper copied into a module of the port is the reference's
+    definition (docstrings aside, imports pointed at the port)."""
+    assert _code_only(REPO / "uvol_tpu_torch" / rel, only) == \
+        _code_only(REPO / "uvol_tpu" / rel, only)
+
+
+def _ktx2_on_disk(tmp_path, kind: str, name: str = "a.ktx2") -> Path:
+    th, tl, tkw, _ = _ktx2_args(tktx2, kind)
+    dest = tmp_path / name
+    dest.write_bytes(tktx2.write_ktx2(th, tl, **tkw))
+    return dest
+
+
+@pytest.mark.parametrize("kind", ["etc1", "etc1-zstd", "basislz-rgb", "basislz-rgba"])
+def test_ktx2_path_readers_match(tmp_path, kind):
+    dest = _ktx2_on_disk(tmp_path, kind)
+    from dataclasses import astuple
+
+    assert astuple(tktx2.read_ktx2_header(str(dest))) == astuple(
+        jktx2.read_ktx2_header(str(dest)))
+    got, want = tktx2.read_ktx2_file(str(dest)), jktx2.read_ktx2_file(str(dest))
+    assert astuple(got.header) == astuple(want.header) and got.dfd == want.dfd
+    assert got.key_value == want.key_value
+    assert [lv.data for lv in got.levels] == [lv.data for lv in want.levels]
+    bad = tmp_path / "bad.ktx2"
+    bad.write_bytes(b"not a ktx2 file" * 8)
+    for mod in (tktx2, jktx2):
+        with pytest.raises(ValueError):
+            mod.read_ktx2_header(str(bad))
+
+
+def test_manifest_for_directory_matches(tmp_path):
+    """An output directory laid out as the reference sample's: Draco frames
+    and two texture targets (one tag with an underscore)."""
+    from uvol_tpu.containers.manifest import manifest_for_directory as jmanifest
+    from uvol_tpu_torch.containers.manifest import manifest_for_directory
+
+    out = tmp_path / "output"
+    (out / "geometry_draco").mkdir(parents=True)
+    for i in range(7):
+        (out / "geometry_draco" / f"{i:05d}.drc").write_bytes(b"\0")
+    (out / "geometry_draco" / "notes.txt").write_text("not a frame")
+    for d, kind, n in (("texture_etc1s-tpu_baseColor_default", "basislz-rgb", 2),
+                       ("texture_astc_baseColor_hi_res", "etc1-zstd", 3)):
+        (out / d).mkdir()
+        for i in range(n):
+            _ktx2_on_disk(out / d, kind, f"{i:05d}.ktx2")
+    got = manifest_for_directory(str(out))
+    assert got == jmanifest(str(out))
+    assert got["geometry"]["targets"]["draco"]["frameCount"] == 7
+    assert set(got["texture"]["targets"]) == {"etc1s-tpu", "astc"}
+
+
+@pytest.mark.parametrize("e", [1, 17, 256])
+def test_sort_endpoint_palette_matches(e):
+    """Ties of luma and intensity included: the stable sort keeps them in
+    order on both."""
+    r = np.random.default_rng(e)
+    c5 = r.integers(0, 32, (e, 3)).astype(np.uint8)
+    inten = r.integers(0, 8, e).astype(np.uint8)
+    if e > 2:
+        c5[1], inten[1] = c5[0], inten[0]
+    fields = dict(color5=c5, inten=inten, selectors=r.integers(0, 4, (5, 16)).astype(np.uint8),
+                  block_endpoint=r.integers(0, e, (3, 40)).astype(np.int32),
+                  block_selector=r.integers(0, 5, (3, 40)).astype(np.int32))
+    got = tenc.Palettes(**{k: v.copy() for k, v in fields.items()})
+    want = jenc.Palettes(**{k: v.copy() for k, v in fields.items()})
+    tenc.sort_endpoint_palette(got)
+    jenc.sort_endpoint_palette(want)
+    for name in fields:
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def test_stage_timer_reports_like_the_reference():
+    from uvol_tpu.utils import timing as jtiming
+    from uvol_tpu_torch.utils import timing as ttiming
+
+    reports = []
+    for mod in (ttiming, jtiming):
+        st = mod.StageTimer()
+        for name in ("decode", "encode", "decode"):
+            with st.stage(name):
+                pass
+        st.totals_ms.update({"decode": 3.5, "encode": 12.25})
+        assert dict(st.counts) == {"decode": 2, "encode": 1}
+        reports.append(str(st))
+        t = mod.Timer()
+        assert t.elapsed_ms() >= 0.0
+        t.restart()
+        assert 0.0 <= t.elapsed_ms() < 1e3
+    assert reports[0] == reports[1] and reports[0].splitlines()[0].startswith("encode")

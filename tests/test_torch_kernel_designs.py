@@ -9,6 +9,9 @@ functions, bit for bit:
     tiles, each tile's keys sorted by a warp, a walk per (run, columns)
     and per (present segment, columns); pass 2 over the chunk partials)
     against `segment_sum_plain`, through a numpy model of the two passes;
+    past 2,048 segments its sparse path (each chunk's roots only for the
+    segments it holds, found by presence words and slot bases; pass 2's
+    counter over the present chunks, absent ones identities);
   - K1 (`csrc/etc1.cu`): the closed form of pass 1's table ranking, and
     the forms of pass 2's code errors, against the twin's formulas in
     `codecs/basis/etc.py`;
@@ -30,7 +33,8 @@ functions, bit for bit:
     prologue (features, e_prev), int32 errors, a thread's first minimum
     over its entries, the warps' minima of (ordered cost, entry) with CR
     winning ties, and the CR snap's gate, against
-    `rate_sweep_frame_plain`;
+    `rate_sweep_frame_plain`; past 2,048 entries two block rows a CTA and
+    the count terms of the error as exact float multiply-adds;
   - K8 (`csrc/drc.cu`, the `.drc` window's device stage): each CTA's first
     frame, offset and one-frame flag, its staged metadata, its bytes staged
     in 16-byte pieces from the boundary at or below its first byte (bytewise
@@ -116,56 +120,67 @@ def test_segment_sum_plain_takes_its_documented_order(d, n):
     np.testing.assert_array_equal(_bits(got), _bits(_documented_order(idx, k, x)))
 
 
-def _kernel_model(idx: np.ndarray, k: int, x: np.ndarray) -> np.ndarray:
-    """numpy model of the segment-sum kernel's two passes, as
-    `csrc/etc1s.cu` computes them.
-
-    Pass 1, one CTA per chunk of 1,024 rows: the keys segment << 10 | row
-    sorted within each tile of 64 (one warp a tile); the (segment, tile)
-    runs (stretches of the sorted keys) and the present segments, a slot
-    each in segment order; per column group (at most 16 columns), each
-    run's in-order sum from 0.0 written over its first row, then per
-    present segment the levels 0..3 over the 16 tiles (an absent tile
-    adding 0.0), written as the chunk's partial; 0.0 for a segment the
-    chunk does not hold. Pass 2: the tree over the chunk partials in
-    pieces of 256 leaves, then the piece roots."""
+def _chunk_roots(idx: np.ndarray, x: np.ndarray, ch: int) -> tuple:
+    """Pass 1 of the segment-sum kernel on chunk `ch` of 1,024 rows, as
+    `csrc/etc1s.cu` computes it: the keys segment << 10 | row sorted within
+    each tile of 64 (one warp a tile); the (segment, tile) runs (stretches
+    of the sorted keys) and the present segments, a slot each in segment
+    order; per column group (at most 16 columns), each run's in-order sum
+    from 0.0 written over its first row, then per present segment the
+    levels 0..3 over the 16 tiles (an absent tile adding 0.0). Returns the
+    present segments, ascending, and their roots [segments, D]."""
     n, d = x.shape
     tiles, levels = kern.SEG_CHUNK_TILES, 4
-    m = max(1, -(-n // CHUNK))
     groups = -(-d // 16)
     dc = -(-d // groups)
+    rows = np.arange(ch * CHUNK, min(n, (ch + 1) * CHUNK))
+    keys = (idx[rows].astype(np.int64) << 10) | (rows - ch * CHUNK)
+    keys = np.concatenate([np.sort(keys[t:t + kern.SEG_TILE])
+                           for t in range(0, len(keys), kern.SEG_TILE)] or [keys])
+    st = keys >> 6  # (segment, tile)
+    starts = np.flatnonzero(np.r_[True, st[1:] != st[:-1]]) if len(keys) else np.zeros(0, int)
+    ends = np.r_[starts[1:], len(keys)]
+    run_row = keys[starts] & (CHUNK - 1)
+    run_seg = keys[starts] >> 10
+    segs = np.unique(run_seg)
+    roots = np.zeros((len(segs), d), np.float32)
+    for g in range(groups):
+        c0 = g * dc
+        xs = x[ch * CHUNK:ch * CHUNK + len(rows), c0:c0 + dc].copy()  # staged, row order
+        acc = np.zeros((len(starts), xs.shape[1]), np.float32)
+        for step in range(kern.SEG_TILE):  # every run's walk, one row a step
+            live = ends - starts > step
+            acc[live] = acc[live] + xs[keys[starts[live] + step] & (CHUNK - 1)]
+        xs[run_row] = acc  # each run's sum over its first row
+        seg_of_run = np.searchsorted(segs, run_seg)
+        tile_sum = np.zeros((tiles, len(segs), xs.shape[1]), np.float32)
+        tile_sum[run_row >> 6, seg_of_run] = xs[run_row]
+        pend = [None] * levels
+        for t in range(tiles):  # levels 0..3: a binary counter, absent tiles 0.0
+            node = tile_sum[t]
+            for lvl in range(levels):
+                if not (t >> lvl) & 1:
+                    pend[lvl] = node
+                    break
+                node = pend[lvl] + node
+        roots[:, c0:c0 + dc] = node
+    return segs, roots
+
+
+def _kernel_model(idx: np.ndarray, k: int, x: np.ndarray) -> np.ndarray:
+    """numpy model of the segment-sum kernel's two passes up to one window
+    of 2,048 segments, as `csrc/etc1s.cu` computes them.
+
+    Pass 1, one CTA per chunk of 1,024 rows (`_chunk_roots`), written as
+    the chunk's dense [k, D] partial: 0.0 for a segment the chunk does not
+    hold. Pass 2: the tree over the chunk partials in pieces of 256
+    leaves, then the piece roots."""
+    n, d = x.shape
+    m = max(1, -(-n // CHUNK))
     part = np.zeros((m, k, d), np.float32)  # 0.0 for the segments a chunk does not hold
     for ch in range(m):
-        rows = np.arange(ch * CHUNK, min(n, (ch + 1) * CHUNK))
-        keys = (idx[rows].astype(np.int64) << 10) | (rows - ch * CHUNK)
-        keys = np.concatenate([np.sort(keys[t:t + kern.SEG_TILE])
-                               for t in range(0, len(keys), kern.SEG_TILE)] or [keys])
-        st = keys >> 6  # (segment, tile)
-        starts = np.flatnonzero(np.r_[True, st[1:] != st[:-1]]) if len(keys) else np.zeros(0, int)
-        ends = np.r_[starts[1:], len(keys)]
-        run_row = keys[starts] & (CHUNK - 1)
-        run_seg = keys[starts] >> 10
-        segs = np.unique(run_seg)
-        for g in range(groups):
-            c0 = g * dc
-            xs = x[ch * CHUNK:ch * CHUNK + len(rows), c0:c0 + dc].copy()  # staged, row order
-            acc = np.zeros((len(starts), xs.shape[1]), np.float32)
-            for step in range(kern.SEG_TILE):  # every run's walk, one row a step
-                live = ends - starts > step
-                acc[live] = acc[live] + xs[keys[starts[live] + step] & (CHUNK - 1)]
-            xs[run_row] = acc  # each run's sum over its first row
-            seg_of_run = np.searchsorted(segs, run_seg)
-            tile_sum = np.zeros((tiles, len(segs), xs.shape[1]), np.float32)
-            tile_sum[run_row >> 6, seg_of_run] = xs[run_row]
-            pend = [None] * levels
-            for t in range(tiles):  # levels 0..3: a binary counter, absent tiles 0.0
-                node = tile_sum[t]
-                for lvl in range(levels):
-                    if not (t >> lvl) & 1:
-                        pend[lvl] = node
-                        break
-                    node = pend[lvl] + node
-            part[ch, segs, c0:c0 + dc] = node
+        segs, roots = _chunk_roots(idx, x, ch)
+        part[ch, segs] = roots
     p = 1  # pass 2: pieces of up to 256 leaves, then the piece roots
     while p < m:
         p *= 2
@@ -263,6 +278,196 @@ def test_kernel_decomposition_with_negative_zeros_beside_absent_tiles(n):
     x[idx == 0] = -0.0
     x[idx == 2] = -0.0
     _hold_model(idx, 3, x)
+
+
+# ---- the segment sum past one window: the sparse path ---------------------------
+
+ROOT_LEVELS = 15  # kRootLevels: chunk indices below 2^14
+
+
+def _popcount(a: np.ndarray) -> np.ndarray:
+    a = a.astype(np.uint64)
+    return np.array([bin(int(v)).count("1") for v in a.ravel()], np.int64).reshape(a.shape)
+
+
+def _sparse_tree(c_of: list, leaves: list, k: int, d: int) -> np.ndarray:
+    """Pass 2 of the sparse path, for every segment at once: each segment's
+    present chunks in order (c_of[c]: the segments chunk c holds, leaves[c]
+    their roots), added in the twin's tree over the chunks as the kernel
+    does: a binary counter whose absent leaves are identities. Leaves next
+    .. c - 1 absent: the pending nodes below h = the highest bit of c ^
+    next fold (right-nested) into one node at h; then leaf c carries to its
+    first zero bit; at the end every pending node folds into the root."""
+    pend = np.zeros((ROOT_LEVELS, k, d), np.float32)
+    valid = np.zeros(k, np.int64)
+    nxt = np.zeros(k, np.int64)
+    for c, (segs, vals) in enumerate(zip(c_of, leaves)):
+        skip = nxt[segs] != c
+        if skip.any():
+            sk = segs[skip]
+            h = np.array([int(v).bit_length() - 1 for v in (c ^ nxt[sk])], np.int64)
+            node = np.zeros((len(sk), d), np.float32)
+            have = np.zeros(len(sk), bool)
+            for lvl in range(ROOT_LEVELS - 1):
+                sel = (lvl < h) & (((valid[sk] >> lvl) & 1) == 1)
+                node[sel] = np.where(have[sel, None], pend[lvl, sk[sel]] + node[sel],
+                                     pend[lvl, sk[sel]])
+                have |= sel
+            for lvl in range(ROOT_LEVELS):
+                sel = (h == lvl) & have
+                pend[lvl, sk[sel]] = node[sel]
+            valid[sk] = (valid[sk] & ~((1 << h) - 1)) | (have.astype(np.int64) << h)
+        node = vals.copy()
+        for lvl in range(ROOT_LEVELS):  # the same carry for every segment of chunk c
+            if not (c >> lvl) & 1:
+                pend[lvl, segs] = node
+                valid[segs] |= 1 << lvl
+                break
+            here = ((valid[segs] >> lvl) & 1) == 1
+            node = np.where(here[:, None], pend[lvl, segs] + node, node)
+            valid[segs] &= ~(1 << lvl)
+        nxt[segs] = c + 1
+    out = np.zeros((k, d), np.float32)  # a segment without a row: the twin's 0.0
+    have = np.zeros(k, bool)
+    for lvl in range(ROOT_LEVELS):
+        sel = ((valid >> lvl) & 1) == 1
+        out[sel] = np.where(have[sel, None], pend[lvl, sel] + out[sel], pend[lvl, sel])
+        have |= sel
+    return out
+
+
+def _sparse_model(idx: np.ndarray, k: int, x: np.ndarray) -> np.ndarray:
+    """numpy model of the segment sum past one window (`seg_sum_sparse_chunk_
+    kernel` and `seg_sum_roots_kernel`): pass 1 as `_chunk_roots`, every
+    row read once, the roots written under their slots with the chunk's
+    presence words and the slots before each word; pass 2 finds each
+    segment's root in chunk c at slot base[c][w] + popc(bits[c][w] & the
+    bits below the segment's) and adds the present chunks in the twin's
+    tree (`_sparse_tree`)."""
+    n, d = x.shape
+    m = max(1, -(-n // CHUNK))
+    words = -(-k // 32)
+    c_of, leaves = [], []
+    for ch in range(m):
+        segs, roots = _chunk_roots(idx, x, ch)
+        present = np.zeros(words * 32, np.int64)
+        present[segs] = 1
+        bits = (present.reshape(words, 32) << np.arange(32)).sum(1)
+        base = np.r_[0, np.cumsum(present.reshape(words, 32).sum(1))[:-1]]
+        w, b = segs >> 5, segs & 31
+        slot = base[w] + _popcount(bits[w] & ((1 << b) - 1))
+        c_of.append(segs)
+        leaves.append(roots[slot])  # the root a thread of pass 2 reads
+        assert (slot == np.arange(len(segs))).all()  # slots are ranks in segment order
+    return _sparse_tree(c_of, leaves, k, d)
+
+
+def _hold_sparse_model(idx: np.ndarray, k: int, x: np.ndarray) -> None:
+    want = kern.segment_sum_plain(torch.from_numpy(idx), k, torch.from_numpy(x))
+    np.testing.assert_array_equal(_bits(_sparse_model(idx, k, x)), _bits(want))
+
+
+@pytest.mark.parametrize("kind", ["random", "skewed", "sorted"])
+@pytest.mark.parametrize("d", [9, 64])
+@pytest.mark.parametrize("k", [2049, 4096, 16128])
+@pytest.mark.parametrize("n", [1025, 3077, 5000])
+def test_sparse_segment_sum_design_matches_segment_sum_plain(n, k, d, kind):
+    """Bit-exact past one window: each chunk's roots of the segments it
+    holds, found by presence words and slot bases, added over the present
+    chunks only, equal the twin's tree over every chunk; empty segments,
+    -0.0 values and n off the 1,024-row chunk grid included."""
+    r = np.random.default_rng(n * 7 + k + d)
+    idx = r.integers(0, k, n)
+    if kind == "skewed":
+        idx = np.where(r.random(n) < 0.9, k - 1, idx)
+    elif kind == "sorted":
+        idx = np.sort(idx)
+    _hold_sparse_model(idx, k, _values(r, n, d))
+
+
+@pytest.mark.parametrize("k", [2049, 4096])
+def test_sparse_segment_sum_design_over_many_chunks(k):
+    """70,001 rows (69 chunks): absent stretches that fold pending nodes
+    from several levels, a segment in one chunk only, and one in every."""
+    r = np.random.default_rng(k)
+    n = 70001
+    idx = r.integers(0, k, n)
+    idx[::1000] = 0  # in every chunk
+    idx[idx == 1] = 2
+    idx[50000] = 1  # in one chunk
+    _hold_sparse_model(idx, k, _values(r, n, 9))
+
+
+@pytest.mark.parametrize("n", [64, 3000])
+def test_sparse_segment_sum_design_with_negative_zeros(n):
+    """A segment of -0.0 rows in every tile and one whose only rows are
+    -0.0 in a single chunk: roots start from 0.0, so no node is -0.0 and
+    an absent chunk's identity changes nothing."""
+    r = np.random.default_rng(n)
+    k = 4096
+    idx = (np.arange(n) % 2).astype(np.int64)
+    idx[::97] = 2
+    idx[-5:] = 4095
+    x = _values(r, n, 9)
+    x[(idx == 0) | (idx == 2) | (idx == 4095)] = -0.0
+    _hold_sparse_model(idx, k, x)
+
+
+@pytest.mark.parametrize("k", [2049, 16128])
+def test_sparse_pass_1_root_of_a_one_tile_segment_is_its_run_sum(k):
+    """The sparse pass 1's shortcut: a segment that sits in one tile of the
+    chunk has for root the in-order sum of its rows from 0.0 (the 16-tile
+    walk adds only 0.0 beside it), -0.0 rows included."""
+    r = np.random.default_rng(k)
+    n, d = 3000, 9
+    idx = r.integers(0, k, n)
+    x = _values(r, n, d)
+    for ch in range(-(-n // CHUNK)):
+        segs, roots = _chunk_roots(idx, x, ch)
+        rows = np.arange(ch * CHUNK, min(n, (ch + 1) * CHUNK))
+        for seg, root in zip(segs, roots):
+            mine = rows[idx[rows] == seg]
+            if len(np.unique(mine // kern.SEG_TILE)) == 1:
+                acc = np.zeros(d, np.float32)
+                for i in mine:
+                    acc = acc + x[i]
+                np.testing.assert_array_equal(_bits(root), _bits(acc))
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 64, 257, 1000, 16384])
+@pytest.mark.parametrize("density", [0.02, 0.3, 1.0])
+def test_sparse_tree_over_present_chunks_is_the_twins_tree(m, density):
+    """The counter with skipped absent leaves against the complete binary
+    tree over m leaves padded with 0.0 (the twin's pairwise levels), for
+    every present pattern: first, last, lone and dense chunks, up to the
+    2^14 chunks of 2^24 rows."""
+    r = np.random.default_rng(m * 10 + int(density * 10))
+    k, d = 24, 3
+    present = r.random((m, k)) < density
+    present[0, 0] = present[-1, 1] = present[m // 2, 2] = True
+    present[:, 3] = False
+    vals = _values(r, m * k, d).reshape(m, k, d)
+    vals[..., 0] = np.abs(vals[..., 0])  # roots are sums from 0.0: never -0.0
+    vals[vals == 0] = 0.0
+    c_of = [np.flatnonzero(present[c]) for c in range(m)]
+    got = _sparse_tree(c_of, [vals[c, present[c]] for c in range(m)], k, d)
+    leaves = list(np.where(present[..., None], vals, np.float32(0.0)))
+    while len(leaves) > 1:
+        if len(leaves) % 2:
+            leaves.append(np.zeros((k, d), np.float32))
+        leaves = [leaves[i] + leaves[i + 1] for i in range(0, len(leaves), 2)]
+    np.testing.assert_array_equal(_bits(got), _bits(leaves[0]))
+
+
+def test_sparse_segment_sum_scratch_holds_roots_and_presence():
+    """The wrapper's scratch: dense partials up to one window; past it the
+    roots of at most min(k, 1,024) segments a chunk, each column group of
+    at most 16 at a pitch of 4 * ceil(columns / 4) floats, then a presence
+    word and a slot base per 32 segments a chunk."""
+    assert kern._segment_sum_scratch(3000, 64, 2048) == 3 * 2048 * 64
+    assert kern._segment_sum_scratch(327680, 64, 16128) == 320 * 1024 * 64 + 2 * 320 * 504
+    assert kern._segment_sum_scratch(0, 9, 4096) == 1 * 1024 * 12 + 2 * 128
+    assert kern._segment_sum_scratch(5, 33, 70000) == 1 * 1024 * 3 * 12 + 2 * 2048
 
 
 def test_segment_sum_wrapper_on_the_cpu_takes_the_twin():
@@ -749,13 +954,28 @@ def _k7_pair_error(blocks, base, mods, sel_cb, ep, sel) -> np.ndarray:
     return (d * d).sum((1, 2))
 
 
-def _k7_model(blocks, base, mods, sel_cb, bits, ep, sel, prev, s0_index, lam, lam_cr, nbx):
+def _k7_model(blocks, base, mods, sel_cb, bits, ep, sel, prev, s0_index, lam, lam_cr, nbx,
+              rows: int = 1):
     """`rate_sweep_frame_kernel` written out in numpy: the rows go together,
     the columns in order; threads = 32 * ceil(E / 128), thread t holding
-    entries t + j * threads (j < 4); past 2,048 entries (the wide path) 512
-    threads, thread t pricing every entry t + j * 512 in turn."""
+    entries t + j * threads (j < 4); past 2,048 entries (the wide path,
+    `rate_sweep_rows_kernel`) 512 threads, thread t pricing every entry t +
+    j * 512 in turn for each of the `rows` block rows of its CTA, one read
+    of the entry for all of them; the frame's rows padded to a multiple of
+    `rows` with rows whose results are dropped: a row's prices depend on
+    no other row of its CTA."""
     e, nb = len(base), len(ep)
     nby = nb // nbx
+    dead = -nby % rows
+    if dead:  # the last CTA's rows past the frame
+        nbd = dead * nbx
+        got = _k7_model(np.concatenate([blocks, np.zeros((nbd, 16, 3), np.uint8)]), base, mods,
+                        sel_cb, bits, np.concatenate([ep, np.zeros(nbd, ep.dtype)]),
+                        np.concatenate([sel, np.zeros(nbd, sel.dtype)]),
+                        None if prev is None else tuple(
+                            np.concatenate([p, np.zeros(nbd, p.dtype)]) for p in prev),
+                        s0_index, lam, lam_cr, nbx)
+        return tuple(g[:nb] for g in got)
     threads = 32 * -(-e // (32 * K7_PER)) if e <= kern.SWEEP_REG_MAX_E else 512
     per = K7_PER if e <= kern.SWEEP_REG_MAX_E else -(-e // threads)
     lam, lam_cr = np.float32(lam), np.float32(lam_cr)
@@ -843,6 +1063,13 @@ K7_CASES = {
     "e2048": dict(nby=2, nbx=3, e=2048, seed=6),
     "e2049_wide": dict(nby=2, nbx=3, e=2049, seed=12),
     "e3000_wide_ties": dict(nby=3, nbx=4, e=3000, seed=13, dup=True),
+    "e2049_wide_rows2": dict(nby=5, nbx=3, e=2049, seed=14, rows=2),
+    "e2049_wide_rows2_frame0": dict(nby=3, nbx=4, e=2049, seed=15, rows=2, prev=False),
+    "e4096_wide_rows2": dict(nby=3, nbx=5, e=4096, seed=16, rows=2),
+    "e4096_wide_rows1_frame0": dict(nby=2, nbx=4, e=4096, seed=17, prev=False),
+    "e4096_wide_rows2_ties_lam0": dict(nby=4, nbx=3, e=4096, seed=18, rows=2, dup=True, lam=0.0),
+    "e16128_wide_rows2": dict(nby=3, nbx=3, e=16128, seed=19, rows=2),
+    "e16128_wide_rows2_frame0": dict(nby=2, nbx=3, e=16128, seed=20, rows=2, prev=False),
     "one_column": dict(nby=6, nbx=1, e=64, seed=7),
     "frame0_or_break": dict(nby=3, nbx=5, e=200, seed=8, prev=False),
     "all_flat": dict(nby=3, nbx=5, e=96, seed=9, flat="all"),
@@ -859,6 +1086,7 @@ def test_k7_frame_design_equals_the_twin(case):
     (ordered cost, entry) with CR winning ties, the snap's gate."""
     kw = dict(K7_CASES[case])
     lam = kw.pop("lam", 60.0)
+    rows = kw.pop("rows", 1)
     blocks, base, mods, sel_cb, ep, sel, prev = _k7_inputs(**kw)
     nbx = kw["nbx"]
     bits = tenc.sweep_bits_table(len(base))
@@ -866,7 +1094,7 @@ def test_k7_frame_design_equals_the_twin(case):
     want = kern.rate_sweep_frame_plain(t(blocks), t(base), t(mods), t(sel_cb), t(bits), t(ep),
                                        t(sel), None if prev is None else tuple(map(t, prev)),
                                        0, lam, 1.5, nbx)
-    got = _k7_model(blocks, base, mods, sel_cb, bits, ep, sel, prev, 0, lam, 1.5, nbx)
+    got = _k7_model(blocks, base, mods, sel_cb, bits, ep, sel, prev, 0, lam, 1.5, nbx, rows)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w.numpy())
     # the frame exercises what it is named for
@@ -875,6 +1103,38 @@ def test_k7_frame_design_equals_the_twin(case):
     p_sq, feat, mat = kern.sweep_features(t(blocks), t(base), t(mods), t(sel_cb), t(sel))
     err = (p_sq[:, None] + feat.double() @ mat.double().T).numpy()
     assert (err >= 0).all() and err.max() < 1 << 24
+
+
+@pytest.mark.parametrize("kind", ["random", "extremes"])
+def test_k7_wide_error_in_float_is_the_integer_error(kind):
+    """The wide path's error (`entry_error_f`): |p|^2 + sum_c n_c |col_c|^2
+    as float multiply-adds from |p|^2, then fma(-2, float(dot), acc), is the
+    int32 error exactly, also where every term is at its largest (pixels
+    255 against entries of 0, one code on all 16 pixels)."""
+    r = np.random.default_rng(len(kind))
+    nb, e = 4096, 64
+    blocks, base, mods, sel_cb, _ep, sel, _p = _k7_inputs(64, 64, e, seed=21)
+    if kind == "extremes":
+        blocks = np.where(r.random(blocks.shape) < 0.5, 255, 0).astype(np.uint8)
+        blocks[:8] = 255
+        base[:8], mods[:8] = 0, INTEN[0]
+        sel_cb[1:] = r.integers(0, 4, (7, 16))
+        sel_cb[1, :] = 3
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    p_sq, feat, mat = kern.sweep_features(t(blocks), t(base), t(mods), t(sel_cb), t(sel))
+    want = (p_sq.double()[:, None] + feat.double() @ mat.double().T).numpy()  # [nb, E] exact
+    n = feat[:, 12:].numpy().astype(np.float32)
+    sq = mat[:, 12:].numpy().astype(np.float32)
+    acc = np.broadcast_to(p_sq.numpy().astype(np.float32)[:, None], (nb, e)).copy()
+    for c in range(4):
+        acc = fma_f32(torch.from_numpy(n[:, c:c + 1].repeat(e, 1)),
+                      torch.from_numpy(np.broadcast_to(sq[None, :, c], (nb, e)).copy()),
+                      torch.from_numpy(acc)).numpy()
+    dot = -(feat[:, :12].double() @ mat[:, :12].double().T).numpy() / 2  # the __dp2a sums
+    assert dot.max() < 1 << 24 and acc.max() < 1 << 24
+    got = fma_f32(-2.0, torch.from_numpy(dot.astype(np.float32)), torch.from_numpy(acc)).numpy()
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+    assert (want >= 0).all() and want.max() < 1 << 24
 
 
 @pytest.mark.parametrize("x", [0.0, 1.0, 1.5, 3.0e38, np.inf, -2.0, 5e-39])

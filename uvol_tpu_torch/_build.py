@@ -129,6 +129,9 @@ def get_lib() -> ctypes.CDLL:
                 "uvt_etc1s_segment_sum": [vp, vp, ci, ci, ci, vp, vp, vp],
                 "uvt_etc1s_rate_sweep": [vp] * 9 + [ci, ci, ctypes.c_float, ctypes.c_float,
                                                     ci, ci, ci, vp, vp, vp, vp],
+                "uvt_etc1s_rate_sweep_variant": [vp] * 9 + [ci, ci, ctypes.c_float,
+                                                            ctypes.c_float, ci, ci, ci, vp, vp,
+                                                            vp, ci, ci, vp],
                 "uvt_geometry_minmax": [vp, vp, vp, vp, ci, ci, ci, vp],
                 "uvt_quantize_delta_zigzag": [vp, vp, vp, vp, vp, ci, vp, vp, ci, ci, ci, vp],
                 "uvt_drc_fused_batch": [vp, ctypes.c_int64, vp, ci, ctypes.c_int64, vp, vp],

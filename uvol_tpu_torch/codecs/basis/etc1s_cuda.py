@@ -16,17 +16,25 @@ device of the tensor decides the route:
     (`*_plain`), which computes the same numbers in the same order.
 
 Each wrapper call that launches adds one to `LAUNCHES[name]` (K6 and
-`segment_sum` are two kernels each); twin calls are not counted.
+`segment_sum` are two kernels each); twin calls are not counted. The calls
+that take a wide path (`segment_sum` past `SEG_WINDOW` segments, K7 past
+`SWEEP_REG_MAX_E` entries) also add one to `LAUNCHES[name + "_wide"]`.
 
 The kernels take at most `SEG_MAX_ROWS` rows a launch. Above that,
 `segment_sum` and `kmeans_iter` (kernel and twin alike) sum consecutive
 chunks of `SEG_MAX_ROWS` rows and add the chunk results in order, first
-to last; at or below it nothing is chunked. Within a launch they sum
-windows of `SEG_WINDOW` segments (K6: centroids) one after another, and so
-does the twin: a segment's sum depends only on its own rows in tile order,
-so a window's result is the bits of one pass over every segment. K7 keeps
-the palette in registers up to `SWEEP_REG_MAX_E` entries and reads it from a
-table in device memory above.
+to last; at or below it nothing is chunked. K6 sums windows of
+`SEG_WINDOW` centroids one after another, and so does the twin: a
+segment's sum depends only on its own rows in tile order, so a window's
+result is the bits of one pass over every segment. `segment_sum` takes
+one window up to `SEG_WINDOW` segments; past it, its sparse path reads
+the rows once for up to `SEG_WIDE_WINDOW` segments and writes each
+chunk's root only for the segments the chunk holds. K7 keeps the palette
+in registers up to `SWEEP_REG_MAX_E` entries; past it a CTA sweeps two
+block rows at once (one row where the frame has no more rows than the
+card has SMs) and reads each entry once a column for both, from shared
+memory up to `SWEEP_STAGED_MAX_E` entries, else from a table in device
+memory.
 
 K7 computes its errors in int32 (exact: the reference's float32 product
 holds integers below 2^24) and prices with one fused multiply-add per
@@ -68,6 +76,8 @@ LAUNCHES = {
     "etc1s_kmeans_iter": 0,
     "etc1s_segment_sum": 0,
     "etc1s_rate_sweep": 0,
+    "etc1s_segment_sum_wide": 0,
+    "etc1s_rate_sweep_wide": 0,
 }
 
 #: the ETC1S intensity modifiers [8 tables, 4 codes]; `csrc/etc1s.cu`
@@ -79,12 +89,20 @@ SEG_TILE = 64
 #: tiles per pass-1 chunk of the segment-sum kernel (kChunkTiles)
 SEG_CHUNK_TILES = 16
 #: segments (K6: centroids) one window of the kernels sums, the width of
-#: their shared-memory map; a wider sum takes ceil(k / SEG_WINDOW) windows,
-#: two launches each, on both routes in the same order
+#: their shared-memory map; a wider K6 sum takes ceil(k / SEG_WINDOW)
+#: windows, two launches each, on both routes in the same order; a wider
+#: segment sum takes the sparse path
 SEG_WINDOW = 2048
+#: segments one window of the segment sum's sparse path sums (two launches
+#: a window: one for any palette basisu allows)
+SEG_WIDE_WINDOW = 1 << 16
+#: most columns of one pass-1 column group
+SEG_GROUP_COLS = 16
 #: most palette entries K7 keeps in a CTA's registers; wider palettes take
-#: its wide path (an entry table in device memory, written first)
+#: its wide path (an entry table written first, then two rows a CTA)
 SWEEP_REG_MAX_E = 2048
+#: most entries the wide path copies into shared memory (kSweepStagedMaxE)
+SWEEP_STAGED_MAX_E = 5120
 #: most rows one launch takes (pass 2 reduces at most 64 x 256 chunk
 #: partials); longer inputs are summed in chunks of this many rows
 SEG_MAX_ROWS = 1 << 24
@@ -207,10 +225,11 @@ def segment_sum(idx: Tensor, k: int, x: Tensor) -> Tensor:
     """The fixed-order segment sum of `segment_sum_plain`: idx [N] integer
     in [0, k), x [N, D] f32 → [k, D] f32. A CUDA tensor launches the
     kernel of `csrc/etc1s.cu` (pass 1 over chunks of `SEG_CHUNK_TILES`
-    tiles, pass 2 over the chunk partials: two launches per window of
-    `SEG_WINDOW` segments up to `SEG_MAX_ROWS` rows, and so per chunk of so
-    many rows above), a CPU tensor takes the twin; both give the same
-    bits."""
+    tiles, pass 2 over the chunk partials, or past `SEG_WINDOW` segments
+    over the roots each chunk writes for the segments it holds: two
+    launches up to `SEG_MAX_ROWS` rows and `SEG_WIDE_WINDOW` segments,
+    and so per chunk of so many rows above), a CPU tensor takes the twin;
+    both give the same bits."""
     if x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] < 1:
         raise ValueError(f"expected [N, D] float32 values, got {tuple(x.shape)} {x.dtype}")
     if idx.ndim != 1 or idx.shape[0] != x.shape[0]:
@@ -226,15 +245,33 @@ def segment_sum(idx: Tensor, k: int, x: Tensor) -> Tensor:
                          for a, b in _row_chunks(max(n, 1), SEG_MAX_ROWS))
 
 
+def _segment_sum_scratch(n: int, d: int, k: int) -> int:
+    """Floats of the segment-sum kernels' scratch for one launch (the
+    layout `uvt_etc1s_segment_sum` documents): up to SEG_WINDOW segments
+    the dense chunk partials [chunks, k, d]; past them the sparse path's
+    chunk roots [chunks, min(k, SEG_WIDE_WINDOW, 1,024), groups * pitch]
+    and, per chunk, the window's presence words and slot bases."""
+    rows = SEG_TILE * SEG_CHUNK_TILES  # a chunk's rows: the most segments it holds
+    chunks = max(1, -(-n // rows))
+    if k <= SEG_WINDOW:
+        return chunks * k * d
+    groups = -(-d // SEG_GROUP_COLS)
+    dc = -(-d // groups)  # a group's columns, at a pitch of whole quads
+    pitch = 4 * -(-dc // 4)
+    kw = min(k, SEG_WIDE_WINDOW)
+    return chunks * min(kw, rows) * groups * pitch + 2 * chunks * -(-kw // 32)
+
+
 def _segment_sum_launch(idx: Tensor, k: int, x: Tensor) -> Tensor:
     """One launch of the segment-sum kernels: idx [N] int32, x [N, D] f32,
     contiguous, N <= SEG_MAX_ROWS."""
     n, d = x.shape
-    chunks = max(1, -(-n // (SEG_TILE * SEG_CHUNK_TILES)))
-    part = torch.empty((chunks, min(k, SEG_WINDOW), d), dtype=torch.float32, device=x.device)
+    part = torch.empty(_segment_sum_scratch(n, d, k), dtype=torch.float32, device=x.device)
     out = torch.empty((k, d), dtype=torch.float32, device=x.device)
     _launch("etc1s_segment_sum", "uvt_etc1s_segment_sum", x.device,
             idx.data_ptr(), x.data_ptr(), n, d, k, part.data_ptr(), out.data_ptr())
+    if k > SEG_WINDOW:
+        LAUNCHES["etc1s_segment_sum_wide"] += 1
     return out
 
 
@@ -537,7 +574,8 @@ def rate_sweep_frame(blocks: Tensor, base: Tensor, mods: Tensor, sel_cb: Tensor,
     weight, lam_cr the CR snap's → (ep, sel) [nb] int32, as
     `rate_sweep_frame_plain`. Above `SWEEP_REG_MAX_E` entries the launch
     is preceded by one that writes the palette's entry table (a scratch of
-    E x 32 bytes)."""
+    E x 32 bytes), and the frame's block rows go two to a CTA where they
+    outnumber the card's SMs."""
     _check_blocks(blocks)
     nb = blocks.shape[0]
     if base.ndim != 2 or base.shape[0] == 0:
@@ -568,4 +606,6 @@ def rate_sweep_frame(blocks: Tensor, base: Tensor, mods: Tensor, sel_cb: Tensor,
             *(t.data_ptr() for t in args), int(prev is not None), int(s0_index), f32(lam),
             f32(lam_cr), nb // nbx, nbx, e, None if table is None else table.data_ptr(),
             out_ep.data_ptr(), out_sel.data_ptr())
+    if table is not None:
+        LAUNCHES["etc1s_rate_sweep_wide"] += 1
     return out_ep, out_sel

@@ -1,8 +1,8 @@
 """KTX2 container reader/writer (pure Python, no vendored ktx-parse).
 
-The port's copy of the reference's `containers/ktx2.py`: the in-memory
-reader and writer, the BasisLZ global data and the DFD, unchanged (the
-file-path readers are left out).
+The port's copy of the reference's `containers/ktx2.py`: the readers
+(in memory and from a path) and the writer, the BasisLZ global data and
+the DFD, unchanged.
 
 Implements the Khronos KTX 2.0 container layout: identifier, header, index,
 level index, Data Format Descriptor, Key/Value Data, and the BasisLZ
@@ -168,6 +168,15 @@ class KTX2File:
         return self.dfd[12]
 
 
+def read_ktx2_header(path: str) -> KTX2Header:
+    with open(path, "rb") as f:
+        buf = f.read(80)
+    if buf[:12] != KTX2_IDENTIFIER:
+        raise ValueError(f"{path}: not a KTX2 file")
+    vals = struct.unpack_from("<9I", buf, 12)
+    return KTX2Header(*vals)
+
+
 def read_ktx2(data: bytes) -> KTX2File:
     if data[:12] != KTX2_IDENTIFIER:
         raise ValueError("not a KTX2 file (bad identifier)")
@@ -224,6 +233,11 @@ def read_ktx2(data: bytes) -> KTX2File:
         if header.supercompression_scheme == SUPERCOMPRESSION_BASISLZ:
             f.basis_lz = BasisLZGlobalData.unpack(f.raw_sgd, f.image_count)
     return f
+
+
+def read_ktx2_file(path: str) -> KTX2File:
+    with open(path, "rb") as fh:
+        return read_ktx2(fh.read())
 
 
 def _align(n: int, a: int) -> int:

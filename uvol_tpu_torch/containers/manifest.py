@@ -10,16 +10,15 @@ Validation mirrors the reference encoder's checks (scripts/Encoder.py:45-154):
 mandatory fields, geometry/texture frame-rate compatibility (each must be a
 factor of the other), and segment-count consistency.
 
-The port's copy of `uvol_tpu/containers/manifest.py`, cut to the
-reader, the writer and the V2 checks (`manifest_for_directory` is left
-out: no path of the port calls it).
+The port's copy of `uvol_tpu/containers/manifest.py`: the reader, the
+writer, the V2 checks and `manifest_for_directory`.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import List
+from typing import Any, Dict, List
 
 from uvol_tpu_torch.interfaces import (
     UVOLManifestSchema,
@@ -104,3 +103,56 @@ def validate_v2_manifest(manifest: V2Schema) -> List[str]:
                     )
     return problems
 
+
+def manifest_for_directory(
+    out_dir: str,
+    *,
+    geometry_dir: str = "geometry_draco",
+    texture_dir_template: str = "texture_[target]_[type]_[tag]",
+) -> Dict[str, Any]:
+    """Reconstruct a V2 manifest dict by inspecting an output directory laid
+    out like the reference sample (`example/public/liam/output/`). Used for
+    tests and for recovering from a missing top-level manifest (the
+    reference's own `liam.uvol.json` is an absent git-lfs blob)."""
+    from uvol_tpu_torch.containers.ktx2 import read_ktx2_header
+
+    geometry_path = os.path.join(out_dir, geometry_dir)
+    drc = sorted(p for p in os.listdir(geometry_path) if p.endswith(".drc"))
+    tex_dirs = [
+        d
+        for d in os.listdir(out_dir)
+        if d.startswith("texture_") and os.path.isdir(os.path.join(out_dir, d))
+    ]
+    manifest: Dict[str, Any] = {
+        "version": "v2",
+        "geometry": {
+            "targets": {
+                geometry_dir.replace("geometry_", ""): {
+                    "frameRate": 30,
+                    "frameCount": len(drc),
+                    "format": "draco",
+                }
+            },
+            "path": f"output/{geometry_dir}/[#####][ext]",
+        },
+        "texture": {"targets": {}, "path": ""},
+    }
+    for d in tex_dirs:
+        # directory name encodes texture_[target]_[type]_[tag]
+        parts = d.split("_")
+        target, ttype, tag = parts[1], parts[2], "_".join(parts[3:]) or "default"
+        files = sorted(
+            p for p in os.listdir(os.path.join(out_dir, d)) if p.endswith(".ktx2")
+        )
+        hdr = read_ktx2_header(os.path.join(out_dir, d, files[0]))
+        manifest["texture"]["targets"][target] = {
+            "format": "ktx2",
+            "frameRate": 30,
+            "resolution": [hdr.pixel_width, hdr.pixel_height],
+            "sequenceSize": max(hdr.layer_count, 1),
+            "sequenceCount": len(files),
+            "type": ttype,
+            "tag": tag,
+        }
+        manifest["texture"]["path"] = "output/texture_[target]_[type]_[tag]/[#####][ext]"
+    return manifest

@@ -104,19 +104,36 @@
 // the chunk's [k, d] partial (0.0 for an absent segment). At D = 64 two
 // buffers of 64 KB leave one CTA an SM; groups of 8 columns and 256 or
 // 1,024 threads measured no faster overall
-// (examples/torch_segsum_variants.py), and roots written only for the
-// segments a chunk holds made pass 2 slower than the dense reads it
-// saved (PERF.md section 6).
+// (examples/torch_segsum_variants.py), and at k = 256 roots written only
+// for the segments a chunk holds made pass 2 slower than the dense reads
+// it saved (PERF.md section 6); past kSegMaxK the trade is reversed (below).
 //
-// Wider sums than kSegMaxK segments (K6: centroids) go by windows of
-// kSegMaxK segments, two launches a window: a window's pass 1 drops the
-// rows of other segments, and a segment's partials depend only on its own
-// rows in tile order, so the bits are those of one launch; each window
-// reads the rows again. K6's window 0 assigns every row (the centroids
-// staged kKmChunk at a time, the first minimum carried across chunks) and
-// writes the assignment; its later windows read it back.
+// K6's sums wider than kSegMaxK centroids go by windows of kSegMaxK,
+// two launches a window: a window's pass 1 drops the rows of other
+// centroids, and a segment's partials depend only on its own rows in tile
+// order, so the bits are those of one launch; its window 0 assigns every
+// row (the centroids staged kKmChunk at a time, the first minimum carried
+// across chunks) and writes the assignment; its later windows read it back.
 //
-// Pass 2 (seg_sum_tree_kernel, K6's and the segment sum's): the levels
+// The segment sum past kSegMaxK segments (the sparse path: palettes past
+// 2,048 entries, up to basisu's 16,128) is bound by the same bytes (85 MB at
+// 327,680 x 64), but a chunk of 1,024 rows holds at most 1,024 of its
+// segments: dense partials would be >94% zeros that pass 2 still reads
+// (windows of kSegMaxK segments, each reading the rows again, moved ~3.3 GB
+// a call at 16,128). Its pass 1 (seg_sum_sparse_chunk_kernel) is the one above over a
+// window of up to kSegWideMaxK segments (the keys segment << 10 | row fit
+// 26 bits): the rows are read once for any palette, and each chunk writes
+// only the roots of the segments it holds, under their slots, with its
+// presence words and the slots before each word (a segment in one tile of
+// the chunk, most of them, has its run's sum for root: no walk of the 16
+// tiles). Pass 2 (seg_sum_roots_
+// kernel) finds a segment's root in chunk c from those two words and adds
+// the present chunks in the twin's tree: every node is a sum from 0.0,
+// never -0.0, so an absent chunk's 0.0 is an identity and a level with one
+// child present passes it up unchanged. ~0.25 GB a call at 16,128 on random
+// indices (the roots written and read back), two launches.
+//
+// Pass 2 (seg_sum_tree_kernel, K6's and the dense segment sum's): the levels
 // above, over the chunk partials of each element: a CTA reduces 32
 // consecutive elements (coalesced reads) in pieces of 256 leaves in
 // shared memory, then the piece roots; 32 threads an element below
@@ -162,17 +179,26 @@
 //     division;
 //   - the epilogue, a thread per block, computes e_new and the snap.
 // Shared memory (static): bits 8 KB, 256 blocks' features 12 KB, 5 per-block
-// words 5 KB, CR flags and keys 0.5 KB. Above kSweepMaxE = 2,048 entries the
-// palette does not fit a CTA's registers (7 words an entry): the wide path
-// (kWide) takes 512 threads, each pricing every 512th entry per column, reads
-// the entries from a table of 32 bytes an entry that sweep_table_kernel
-// writes first (L1/L2 resident: 128 KB at 4,096 entries), and stages the
-// bits in 4 * E bytes of dynamic shared memory; the per-column first minimum
-// of (cost bits, entry) is unchanged. The FMAs are
-// __fmaf_rn, as XLA contracts them on the CPU. Bound: operations, 21 a
-// (block, entry) (the 11 above, the table index and its load, the ABOVE
-// test, the FMA, the running minimum); its bytes (blocks, palette,
-// assignments) are ~5 MB a 1024^2 frame.
+// words 5 KB, CR flags and keys 0.5 KB. The FMAs are __fmaf_rn, as XLA
+// contracts them on the CPU. Bound: operations, 21 a (block, entry) (the 11
+// above, the table index and its load, the ABOVE test, the FMA, the running
+// minimum); its bytes (blocks, palette, assignments) are ~5 MB a 1024^2
+// frame.
+//   Above kSweepMaxE = 2,048 entries the palette does not fit a CTA's
+// registers (7 words an entry). Each column then reads every entry, and a
+// row's column ends in a chain of reductions that nothing overlaps; with
+// one row a CTA (one CTA an SM: two waves of a 1024^2 frame's 256 rows)
+// that chain and the entry reads were paid once a row. The wide path
+// (rate_sweep_rows_kernel) sweeps kRows = 2 block rows a CTA where the frame
+// has more rows than the card has SMs (one wave of 128 CTAs at 1024^2):
+// each entry is read once a column for both rows, the two rows' reductions
+// share one barrier and overlap each other's latency; 512 threads, each
+// pricing every 512th entry; the table, written first by
+// sweep_table_kernel as two arrays of 16 bytes an entry (contiguous loads),
+// copied into shared memory up to kSweepStagedMaxE entries, else read from
+// device memory (L1/L2); the bits in 4 * E bytes of dynamic shared memory.
+// The first minimum of (cost bits, entry) is a total order, so the rows'
+// reductions give the register path's bits.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -442,6 +468,8 @@ struct ChunkSmem {
 
 constexpr int kRowBits = 10;  // kChunkRows = 2^10
 constexpr int kNoSegment = kSegMaxK << kRowBits;  // sorts after every segment of a window
+constexpr int kSegWideMaxK = 1 << 16;  // segments one window of the sparse path sums
+constexpr int kNoSegmentWide = kSegWideMaxK << kRowBits;
 
 __host__ __device__ inline size_t chunk_smem_bytes(int pitch, int k) {
   return (size_t)kChunkRows * (pitch * 4 + 4) + (size_t)k * 2;
@@ -650,6 +678,30 @@ __device__ inline SegSmem seg_smem(unsigned char* base, int slots) {
   s.mask = s.tiles + 2 * kChunkTiles;
   s.run_row = (short*)(s.mask + ((slots + 7) & ~7));
   s.x = (float*)(base + seg_meta_bytes(slots));
+  return s;
+}
+
+// The sparse pass 1's shared memory: SegSmem's layout with `words`
+// presence words (a window of up to kSegWideMaxK segments) in place of
+// kSegWords. Functions of their own: a second caller of seg_smem changed
+// seg_sum_chunk_kernel's code (36 registers in place of 44, ~2.5% slower at
+// k = 2,048).
+__host__ __device__ inline size_t sparse_meta_bytes(int slots, int words) {
+  const size_t s8 = (size_t)((slots + 7) & ~7), w4 = (size_t)((words + 3) & ~3);
+  return kChunkRows * 12 + w4 * 8 + kChunkTiles * 8 + s8 * 4 + s8 * 2 * kChunkTiles;
+}
+
+__device__ __forceinline__ SegSmem sparse_smem(unsigned char* base, int slots, int words) {
+  SegSmem s;
+  s.key = (int*)base;
+  s.tile_run = s.key + kChunkRows;
+  s.run = s.tile_run + kChunkRows;
+  s.bits = (unsigned*)(s.run + kChunkRows);
+  s.base = (int*)(s.bits + ((words + 3) & ~3));
+  s.tiles = s.base + ((words + 3) & ~3);
+  s.mask = s.tiles + 2 * kChunkTiles;
+  s.run_row = (short*)(s.mask + ((slots + 7) & ~7));
+  s.x = (float*)(base + sparse_meta_bytes(slots, words));
   return s;
 }
 
@@ -875,6 +927,303 @@ __global__ void __launch_bounds__(kSegThreads)
   }
 }
 
+// Pass 1 of the sparse path (k > kSegMaxK): seg_sum_chunk_kernel's steps
+// over a window of k <= kSegWideMaxK segments from seg0 (the presence bits
+// a word per 32 of them), each chunk writing only the roots of the
+// segments it holds. Arguments as seg_sum_chunk_kernel's, but part: [m,
+// cap, groups * pitch], the root of each segment the chunk holds under its
+// slot (its rank among the chunk's present segments), each group's columns
+// at g * pitch; bits and base: [m, ceil(k / 32)] the chunk's presence bits
+// and the slots before each word, which is all pass 2 needs to find a root.
+// A kernel of its own: seg_sum_chunk_kernel's text with the dense path's
+// branches taken along cost that path ~2.5% at k = 2,048 (PERF.md section 6).
+__global__ void __launch_bounds__(kSegThreads)
+    seg_sum_sparse_chunk_kernel(const int32_t* __restrict__ idx, const float* __restrict__ x,
+                                int n, int d, int k, int seg0, int dc, int groups, int pitch,
+                                int lq, int lc, bool vec, float* __restrict__ part,
+                                unsigned* __restrict__ gbits, int* __restrict__ gbase, int cap) {
+  constexpr int kNone = kNoSegmentWide;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int slots = min(k, kSegMaxSlots);
+  const int kw = (k + 31) >> 5;
+  const SegSmem s = sparse_smem(smem, slots, kw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t row0 = (int64_t)blockIdx.x * kChunkRows;
+  const int rows = (int)min((int64_t)kChunkRows, (int64_t)n - row0);
+  const int nq = 1 << lq, buf = kChunkRows * pitch;
+  // 1. the copies of the first two column groups start now and land while
+  //    the keys are sorted; one commit per group, an empty one past the last
+  stage_group(x, d, row0, rows, 0, min(dc, d), pitch, lc, vec, s.x);
+  __pipeline_commit();
+  if (groups > 1) stage_group(x, d, row0, rows, dc, min(dc, d - dc), pitch, lc, vec, s.x + buf);
+  __pipeline_commit();
+  for (int i = tid; i < kw; i += kSegThreads) s.bits[i] = 0u;
+  for (int i = tid; i < slots; i += kSegThreads) s.mask[i] = 0;
+  __syncthreads();
+  // 2. per tile, one warp: the keys segment << 10 | row sorted, so that each
+  //    segment's rows of the tile are one run in row order; the tile's runs
+  //    in order, and the present segments' bits
+  for (int t = warp; t < kChunkTiles; t += kSegThreads / 32) {
+    int v[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = t * kSegTile + 32 * j + lane;
+      const unsigned sg = r < rows ? (unsigned)idx[row0 + r] - (unsigned)seg0 : ~0u;
+      v[j] = sg < (unsigned)k ? ((int)sg << kRowBits | r) : kNone;
+    }
+    sort_tile(v[0], v[1]);
+    // a run starts where the segment changes (no segment counts as one)
+    const int up0 = __shfl_up_sync(0xffffffffu, v[0], 1);
+    const int up1 = __shfl_up_sync(0xffffffffu, v[1], 1);
+    const int last0 = __shfl_sync(0xffffffffu, v[0], 31);
+    const int prev[2] = {lane ? up0 : -1, lane ? up1 : last0};
+    bool start[2], live[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      start[j] = (prev[j] >> kRowBits) != (v[j] >> kRowBits);
+      live[j] = start[j] && v[j] < kNone;
+    }
+    const uint64_t starts = (uint64_t)__ballot_sync(0xffffffffu, start[0]) |
+                            (uint64_t)__ballot_sync(0xffffffffu, start[1]) << 32;
+    const uint64_t runs = (uint64_t)__ballot_sync(0xffffffffu, live[0]) |
+                          (uint64_t)__ballot_sync(0xffffffffu, live[1]) << 32;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int i = 32 * j + lane, p = t * kSegTile + i;
+      s.key[p] = v[j];
+      if (live[j]) {
+        const uint64_t after = (starts >> i) >> 1;  // the starts past i
+        const int len = after ? __ffsll((long long)after) : kSegTile - i;
+        const int rank = __popcll(runs & ((1ull << i) - 1));
+        s.tile_run[t * kSegTile + rank] = p | len << kRunLenShift;
+        atomicOr(s.bits + (v[j] >> (kRowBits + 5)), 1u << ((v[j] >> kRowBits) & 31));
+      }
+    }
+    if (lane == 0) s.tiles[t] = __popcll(runs);
+  }
+  __syncthreads();
+  // 3. one warp: the slots before each presence word (a present segment's
+  //    slot is its rank among them) and the runs before each tile; then each
+  //    run goes to the chunk's run list and under its (slot, tile)
+  if (warp == 0) {
+    int total = 0;
+    for (int j = 0; j < (kw + 31) >> 5; ++j) {
+      const int w = 32 * j + lane, c = w < kw ? __popc(s.bits[w]) : 0;
+      int inc = c;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, inc, o);
+        if (lane >= o) inc += y;
+      }
+      if (w < kw) s.base[w] = total + inc - c;
+      total += __shfl_sync(0xffffffffu, inc, 31);
+    }
+    const int c = lane < kChunkTiles ? s.tiles[lane] : 0;
+    int inc = c;
+#pragma unroll
+    for (int o = 1; o < kChunkTiles; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += y;
+    }
+    if (lane < kChunkTiles) s.tiles[kChunkTiles + lane] = inc - c;
+  }
+  __syncthreads();
+  const int nruns = s.tiles[2 * kChunkTiles - 1] + s.tiles[kChunkTiles - 1];
+  for (int i = tid; i < kChunkRows; i += kSegThreads) {
+    const int t = i / kSegTile, r = i % kSegTile;
+    if (r >= s.tiles[t]) continue;
+    const int rp = s.tile_run[i], kp = s.key[rp & (kChunkRows - 1)];
+    const int seg = kp >> kRowBits, w = seg >> 5;
+    const int slot = s.base[w] + __popc(s.bits[w] & ((1u << (seg & 31)) - 1));
+    s.run[s.tiles[kChunkTiles + t] + r] = rp;
+    s.run_row[slot * kChunkTiles + t] = (short)(kp & (kChunkRows - 1));
+    atomicOr(s.mask + slot, 1 << t);
+  }
+  for (int i = tid; i < kw; i += kSegThreads) {  // the chunk's presence, for pass 2
+    gbits[(int64_t)blockIdx.x * kw + i] = s.bits[i];
+    gbase[(int64_t)blockIdx.x * kw + i] = s.base[i];
+  }
+  const int nslots = s.base[kw - 1] + __popc(s.bits[kw - 1]);
+  // 4. per column group: each run's in-order sum from 0.0 (a thread per
+  //    (run, 4 columns): at most 64 dependent adds), written over its first
+  //    row; then per (present segment, 4 columns) its root, written under
+  //    its slot: the run's sum where the chunk holds the segment in one tile,
+  //    else the twin's levels 0..3 over the 16 tiles, an absent tile adding
+  //    0.0; then the copies of the group two ahead into the buffer just read
+  for (int g = 0; g < groups; ++g) {
+    __pipeline_wait_prior(1);  // all but the last commit: group g has landed
+    __syncthreads();
+    float* xb = s.x + (g & 1) * buf;
+    const int c0 = g * dc, cols = min(dc, d - c0);
+    for (int i = tid; i < nruns << lq; i += kSegThreads) {
+      const int q = i & (nq - 1), rp = s.run[i >> lq];
+      if (4 * q >= cols) continue;
+      const int p = rp & (kChunkRows - 1), len = rp >> kRunLenShift;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int j = 0; j < len; ++j)
+        acc = add4(acc, *(const float4*)(xb + (s.key[p + j] & (kChunkRows - 1)) * pitch + 4 * q));
+      *(float4*)(xb + (s.key[p] & (kChunkRows - 1)) * pitch + 4 * q) = acc;
+    }
+    __syncthreads();
+    for (int i = tid; i < nslots << lq; i += kSegThreads) {
+      const int slot = i >> lq, q = i & (nq - 1);
+      if (4 * q >= cols) continue;
+      const int tiles = s.mask[slot];
+      const short* rr = s.run_row + slot * kChunkTiles;
+      float4 node, pend[kChunkLevels];
+      if (!(tiles & (tiles - 1))) {  // one tile (most slots past kSegMaxK): its run's sum
+        node = *(const float4*)(xb + rr[__ffs(tiles) - 1] * pitch + 4 * q);
+      } else {
+#pragma unroll
+        for (int t = 0; t < kChunkTiles; ++t) {
+          node = make_float4(0.f, 0.f, 0.f, 0.f);
+          if ((tiles >> t) & 1) node = *(const float4*)(xb + rr[t] * pitch + 4 * q);
+#pragma unroll
+          for (int l = 0; l < kChunkLevels; ++l) {
+            if (!((t >> l) & 1)) {
+              pend[l] = node;
+              break;
+            }
+            node = add4(pend[l], node);
+          }
+        }
+      }
+      *(float4*)(part + ((int64_t)blockIdx.x * cap + slot) * groups * pitch + g * pitch + 4 * q) =
+          node;
+    }
+    __syncthreads();  // the buffer is read: the group two ahead may land there
+    if (g + 2 < groups)
+      stage_group(x, d, row0, rows, (g + 2) * dc, min(dc, d - (g + 2) * dc), pitch, lc, vec,
+                  s.x + (g & 1) * buf);
+    __pipeline_commit();
+  }
+}
+
+// Pass 2 of the sparse path (k > kSegMaxK): one CTA per (presence word w,
+// column group g), a thread per (segment 32 w + s, 4 columns of g). The CTA
+// stages each chunk's word w and slot base and turns them into a bit per
+// chunk for each of its segments (ballots); a thread walks its segment's
+// present chunks in order, four root loads in flight, and adds them in the
+// twin's tree over the chunks: a binary counter whose absent leaves are
+// identities (a node is a sum from 0.0, never -0.0, so the twin's 0.0
+// beside it changes nothing). Its pending nodes live in shared memory, a
+// float4 a level, and only the levels that hold one are visited: leaves
+// next .. c - 1 absent, the pending nodes below h (the highest bit of c ^
+// next) fold, right-nested, into one node at h; then leaf c adds the
+// pending nodes among its trailing one bits and waits at its first zero
+// bit. At the end every pending node folds into the root; a segment without
+// a row gets the twin's 0.0. roots, gbits, gbase: pass 1's [m, cap, groups *
+// pitch], [m, words], [m, words]; out: [k, d] from the window's first segment.
+constexpr int kRootAhead = 8;  // root loads in flight a thread
+
+// Levels of pass 2's counter over m chunks: chunk indices below 2^b (2^b >= m),
+// and the zero bit above them.
+__host__ __device__ inline int root_levels(int m) {
+  int b = 0;
+  while ((1 << b) < m) ++b;
+  return b + 1;
+}
+
+__host__ __device__ inline size_t roots_smem_bytes(int m, int threads) {
+  return (size_t)root_levels(m) * threads * 16 + (size_t)m * 8 + (size_t)32 * ((m + 31) >> 5) * 4;
+}
+
+__global__ void __launch_bounds__(32 * kSegGroupCols / 4)
+    seg_sum_roots_kernel(const float* __restrict__ roots, const unsigned* __restrict__ gbits,
+                         const int* __restrict__ gbase, int m, int k, int words, int cap,
+                         int groups, int pitch, int dc, int d, bool vec, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nt = blockDim.x, mw = (m + 31) >> 5;
+  float4* s_pend = (float4*)smem;                                // [levels][nt]
+  unsigned* s_bits = (unsigned*)(s_pend + root_levels(m) * nt);  // [m] word w of each chunk
+  int* s_base = (int*)(s_bits + m);                              // [m] the slots before it
+  unsigned* s_mask = (unsigned*)(s_base + m);                    // [32][mw] a bit a chunk
+  const int w = blockIdx.x, g = blockIdx.y, quads = pitch >> 2;
+  const int tid = threadIdx.x, lane = tid & 31;
+  for (int c = tid; c < m; c += nt) {
+    s_bits[c] = gbits[(int64_t)c * words + w];
+    s_base[c] = gbase[(int64_t)c * words + w];
+  }
+  __syncthreads();
+  for (int c0 = (tid >> 5) * 32; c0 < m; c0 += nt) {
+    const unsigned b = c0 + lane < m ? s_bits[c0 + lane] : 0u;
+#pragma unroll 4
+    for (int sg = 0; sg < 32; ++sg) {
+      const unsigned v = __ballot_sync(0xffffffffu, (b >> sg) & 1u);
+      if (lane == sg) s_mask[sg * mw + (c0 >> 5)] = v;
+    }
+  }
+  __syncthreads();
+  const int sg = tid / quads, q = tid - sg * quads;  // nt = 32 * quads
+  const int seg = 32 * w + sg, cols = min(dc, d - g * dc);
+  if (seg >= k || 4 * q >= cols) return;
+  const unsigned* mask = s_mask + sg * mw;
+  const unsigned below = (1u << sg) - 1u;
+  const float* src = roots + g * pitch + 4 * q;
+  float4* pend = s_pend + tid;  // level l at pend[l * nt]
+  unsigned valid = 0u;          // bit l: level l holds a pending node
+  int next = 0;                 // every leaf below it is added
+  int j = 0;
+  unsigned cur = mask[0];
+  for (bool more = true; more;) {
+    int cs[kRootAhead];
+    float4 vs[kRootAhead];
+#pragma unroll
+    for (int a = 0; a < kRootAhead; ++a) {  // the next present chunks, loads started
+      while (!cur && ++j < mw) cur = mask[j];
+      cs[a] = -1;
+      vs[a] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (cur) {
+        const int c = 32 * j + __ffs(cur) - 1;
+        cur &= cur - 1u;
+        cs[a] = c;
+        vs[a] = *(const float4*)(src + ((int64_t)c * cap + s_base[c] + __popc(s_bits[c] & below)) *
+                                           groups * pitch);
+      }
+    }
+    more = cs[kRootAhead - 1] >= 0;
+#pragma unroll
+    for (int a = 0; a < kRootAhead; ++a) {
+      const int c = cs[a];
+      if (c < 0) continue;
+      if (c != next) {  // leaves next .. c - 1 absent: fold the levels below h into h
+        const int h = 31 - __clz(c ^ next);
+        unsigned lower = valid & ((1u << h) - 1u);
+        if (lower) {
+          float4 node = pend[(__ffs(lower) - 1) * nt];
+          for (lower &= lower - 1u; lower; lower &= lower - 1u)
+            node = add4(pend[(__ffs(lower) - 1) * nt], node);
+          pend[h * nt] = node;
+          valid = (valid & ~((1u << h) - 1u)) | 1u << h;
+        }
+      }
+      // leaf c: the pending nodes of its trailing one bits, then its first zero bit
+      const unsigned zbit = ~(unsigned)c & ((unsigned)c + 1u);
+      float4 node = vs[a];
+      for (unsigned lower = valid & (zbit - 1u); lower; lower &= lower - 1u)
+        node = add4(pend[(__ffs(lower) - 1) * nt], node);
+      pend[(__ffs(zbit) - 1) * nt] = node;
+      valid = (valid & ~(zbit - 1u)) | zbit;
+      next = c + 1;
+    }
+  }
+  float4 node = make_float4(0.f, 0.f, 0.f, 0.f);  // the root: every pending node, right-nested
+  if (valid) {
+    node = pend[(__ffs(valid) - 1) * nt];
+    for (unsigned rest = valid & (valid - 1u); rest; rest &= rest - 1u)
+      node = add4(pend[(__ffs(rest) - 1) * nt], node);
+  }
+  float* o = out + (int64_t)seg * d + g * dc + 4 * q;
+  if (vec) {
+    *(float4*)o = node;
+  } else {
+    const float v[4] = {node.x, node.y, node.z, node.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (4 * q + c < cols) o[c] = v[c];
+  }
+}
+
 // K6: one CTA per chunk of kChunkRows rows. The nearest centroid of each
 // row (4 rows per thread, each centroid's weights one 16-byte shared
 // load, c2 beside them; the centroids staged kKmChunk at a time, the first
@@ -958,6 +1307,7 @@ __global__ void kmeans_chunk_kernel(const float4* __restrict__ feats,
 constexpr int kSweepPer = 4;                            // entries a thread keeps in registers
 constexpr int kSweepMaxThreads = kSegMaxK / kSweepPer;  // 512 at 2,048 entries
 constexpr int kSweepMaxE = kSegMaxK;                    // most entries of the register path
+constexpr int kSweepStagedMaxE = 5120;  // most entries the wide path stages in shared memory
 constexpr int kSweepMaxWarps = kSweepMaxThreads / 32;
 constexpr int kSweepCols = 256;          // block columns one pass of a row stages
 constexpr float kSweepAboveBits = 1.4f;  // the price of matching the block above
@@ -1076,51 +1426,139 @@ __device__ __forceinline__ SweepEntry make_entry(const int32_t* __restrict__ bas
 }
 
 // Above kSweepMaxE entries the palette does not fit the registers of one
-// CTA: the wide path reads each entry from a table in device memory (L1 and
-// L2 hold it), 32 bytes an entry, written once per call by this kernel.
+// CTA: the wide path reads each entry from a table, 32 bytes an entry as
+// two arrays of 16 (the colors and the first square, then the other
+// squares), so that a warp's 16-byte loads of consecutive entries are
+// contiguous; written once per call by this kernel.
 __global__ void sweep_table_kernel(const int32_t* __restrict__ base,
                                    const int32_t* __restrict__ mods, int e,
                                    int4* __restrict__ table) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= e) return;
   const SweepEntry t = make_entry(base, mods, k, true);
-  table[2 * k] = make_int4((int)t.col[0], (int)t.col[1], (int)t.col[2], t.sq[0]);
-  table[2 * k + 1] = make_int4(t.sq[1], t.sq[2], t.sq[3], 0);
+  table[k] = make_int4((int)t.col[0], (int)t.col[1], (int)t.col[2],
+                       __float_as_int(__int2float_rn(t.sq[0])));
+  table[e + k] = make_int4(__float_as_int(__int2float_rn(t.sq[1])),
+                           __float_as_int(__int2float_rn(t.sq[2])),
+                           __float_as_int(__int2float_rn(t.sq[3])), 0);
 }
 
-__device__ __forceinline__ SweepEntry load_entry(const int4* __restrict__ table, int k) {
-  const int4 a = table[2 * k], b = table[2 * k + 1];
-  SweepEntry t;
+// An entry as the wide path reads it: the color bytes, and |col(k, c)|^2 as
+// floats (integers below 2^18: exact).
+struct SweepEntryF {
+  unsigned col[3];
+  float sq[4];
+};
+
+__device__ __forceinline__ SweepEntryF load_entry(const int4* __restrict__ table, int k, int e) {
+  const int4 a = table[k], b = table[e + k];
+  SweepEntryF t;
   t.col[0] = (unsigned)a.x;
   t.col[1] = (unsigned)a.y;
   t.col[2] = (unsigned)a.z;
-  t.sq[0] = a.w;
-  t.sq[1] = b.x;
-  t.sq[2] = b.y;
-  t.sq[3] = b.z;
+  t.sq[0] = __int_as_float(a.w);
+  t.sq[1] = __int_as_float(b.x);
+  t.sq[2] = __int_as_float(b.y);
+  t.sq[3] = __int_as_float(b.z);
   return t;
 }
 
-// One CTA per block row, 32 * ceil(e / 128) threads (kWide: kSweepMaxThreads):
-// thread t prices entries t + j * blockDim.x (j < kSweepPer; kWide: every j
-// with an entry, read from `table`). blocks: the frame's [nby * nbx, 16, 3]
-// uint8; base [e, 3], mods [e, 4] int32 (8-bit colors, intensity modifiers);
-// sel_cb [S, 16] int32 codes; bits [e] f32 (kWide: staged in e floats of
-// dynamic shared memory); ep, sel, prev_ep, prev_sel [nby * nbx] int32 (the
-// previous pair read only with has_prev); table: kWide's [e] entries of
-// sweep_table_kernel. Writes the frame's new ep and sel.
-template <bool kWide>
+// entry_error with the counts' terms as float multiply-adds (the FP32 pipe
+// runs 128 lanes an SM, IMAD and __dp2a 64): |p|^2 + sum_c n_c |col_c|^2,
+// every partial sum an integer below 2^24, then less twice the dot product
+// (below 2^24: its float and the doubling exact) in one rounding of an
+// exact integer below 2^24. The same float as entry_error's.
+__device__ __forceinline__ float entry_error_f(const SweepBlock& f, const float (&n)[4],
+                                               float p_sq, const SweepEntryF& t) {
+  float acc = p_sq;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) acc = __fmaf_rn(n[c], t.sq[c], acc);
+  unsigned dot = 0;
+#pragma unroll
+  for (int q = 0; q < 6; ++q)
+    dot = (q & 1) ? __dp2a_hi(f.s[q], t.col[q >> 1], dot) : __dp2a_lo(f.s[q], t.col[q >> 1], dot);
+  return __fmaf_rn(-2.f, __uint2float_rn(dot), acc);
+}
+
+// The prologue of block blk (above_blk: the block above it, or itself in
+// row 0): its features, the incoming entry above it, the previous pair's
+// entry and exact error, and its CR cost (kSweepNoCr without a previous frame).
+__device__ __forceinline__ void stage_sweep_block(
+    const uint8_t* __restrict__ blocks, const int32_t* __restrict__ base,
+    const int32_t* __restrict__ mods, const int32_t* __restrict__ sel_cb,
+    const int32_t* __restrict__ ep, const int32_t* __restrict__ sel,
+    const int32_t* __restrict__ prev_ep, const int32_t* __restrict__ prev_sel, bool has_prev,
+    float half_lam, int64_t blk, int64_t above_blk, SweepBlock& f, int& above, int& prev_e,
+    float& e_prev, float& cost_cr) {
+  const uint8_t* px = blocks + blk * 48;
+  const int s = sel[blk];
+  int sums[12] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0}, n[4] = {0, 0, 0, 0}, p_sq = 0;
+#pragma unroll
+  for (int p = 0; p < 16; ++p) {
+    const int code = sel_cb[s * 16 + p];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) n[j] += code == j;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const int v = px[p * 3 + ch];
+      p_sq += v * v;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sums[j * 3 + ch] += code == j ? v : 0;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 6; ++q) f.s[q] = (unsigned)sums[2 * q] | (unsigned)sums[2 * q + 1] << 16;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) f.n[j] = n[j];
+  f.p_sq = p_sq;
+  above = ep[above_blk];
+  const float err =
+      has_prev ? __int2float_rn(pair_error(px, base, mods, sel_cb, prev_ep[blk], prev_sel[blk]))
+               : 0.f;
+  e_prev = err;
+  prev_e = has_prev ? prev_ep[blk] : 0;
+  cost_cr = has_prev ? __fadd_rn(err, half_lam) : kSweepNoCr;
+}
+
+// The epilogue of block blk: CR takes the previous selector; a patterned
+// block (incoming selector not s0_index) snaps to the previous pair where
+// e_prev <= fma(lam_cr, e_new, kSweepSlack).
+__device__ __forceinline__ void finish_sweep_block(
+    const uint8_t* __restrict__ blocks, const int32_t* __restrict__ base,
+    const int32_t* __restrict__ mods, const int32_t* __restrict__ sel_cb,
+    const int32_t* __restrict__ sel, const int32_t* __restrict__ prev_sel, bool has_prev,
+    int s0_index, float lam_cr, int64_t blk, int choice, bool cr, float e_prev, int prev_e,
+    int32_t* __restrict__ out_ep, int32_t* __restrict__ out_sel) {
+  const int s_in = sel[blk];
+  const int ps = has_prev ? prev_sel[blk] : 0;
+  int ep_new = choice, sel_new = cr ? ps : s_in;
+  if (has_prev && s_in != s0_index) {
+    const float e_new =
+        __int2float_rn(pair_error(blocks + blk * 48, base, mods, sel_cb, ep_new, sel_new));
+    if (e_prev <= __fmaf_rn(lam_cr, e_new, kSweepSlack)) {
+      ep_new = prev_e;
+      sel_new = ps;
+    }
+  }
+  out_ep[blk] = ep_new;
+  out_sel[blk] = sel_new;
+}
+
+// One CTA per block row, 32 * ceil(e / 128) threads (e <= kSweepMaxE):
+// thread t prices entries t + j * blockDim.x (j < kSweepPer). blocks: the
+// frame's [nby * nbx, 16, 3] uint8; base [e, 3], mods [e, 4] int32 (8-bit
+// colors, intensity modifiers); sel_cb [S, 16] int32 codes; bits [e] f32;
+// ep, sel, prev_ep, prev_sel [nby * nbx] int32 (the previous pair read only
+// with has_prev). Writes the frame's new ep and sel.
 __global__ void __launch_bounds__(kSweepMaxThreads)
 rate_sweep_frame_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restrict__ base,
                         const int32_t* __restrict__ mods, const int32_t* __restrict__ sel_cb,
                         const float* __restrict__ bits, const int32_t* __restrict__ ep,
                         const int32_t* __restrict__ sel, const int32_t* __restrict__ prev_ep,
                         const int32_t* __restrict__ prev_sel, bool has_prev, int s0_index,
-                        float lam, float lam_cr, int nbx, int e, const int4* __restrict__ table,
-                        int32_t* __restrict__ out_ep, int32_t* __restrict__ out_sel) {
-  __shared__ float s_bits_regs[kWide ? 1 : kSweepMaxE];
-  extern __shared__ float s_bits_wide[];
-  float* s_bits = kWide ? s_bits_wide : s_bits_regs;
+                        float lam, float lam_cr, int nbx, int e, int32_t* __restrict__ out_ep,
+                        int32_t* __restrict__ out_sel) {
+  __shared__ float s_bits[kSweepMaxE];
   __shared__ SweepBlock s_feat[kSweepCols];
   __shared__ int s_above[kSweepCols], s_prev_ep[kSweepCols], s_choice[kSweepCols];
   __shared__ float s_cost_cr[kSweepCols], s_e_prev[kSweepCols];
@@ -1134,12 +1572,10 @@ rate_sweep_frame_kernel(const uint8_t* __restrict__ blocks, const int32_t* __res
   for (int k = tid; k < e; k += nthreads) s_bits[k] = bits[k];
   // the thread's entries: col(k, c) per code and channel, then |col(k, c)|^2
   SweepEntry tab[kSweepPer];
-  if constexpr (!kWide) {
 #pragma unroll
-    for (int j = 0; j < kSweepPer; ++j) {
-      const int k = tid + j * nthreads;
-      tab[j] = make_entry(base, mods, k, k < e);
-    }
+  for (int j = 0; j < kSweepPer; ++j) {
+    const int k = tid + j * nthreads;
+    tab[j] = make_entry(base, mods, k, k < e);
   }
   int left = ep[row0];  // column 0 prices against its own incoming entry
   for (int c0 = 0; c0 < nbx; c0 += kSweepCols) {
@@ -1180,7 +1616,7 @@ rate_sweep_frame_kernel(const uint8_t* __restrict__ blocks, const int32_t* __res
     __syncthreads();
     // the column scan: one barrier per column
     float errs[kSweepPer];
-    if constexpr (!kWide) column_errors(s_feat[0], tab, errs);
+    column_errors(s_feat[0], tab, errs);
     for (int c = 0; c < cols; ++c) {
       int origin = left;  // dm = (k - left) mod e, the floor modulo
       if ((unsigned)origin >= (unsigned)e) {  // an incoming entry out of range
@@ -1190,33 +1626,18 @@ rate_sweep_frame_kernel(const uint8_t* __restrict__ blocks, const int32_t* __res
       const int above = s_above[c];
       float best = INFINITY;
       int best_e = 0x7fffffff;
-      if constexpr (kWide) {
-        const SweepBlock& f = s_feat[c];
-        for (int k = tid; k < e; k += nthreads) {
+#pragma unroll
+      for (int j = 0; j < kSweepPer; ++j) {
+        const int k = tid + j * nthreads;
+        if (k < e) {
           int dm = k - origin;
           if (dm < 0) dm += e;
           float b = s_bits[dm];
           if (k == above) b = fminf(b, kSweepAboveBits);
-          const float cost = __fmaf_rn(lam, b, entry_error(f, load_entry(table, k)));
+          const float cost = __fmaf_rn(lam, b, errs[j]);
           if (cost < best) {  // entries ascend: the thread's first minimum
             best = cost;
             best_e = k;
-          }
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < kSweepPer; ++j) {
-          const int k = tid + j * nthreads;
-          if (k < e) {
-            int dm = k - origin;
-            if (dm < 0) dm += e;
-            float b = s_bits[dm];
-            if (k == above) b = fminf(b, kSweepAboveBits);
-            const float cost = __fmaf_rn(lam, b, errs[j]);
-            if (cost < best) {  // entries ascend: the thread's first minimum
-              best = cost;
-              best_e = k;
-            }
           }
         }
       }
@@ -1226,9 +1647,7 @@ rate_sweep_frame_kernel(const uint8_t* __restrict__ blocks, const int32_t* __res
         s_key[c & 1][warp] = key;
         s_entry[c & 1][warp] = entry;
       }
-      if constexpr (!kWide) {
-        if (c + 1 < cols) column_errors(s_feat[c + 1], tab, errs);  // before the wait
-      }
+      if (c + 1 < cols) column_errors(s_feat[c + 1], tab, errs);  // before the wait
       __syncthreads();
       // every warp reduces the warps' minima and decides CR itself: the new
       // left entry needs no second barrier (the minima are double-buffered)
@@ -1259,6 +1678,137 @@ rate_sweep_frame_kernel(const uint8_t* __restrict__ blocks, const int32_t* __res
       }
       out_ep[blk] = ep_new;
       out_sel[blk] = sel_new;
+    }
+    __syncthreads();  // the next pass restages the shared arrays
+  }
+}
+
+// Past kSweepMaxE entries (the wide path): a CTA sweeps kRows block rows
+// together, kSweepMaxThreads threads, thread t pricing entries t + j *
+// kSweepMaxThreads of every row in turn. Each entry is read once a column for
+// all kRows rows, from the table that sweep_table_kernel writes (kStaged: the
+// table copied into dynamic shared memory first), and the rows' reductions
+// share one barrier a column. Rows past nby (the last CTA of an odd split)
+// price zeros and write nothing. Arguments as rate_sweep_frame_kernel's, with
+// nby the frame's block rows and table its [e] entries of 32 bytes.
+template <int kRows, bool kStaged>
+__global__ void __launch_bounds__(kSweepMaxThreads, 1)
+rate_sweep_rows_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restrict__ base,
+                       const int32_t* __restrict__ mods, const int32_t* __restrict__ sel_cb,
+                       const float* __restrict__ bits, const int32_t* __restrict__ ep,
+                       const int32_t* __restrict__ sel, const int32_t* __restrict__ prev_ep,
+                       const int32_t* __restrict__ prev_sel, bool has_prev, int s0_index,
+                       float lam, float lam_cr, int nby, int nbx, int e,
+                       const int4* __restrict__ table, int32_t* __restrict__ out_ep,
+                       int32_t* __restrict__ out_sel) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_bits = (float*)smem;                                 // [e]
+  int4* s_table = (int4*)(smem + (((size_t)e * 4 + 15) & ~(size_t)15));  // kStaged: [2 e]
+  __shared__ SweepBlock s_feat[kRows][kSweepCols];
+  __shared__ int s_above[kRows][kSweepCols], s_prev_ep[kRows][kSweepCols];
+  __shared__ int s_choice[kRows][kSweepCols];
+  __shared__ float s_cost_cr[kRows][kSweepCols], s_e_prev[kRows][kSweepCols];
+  __shared__ bool s_cr[kRows][kSweepCols];
+  __shared__ unsigned s_key[2][kRows][kSweepMaxWarps], s_entry[2][kRows][kSweepMaxWarps];
+  constexpr int kThreadsR = kSweepMaxThreads, kWarpsR = kThreadsR / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row_first = blockIdx.x * kRows;
+  const float half_lam = __fmul_rn(lam, 0.5f);
+  for (int k = tid; k < e; k += kThreadsR) s_bits[k] = bits[k];
+  if constexpr (kStaged)
+    for (int i = tid; i < 2 * e; i += kThreadsR) s_table[i] = table[i];
+  const int4* tab = kStaged ? s_table : table;
+  int left[kRows];  // column 0 prices against its own incoming entry
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+    left[r] = row_first + r < nby ? ep[(int64_t)(row_first + r) * nbx] : 0;
+  for (int c0 = 0; c0 < nbx; c0 += kSweepCols) {
+    const int cols = min(kSweepCols, nbx - c0);
+    // prologue: a thread per (row, block) of this pass's columns
+    for (int i = tid; i < kRows * cols; i += kThreadsR) {
+      const int r = i / cols, col = i - r * cols, row = row_first + r;
+      if (row >= nby) {
+        s_feat[r][col] = SweepBlock{};
+        s_above[r][col] = s_prev_ep[r][col] = 0;
+        s_e_prev[r][col] = 0.f;
+        s_cost_cr[r][col] = kSweepNoCr;
+        continue;
+      }
+      const int64_t blk = (int64_t)row * nbx + c0 + col;
+      stage_sweep_block(blocks, base, mods, sel_cb, ep, sel, prev_ep, prev_sel, has_prev,
+                        half_lam, blk, row > 0 ? blk - nbx : blk, s_feat[r][col],
+                        s_above[r][col], s_prev_ep[r][col], s_e_prev[r][col], s_cost_cr[r][col]);
+    }
+    __syncthreads();
+    // the column scan: one barrier per column for the kRows rows
+    for (int c = 0; c < cols; ++c) {
+      SweepBlock f[kRows];
+      int origin[kRows], above[kRows], best_e[kRows];
+      float best[kRows], n[kRows][4], p_sq[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        origin[r] = left[r];  // dm = (k - left) mod e, the floor modulo
+        if ((unsigned)origin[r] >= (unsigned)e) {  // an incoming entry out of range
+          origin[r] %= e;
+          if (origin[r] < 0) origin[r] += e;
+        }
+        above[r] = s_above[r][c];
+        f[r] = s_feat[r][c];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) n[r][j] = __int2float_rn(f[r].n[j]);
+        p_sq[r] = __int2float_rn(f[r].p_sq);
+        best[r] = INFINITY;
+        best_e[r] = 0x7fffffff;
+      }
+#pragma unroll 2
+      for (int k = tid; k < e; k += kThreadsR) {
+        const SweepEntryF t = load_entry(tab, k, e);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          int dm = k - origin[r];
+          if (dm < 0) dm += e;
+          float b = s_bits[dm];
+          if (k == above[r]) b = fminf(b, kSweepAboveBits);
+          const float cost = __fmaf_rn(lam, b, entry_error_f(f[r], n[r], p_sq[r], t));
+          if (cost < best[r]) {  // entries ascend: the thread's first minimum
+            best[r] = cost;
+            best_e[r] = k;
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        unsigned key = ordered_bits(best[r]), entry = (unsigned)best_e[r];
+        warp_first_min(key, entry);
+        if (lane == 0) {
+          s_key[c & 1][r][warp] = key;
+          s_entry[c & 1][r][warp] = entry;
+        }
+      }
+      __syncthreads();
+      // every warp reduces the warps' minima and decides CR itself (the
+      // minima are double-buffered: no second barrier)
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        unsigned key = lane < kWarpsR ? s_key[c & 1][r][lane] : 0xffffffffu;
+        unsigned entry = lane < kWarpsR ? s_entry[c & 1][r][lane] : 0xffffffffu;
+        warp_first_min(key, entry);
+        const bool cr = s_cost_cr[r][c] <= from_ordered(key);  // CR wins ties
+        left[r] = cr ? s_prev_ep[r][c] : (int)entry;
+        if (tid == 0) {
+          s_choice[r][c] = left[r];
+          s_cr[r][c] = cr;
+        }
+      }
+    }
+    __syncthreads();
+    // epilogue: a thread per (row, block)
+    for (int i = tid; i < kRows * cols; i += kThreadsR) {
+      const int r = i / cols, col = i - r * cols, row = row_first + r;
+      if (row < nby)
+        finish_sweep_block(blocks, base, mods, sel_cb, sel, prev_sel, has_prev, s0_index, lam_cr,
+                           (int64_t)row * nbx + c0 + col, s_choice[r][col], s_cr[r][col],
+                           s_e_prev[r][col], s_prev_ep[r][col], out_ep, out_sel);
     }
     __syncthreads();  // the next pass restages the shared arrays
   }
@@ -1314,12 +1864,19 @@ int uvt_etc1s_assign_endpoints(const void* blocks, const void* table, void* out,
   return (int)cudaGetLastError();
 }
 
-// idx: [n] int32 (n <= 2^24); x: [n, d] f32; part: scratch of ceil(n/1024) *
-// min(k, kSegMaxK) * d f32 (min(k, kSegMaxK) * d for n = 0); out: [k, d] f32.
-// Two launches per window of kSegMaxK segments, whatever n: each window's
-// pass 1 drops the rows outside it, so a segment's partials are those of its
-// own rows in tile order, as in one launch; windows reuse `part` in stream
-// order.
+// idx: [n] int32 (n <= 2^24); x: [n, d] f32; out: [k, d] f32. part:
+// scratch of ceil(n/1024) * min(k, kSegMaxK) * d f32 (min(k, kSegMaxK) * d
+// for n = 0) up to kSegMaxK segments; past them (the sparse path, 16-byte
+// aligned) m * cap * groups * pitch f32 of chunk roots, then 2 * m * words
+// int32 of presence words and slot bases, with m = ceil(n/1024) (at least
+// 1), cap = min(k, kSegWideMaxK, kSegMaxSlots), words = ceil(min(k,
+// kSegWideMaxK) / 32), groups, pitch as below. Two launches per window,
+// whatever n: up to kSegMaxK segments each window's pass 1 drops the rows
+// outside it, so a segment's partials are those of its own rows in tile
+// order, as in one launch; past kSegMaxK one window of kSegWideMaxK
+// segments (two launches for any palette: the rows read once), each chunk
+// writing only the roots of the segments it holds. Windows reuse `part` in
+// stream order.
 int uvt_etc1s_segment_sum(const void* idx, const void* x, int n, int d, int k, void* part,
                           void* out, void* stream) {
   if (n < 0 || n > kSegMaxRows || d <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
@@ -1333,18 +1890,44 @@ int uvt_etc1s_segment_sum(const void* idx, const void* x, int n, int d, int k, v
   while ((1 << lq) < quads) ++lq;
   while ((1 << lc) < (vec ? quads : dc)) ++lc;
   const size_t stage = (size_t)min(groups, 2) * kChunkRows * quads * 16;
-  // the first window is the widest: its bytes are the limit of every launch
-  cudaError_t err = cudaFuncSetAttribute(
-      seg_sum_chunk_kernel, kSmemLimit, (int)(seg_meta_bytes(min(k, kSegMaxSlots)) + stage));
-  if (err != cudaSuccess) return (int)err;
-  for (int seg0 = 0; seg0 < k; seg0 += kSegMaxK) {
-    const int kw = min(kSegMaxK, k - seg0);
-    seg_sum_chunk_kernel<<<(unsigned)m, kSegThreads, seg_meta_bytes(min(kw, kSegMaxSlots)) + stage,
-                           s>>>((const int32_t*)idx, (const float*)x, n, d, kw, seg0, dc, groups,
+  if (k <= kSegMaxK) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        seg_sum_chunk_kernel, kSmemLimit, (int)(seg_meta_bytes(min(k, kSegMaxSlots)) + stage));
+    if (err != cudaSuccess) return (int)err;
+    seg_sum_chunk_kernel<<<(unsigned)m, kSegThreads, seg_meta_bytes(min(k, kSegMaxSlots)) + stage,
+                           s>>>((const int32_t*)idx, (const float*)x, n, d, k, 0, dc, groups,
                                 4 * quads, lq, lc, vec, (float*)part);
+    const cudaError_t e2 = cudaGetLastError();
+    if (e2 != cudaSuccess) return (int)e2;
+    return (int)launch_tree((const float*)part, m, (int64_t)k * d, (float*)out, s);
+  }
+  if ((uintptr_t)part & 15) return (int)cudaErrorMisalignedAddress;
+  const int kw_max = min(k, kSegWideMaxK), words_max = (kw_max + 31) >> 5;
+  const int cap = min(kw_max, kSegMaxSlots), rp = groups * 4 * quads;
+  float* roots = (float*)part;
+  unsigned* gbits = (unsigned*)(roots + (size_t)m * cap * rp);
+  int* gbase = (int*)(gbits + (size_t)m * words_max);
+  const bool vec_out = d % 4 == 0 && dc % 4 == 0 && ((uintptr_t)out & 15) == 0;
+  // the first window is the widest: its bytes are the limit of every launch
+  cudaError_t err = cudaFuncSetAttribute(seg_sum_sparse_chunk_kernel, kSmemLimit,
+                                         (int)(sparse_meta_bytes(cap, words_max) + stage));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(seg_sum_roots_kernel, kSmemLimit,
+                               (int)roots_smem_bytes(m, 32 * quads));
+  if (err != cudaSuccess) return (int)err;
+  for (int seg0 = 0; seg0 < k; seg0 += kSegWideMaxK) {
+    const int kw = min(kSegWideMaxK, k - seg0), words = (kw + 31) >> 5;
+    seg_sum_sparse_chunk_kernel<<<(unsigned)m, kSegThreads,
+                                  sparse_meta_bytes(min(kw, kSegMaxSlots), words) + stage, s>>>(
+        (const int32_t*)idx, (const float*)x, n, d, kw, seg0, dc, groups, 4 * quads, lq, lc, vec,
+        roots, gbits, gbase, cap);
     err = cudaGetLastError();
-    if (err == cudaSuccess)
-      err = launch_tree((const float*)part, m, (int64_t)kw * d, (float*)out + (int64_t)seg0 * d, s);
+    if (err != cudaSuccess) return (int)err;
+    seg_sum_roots_kernel<<<dim3((unsigned)words, (unsigned)groups), 32 * quads,
+                           roots_smem_bytes(m, 32 * quads), s>>>(
+        roots, gbits, gbase, m, kw, words, cap, groups, 4 * quads, dc, d, vec_out,
+        (float*)out + (int64_t)seg0 * d);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
@@ -1376,11 +1959,59 @@ int uvt_etc1s_kmeans_iter(const void* feats, const void* cb, int n, int k, void*
   return (int)cudaSuccess;
 }
 
+// K7's wide path with `rows` block rows a CTA (1 or 2) and the entry table
+// in shared memory (staged) or read from device memory: every choice gives
+// the same bits. Arguments as uvt_etc1s_rate_sweep's.
+int uvt_etc1s_rate_sweep_variant(const void* blocks, const void* base, const void* mods,
+                                 const void* sel_cb, const void* bits, const void* ep,
+                                 const void* sel, const void* prev_ep, const void* prev_sel,
+                                 int has_prev, int s0_index, float lam, float lam_cr, int nby,
+                                 int nbx, int e, void* table, void* out_ep, void* out_sel,
+                                 int rows, int staged, void* stream) {
+  if (nby < 0 || nbx < 0 || e <= kSweepMaxE || (rows != 1 && rows != 2) ||
+      (staged && e > kSweepStagedMaxE))
+    return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)table & 15) return (int)cudaErrorMisalignedAddress;
+  if (nby == 0 || nbx == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem = (((size_t)e * 4 + 15) & ~(size_t)15) + (staged ? (size_t)e * 32 : 0);
+  const void* kernel =
+      rows == 1 ? (staged ? (const void*)rate_sweep_rows_kernel<1, true>
+                          : (const void*)rate_sweep_rows_kernel<1, false>)
+                : (staged ? (const void*)rate_sweep_rows_kernel<2, true>
+                          : (const void*)rate_sweep_rows_kernel<2, false>);
+  cudaError_t err = cudaFuncSetAttribute(kernel, kSmemLimit, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  sweep_table_kernel<<<(unsigned)((e + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      (const int32_t*)base, (const int32_t*)mods, e, (int4*)table);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)((nby + rows - 1) / rows);
+#define UVT_ROWS_ARGS                                                                          \
+  (const uint8_t*)blocks, (const int32_t*)base, (const int32_t*)mods, (const int32_t*)sel_cb,  \
+      (const float*)bits, (const int32_t*)ep, (const int32_t*)sel, (const int32_t*)prev_ep,     \
+      (const int32_t*)prev_sel, has_prev != 0, s0_index, lam, lam_cr, nby, nbx, e,              \
+      (const int4*)table, (int32_t*)out_ep, (int32_t*)out_sel
+  if (rows == 1 && staged)
+    rate_sweep_rows_kernel<1, true><<<grid, kSweepMaxThreads, smem, s>>>(UVT_ROWS_ARGS);
+  else if (rows == 1)
+    rate_sweep_rows_kernel<1, false><<<grid, kSweepMaxThreads, smem, s>>>(UVT_ROWS_ARGS);
+  else if (staged)
+    rate_sweep_rows_kernel<2, true><<<grid, kSweepMaxThreads, smem, s>>>(UVT_ROWS_ARGS);
+  else
+    rate_sweep_rows_kernel<2, false><<<grid, kSweepMaxThreads, smem, s>>>(UVT_ROWS_ARGS);
+#undef UVT_ROWS_ARGS
+  return (int)cudaGetLastError();
+}
+
 // K7 on one frame. blocks: [nby * nbx, 16, 3] uint8; base: [e, 3], mods: [e, 4] int32;
 // sel_cb: [S, 16] int32; bits: [e] f32; ep, sel, prev_ep, prev_sel, out_ep, out_sel:
 // [nby * nbx] int32 (prev_ep and prev_sel are read only with has_prev); table: scratch
 // of e * 8 int32, 16-byte aligned, used above kSweepMaxE entries. One launch of nby
-// CTAs (above kSweepMaxE: the entry table's launch first).
+// CTAs up to kSweepMaxE entries; above, the entry table's launch and then one of
+// the wide path: two block rows a CTA where the frame has more rows than the
+// card has SMs (every SM then sweeps two rows at once instead of one row in
+// each of two waves), the table in shared memory up to kSweepStagedMaxE entries.
 int uvt_etc1s_rate_sweep(const void* blocks, const void* base, const void* mods,
                          const void* sel_cb, const void* bits, const void* ep, const void* sel,
                          const void* prev_ep, const void* prev_sel, int has_prev, int s0_index,
@@ -1388,40 +2019,37 @@ int uvt_etc1s_rate_sweep(const void* blocks, const void* base, const void* mods,
                          void* out_ep, void* out_sel, void* stream) {
   if (nby < 0 || nbx < 0 || e <= 0) return (int)cudaErrorInvalidValue;
   if (nby == 0 || nbx == 0) return (int)cudaGetLastError();
-  cudaStream_t s = (cudaStream_t)stream;
   if (e <= kSweepMaxE) {
     const int threads = 32 * ((e + 32 * kSweepPer - 1) / (32 * kSweepPer));
-    rate_sweep_frame_kernel<false><<<(unsigned)nby, threads, 0, s>>>(
+    rate_sweep_frame_kernel<<<(unsigned)nby, threads, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)blocks, (const int32_t*)base, (const int32_t*)mods,
         (const int32_t*)sel_cb, (const float*)bits, (const int32_t*)ep, (const int32_t*)sel,
         (const int32_t*)prev_ep, (const int32_t*)prev_sel, has_prev != 0, s0_index, lam, lam_cr,
-        nbx, e, nullptr, (int32_t*)out_ep, (int32_t*)out_sel);
+        nbx, e, (int32_t*)out_ep, (int32_t*)out_sel);
     return (int)cudaGetLastError();
   }
-  if ((uintptr_t)table & 15) return (int)cudaErrorMisalignedAddress;
-  const size_t smem = (size_t)e * 4;
-  cudaError_t err = cudaFuncSetAttribute(rate_sweep_frame_kernel<true>, kSmemLimit, (int)smem);
+  int device = 0, sms = 0;  // of the current device, asked on each call
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  sweep_table_kernel<<<(unsigned)((e + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-      (const int32_t*)base, (const int32_t*)mods, e, (int4*)table);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  rate_sweep_frame_kernel<true><<<(unsigned)nby, kSweepMaxThreads, smem, s>>>(
-      (const uint8_t*)blocks, (const int32_t*)base, (const int32_t*)mods, (const int32_t*)sel_cb,
-      (const float*)bits, (const int32_t*)ep, (const int32_t*)sel, (const int32_t*)prev_ep,
-      (const int32_t*)prev_sel, has_prev != 0, s0_index, lam, lam_cr, nbx, e,
-      (const int4*)table, (int32_t*)out_ep, (int32_t*)out_sel);
-  return (int)cudaGetLastError();
+  return uvt_etc1s_rate_sweep_variant(blocks, base, mods, sel_cb, bits, ep, sel, prev_ep, prev_sel,
+                                      has_prev, s0_index, lam, lam_cr, nby, nbx, e, table, out_ep,
+                                      out_sel, nby > sms ? 2 : 1, e <= kSweepStagedMaxE, stream);
 }
 
 int uvt_etc1s_func_attrs(int which, int* out, const char** name) {
   static const KernelRef ks[] = {
       UVT_KERNEL(inten_errors_kernel), UVT_KERNEL(assign_endpoints_kernel),
-      UVT_KERNEL(kmeans_chunk_kernel), UVT_KERNEL(seg_sum_chunk_kernel),
+      UVT_KERNEL(kmeans_chunk_kernel),
+      UVT_KERNEL(seg_sum_chunk_kernel), UVT_KERNEL(seg_sum_sparse_chunk_kernel),
+      UVT_KERNEL(seg_sum_roots_kernel),
       KernelRef{(const void*)seg_sum_tree_kernel<kTreeRows>, "seg_sum_tree_kernel"},
       KernelRef{(const void*)seg_sum_tree_kernel<kTreeRowsSmall>, "seg_sum_tree_kernel_small"},
-      KernelRef{(const void*)rate_sweep_frame_kernel<false>, "rate_sweep_frame_kernel"},
-      KernelRef{(const void*)rate_sweep_frame_kernel<true>, "rate_sweep_frame_kernel_wide"},
+      UVT_KERNEL(rate_sweep_frame_kernel),
+      KernelRef{(const void*)rate_sweep_rows_kernel<1, true>, "rate_sweep_rows_kernel<1, true>"},
+      KernelRef{(const void*)rate_sweep_rows_kernel<2, true>, "rate_sweep_rows_kernel<2, true>"},
+      KernelRef{(const void*)rate_sweep_rows_kernel<1, false>, "rate_sweep_rows_kernel<1, false>"},
+      KernelRef{(const void*)rate_sweep_rows_kernel<2, false>, "rate_sweep_rows_kernel<2, false>"},
       UVT_KERNEL(sweep_table_kernel)};
   return fill_func_attrs(ks, which, out, name);
 }

@@ -1,19 +1,63 @@
-"""Device timing — counterpart of `uvol_tpu/utils/timing.py`'s `device_trace`.
+"""Wall-clock and device timing — counterpart of `uvol_tpu/utils/timing.py`.
 
+`Timer` and `StageTimer` are the reference's host timers, copied;
 `cuda_timer` times a region of queued GPU work with CUDA events;
 `median_cuda_ms` repeats a callable; `device_trace` wraps a region in a
 `torch.profiler` trace and `device_time_ms` sums its device-side events
-by name. All of them need a card: a measurement that finds none raises
-rather than timing the CPU.
+by name. The device timers need a card: a measurement that finds none
+raises rather than timing the CPU.
 """
 
 from __future__ import annotations
 
 import contextlib
 import statistics
+import time
+from collections import defaultdict
 from typing import Callable, Dict, Iterator, List, Optional
 
 import torch
+
+
+class Timer:
+    """Simple restartable wall-clock timer reporting milliseconds."""
+
+    def __init__(self) -> None:
+        self._start = time.perf_counter()
+
+    def restart(self) -> None:
+        self._start = time.perf_counter()
+
+    def elapsed_ms(self) -> float:
+        return (time.perf_counter() - self._start) * 1e3
+
+
+class StageTimer:
+    """Accumulates wall time per named stage; cheap enough to always be on."""
+
+    def __init__(self) -> None:
+        self.totals_ms: Dict[str, float] = defaultdict(float)
+        self.counts: Dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def stage(self, name: str) -> Iterator[None]:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.totals_ms[name] += (time.perf_counter() - t0) * 1e3
+            self.counts[name] += 1
+
+    def report(self) -> List[str]:
+        lines = []
+        for name in sorted(self.totals_ms, key=self.totals_ms.get, reverse=True):
+            n = self.counts[name]
+            tot = self.totals_ms[name]
+            lines.append(f"{name:32s} {tot:10.2f} ms total  {tot / max(n, 1):8.3f} ms/call  x{n}")
+        return lines
+
+    def __str__(self) -> str:
+        return "\n".join(self.report())
 
 
 def _require_cuda() -> None:
