@@ -145,23 +145,30 @@ each kernel's time per call and alone, its twin's time, launches per
 call, the stable sort's time beside U4's and the `.crt` host encode and
 decode in seconds a frame.
 
-Its phase `wide_palette_path` (after `pointcloud_trajectory_path`, no
-trace) holds the kernels past their former limits bit for bit against
-their twins: the segment sum (random and skewed), K4, K6 and K7 (with and
+Its phase `wide_palette_path` (after `pointcloud_trajectory_path`)
+holds the kernels past their former limits bit for bit against their
+twins: the segment sum (random and skewed), K4, K6 and K7 (with and
 without a previous frame, ties at lam 0) at 2,049, 4,096 and 16,128
-entries, which the segment sum and K6 take in windows of 2,048 and K7 on
-its wide path; U5 at [8, 200,000, 3], [1, 54,017, 2], [1, 54,016, 3],
-[1, 54,015, 5] and at 65,536 frames, against the CPU twin. It encodes
-B's segment (5 layers of 1024^2) at 4,096/4,096 endpoints and selectors:
-K4-K7 and the segment sum must launch, the encode must repeat its bytes,
-and the card's bytes must equal the CPU port's on the bench texture's
-first 256^2 at the same widths; the sparse segment sum and K7's rows
-kernel (this slice's path) must launch in that encode, and neither may
-launch at 256 or 1,024 entries. At 4,096 and 16,128 entries on the main
-path's shapes it times the segment sum (per call, alone by the profiler,
-`index_add_` beside it), K6 and K7 (per call, alone, `feat @ mat.T`
-beside it), each beside its twin and its bound; the kernels line repeats
-them under `wide`, and the rows `etc1s_segment_sum_wide` and
+entries, which the segment sum and K6 take on their sparse paths (K6's
+wide assignment: a filter of fused multiply-adds, exact re-checks) and K7
+on its wide path; K6 also on an all-equal codebook (every pair
+re-checked) and on centroids one ulp apart with repeats in every chunk;
+U5 at [8, 200,000, 3], [1, 54,017, 2], [1, 54,016, 3], [1, 54,015, 5] and
+at 65,536 frames, against the CPU twin. It encodes B's segment (5 layers
+of 1024^2) at 4,096/4,096 endpoints and selectors: K4-K7 and the segment
+sum must launch, the encode must repeat its bytes, and the card's bytes
+must equal the CPU port's on the bench texture's first 256^2 at the same
+widths; the sparse segment sum, K6's wide path and K7's rows kernel (this
+slice's path) must launch in that encode, and none may launch at 256 or
+1,024 entries. At 4,096 and 16,128 entries on the main path's shapes it
+times the segment sum (per call, alone by the profiler, `index_add_`
+beside it), K6 (per call, alone; at most 4 kernel launches a call and no
+copy or memset; the shares of pairs and warp steps its filter re-checks;
+the filter's instructions a pair in the library's SASS and the floor they
+set; at 4,096 also on an all-equal codebook) and K7 (per call, alone,
+`feat @ mat.T` beside it), each beside its twin and its bound; the
+kernels line repeats them under `wide`, and the rows
+`etc1s_segment_sum_wide`, `etc1s_kmeans_iter_wide` and
 `etc1s_rate_sweep_wide` give the wide kernels' launches in B's segment
 and their numbers at 4,096. Its phase `python_draco_path` encodes a short
 V2 project with the CLI, rewrites its `.drc` frames with the standard
@@ -271,9 +278,12 @@ WRAPPER_KERNELS = {
     "etc1s_kmeans_iter": ("kmeans_chunk_kernel", "seg_sum_tree_kernel"),
     "etc1s_segment_sum": ("seg_sum_chunk_kernel", "seg_sum_tree_kernel"),
     "etc1s_rate_sweep": ("rate_sweep_frame_kernel",),
-    # past 2,048 segments or entries: the sparse segment sum's passes; K7's
-    # entry table and its rows kernel
+    # past 2,048 segments, centroids or entries: the sparse segment sum's
+    # passes; K6's assignment and those passes; K7's entry table and its rows
+    # kernel
     "etc1s_segment_sum_wide": ("seg_sum_sparse_chunk_kernel", "seg_sum_roots_kernel"),
+    "etc1s_kmeans_iter_wide": ("kmeans_assign_wide_kernel", "seg_sum_sparse_chunk_kernel",
+                               "seg_sum_roots_kernel"),
     "etc1s_rate_sweep_wide": ("sweep_table_kernel", "rate_sweep_rows_kernel"),
     "drc_fused_batch": ("drc_fused_batch_kernel",),
     "uastc_device_fit": ("uastc_device_fit_kernel",),
@@ -423,6 +433,11 @@ WIDE_K7_FRAME = (64, 256)
 WIDE_PALETTE = 4096
 WIDE_CPU_SIDE = 256
 WIDE_TIMED = (4096, 16128)
+#: K6 past one window: the most kernel launches one call may issue (it makes
+#: three: the assignment and the sparse path's two passes)
+KMEANS_WIDE_LAUNCHES_MAX = 4
+#: K6's wide assignment (csrc/etc1s.cu)
+KMEANS_WIDE_KERNEL = "kmeans_assign_wide_kernel"
 #: U5 on long chains (200,000 vertices, and either side of 54,016, where a
 #: chain's whole prefix no longer fits one CTA's shared memory; 5 components: a
 #: group of 4 and one of 1) and past one launch's 65,535 frames: (frames,
@@ -451,6 +466,9 @@ SM_CLOCK_HZ = 1.98e9
 KERNEL_ATTR_NAMES = {"parallelogram_decode": ("parallelogram_decode_kernel<3>",
                                               "parallelogram_decode_kernel<2>"),
                      "etc1s_segment_sum_wide": ("seg_sum_sparse_chunk_kernel",
+                                                "seg_sum_roots_kernel"),
+                     "etc1s_kmeans_iter_wide": ("kmeans_assign_wide_kernel",
+                                                "seg_sum_sparse_chunk_kernel",
                                                 "seg_sum_roots_kernel"),
                      "etc1s_rate_sweep_wide": ("sweep_table_kernel",
                                                *(f"rate_sweep_rows_kernel<{r}, {b}>"
@@ -1085,7 +1103,8 @@ def etc1s_main_path(torch, textures) -> tuple:
     for name in ETC1S_BUILD_KERNELS:
         check(launches[name] >= 1, f"the ETC1S main path never launched {name}")
     check(launches["etc1s_rate_sweep"] == 0, "K7 ran below 512 endpoints")
-    check(launches["etc1s_segment_sum_wide"] == 0, "the sparse segment sum ran at 256 entries")
+    for name in ("etc1s_segment_sum_wide", "etc1s_kmeans_iter_wide"):
+        check(launches[name] == 0, f"{name} ran at 256 entries")
     # every palette build runs K5 three times (cluster_inten)
     builds = launches["etc1s_inten_errors"] // 3
     # the second encode keeps each kernel call's inputs (the real blocks,
@@ -1405,7 +1424,7 @@ def etc1s_delta_path(torch, dev, textures, median_cuda_ms) -> tuple:
     launches = dict(k.LAUNCHES)
     for name in ETC1S_KERNELS:
         check(launches[name] >= 1, f"the ETC1S delta path never launched {name}")
-    for name in ("etc1s_segment_sum_wide", "etc1s_rate_sweep_wide"):
+    for name in ("etc1s_segment_sum_wide", "etc1s_rate_sweep_wide", "etc1s_kmeans_iter_wide"):
         check(launches[name] == 0, f"{name} ran at {ETC1S_DELTA_PALETTE} entries")
     builds = launches["etc1s_inten_errors"] // 3
     delta_builds = min(builds, 3)  # the floor's last rung (delta lambda 0) has no delta stage
@@ -2240,6 +2259,107 @@ def once_ms(torch, fn) -> float:
     return (time.perf_counter() - t) * 1e3
 
 
+def kmeans_recheck_rates(torch, k, feats, cb) -> dict:
+    """K6 on (feats, cb) once more through `uvt_etc1s_kmeans_iter` with the
+    wide assignment's counters on (the kernel `kmeans_iter` launches): the
+    share of (row, centroid) pairs that passed the filter and were
+    re-checked exactly, and of warp steps (a warp's rows against one
+    centroid) that took the re-check path, both over the grid's rows
+    (padding rows included; rows a thread and warps a CTA read from the
+    kernel's source); its assignment held to the wrapper's."""
+    from uvol_tpu_torch import _build
+
+    n, e = feats.shape[0], cb.shape[0]
+    dev = feats.device
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    a = torch.empty(n, dtype=torch.int32, device=dev)
+    part = torch.empty(k._kmeans_scratch(n, e), dtype=torch.float32, device=dev)
+    sums = torch.empty((e, 5), dtype=torch.float32, device=dev)
+    _build.launch("uvt_etc1s_kmeans_iter", dev, feats.data_ptr(), cb.data_ptr(), n, e,
+                  part.data_ptr(), sums.data_ptr(), a.data_ptr(), stats.data_ptr())
+    check(torch.equal(a, k.kmeans_iter(feats, cb)[2]), "K6's counted assignment differs")
+    src = (Path(k.__file__).resolve().parents[2] / "csrc" / "etc1s.cu").read_text()
+    rows, warps = (int(re.search(rf"constexpr int {c} = (\d+);", src).group(1))
+                   for c in ("kKmWideRows", "kKmWideGroups"))
+    grid_rows = -(-n // (32 * rows * warps)) * 32 * rows * warps
+    rechecks, steps = (int(v) for v in stats.cpu())
+    return {"recheck_per_pair": rechecks / (grid_rows * e),
+            "recheck_warp_steps": steps / (grid_rows // (32 * rows) * e)}
+
+
+def loop_sass(lib: Path, nvcc: str, mangled: str, op: str = "IDP", per: int = 6) -> list:
+    """A kernel's inner loop in the library's SASS: each straight-line block
+    of the function whose mangled name holds `mangled` (no branch target
+    inside, ended by a branch, exit or barrier) that holds at least `per`
+    instructions `op` (K7: IDP, 6 an entry and row; K6's filter: FFMA, 4 a
+    row and centroid), as {"instructions", "entry_rows", "per_entry_row":
+    opcode -> count / (op / per)}."""
+    cuobjdump = str(Path(nvcc).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    if mangled not in sass:
+        return []
+    body = sass.split(mangled, 1)[1].split("Function :", 1)[0]
+    ins = [(int(m.group(1), 16), m.group(2).strip())
+           for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    targets = {int(t, 16) for _, i in ins for t in re.findall(r"BRA (0x[0-9a-f]+)", i)}
+    blocks, cur = [], []
+    for addr, i in ins:
+        if addr in targets and cur:
+            blocks.append(cur)
+            cur = []
+        cur.append(i)
+        if re.search(r"\b(BRA|EXIT|BAR)\b", i):
+            blocks.append(cur)
+            cur = []
+    out = []
+    for b in blocks + [cur]:
+        ops = {}
+        for i in b:
+            name = (i.split()[1] if i.startswith("@") else i.split()[0]).split(".")[0]
+            ops[name] = ops.get(name, 0) + 1
+        if ops.get(op, 0) >= per:
+            er = ops[op] / per
+            out.append({"instructions": len(b), "entry_rows": er,
+                        "per_entry_row": {k: v / er for k, v in sorted(ops.items())}})
+    return out
+
+
+def steady_block(blocks: list) -> dict:
+    """Of `loop_sass`' blocks, the steady one: the most frequent count of
+    instructions (the fewer on a tie). The unrolled loop's other blocks
+    carry its counter, its compare and its next addresses, once every few
+    centroids."""
+    sizes = [b["instructions"] for b in blocks]
+    size = min(sizes, key=lambda v: (-sizes.count(v), v))
+    return next(b for b in blocks if b["instructions"] == size)
+
+
+def kmeans_filter_instructions(_build) -> float:
+    """Instructions a (row, centroid) in the loop of K6's wide filter: the
+    steady block (`steady_block`) of the assignment's SASS among those with
+    4 FFMA a pair, its instructions over FFMA / 4; the re-check path is
+    apart."""
+    blocks = loop_sass(_build.library_path(), _build.find_nvcc(), KMEANS_WIDE_KERNEL, "FFMA", 4)
+    top = steady_block(blocks)
+    return top["instructions"] / top["entry_rows"]
+
+
+def wide_blocks(torch, frames, dev):
+    """The [N, 16, 3] uint8 blocks of `frames` [L, H, W, 3] on `dev`."""
+    nl, h, w, _ = frames.shape
+    return torch.from_numpy(np.ascontiguousarray(
+        frames.reshape(nl, h // 4, 4, w // 4, 4, 3).transpose(0, 1, 3, 2, 4, 5)
+        .reshape(-1, 16, 3))).to(dev)
+
+
+def wide_features(torch, frames, dev):
+    """The [N, 4] f32 rows K6 is timed on past one window: each block's mean
+    color and its channels' mean deviation."""
+    bd = wide_blocks(torch, frames, dev).float()
+    return torch.cat([bd.mean(1), bd.std(1).mean(1, keepdim=True)], 1).contiguous()
+
+
 def wide_palette_path(torch, dev, textures, median_cuda_ms) -> tuple:
     """The segment sum, K6 and K7 past one window (2,048) and U5 past its
     shared prefix and one launch's frames: each bit for bit against its
@@ -2271,8 +2391,15 @@ def wide_palette_path(torch, dev, textures, median_cuda_ms) -> tuple:
                       k.segment_sum_plain(ix, e, x))
         cb = feats[torch.from_numpy(r.choice(WIDE_ROWS, e, replace=False)).to(dev)] + 0.25
         cb[-1] = cb[0]  # a duplicate past the first window: ties go to the first
-        hold_bits(torch, err, "etc1s_kmeans_iter", k.kmeans_iter(feats, cb),
-                  k.kmeans_iter_plain(feats, cb))
+        # K6's filter passing everything (an all-equal codebook), near-ties (centroids
+        # one ulp apart, repeats in every chunk of 256), uniform features
+        equal = (feats[:1] + 0.25).expand(e, 4).contiguous()
+        ulp = cb.clone()
+        ulp[1::2] = torch.nextafter(ulp[0::2][: e // 2], torch.tensor(np.inf, device=dev))
+        ulp[9::256] = ulp[2:e - 7:256]
+        for kcb in (cb, equal, ulp):
+            hold_bits(torch, err, "etc1s_kmeans_iter_wide", k.kmeans_iter(feats, kcb),
+                      k.kmeans_iter_plain(feats, kcb))
         base = torch.from_numpy(r.integers(0, 256, (e, 3)).astype(np.int32)).to(dev)
         inten = torch.from_numpy(r.integers(0, 8, e).astype(np.int32)).to(dev)
         table = k.endpoint_table(base, inten)
@@ -2298,7 +2425,8 @@ def wide_palette_path(torch, dev, textures, median_cuda_ms) -> tuple:
     blob = encode_ktx2_etc1s(frames, device=DEVICE, **kw)
     torch.cuda.synchronize()
     launches = dict(k.LAUNCHES)
-    for name in ETC1S_BUILD_KERNELS + ("etc1s_segment_sum_wide", "etc1s_rate_sweep_wide"):
+    for name in ETC1S_BUILD_KERNELS + ("etc1s_segment_sum_wide", "etc1s_rate_sweep_wide",
+                                       "etc1s_kmeans_iter_wide"):
         check(launches[name] >= 1, f"the {WIDE_PALETTE}-entry segment never launched {name}")
     check(encode_ktx2_etc1s(frames, device=DEVICE, **kw) == blob,
           f"the {WIDE_PALETTE}-entry segment encode is not deterministic")
@@ -2319,16 +2447,15 @@ def wide_palette_path(torch, dev, textures, median_cuda_ms) -> tuple:
 
     # ---- the wide calls on the main path's shapes: per call, alone, twin,
     # library call, bound (the slice's rows take the first of WIDE_TIMED)
-    bd = torch.from_numpy(np.ascontiguousarray(
-        frames.reshape(ETC1S_LAYERS, H // 4, 4, W // 4, 4, 3).transpose(0, 1, 3, 2, 4, 5)
-        .reshape(-1, 16, 3))).to(dev)
+    bd = wide_blocks(torch, frames, dev)
     ne = bd.shape[0]
-    feats_b = bd.float().mean(1)
-    feats_b = torch.cat([feats_b, bd.float().std(1).mean(1, keepdim=True)], 1).contiguous()
+    feats_b = wide_features(torch, frames, dev)
     xs = torch.from_numpy((r.normal(size=(sn, sd)) * 1e3).astype(np.float32)).to(dev)
     nr = (H // 4) * (W // 4)
     seg_names = WRAPPER_KERNELS["etc1s_segment_sum_wide"]
     k7_names = WRAPPER_KERNELS["etc1s_rate_sweep_wide"]
+    km_names = WRAPPER_KERNELS["etc1s_kmeans_iter_wide"]
+    filter_ins = kmeans_filter_instructions(_build)
     for e in WIDE_TIMED:
         idx = torch.from_numpy(r.integers(0, e, sn)).to(dev)
         key = f"etc1s_segment_sum_k{e}"
@@ -2347,10 +2474,21 @@ def wide_palette_path(torch, dev, textures, median_cuda_ms) -> tuple:
                 F32_FLOP_PER_S)))}
         cb = feats_b[torch.from_numpy(r.choice(ne, e, replace=False)).to(dev)] + 0.25
         key = f"etc1s_kmeans_iter_k{e}"
-        ms[key] = median_cuda_ms(lambda cb=cb: k.kmeans_iter(feats_b, cb), REPS)
+        fn = lambda cb=cb: k.kmeans_iter(feats_b, cb)  # noqa: E731
+        hold_bits(torch, err, "etc1s_kmeans_iter_wide", fn(), k.kmeans_iter_plain(feats_b, cb))
+        ms[key] = median_cuda_ms(fn, REPS)
+        ms[key + "_kernel"] = kernel_only_ms(torch, fn, km_names)[0]
         ms[key + "_plain"] = once_ms(torch, lambda: k.kmeans_iter_plain(feats_b, cb))
+        per_call = launches_per_call(torch, fn, km_names)
+        check(per_call["launches"] <= KMEANS_WIDE_LAUNCHES_MAX and not per_call["copies"]
+              and not per_call["memsets"], f"K6 at {e} centroids issues {per_call} a call")
         wide.setdefault("etc1s_kmeans_iter", {})[f"k{e}"] = {
-            "shape": [ne, e], "ms": ms[key], "plain_ms": ms[key + "_plain"],
+            "shape": [ne, e], "ms": ms[key], "kernel_ms": ms[key + "_kernel"],
+            "plain_ms": ms[key + "_plain"], "library_ms": None, "per_call": per_call,
+            **kmeans_recheck_rates(torch, k, feats_b, cb),
+            # the design's own floor: the filter's instructions a (row, centroid)
+            # (`kmeans_filter_instructions`, from the library's SASS) at the issue rate
+            "filter_floor_ms": filter_ins * ne * e / INT_OPS_PER_S * 1e3,
             **dict(zip(("bound_ms", "bound_by"), bound(
                 ne * 16 + e * 16 + ne * 4 + e * 20, OPS["etc1s_kmeans_iter"] * ne * e,
                 F32_FLOP_PER_S)))}
@@ -2381,11 +2519,20 @@ def wide_palette_path(torch, dev, textures, median_cuda_ms) -> tuple:
         **dict(zip(("bound_ms", "bound_by"), bound(
             ne * 48 + e * 80 + ne * 4, OPS["etc1s_assign_endpoints"] * ne * e,
             INT_OPS_PER_S)))}}
+    # K6 at e on an all-equal codebook: every pair re-checked exactly
+    equal = (feats_b[:1] + 0.25).expand(e, 4).contiguous()
+    fn = lambda: k.kmeans_iter(feats_b, equal)  # noqa: E731
+    hold_bits(torch, err, "etc1s_kmeans_iter_wide", fn(), k.kmeans_iter_plain(feats_b, equal))
+    wide["etc1s_kmeans_iter"][f"k{e}_all_equal"] = {
+        "ms": median_cuda_ms(fn, REPS), "kernel_ms": kernel_only_ms(torch, fn, km_names)[0],
+        **kmeans_recheck_rates(torch, k, feats_b, equal)}
     # the wide kernels' own rows of the kernels line, at the slice's width
     for name, key in (("etc1s_segment_sum_wide", f"etc1s_segment_sum_k{e}"),
-                      ("etc1s_rate_sweep_wide", f"etc1s_rate_sweep_e{e}")):
+                      ("etc1s_rate_sweep_wide", f"etc1s_rate_sweep_e{e}"),
+                      ("etc1s_kmeans_iter_wide", f"etc1s_kmeans_iter_k{e}")):
         for suffix in ("", "_kernel", "_plain", "_library"):
-            ms[name + suffix] = ms[key + suffix]
+            if key + suffix in ms:
+                ms[name + suffix] = ms[key + suffix]
         wide[name] = dict(wide[name.rsplit("_", 1)[0]])
     f, n, d = U5_WIDE_SHAPES[0]
     res, p = u5_chain(r, f, n, d)
@@ -2401,7 +2548,7 @@ def wide_palette_path(torch, dev, textures, median_cuda_ms) -> tuple:
             f * n * d * 8 + f * n * 12, OPS["parallelogram_decode"] * f * n * d, INT_OPS_PER_S))),
         "chain_depth": depth, "chain_bound_ms": chain_bound_ms(depth, add_cycles)}}
     attrs = _build.kernel_attrs()
-    wide_attrs = {fn: attrs[fn] for fn in (*KERNEL_ATTR_NAMES["etc1s_segment_sum_wide"],
+    wide_attrs = {fn: attrs[fn] for fn in (*KERNEL_ATTR_NAMES["etc1s_kmeans_iter_wide"],
                                            *KERNEL_ATTR_NAMES["etc1s_rate_sweep_wide"],
                                            "parallelogram_decode_kernel<3>")}
     emit({"phase": "wide_palette_path", "entries": WIDE_ENTRIES, "rows": WIDE_ROWS,
@@ -3831,8 +3978,8 @@ def main() -> int:
     for name, v in wide_err.items():
         err[name] = max(err.get(name, 0), v)
     ms.update(wide_ms)
-    for name in ("etc1s_segment_sum_wide", "etc1s_rate_sweep_wide"):  # this slice's path
-        launches[name] = wide_launches[name]
+    for name in ("etc1s_segment_sum_wide", "etc1s_rate_sweep_wide", "etc1s_kmeans_iter_wide"):
+        launches[name] = wide_launches[name]  # this slice's path
     python_draco_path(torch, textures)
     uastc_cli_launches = uastc_project_path(torch, textures)
 
@@ -3893,6 +4040,11 @@ def main() -> int:
         "etc1s_kmeans_iter": ("etc1s.cu", "codecs/basis/etc1s_pallas.py:310",
                               ne * 16 + e * 16 + ne * 4 + e * 20,
                               OPS["etc1s_kmeans_iter"] * ne * e, F32_FLOP_PER_S),
+        # past one window (B's segment at WIDE_PALETTE): the same function at
+        # WIDE_PALETTE centroids on B's 327,680 blocks
+        "etc1s_kmeans_iter_wide": ("etc1s.cu", "codecs/basis/etc1s_pallas.py:310",
+                                   ne * 16 + WIDE_PALETTE * 16 + ne * 4 + WIDE_PALETTE * 20,
+                                   OPS["etc1s_kmeans_iter"] * ne * WIDE_PALETTE, F32_FLOP_PER_S),
         # the reference's segment sums are XLA one-hot products, not a Pallas site
         "etc1s_segment_sum": ("etc1s.cu", "codecs/basis/etc1s_encode.py:103",
                               sn * (sd + 1) * 4 + sk * sd * 4,
@@ -3944,7 +4096,7 @@ def main() -> int:
     for fn in ("etc1_encode_kernel", "etc1_decode_kernel", "inten_errors_kernel",
                "rate_sweep_frame_kernel", "drc_fused_batch_kernel", "uastc_device_fit_kernel",
                "weight_index_kernel", "seg_sum_chunk_kernel", "seg_sum_tree_kernel",
-               "seg_sum_tree_kernel_small", *KERNEL_ATTR_NAMES["etc1s_segment_sum_wide"],
+               "seg_sum_tree_kernel_small", *KERNEL_ATTR_NAMES["etc1s_kmeans_iter_wide"],
                *KERNEL_ATTR_NAMES["etc1s_rate_sweep_wide"], *WRAPPER_KERNELS["estimate_normals"],
                "morton_keys_kernel", *(f"parallelogram_decode_kernel<{g}>" for g in range(1, 5)),
                *STAGE_KERNEL_NAMES):

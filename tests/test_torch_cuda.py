@@ -350,6 +350,71 @@ def test_etc1s_kmeans_iter_kernel_at_tile_and_chunk_edges(card, n, k):
         np.testing.assert_array_equal(g.cpu().numpy().view(np.int32), w.numpy().view(np.int32))
 
 
+def _wide_kmeans_inputs(kind: str, n: int, k: int, seed: int):
+    """K6's inputs past one window: uniform features with duplicate
+    centroids in every chunk of 256 and across 2,048, an all-equal
+    codebook, centroids one ulp apart, and features at 0 and 255 against
+    centroids past the data at +-0.0 and up to +-1,000."""
+    r = np.random.default_rng(seed)
+    f = (np.where(r.random((n, 4)) < 0.5, 255.0, 0.0) if kind == "extremes"
+         else r.random((n, 4)) * 255).astype(np.float32)
+    if kind == "all_equal":
+        cb = np.broadcast_to(f[:1] + np.float32(0.25), (k, 4)).copy()
+    elif kind == "extremes":
+        cb = (r.random((k, 4)) * 2000 - 1000).astype(np.float32)
+        cb[:3], cb[3] = 0.0, -0.0
+    else:
+        cb = (f[r.integers(0, n, k)] + r.normal(0, 2, (k, 4))).astype(np.float32)
+    if kind == "ulp":
+        cb[1::2] = np.nextafter(cb[0::2][: k // 2], np.float32(np.inf))
+    if kind in ("uniform", "ulp"):
+        cb[k - 1], cb[2048] = cb[0], cb[5]
+        cb[9:k:256] = cb[2:k - 7:256]
+    return torch.from_numpy(f), torch.from_numpy(cb)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "all_equal", "ulp", "extremes"])
+@pytest.mark.parametrize("k", [2049, 4096, 16128])
+def test_etc1s_kmeans_iter_wide_kernel_matches_twin(card, k, kind):
+    """Past one window: the filtered assignment and the sparse sums bit for
+    bit, on inputs where the filter passes nothing, everything or near-ties;
+    one call counted under K6 and its wide path."""
+    feats, cb = _wide_kmeans_inputs(kind, 5001, k, k)
+    before = dict(etc1s_cuda.LAUNCHES)
+    got = etc1s_cuda.kmeans_iter(feats.to(card), cb.to(card))
+    torch.cuda.synchronize()
+    for name in ("etc1s_kmeans_iter", "etc1s_kmeans_iter_wide"):
+        assert etc1s_cuda.LAUNCHES[name] == before[name] + 1
+    assert etc1s_cuda.LAUNCHES["etc1s_segment_sum"] == before["etc1s_segment_sum"]
+    for g, w in zip(got, etc1s_cuda.kmeans_iter_plain(feats, cb)):
+        np.testing.assert_array_equal(g.cpu().numpy().view(np.int32), w.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("kind", ["random", "gradient", "all_equal", "ulp", "extremes"])
+@pytest.mark.parametrize("k,n", [(2049, 1500), (4096, 1100)])
+def test_etc1s_kmeans_wide_recheck_counters_equal_the_model(card, k, n, kind):
+    """The wide assignment's counters (`uvt_etc1s_kmeans_iter` with
+    `stats`) equal the CPU model's (tests/test_torch_kernel_designs.py):
+    the pairs re-checked exactly and the warp steps that took the re-check
+    path, so the margin is the one the model proves; its assignment is the
+    twin's."""
+    from test_torch_kernel_designs import _wide_assign_model, _wide_kmeans_case
+    from uvol_tpu_torch import _build
+
+    feats, cb = _wide_kmeans_case(kind, n, k, k + n)
+    fd, cd = torch.from_numpy(feats).to(card), torch.from_numpy(cb).to(card)
+    stats = torch.zeros(2, dtype=torch.int64, device=card)
+    a = torch.empty(n, dtype=torch.int32, device=card)
+    part = torch.empty(etc1s_cuda._kmeans_scratch(n, k), dtype=torch.float32, device=card)
+    sums = torch.empty((k, 5), dtype=torch.float32, device=card)
+    _build.launch("uvt_etc1s_kmeans_iter", card, fd.data_ptr(), cd.data_ptr(), n, k,
+                  part.data_ptr(), sums.data_ptr(), a.data_ptr(), stats.data_ptr())
+    torch.cuda.synchronize()
+    want, rechecks, slow = _wide_assign_model(feats, cb)
+    np.testing.assert_array_equal(a.cpu().numpy(), want)
+    assert tuple(int(v) for v in stats.cpu()) == (rechecks, slow)
+
+
 @pytest.mark.parametrize("shape,offset", [((2, 8, 1028, 3), 0), ((1, 16, 1024, 3), 3)])
 def test_encode_kernel_other_widths_and_offsets(card, shape, offset):
     """A width whose rows are not 16-byte aligned (two runs per block row),

@@ -490,6 +490,326 @@ def test_segment_sum_wrapper_on_the_cpu_takes_the_twin():
         kern.segment_sum(idx, 9, x.double())
 
 
+# ---- K6 past one window: the FMA filter, exact re-checks, the sparse sums ------
+
+_ETC1S_SRC = (Path(kern.__file__).resolve().parents[2] / "csrc" / "etc1s.cu").read_text()
+
+
+def _etc1s_const(name: str):
+    """A constexpr of `csrc/etc1s.cu`: an int, or a float written as 0x1p-Nf."""
+    m = re.search(rf"constexpr (?:int|float) {name} = ([^;]+);", _ETC1S_SRC).group(1)
+    return float.fromhex(m[:-1]) if m.startswith("0x") else int(m)
+
+
+KM_CHUNK = _etc1s_const("kKmWideChunk")
+KM_ROWS = _etc1s_const("kKmWideRows")
+KM_GROUPS = _etc1s_const("kKmWideGroups")
+KM_SCALE = _etc1s_const("kKmMarginScale")
+KM_FLOOR = _etc1s_const("kKmMarginFloor")
+U24 = 2.0 ** -24
+
+
+def _up(r: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """The least float32 >= hi + lo (float64 hi, its exact error lo), given
+    r = float32(hi) rounded to nearest."""
+    r64 = r.double()
+    return torch.where((r64 < hi) | ((r64 == hi) & (lo > 0)),
+                       torch.nextafter(r, torch.full_like(r, np.inf)), r)
+
+
+def _add_ru(a, b) -> torch.Tensor:
+    """__fadd_ru / __fmaf_ru: a + b rounded up to float32, a and b float64
+    (a + b in float64 with its TwoSum error)."""
+    s = a + b
+    t = s - a
+    lo = (a - (s - t)) + (b - t)
+    r = s.float()
+    inf = torch.isinf(s)
+    return torch.where(inf, r, _up(r, s, torch.where(inf, 0.0, lo)))
+
+
+def _fma_ru(a, b, c) -> torch.Tensor:
+    """__fmaf_ru(a, b, c) on float32 tensors: the product is exact in float64."""
+    return _add_ru(a.double() * b.double(), c.double())
+
+
+def _c2(cb: torch.Tensor) -> torch.Tensor:
+    """c2 in `centroid_rows`' order, every step rounded."""
+    sq = cb * cb
+    return ((sq[:, 0] + sq[:, 1]) + sq[:, 2]) + sq[:, 3]
+
+
+def _filter(fp: torch.Tensor, cb: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
+    """d~ [rows, centroids]: four fused multiply-adds from c2 with fp = -2 f."""
+    d = c2[None, :].expand(fp.shape[0], -1)
+    for j in range(4):
+        d = fma_f32(fp[:, j : j + 1], cb[None, :, j], d)
+    return d
+
+
+def _dist(fp: torch.Tensor, cb: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
+    """The reference's dist of each row of fp (-2 f) with each centroid,
+    every step rounded: (-2f) * c is the real f * (-2c)."""
+    d = c2[None, :].expand(fp.shape[0], -1)
+    for j in range(4):
+        d = d + fp[:, j : j + 1] * cb[None, :, j]
+    return d
+
+
+def _warp_layout(n_rows: int, rows: int) -> tuple:
+    """For each of the grid's rows, its thread and its warp: a CTA's warp g
+    holds the 32 * rows rows row0 + g * 32 * rows + q * 32 + lane."""
+    gr = torch.arange(n_rows)
+    warp = gr // (32 * rows)
+    return warp * 32 + gr % 32, warp
+
+
+def _thread_margin_terms(f: torch.Tensor, rows: int) -> torch.Tensor:
+    """2 sum_j |f_j| (rounded up) of the largest row of each row's thread."""
+    a = f.abs().double()
+    nf = _add_ru(_add_ru(_add_ru(a[:, 0], a[:, 1]).double(), a[:, 2]).double(), a[:, 3])
+    thread, _ = _warp_layout(f.shape[0], rows)
+    top = torch.zeros(int(thread.max()) + 1).scatter_reduce(0, thread, nf, "amax")
+    return 2.0 * top[thread]
+
+
+def _margin(nf2: torch.Tensor, c2max: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
+    """The kernel's margin: (c2max + 2 sum_j |f_j| amax) 2^-20 + 2^-120,
+    each step rounded up."""
+    inner = _fma_ru(nf2, amax.expand_as(nf2), c2max.expand_as(nf2))
+    return _fma_ru(inner, torch.full_like(inner, KM_SCALE), torch.full_like(inner, KM_FLOOR))
+
+
+def _wide_assign_model(feats: np.ndarray, cb: np.ndarray) -> tuple:
+    """numpy/torch model of `kmeans_assign_wide_kernel`: the grid's rows
+    (padding rows of zeros past n; CTAs of KM_GROUPS warps of 32 x KM_ROWS
+    rows), the centroids in chunks of KM_CHUNK with each chunk's largest c2
+    and |c_j|, the filter d~ < best + margin (rounded up), the reference's
+    dist only where it passes, taken where dist < best. Returns (assign [n]
+    int32, pairs re-checked, warp steps that re-checked): the kernel's
+    counters."""
+    n, k = len(feats), len(cb)
+    rows = KM_ROWS
+    per = 32 * rows * KM_GROUPS
+    g_rows = -(-n // per) * per
+    f = torch.zeros((g_rows, 4), dtype=torch.float32)
+    f[:n] = torch.from_numpy(feats)
+    fp = -2.0 * f
+    nf2 = _thread_margin_terms(f, rows)
+    _, warp = _warp_layout(g_rows, rows)
+    c = torch.from_numpy(cb)
+    best = torch.full((g_rows,), np.inf)
+    bi = torch.zeros(g_rows, dtype=torch.int64)
+    rechecks = slow = 0
+    for c0 in range(0, k, KM_CHUNK):
+        ch = c[c0 : c0 + KM_CHUNK]
+        c2 = _c2(ch)
+        mg = _margin(nf2, c2.max()[None], ch.abs().max()[None])
+        thr = _add_ru(best.double(), mg.double())
+        dt, ds = _filter(fp, ch, c2), _dist(fp, ch, c2)  # ds read only where dt passes
+        for j in range(len(ch)):
+            idx = torch.nonzero(dt[:, j] < thr).flatten()
+            if not len(idx):
+                continue
+            rechecks += len(idx)
+            slow += int(torch.count_nonzero(torch.bincount(warp[idx])))
+            e = ds[idx, j]
+            win = e < best[idx]
+            r = idx[win]
+            best[r], bi[r] = e[win], c0 + j
+            thr[r] = _add_ru(e[win].double(), mg[r].double())
+    return bi[:n].to(torch.int32).numpy(), rechecks, slow
+
+
+def _wide_kmeans_case(kind: str, n: int, k: int, seed: int) -> tuple:
+    """(feats [n, 4], cb [k, 4]) float32: `random` uniform features and
+    centroids drawn from them with duplicates in every chunk and across
+    2,048; `gradient` rows of a smooth ramp with a low contrast (B-like);
+    `all_equal` one centroid k times; `ulp` centroids in pairs one ulp
+    apart and exact repeats; `extremes` features at 0 and 255 (contrast up
+    to 255) against centroids past the data, at +-0.0 and up to +-1,000."""
+    r = np.random.default_rng(seed)
+    if kind == "gradient":
+        t = np.arange(n, dtype=np.float64)
+        rgb = np.stack([128 + 120 * np.sin(t / 700 + s) for s in (0.0, 2.0, 4.0)], 1)
+        f = np.concatenate([rgb + r.normal(0, 0.5, (n, 3)), r.random((n, 1)) * 8], 1)
+    elif kind == "extremes":
+        f = np.where(r.random((n, 4)) < 0.5, 255.0, 0.0)
+        f[::7, 3] = 255.0 * r.random(len(f[::7]))
+    else:
+        f = r.random((n, 4)) * 255
+    f = f.astype(np.float32)
+    if kind == "all_equal":
+        cb = np.broadcast_to(f[:1] + np.float32(0.25), (k, 4)).copy()
+    elif kind == "extremes":
+        cb = (r.random((k, 4)) * 2000 - 1000).astype(np.float32)
+        cb[:3] = 0.0
+        cb[3] = -0.0
+        cb[4:8] = np.float32(255.0)
+    else:
+        cb = (f[r.integers(0, n, k)] + r.normal(0, 2, (k, 4))).astype(np.float32)
+    if kind == "ulp":
+        cb[1::2] = np.nextafter(cb[0::2][: k // 2], np.float32(np.inf))
+        cb[2::5] = cb[0]
+    if kind in ("random", "gradient", "ulp"):
+        cb[k - 1] = cb[0]  # a duplicate past the first window: ties go to the first
+        cb[2048] = cb[5]
+        for c0 in range(0, k - 9, KM_CHUNK):  # and one in every chunk
+            cb[c0 + 9] = cb[c0 + 2]
+    return f, cb
+
+
+KM_KINDS = ("random", "gradient", "all_equal", "ulp", "extremes")
+
+
+@pytest.mark.parametrize("kind", KM_KINDS)
+@pytest.mark.parametrize("k,n", [(2049, 1500), (4096, 1100), (16128, 600)])
+def test_wide_kmeans_design_matches_kmeans_iter_plain(k, n, kind):
+    """Bit-exact past one window: the filter of fused multiply-adds with
+    the exact re-check gives the twin's first minimum on every kind of
+    input (duplicates in every chunk and across 2,048, an all-equal
+    codebook where every pair is re-checked, one-ulp neighbours, the
+    largest magnitudes), n off the 1,024-row chunk and the CTA's rows;
+    the rows [f, 1.0] summed by the sparse path's model give the twin's
+    sums and counts."""
+    feats, cb = _wide_kmeans_case(kind, n, k, k + n)
+    got, rechecks, slow = _wide_assign_model(feats, cb)
+    sums, counts, want = kern.kmeans_iter_plain(torch.from_numpy(feats), torch.from_numpy(cb))
+    np.testing.assert_array_equal(got, want.numpy())
+    x5 = np.concatenate([feats, np.ones((n, 1), np.float32)], 1)
+    s5 = _sparse_model(got.astype(np.int64), k, x5)
+    np.testing.assert_array_equal(_bits(s5[:, :4]), _bits(sums))
+    np.testing.assert_array_equal(_bits(s5[:, 4]), _bits(counts))
+    grid_rows = -(-n // (32 * KM_ROWS * KM_GROUPS)) * 32 * KM_ROWS * KM_GROUPS
+    if kind == "all_equal":  # every pair passes: exact, only slower
+        assert rechecks == grid_rows * k
+    else:
+        assert rechecks < 0.05 * grid_rows * k
+
+
+@pytest.mark.parametrize("kind", ["magnitudes", "signed", "zeros", "one_channel"])
+def test_wide_kmeans_design_with_unlike_rows_in_a_thread(kind):
+    """A thread's margin takes the largest sum |f_j| of its rows: rows of
+    unlike size in one thread (magnitudes from 10^-3 to 10^3), signed
+    features, rows of zeros, one channel alone still give the twin's
+    assignment and, through the sparse path's model, its sums."""
+    r = np.random.default_rng(len(kind))
+    n, k = 1300, 2600
+    if kind == "magnitudes":
+        f = r.random((n, 4)) * 10.0 ** r.integers(-3, 4, (n, 1))
+    elif kind == "signed":
+        f = r.random((n, 4)) * 510 - 255
+    elif kind == "zeros":
+        f = np.where(r.random((n, 1)) < 0.5, 0.0, r.random((n, 4)) * 255)
+    else:
+        f = np.zeros((n, 4))
+        f[:, 2] = r.random(n) * 255
+    feats = f.astype(np.float32)
+    cb = (feats[r.integers(0, n, k)] + r.normal(0, 1, (k, 4))).astype(np.float32)
+    cb[k - 1], cb[2048] = cb[0], cb[7]
+    got, _, _ = _wide_assign_model(feats, cb)
+    sums, counts, want = kern.kmeans_iter_plain(torch.from_numpy(feats), torch.from_numpy(cb))
+    np.testing.assert_array_equal(got, want.numpy())
+    s5 = _sparse_model(got.astype(np.int64), k,
+                       np.concatenate([feats, np.ones((n, 1), np.float32)], 1))
+    np.testing.assert_array_equal(_bits(s5[:, :4]), _bits(sums))
+    np.testing.assert_array_equal(_bits(s5[:, 4]), _bits(counts))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "cancelling", "magnitudes", "extremes"])
+def test_wide_kmeans_filter_error_is_within_the_margin(kind):
+    """|d~ - dist| <= 9 u M (1 + 2^-20) + 8 * 2^-150, M = c2 + sum_j |f_j
+    w_j| bounding every partial sum, on 2^20 adversarial pairs (squares and
+    products in the subnormal range included); and the kernel's margin,
+    taken with the pair's own c2 and |c_j| as the chunk's largest (its least
+    value), is above it: a pair with dist < best passes d~ < best + margin."""
+    r = np.random.default_rng(len(kind))
+    m = 1 << 20
+    if kind == "uniform":
+        f = r.random((m, 4)) * 255
+        c = r.random((m, 4)) * 255
+    elif kind == "cancelling":  # dist near -|f|^2: c near f, large partial sums
+        f = r.random((m, 4)) * 255
+        c = f + r.normal(0, 1e-3, (m, 4))
+    elif kind == "magnitudes":
+        f = r.random((m, 4)) * 10.0 ** r.integers(-30, 3, (m, 1))
+        c = r.normal(size=(m, 4)) * 10.0 ** r.integers(-30, 4, (m, 1))
+    else:
+        f = np.where(r.random((m, 4)) < 0.5, 255.0, 0.0)
+        c = r.choice([-1000.0, -255.0, -0.0, 0.0, 1e-3, 255.0, 1000.0], (m, 4))
+    f, c = torch.from_numpy(f.astype(np.float32)), torch.from_numpy(c.astype(np.float32))
+    fp, c2 = -2.0 * f, _c2(c)
+    dt = c2.clone()
+    dist = c2.clone()
+    for j in range(4):
+        dt = fma_f32(fp[:, j], c[:, j], dt)
+        dist = dist + fp[:, j] * c[:, j]
+    err = (dt.double() - dist.double()).abs()
+    big_m = c2.double() + (f.double().abs() * (2.0 * c.double()).abs()).sum(1)
+    assert (err <= 9 * U24 * big_m * (1 + 2.0 ** -20) + 8 * 2.0 ** -150).all()
+    nf2 = 2.0 * _add_ru(_add_ru(_add_ru(  # each row's own sum_j |f_j|
+        f[:, 0].abs().double(), f[:, 1].abs().double()).double(), f[:, 2].abs().double()
+    ).double(), f[:, 3].abs().double())
+    mg = _margin(nf2, c2, c.abs().amax(1))
+    assert (err < mg.double()).all()
+    assert (16 * U24 * big_m + 2.0 ** -120 <= mg.double()).all()
+
+
+def test_wide_kmeans_margin_rounding_helpers_round_up():
+    """The model's __fadd_ru and __fmaf_ru: the least float32 at or above
+    the exact value, against exact rationals."""
+    from fractions import Fraction
+
+    r = np.random.default_rng(5)
+    a, b, c = ((r.normal(size=2000) * 10.0 ** r.integers(-20, 20, 2000)).astype(np.float32)
+               for _ in range(3))
+    ta, tb, tc = (torch.from_numpy(x) for x in (a, b, c))
+    s = _add_ru(ta.double(), tb.double()).numpy()
+    p = _fma_ru(ta, tb, tc).numpy()
+    for i in range(2000):
+        for got, exact in ((s[i], Fraction(float(a[i])) + Fraction(float(b[i]))),
+                           (p[i], Fraction(float(a[i])) * Fraction(float(b[i]))
+                            + Fraction(float(c[i])))):
+            below = np.nextafter(got, np.float32(-np.inf))
+            assert Fraction(float(got)) >= exact > Fraction(float(below))
+
+
+def test_wide_kmeans_scratch_holds_rows_and_the_sparse_scratch():
+    """K6's scratch past one window: the rows [f, 1.0] padded to 16 bytes,
+    then the sparse segment sum's scratch for 5 columns (one group at a
+    pitch of 8)."""
+    assert kern._kmeans_scratch(3000, 2048) == 3 * 2048 * 5
+    assert kern._kmeans_scratch(327680, 4096) == 327680 * 5 + 320 * 1024 * 8 + 2 * 320 * 128
+    assert kern._kmeans_scratch(3, 16128) == 16 + 1024 * 8 + 2 * 504
+
+
+def test_wide_kmeans_filter_floor_reads_the_steady_block():
+    """The smoke's filter floor (`chip_smoke.steady_block`) takes the
+    unrolled loop's most frequent block, not the one that also carries the
+    loop's counter: 23 instructions for 4 pairs in the SASS below (the
+    library's, from a card run), the fewer on a tie."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    blocks = [{"instructions": v, "entry_rows": 4.0} for v in (26, 23, 23, 23, 37, 23, 23)]
+    assert cs.steady_block(blocks) is blocks[1]
+    tie = [{"instructions": v, "entry_rows": 4.0} for v in (30, 24, 30, 24)]
+    assert cs.steady_block(tie) is tie[1]
+
+
+def test_kmeans_iter_wrapper_on_the_cpu_takes_the_twin_past_one_window():
+    feats, cb = _wide_kmeans_case("random", 900, 2049, 3)
+    before = dict(kern.LAUNCHES)
+    got = kern.kmeans_iter(torch.from_numpy(feats), torch.from_numpy(cb))
+    want = kern.kmeans_iter_plain(torch.from_numpy(feats), torch.from_numpy(cb))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy().view(np.int32), w.numpy().view(np.int32))
+    assert kern.LAUNCHES == before
+
+
 # ---- K1 ----------------------------------------------------------------------
 
 MODS = tetc.MODIFIER_TABLE.astype(np.int64)  # [8, (small, large)]

@@ -16,21 +16,23 @@ device of the tensor decides the route:
     (`*_plain`), which computes the same numbers in the same order.
 
 Each wrapper call that launches adds one to `LAUNCHES[name]` (K6 and
-`segment_sum` are two kernels each); twin calls are not counted. The calls
-that take a wide path (`segment_sum` past `SEG_WINDOW` segments, K7 past
-`SWEEP_REG_MAX_E` entries) also add one to `LAUNCHES[name + "_wide"]`.
+`segment_sum` are two kernels each, K6 past `SEG_WINDOW` centroids three);
+twin calls are not counted. The calls that take a wide path (`segment_sum`
+and K6 past `SEG_WINDOW` segments or centroids, K7 past `SWEEP_REG_MAX_E`
+entries) also add one to `LAUNCHES[name + "_wide"]`.
 
 The kernels take at most `SEG_MAX_ROWS` rows a launch. Above that,
 `segment_sum` and `kmeans_iter` (kernel and twin alike) sum consecutive
 chunks of `SEG_MAX_ROWS` rows and add the chunk results in order, first
-to last; at or below it nothing is chunked. K6 sums windows of
-`SEG_WINDOW` centroids one after another, and so does the twin: a
-segment's sum depends only on its own rows in tile order, so a window's
-result is the bits of one pass over every segment. `segment_sum` takes
-one window up to `SEG_WINDOW` segments; past it, its sparse path reads
-the rows once for up to `SEG_WIDE_WINDOW` segments and writes each
-chunk's root only for the segments the chunk holds. K7 keeps the palette
-in registers up to `SWEEP_REG_MAX_E` entries; past it a CTA sweeps two
+to last; at or below it nothing is chunked. `segment_sum` takes one
+window up to `SEG_WINDOW` segments; past it, its sparse path reads the
+rows once for up to `SEG_WIDE_WINDOW` segments and writes each chunk's
+root only for the segments the chunk holds. K6 past `SEG_WINDOW`
+centroids assigns in a kernel of its own (a filter of fused
+multiply-adds against the running minimum, the reference's rounded
+distance re-checked exactly where it may win) and sums through that
+sparse path. K7 keeps the palette in registers up to `SWEEP_REG_MAX_E`
+entries; past it a CTA sweeps two
 block rows at once (one row where the frame has no more rows than the
 card has SMs) and reads each entry once a column for both, from shared
 memory up to `SWEEP_STAGED_MAX_E` entries, else from a table in device
@@ -78,6 +80,7 @@ LAUNCHES = {
     "etc1s_rate_sweep": 0,
     "etc1s_segment_sum_wide": 0,
     "etc1s_rate_sweep_wide": 0,
+    "etc1s_kmeans_iter_wide": 0,
 }
 
 #: the ETC1S intensity modifiers [8 tables, 4 codes]; `csrc/etc1s.cu`
@@ -88,10 +91,9 @@ INTEN_TABLES = tuple(tuple(int(v) for v in row) for row in _INTEN_TABLES)
 SEG_TILE = 64
 #: tiles per pass-1 chunk of the segment-sum kernel (kChunkTiles)
 SEG_CHUNK_TILES = 16
-#: segments (K6: centroids) one window of the kernels sums, the width of
-#: their shared-memory map; a wider K6 sum takes ceil(k / SEG_WINDOW)
-#: windows, two launches each, on both routes in the same order; a wider
-#: segment sum takes the sparse path
+#: segments (K6: centroids) of the dense pass 1, the width of its
+#: shared-memory map; a wider segment sum, and K6's sums past it, take the
+#: sparse path (the twin sums windows of this many apart: the same bits)
 SEG_WINDOW = 2048
 #: segments one window of the segment sum's sparse path sums (two launches
 #: a window: one for any palette basisu allows)
@@ -412,9 +414,10 @@ def kmeans_iter_plain(feats: Tensor, cb: Tensor) -> Tuple[Tensor, Tensor, Tensor
 
 def kmeans_iter(feats: Tensor, cb: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """K6: feats [N, 4] f32, cb [K, 4] f32 → (sums [K, 4], counts [K],
-    assign [N] int32). The kernel assigns every row in its first window's
-    launch (the centroids staged 2,048 at a time) and sums each window of
-    `SEG_WINDOW` centroids in its own launch.
+    assign [N] int32). Up to `SEG_WINDOW` centroids one kernel assigns and
+    sums each chunk of rows, a second adds the chunks; past it the wide
+    assignment writes `assign` and the rows [f, 1.0], which the segment
+    sum's sparse path sums (three launches up to `SEG_WIDE_WINDOW`).
     Above `SEG_MAX_ROWS` rows: one call per chunk of so many rows, the
     sums and counts added in order as `segment_sum` adds them."""
     if feats.dtype != torch.float32 or feats.ndim != 2 or feats.shape[1] != 4:
@@ -434,17 +437,28 @@ def kmeans_iter(feats: Tensor, cb: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     return sums[:, :4], sums[:, 4], assign
 
 
+def _kmeans_scratch(n: int, k: int) -> int:
+    """Floats of K6's scratch for one launch (`uvt_etc1s_kmeans_iter`): the
+    chunk partials [chunks, k, 5] up to `SEG_WINDOW` centroids; past it the
+    rows [f, 1.0] (padded to 16 bytes) and the sparse segment sum's scratch
+    for them."""
+    if k <= SEG_WINDOW:
+        return -(-n // (SEG_TILE * SEG_CHUNK_TILES)) * k * 5
+    return 4 * -(-n * 5 // 4) + _segment_sum_scratch(n, 5, k)
+
+
 def _kmeans_launch(feats: Tensor, cb: Tensor, assign: Tensor) -> Tensor:
     """One launch of K6 on feats [N, 4] (N <= SEG_MAX_ROWS), writing
     `assign` [N]; returns sums [K, 5] (features, then the count)."""
     n, k = feats.shape[0], cb.shape[0]
     feats = _aligned(feats)
-    chunks = -(-n // (SEG_TILE * SEG_CHUNK_TILES))
-    part = torch.empty((chunks, min(k, SEG_WINDOW), 5), dtype=torch.float32, device=feats.device)
+    part = torch.empty(_kmeans_scratch(n, k), dtype=torch.float32, device=feats.device)
     sums = torch.empty((k, 5), dtype=torch.float32, device=feats.device)
     _launch("etc1s_kmeans_iter", "uvt_etc1s_kmeans_iter", feats.device,
             feats.data_ptr(), cb.data_ptr(), n, k, part.data_ptr(),
-            sums.data_ptr(), assign.data_ptr())
+            sums.data_ptr(), assign.data_ptr(), None)
+    if k > SEG_WINDOW:
+        LAUNCHES["etc1s_kmeans_iter_wide"] += 1
     return sums
 
 

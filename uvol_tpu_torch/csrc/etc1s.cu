@@ -62,6 +62,20 @@
 // shared memory sized to k, one 16-byte broadcast load per centroid's
 // weights, c2 beside them; the kernel forms both from cb in the order of
 // etc1s_cuda.centroid_rows.
+//   Past kSegMaxK centroids (palettes up to basisu's 16,128) the rounded
+// steps are paid only where they can matter: a filter of 4 FMAs per (row,
+// centroid) against the running minimum plus a bound on its error, the
+// reference's rounded dist only for a pair that passes (the note at
+// kmeans_assign_wide_kernel proves the bound), ~6 instructions a pair
+// against ~11.5; 4 rows a thread in CTAs of 4 warps, 640 CTAs at 327,680
+// rows, all resident at once (no second wave). It issues at about half the
+// card's rate, as the one-window kernel does; fewer rows a thread (more
+// warps) ran faster than 8 rows and its fewer instructions a pair, and
+// neither splitting a chunk's centroids between warps, nor unrolling the
+// sweep less, nor a shorter compare chain moved it (PERF.md section 6).
+// The sums then go through the segment sum's sparse path (below) on the
+// rows [f, 1.0] that the assignment writes: three launches for any k up to
+// kSegWideMaxK, the rows read once.
 //
 // The per-cluster sums are DETERMINISTIC (no float atomics) in the fixed
 // order of `segment_sum_plain` in codecs/basis/etc1s_cuda.py: rows in
@@ -107,13 +121,6 @@
 // (examples/torch_segsum_variants.py), and at k = 256 roots written only
 // for the segments a chunk holds made pass 2 slower than the dense reads
 // it saved (PERF.md section 6); past kSegMaxK the trade is reversed (below).
-//
-// K6's sums wider than kSegMaxK centroids go by windows of kSegMaxK,
-// two launches a window: a window's pass 1 drops the rows of other
-// centroids, and a segment's partials depend only on its own rows in tile
-// order, so the bits are those of one launch; its window 0 assigns every
-// row (the centroids staged kKmChunk at a time, the first minimum carried
-// across chunks) and writes the assignment; its later windows read it back.
 //
 // The segment sum past kSegMaxK segments (the sparse path: palettes past
 // 2,048 entries, up to basisu's 16,128) is bound by the same bytes (85 MB at
@@ -218,9 +225,8 @@ constexpr int kIntenThreads = 128;  // K5: blocks (threads) per tile
 constexpr int kIntenCtasPerSm = 4;  // K5: resident CTAs per SM (up to 128 registers a thread)
 constexpr int kEpChunk = 256;   // endpoints per shared-memory chunk: 20 KB
 constexpr int kSegTile = 64;    // rows per fixed-order partial sum
-constexpr int kSegMaxK = 2048;  // segments one pass-1 launch sums: wider sums go by windows
+constexpr int kSegMaxK = 2048;  // segments of the dense pass 1: wider sums take the sparse path
 constexpr int kKmCols = 5;      // K6's 4 features ++ 1.0 (the count)
-constexpr int kKmChunk = 2048;  // K6: centroids staged in shared memory at a time
 
 // ---- K5 ---------------------------------------------------------------
 
@@ -1224,23 +1230,19 @@ __global__ void __launch_bounds__(32 * kSegGroupCols / 4)
   }
 }
 
-// K6: one CTA per chunk of kChunkRows rows. The nearest centroid of each
-// row (4 rows per thread, each centroid's weights one 16-byte shared
-// load, c2 beside them; the centroids staged kKmChunk at a time, the first
-// minimum carried from chunk to chunk), then pass 1 of the fixed-order sum
-// of [feats, 1.0] by assignment over the window of kw <= kSegMaxK segments
-// from seg0. The launch of window 0 computes the assignment and writes
-// `assign`; those of later windows (k > kSegMaxK) read it back. cb: [k]
-// float4 centroids; part: [m, kw, 5].
+// K6 up to kSegMaxK centroids: one CTA per chunk of kChunkRows rows. The
+// nearest centroid of each row (4 rows per thread, each centroid's weights
+// one 16-byte shared load, c2 beside them), writing `assign`, then pass 1
+// of the fixed-order sum of [feats, 1.0] by assignment. cb: [k] float4
+// centroids (k <= kSegMaxK); part: [m, k, 5].
 __global__ void kmeans_chunk_kernel(const float4* __restrict__ feats,
-                                    const float4* __restrict__ cb, int n, int k, int seg0,
-                                    int kw, float* __restrict__ part, int32_t* __restrict__ assign) {
+                                    const float4* __restrict__ cb, int n, int k,
+                                    float* __restrict__ part, int32_t* __restrict__ assign) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int kc_max = min(k, kKmChunk);
   float4* s_w = (float4*)smem;
-  float* s_c2 = (float*)(s_w + kc_max);
+  float* s_c2 = (float*)(s_w + k);
   constexpr int kPitchLog = 3;  // kKmCols = 5 columns in a pitch of 8
-  const ChunkSmem s = chunk_smem((unsigned char*)(s_c2 + ((kc_max + 3) & ~3)), 1 << kPitchLog, kw);
+  const ChunkSmem s = chunk_smem((unsigned char*)(s_c2 + ((k + 3) & ~3)), 1 << kPitchLog, k);
 
   constexpr int kRows = kChunkRows / kThreads;
   const int64_t row0 = (int64_t)blockIdx.x * kChunkRows;
@@ -1252,35 +1254,31 @@ __global__ void kmeans_chunk_kernel(const float4* __restrict__ feats,
     const int64_t g = row0 + q * kThreads + threadIdx.x;
     f[q] = g < n ? feats[g] : make_float4(0.f, 0.f, 0.f, 0.f);
     best[q] = 0.f;
-    bi[q] = g < n && seg0 > 0 ? assign[g] : 0;
+    bi[q] = 0;
   }
-  for (int c0 = 0; seg0 == 0 && c0 < k; c0 += kKmChunk) {
-    const int kc = min(kKmChunk, k - c0);
-    if (c0) __syncthreads();  // the last chunk's centroids are read
-    // the rows of etc1s_cuda.centroid_rows: -2*cb, and c2 summed in order
-    for (int j = threadIdx.x; j < kc; j += blockDim.x) {
-      const float4 c = cb[c0 + j];
-      s_w[j] = make_float4(__fmul_rn(-2.f, c.x), __fmul_rn(-2.f, c.y), __fmul_rn(-2.f, c.z),
-                           __fmul_rn(-2.f, c.w));
-      s_c2[j] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(c.x, c.x), __fmul_rn(c.y, c.y)),
-                                    __fmul_rn(c.z, c.z)), __fmul_rn(c.w, c.w));
-    }
-    __syncthreads();
-    // dist = c2 + f0*w0 + f1*w1 + f2*w2 + f3*w3, every step rounded; the
-    // first minimum wins (strict <)
-    for (int kk = 0; kk < kc; ++kk) {
-      const float4 w = s_w[kk];
-      const float c2 = s_c2[kk];
+  // the rows of etc1s_cuda.centroid_rows: -2*cb, and c2 summed in order
+  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+    const float4 c = cb[j];
+    s_w[j] = make_float4(__fmul_rn(-2.f, c.x), __fmul_rn(-2.f, c.y), __fmul_rn(-2.f, c.z),
+                         __fmul_rn(-2.f, c.w));
+    s_c2[j] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(c.x, c.x), __fmul_rn(c.y, c.y)),
+                                  __fmul_rn(c.z, c.z)), __fmul_rn(c.w, c.w));
+  }
+  __syncthreads();
+  // dist = c2 + f0*w0 + f1*w1 + f2*w2 + f3*w3, every step rounded; the
+  // first minimum wins (strict <)
+  for (int kk = 0; kk < k; ++kk) {
+    const float4 w = s_w[kk];
+    const float c2 = s_c2[kk];
 #pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        float d = __fadd_rn(c2, __fmul_rn(f[q].x, w.x));
-        d = __fadd_rn(d, __fmul_rn(f[q].y, w.y));
-        d = __fadd_rn(d, __fmul_rn(f[q].z, w.z));
-        d = __fadd_rn(d, __fmul_rn(f[q].w, w.w));
-        if (c0 + kk == 0 || d < best[q]) {
-          best[q] = d;
-          bi[q] = c0 + kk;
-        }
+    for (int q = 0; q < kRows; ++q) {
+      float d = __fadd_rn(c2, __fmul_rn(f[q].x, w.x));
+      d = __fadd_rn(d, __fmul_rn(f[q].y, w.y));
+      d = __fadd_rn(d, __fmul_rn(f[q].z, w.z));
+      d = __fadd_rn(d, __fmul_rn(f[q].w, w.w));
+      if (kk == 0 || d < best[q]) {
+        best[q] = d;
+        bi[q] = kk;
       }
     }
   }
@@ -1288,9 +1286,8 @@ __global__ void kmeans_chunk_kernel(const float4* __restrict__ feats,
   for (int q = 0; q < kRows; ++q) {
     const int r = q * kThreads + threadIdx.x;
     const bool live = row0 + r < n;
-    if (live && seg0 == 0) assign[row0 + r] = bi[q];
-    const unsigned sg = (unsigned)(bi[q] - seg0);
-    s.key[r] = live && sg < (unsigned)kw ? ((int)sg << kRowBits | r) : kNoSegment;
+    if (live) assign[row0 + r] = bi[q];
+    s.key[r] = live ? (bi[q] << kRowBits | r) : kNoSegment;
     float* xr = s.x + (r << kPitchLog);
     xr[0] = f[q].x;
     xr[1] = f[q].y;
@@ -1299,7 +1296,172 @@ __global__ void kmeans_chunk_kernel(const float4* __restrict__ feats,
     xr[4] = 1.f;
   }
   __syncthreads();
-  chunk_sums(s, kPitchLog, kKmCols, kw, part + (int64_t)blockIdx.x * kw * kKmCols, kKmCols);
+  chunk_sums(s, kPitchLog, kKmCols, k, part + (int64_t)blockIdx.x * k * kKmCols, kKmCols);
+}
+
+// K6 past kSegMaxK centroids, the assignment (kmeans_assign_wide_kernel):
+// kKmWideRows rows a thread, kKmWideGroups warps a CTA (rows below the
+// kernel). Each CTA sweeps every centroid in index order, kKmWideChunk at a
+// time through two shared-memory buffers: the next chunk's cp.async copy
+// lands while this one is swept; then c2 of the chunk (centroid_rows'
+// order), its largest c2 and its largest |c_j|. Per (row, centroid) the
+// filter d~ = four __fmaf_rn from c2 with -2*f (the product (-2f) * c is the
+// real f * (-2c): rounding it gives the twin's bits) is compared with thr =
+// best + margin; a pair that passes computes the reference's dist, every
+// step rounded, and takes it where dist < best (strict: the first minimum).
+// Exact: |d~ - dist| <= 9u M + 8 * 2^-150 (u = 2^-24; the reference rounds 4
+// products and 4 sums, the filter 4 FMAs, each off by at most u times a
+// partial sum or 2^-150 in the subnormal range), M = c2_k + sum_j |f_j w_kj|
+// bounding every partial sum of both; and M <= c2max + 2 sum_j |f_j| * amax,
+// with c2max and amax the chunk's largest c2 and |c_j|. The margin is 16u of
+// that bound (2^-20, every step rounded up, sum_j |f_j| the largest of the
+// thread's rows) plus 2^-120, and thr = best + margin rounded up: a centroid
+// with dist < best always passes, one that is skipped has dist >= best and
+// cannot win. Writes `assign` and the rows [f, 1.0] ([n, 5]) that the
+// segment sum's sparse path then sums.
+constexpr int kKmWideChunk = 256;  // centroids staged at a time (two buffers: 10 KB)
+constexpr int kKmWideRows = 4;     // rows a thread
+constexpr int kKmWideGroups = 4;   // warps (of 32 x kKmWideRows rows) a CTA
+constexpr float kKmMarginScale = 0x1p-20f;
+constexpr float kKmMarginFloor = 0x1p-120f;
+
+// The filter of a thread's rows against one centroid (fp = -2 f): d~ and
+// whether any row passes its threshold.
+__device__ __forceinline__ bool km_filter(const float4 (&fp)[kKmWideRows],
+                                          const float (&thr)[kKmWideRows], float4 w, float c2,
+                                          float (&d)[kKmWideRows]) {
+  bool any = false;
+#pragma unroll
+  for (int q = 0; q < kKmWideRows; ++q) {
+    d[q] = __fmaf_rn(fp[q].w, w.w,
+                     __fmaf_rn(fp[q].z, w.z, __fmaf_rn(fp[q].y, w.y, __fmaf_rn(fp[q].x, w.x, c2))));
+    any |= d[q] < thr[q];
+  }
+  return any;
+}
+
+// The re-check of centroid `idx` (a warp step some lane's row passed): each
+// passing row's reference dist, every step rounded, taken where dist < best;
+// `rechecks` counts the rows re-checked.
+__device__ __forceinline__ void km_recheck(const float4 (&fp)[kKmWideRows],
+                                           const float (&d)[kKmWideRows], float4 w, float c2,
+                                           int idx, float mg, float (&best)[kKmWideRows],
+                                           float (&thr)[kKmWideRows], int (&bi)[kKmWideRows],
+                                           unsigned& rechecks) {
+#pragma unroll
+  for (int q = 0; q < kKmWideRows; ++q) {
+    const bool pass = d[q] < thr[q];
+    if (!__any_sync(0xffffffffu, pass) || !pass) continue;
+    const float e = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(c2, __fmul_rn(fp[q].x, w.x)),
+                                                  __fmul_rn(fp[q].y, w.y)),
+                                        __fmul_rn(fp[q].z, w.z)),
+                              __fmul_rn(fp[q].w, w.w));
+    ++rechecks;
+    if (e < best[q]) {
+      best[q] = e;
+      bi[q] = idx;
+      thr[q] = __fadd_ru(e, mg);
+    }
+  }
+}
+
+// A CTA of G = kKmWideGroups warps (T = 32 G threads), warp g holding the 32
+// R rows row0 + g * 32 R + q * 32 + lane (R = kKmWideRows). B's 327,680 rows
+// are 640 CTAs, all resident at once. stats: null, or 2 uint64 to which the
+// launch adds the pairs it re-checked exactly and the warp steps that took
+// the re-check path (both over the grid's rows, padding rows included; the
+// counts cost a register each and an add on the re-check path only).
+__global__ void __launch_bounds__(32 * kKmWideGroups)
+    kmeans_assign_wide_kernel(const float4* __restrict__ feats, const float4* __restrict__ cb,
+                              int n, int k, int32_t* __restrict__ assign,
+                              float* __restrict__ x5, unsigned long long* __restrict__ stats) {
+  constexpr int R = kKmWideRows, G = kKmWideGroups, T = 32 * G;
+  __shared__ __align__(16) float4 s_c[2][kKmWideChunk];
+  __shared__ float s_c2[2][kKmWideChunk];
+  __shared__ unsigned s_wmax[2][2][G];  // per warp: the largest c2, |c_j|
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t row0 = (int64_t)blockIdx.x * (32 * R * G) + warp * 32 * R + lane;
+  float4 fp[R];  // -2 * the row's features (exact)
+  float best[R], thr[R];
+  int bi[R];
+  float nf = 0.f;  // the largest sum_j |f_j| of the thread's rows, rounded up
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int64_t r = row0 + q * 32;
+    const float4 f = r < n ? feats[r] : make_float4(0.f, 0.f, 0.f, 0.f);
+    fp[q] = make_float4(-2.f * f.x, -2.f * f.y, -2.f * f.z, -2.f * f.w);
+    nf = fmaxf(nf, __fadd_ru(__fadd_ru(__fadd_ru(fabsf(f.x), fabsf(f.y)), fabsf(f.z)),
+                             fabsf(f.w)));
+    best[q] = thr[q] = __int_as_float(0x7f800000);  // +inf: the first centroid passes
+    bi[q] = 0;
+  }
+  const float nf2 = 2.f * nf;
+  const int chunks = (k + kKmWideChunk - 1) / kKmWideChunk;
+  unsigned rechecks = 0, slow = 0;  // at most R k and k: below 2^32
+  for (int j = tid; j < min(k, kKmWideChunk); j += T)
+    __pipeline_memcpy_async(&s_c[0][j], cb + j, 16);
+  __pipeline_commit();
+  for (int c = 0; c < chunks; ++c) {
+    const int b = c & 1, c0 = c * kKmWideChunk, kc = min(kKmWideChunk, k - c0);
+    __pipeline_wait_prior(0);
+    __syncthreads();  // chunk c has landed; the other buffer is no longer read
+    if (c + 1 < chunks)
+      for (int j = tid; j < min(kKmWideChunk, k - c0 - kKmWideChunk); j += T)
+        __pipeline_memcpy_async(&s_c[b ^ 1][j], cb + c0 + kKmWideChunk + j, 16);
+    __pipeline_commit();
+    unsigned top = 0u, topa = 0u;  // c2 and |c_j| >= +0.0: their bits are in their order
+    for (int j = tid; j < kc; j += T) {
+      const float4 v = s_c[b][j];
+      const float c2 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y)),
+                                           __fmul_rn(v.z, v.z)), __fmul_rn(v.w, v.w));
+      s_c2[b][j] = c2;
+      top = max(top, __float_as_uint(c2));
+      topa = max(topa, __float_as_uint(fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
+                                             fmaxf(fabsf(v.z), fabsf(v.w)))));
+    }
+    top = __reduce_max_sync(0xffffffffu, top);
+    topa = __reduce_max_sync(0xffffffffu, topa);
+    if (lane == 0) {
+      s_wmax[b][0][warp] = top;
+      s_wmax[b][1][warp] = topa;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int v = 0; v < G; ++v) {
+      top = max(top, s_wmax[b][0][v]);
+      topa = max(topa, s_wmax[b][1][v]);
+    }
+    const float mg = __fmaf_ru(__fmaf_ru(nf2, __uint_as_float(topa), __uint_as_float(top)),
+                               kKmMarginScale, kKmMarginFloor);
+#pragma unroll
+    for (int q = 0; q < R; ++q) thr[q] = __fadd_ru(best[q], mg);
+#pragma unroll 4
+    for (int j = 0; j < kc; ++j) {
+      const float4 w = s_c[b][j];
+      const float c2 = s_c2[b][j];
+      float d[R];
+      if (!__any_sync(0xffffffffu, km_filter(fp, thr, w, c2, d))) continue;
+      ++slow;  // the same in every lane of the warp
+      km_recheck(fp, d, w, c2, c0 + j, mg, best, thr, bi, rechecks);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int64_t r = row0 + q * 32;
+    if (r >= n) continue;
+    assign[r] = bi[q];
+    const float4 f = feats[r];
+    float* o = x5 + r * kKmCols;
+    o[0] = f.x;
+    o[1] = f.y;
+    o[2] = f.z;
+    o[3] = f.w;
+    o[4] = 1.f;
+  }
+  if (stats) {
+    atomicAdd(stats, (unsigned long long)rechecks);
+    if (lane == 0) atomicAdd(stats + 1, (unsigned long long)slow);
+  }
 }
 
 // ---- K7 -------------------------------------------------------------------
@@ -1832,6 +1994,73 @@ cudaError_t launch_tree(const float* part, int m, int64_t e, float* out, cudaStr
   return cudaGetLastError();
 }
 
+// How the segment-sum kernels cut n rows of d columns: m chunks, column
+// groups of dc columns staged at a pitch of 4 * quads floats, lq / lc the
+// log2 of powers of two >= the quads and the copies of a row, 16-byte copies
+// where `vec`, `stage` the bytes of the staged groups. x and part may be null
+// where only the sizes are asked.
+struct SegLayout {
+  int m, groups, dc, quads, lq, lc;
+  bool vec;
+  size_t stage;
+};
+
+SegLayout seg_layout(const void* x, const void* part, int n, int d) {
+  SegLayout L;
+  L.m = chunks_for(n);
+  L.groups = (d + kSegGroupCols - 1) / kSegGroupCols;
+  L.dc = (d + L.groups - 1) / L.groups;
+  L.quads = (L.dc + 3) / 4;
+  L.vec = d % 4 == 0 && L.dc % 4 == 0 && ((uintptr_t)x & 15) == 0 && ((uintptr_t)part & 15) == 0;
+  L.lq = 0;
+  L.lc = 0;
+  while ((1 << L.lq) < L.quads) ++L.lq;
+  while ((1 << L.lc) < (L.vec ? L.quads : L.dc)) ++L.lc;
+  L.stage = (size_t)min(L.groups, 2) * kChunkRows * L.quads * 16;
+  return L;
+}
+
+// The segment sum's sparse path (k > kSegMaxK; layout of `part` as
+// uvt_etc1s_segment_sum documents): two launches a window of kSegWideMaxK
+// segments.
+cudaError_t launch_sparse_sum(const int32_t* idx, const float* x, int n, int d, int k,
+                              const SegLayout& L, float* part, float* out, cudaStream_t s) {
+  if ((uintptr_t)part & 15) return cudaErrorMisalignedAddress;
+  const int kw_max = min(k, kSegWideMaxK), words_max = (kw_max + 31) >> 5;
+  const int cap = min(kw_max, kSegMaxSlots), rp = L.groups * 4 * L.quads;
+  float* roots = part;
+  unsigned* gbits = (unsigned*)(roots + (size_t)L.m * cap * rp);
+  int* gbase = (int*)(gbits + (size_t)L.m * words_max);
+  const bool vec_out = d % 4 == 0 && L.dc % 4 == 0 && ((uintptr_t)out & 15) == 0;
+  // the first window is the widest: its bytes are the limit of every launch
+  cudaError_t err = cudaFuncSetAttribute(seg_sum_sparse_chunk_kernel, kSmemLimit,
+                                         (int)(sparse_meta_bytes(cap, words_max) + L.stage));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(seg_sum_roots_kernel, kSmemLimit,
+                               (int)roots_smem_bytes(L.m, 32 * L.quads));
+  if (err != cudaSuccess) return err;
+  for (int seg0 = 0; seg0 < k; seg0 += kSegWideMaxK) {
+    const int kw = min(kSegWideMaxK, k - seg0), words = (kw + 31) >> 5;
+    seg_sum_sparse_chunk_kernel<<<(unsigned)L.m, kSegThreads,
+                                  sparse_meta_bytes(min(kw, kSegMaxSlots), words) + L.stage, s>>>(
+        idx, x, n, d, kw, seg0, L.dc, L.groups, 4 * L.quads, L.lq, L.lc, L.vec, roots, gbits,
+        gbase, cap);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    seg_sum_roots_kernel<<<dim3((unsigned)words, (unsigned)L.groups), 32 * L.quads,
+                           roots_smem_bytes(L.m, 32 * L.quads), s>>>(
+        roots, gbits, gbase, L.m, kw, words, cap, L.groups, 4 * L.quads, L.dc, d, vec_out,
+        out + (int64_t)seg0 * d);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// Floats of K6's rows [f, 1.0] at the head of its wide scratch, padded so that
+// the sparse path's scratch after them starts 16-byte aligned.
+int64_t kmeans_rows_floats(int n) { return ((int64_t)n * kKmCols + 3) & ~(int64_t)3; }
+
 }  // namespace
 
 extern "C" {
@@ -1871,92 +2100,65 @@ int uvt_etc1s_assign_endpoints(const void* blocks, const void* table, void* out,
 // int32 of presence words and slot bases, with m = ceil(n/1024) (at least
 // 1), cap = min(k, kSegWideMaxK, kSegMaxSlots), words = ceil(min(k,
 // kSegWideMaxK) / 32), groups, pitch as below. Two launches per window,
-// whatever n: up to kSegMaxK segments each window's pass 1 drops the rows
-// outside it, so a segment's partials are those of its own rows in tile
-// order, as in one launch; past kSegMaxK one window of kSegWideMaxK
-// segments (two launches for any palette: the rows read once), each chunk
-// writing only the roots of the segments it holds. Windows reuse `part` in
-// stream order.
+// whatever n: up to kSegMaxK segments one window, pass 1 dropping nothing;
+// past kSegMaxK one window of kSegWideMaxK segments (two launches for any
+// palette: the rows read once), each chunk writing only the roots of the
+// segments it holds. Windows reuse `part` in stream order.
 int uvt_etc1s_segment_sum(const void* idx, const void* x, int n, int d, int k, void* part,
                           void* out, void* stream) {
   if (n < 0 || n > kSegMaxRows || d <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
+  const SegLayout L = seg_layout(x, part, n, d);
   cudaStream_t s = (cudaStream_t)stream;
-  const int m = chunks_for(n);
-  const int groups = (d + kSegGroupCols - 1) / kSegGroupCols;
-  const int dc = (d + groups - 1) / groups, quads = (dc + 3) / 4;
-  const bool vec = d % 4 == 0 && dc % 4 == 0 && ((uintptr_t)x & 15) == 0 &&
-                   ((uintptr_t)part & 15) == 0;
-  int lq = 0, lc = 0;  // powers of two >= the quads and the copies of a row
-  while ((1 << lq) < quads) ++lq;
-  while ((1 << lc) < (vec ? quads : dc)) ++lc;
-  const size_t stage = (size_t)min(groups, 2) * kChunkRows * quads * 16;
-  if (k <= kSegMaxK) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        seg_sum_chunk_kernel, kSmemLimit, (int)(seg_meta_bytes(min(k, kSegMaxSlots)) + stage));
-    if (err != cudaSuccess) return (int)err;
-    seg_sum_chunk_kernel<<<(unsigned)m, kSegThreads, seg_meta_bytes(min(k, kSegMaxSlots)) + stage,
-                           s>>>((const int32_t*)idx, (const float*)x, n, d, k, 0, dc, groups,
-                                4 * quads, lq, lc, vec, (float*)part);
-    const cudaError_t e2 = cudaGetLastError();
-    if (e2 != cudaSuccess) return (int)e2;
-    return (int)launch_tree((const float*)part, m, (int64_t)k * d, (float*)out, s);
-  }
-  if ((uintptr_t)part & 15) return (int)cudaErrorMisalignedAddress;
-  const int kw_max = min(k, kSegWideMaxK), words_max = (kw_max + 31) >> 5;
-  const int cap = min(kw_max, kSegMaxSlots), rp = groups * 4 * quads;
-  float* roots = (float*)part;
-  unsigned* gbits = (unsigned*)(roots + (size_t)m * cap * rp);
-  int* gbase = (int*)(gbits + (size_t)m * words_max);
-  const bool vec_out = d % 4 == 0 && dc % 4 == 0 && ((uintptr_t)out & 15) == 0;
-  // the first window is the widest: its bytes are the limit of every launch
-  cudaError_t err = cudaFuncSetAttribute(seg_sum_sparse_chunk_kernel, kSmemLimit,
-                                         (int)(sparse_meta_bytes(cap, words_max) + stage));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(seg_sum_roots_kernel, kSmemLimit,
-                               (int)roots_smem_bytes(m, 32 * quads));
+  if (k > kSegMaxK)
+    return (int)launch_sparse_sum((const int32_t*)idx, (const float*)x, n, d, k, L, (float*)part,
+                                  (float*)out, s);
+  const cudaError_t err = cudaFuncSetAttribute(
+      seg_sum_chunk_kernel, kSmemLimit, (int)(seg_meta_bytes(min(k, kSegMaxSlots)) + L.stage));
   if (err != cudaSuccess) return (int)err;
-  for (int seg0 = 0; seg0 < k; seg0 += kSegWideMaxK) {
-    const int kw = min(kSegWideMaxK, k - seg0), words = (kw + 31) >> 5;
-    seg_sum_sparse_chunk_kernel<<<(unsigned)m, kSegThreads,
-                                  sparse_meta_bytes(min(kw, kSegMaxSlots), words) + stage, s>>>(
-        (const int32_t*)idx, (const float*)x, n, d, kw, seg0, dc, groups, 4 * quads, lq, lc, vec,
-        roots, gbits, gbase, cap);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    seg_sum_roots_kernel<<<dim3((unsigned)words, (unsigned)groups), 32 * quads,
-                           roots_smem_bytes(m, 32 * quads), s>>>(
-        roots, gbits, gbase, m, kw, words, cap, groups, 4 * quads, dc, d, vec_out,
-        (float*)out + (int64_t)seg0 * d);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
+  seg_sum_chunk_kernel<<<(unsigned)L.m, kSegThreads, seg_meta_bytes(min(k, kSegMaxSlots)) + L.stage,
+                         s>>>((const int32_t*)idx, (const float*)x, n, d, k, 0, L.dc, L.groups,
+                              4 * L.quads, L.lq, L.lc, L.vec, (float*)part);
+  const cudaError_t e2 = cudaGetLastError();
+  if (e2 != cudaSuccess) return (int)e2;
+  return (int)launch_tree((const float*)part, L.m, (int64_t)k * d, (float*)out, s);
 }
 
-// feats: [n, 4] f32 and cb: [k, 4] f32, both 16-byte aligned; part: scratch of
-// ceil(n/1024) * min(k, kSegMaxK) * 5 f32; sums: [k, 5] f32 (features ++
-// count); assign: [n] int32. Two launches per window of kSegMaxK centroids:
-// window 0's pass 1 assigns every row, later ones read `assign` back.
+// feats: [n, 4] f32 and cb: [k, 4] f32, both 16-byte aligned; sums: [k, 5] f32
+// (features ++ count); assign: [n] int32; part: scratch of ceil(n/1024) * k * 5
+// f32 up to kSegMaxK centroids, past them kmeans_rows_floats(n) + the sparse
+// segment sum's scratch for n rows of 5 columns and k segments. Up to
+// kSegMaxK centroids two launches (kmeans_chunk_kernel, the tree); past
+// them three: the wide assignment, which writes `assign` and the rows [f,
+// 1.0] at the head of `part` (so the count column is never formed apart),
+// then the segment sum's sparse path over those rows. stats: null (the
+// wrapper), or past kSegMaxK the wide assignment's 2 uint64 counters
+// (kmeans_assign_wide_kernel).
 int uvt_etc1s_kmeans_iter(const void* feats, const void* cb, int n, int k, void* part,
-                          void* sums, void* assign, void* stream) {
-  if (n <= 0 || n > kSegMaxRows || k <= 0) return (int)cudaErrorInvalidValue;
+                          void* sums, void* assign, void* stats, void* stream) {
+  if (n <= 0 || n > kSegMaxRows || k <= 0 || (stats && k <= kSegMaxK))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int m = chunks_for(n), kc = min(k, kKmChunk), kw_max = min(k, kSegMaxK);
-  const size_t smem =
-      (size_t)kc * 16 + (size_t)((kc + 3) & ~3) * 4 + chunk_smem_bytes(8, kw_max);
+  if (k > kSegMaxK) {
+    float* x5 = (float*)part;
+    float* rest = x5 + kmeans_rows_floats(n);
+    constexpr int rows = 32 * kKmWideRows * kKmWideGroups;
+    kmeans_assign_wide_kernel<<<(unsigned)((n + rows - 1) / rows), 32 * kKmWideGroups, 0, s>>>(
+        (const float4*)feats, (const float4*)cb, n, k, (int32_t*)assign, x5,
+        (unsigned long long*)stats);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_sparse_sum((const int32_t*)assign, x5, n, kKmCols, k,
+                                  seg_layout(x5, rest, n, kKmCols), rest, (float*)sums, s);
+  }
+  const int m = chunks_for(n);
+  const size_t smem = (size_t)k * 16 + (size_t)((k + 3) & ~3) * 4 + chunk_smem_bytes(8, k);
   cudaError_t err = cudaFuncSetAttribute(kmeans_chunk_kernel, kSmemLimit, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  for (int seg0 = 0; seg0 < k; seg0 += kSegMaxK) {
-    const int kw = min(kSegMaxK, k - seg0);
-    kmeans_chunk_kernel<<<(unsigned)m, kThreads, smem, s>>>(
-        (const float4*)feats, (const float4*)cb, n, k, seg0, kw, (float*)part, (int32_t*)assign);
-    err = cudaGetLastError();
-    if (err == cudaSuccess)
-      err = launch_tree((const float*)part, m, (int64_t)kw * kKmCols,
-                        (float*)sums + (int64_t)seg0 * kKmCols, s);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
+  kmeans_chunk_kernel<<<(unsigned)m, kThreads, smem, s>>>(
+      (const float4*)feats, (const float4*)cb, n, k, (float*)part, (int32_t*)assign);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_tree((const float*)part, m, (int64_t)k * kKmCols, (float*)sums, s);
 }
 
 // K7's wide path with `rows` block rows a CTA (1 or 2) and the entry table
@@ -2041,6 +2243,7 @@ int uvt_etc1s_func_attrs(int which, int* out, const char** name) {
   static const KernelRef ks[] = {
       UVT_KERNEL(inten_errors_kernel), UVT_KERNEL(assign_endpoints_kernel),
       UVT_KERNEL(kmeans_chunk_kernel),
+      UVT_KERNEL(kmeans_assign_wide_kernel),
       UVT_KERNEL(seg_sum_chunk_kernel), UVT_KERNEL(seg_sum_sparse_chunk_kernel),
       UVT_KERNEL(seg_sum_roots_kernel),
       KernelRef{(const void*)seg_sum_tree_kernel<kTreeRows>, "seg_sum_tree_kernel"},
