@@ -115,8 +115,8 @@ CUDA tensors (the transport not taken) and the encodes' wall times
 beside one device's: ranks sharing one card, not a scaling figure.
 
 Its phase `pointcloud_trajectory_path` (after the UASTC device fit, before
-project D: run before `profile`, it left that phase's texture-encode traces
-empty five times in a row, as `cli_player_path` once did) drives
+project D; right after it, as after `cli_player_path`, one K1 encode traced
+once through `device_trace` must hold its upload, kernel and download) drives
 the mesh and point-cloud ops and models, whose kernels are U3-U5
 (`csrc/mesh_ops.cu`): U3 (`estimate_normals`), U4 (the point-cloud
 stage's quantize and Morton keys) and U5 (`parallelogram_decode`) are
@@ -177,8 +177,7 @@ card with every `ok` tick held to the decoder's output, and times one
 26,145-vertex frame's decode on the native path, the staged Python path
 and the Python path alone.
 
-Its phase `abc_v1_path` runs after `cli_player_path` (no trace; run
-before `profile`, such phases left its traces empty). It writes an
+Its phase `abc_v1_path` runs after `cli_player_path` (no trace). It writes an
 Alembic archive of 8 of those 83 x 315 grids with their UVs and 8 PNG
 layers of the bench texture and encodes it through `python -m
 uvol_tpu_torch.encoder_cli`'s own entry (`runpy`, in process, so the
@@ -493,6 +492,7 @@ TRACES_RETAKEN = []  # the kernels missing from each trace that was taken again
 PAD_KERNEL = "spin_kernel"
 PAD_CYCLES = 1000
 PAD_S = 0.01
+TRACE_AFTER_LAYERS = 5  # layers of 1024^2 in the K1 encode traced after a long phase
 LAUNCH_COUNT_CALLS = 3  # calls in one trace that counts a wrapper's kernels per call
 K3_PROFILED_LAUNCHES = 50  # calls timed back to back, and traced for K3 alone
 
@@ -1048,6 +1048,26 @@ def kernel_only_ms(torch, fn, names, reps: int = REPS) -> tuple:
         emit({"phase": "trace_retaken", "attempt": attempt + 1, "missing": TRACES_RETAKEN[-1]})
     check(all(times.values()), f"the profiler saw none of {[n for n, t in times.items() if not t]}")
     return sum(float(np.mean(t)) for t in times.values()), {n: len(t) for n, t in times.items()}
+
+
+def trace_after(torch, texc, textures, phase: str) -> None:
+    """One traced K1 encode of `TRACE_AFTER_LAYERS` layers right after
+    `phase`, through the port's `device_trace` and taken once: fails unless
+    the trace holds the upload, K1 and the download. Phases as long as
+    `cli_player_path` and `pointcloud_trajectory_path` once left later
+    traces empty (CUPTI kept subscribed between traces)."""
+    from uvol_tpu_torch.utils.timing import device_trace
+
+    layers = textures[:TRACE_AFTER_LAYERS]
+    texc.encode_segment(layers)  # untraced first, as every trace here
+    with device_trace() as prof:
+        texc.encode_segment(layers)
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    held = {"h2d": any(n.startswith("Memcpy HtoD") for n in names),
+            "k1": any(WRAPPER_KERNELS["etc1_encode"][0] in n for n in names),
+            "d2h": any(n.startswith("Memcpy DtoH") for n in names)}
+    emit({"phase": "trace_after", "after": phase, "device_events": len(names), "held": held})
+    check(all(held.values()), f"a traced K1 encode after {phase} lost device events: {held}")
 
 
 def launches_per_call(torch, fn, names) -> dict:
@@ -3891,7 +3911,7 @@ def main() -> int:
             err[name] = max(err[name], v)
 
     # ---- 6. the real-.drc device decode at liam scale (K8's main path), before the
-    # profile and the 1024/1024 path: late in a run the profiler drops more events
+    # profile and the 1024/1024 path
     drc_launches, drc_err, drc_ms, drc_args = drc_device_path(
         torch, dev, positions, uvs, median_cuda_ms)
     launches.update(drc_launches)
@@ -3964,9 +3984,9 @@ def main() -> int:
     err.update(uastc_err)
 
     # ---- 9b. the point-cloud, trajectory, normals and parallelogram paths
-    # (U3-U5), after every phase but its own that reads a trace: run before
-    # `profile`, it left that phase's texture-encode traces empty five times
+    # (U3-U5), then a K1 encode traced once that must keep its device events
     pc_launches, pc_err, pc_ms, pc_work = pointcloud_trajectory_path(torch, dev, median_cuda_ms)
+    trace_after(torch, texc, textures, "pointcloud_trajectory_path")
     launches.update(pc_launches)
     ms.update(pc_ms)
     err.update(pc_err)
@@ -3983,10 +4003,10 @@ def main() -> int:
     python_draco_path(torch, textures)
     uastc_cli_launches = uastc_project_path(torch, textures)
 
-    # ---- 10. the port's entry points: the encoder CLI and the player. Last: it
-    # reads the wrappers' counters, no trace, and run before `profile` it left that
-    # phase's texture-encode traces empty five times in a row (PERF.md section 6)
+    # ---- 10. the port's entry points: the encoder CLI and the player (they read
+    # the wrappers' counters, no trace), then a K1 encode traced once, as after 9b
     cli_launches = cli_player_path(torch, textures)
+    trace_after(torch, texc, textures, "cli_player_path")
     for k, v in uastc_cli_launches.items():
         cli_launches[k] = cli_launches.get(k, 0) + v
 

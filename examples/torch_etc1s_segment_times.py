@@ -51,6 +51,7 @@ def main(argv) -> int:
         print("no CUDA card", file=sys.stderr)
         return 1
     from uvol_tpu_torch.codecs.basis import etc1s_encode as enc
+    from uvol_tpu_torch.utils.timing import device_trace
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
@@ -95,10 +96,8 @@ def main(argv) -> int:
     sweep()
     torch.cuda.synchronize()
     out["sweep_1024_peak_bytes"] = torch.cuda.max_memory_allocated() - held
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with device_trace() as prof:
         sweep()
-        torch.cuda.synchronize()
     kernels = [e.name for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("Mem")]
     out["sweep_1024_kernels_per_frame"] = len(kernels) / LAYERS

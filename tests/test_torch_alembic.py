@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
 from uvol_tpu import encoder_cli as jcli
 from uvol_tpu.codecs.basis import etc1s_encode as jenc
 from uvol_tpu.io import alembic as jabc

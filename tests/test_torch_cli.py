@@ -35,6 +35,7 @@ import pytest
 import torch
 from PIL import Image
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
 from uvol_tpu import encoder_cli as jcli
 from uvol_tpu.codecs.basis import etc1s_encode as jenc
 from uvol_tpu.models import sequence as jseq

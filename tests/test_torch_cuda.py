@@ -11,12 +11,14 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
 from uvol_tpu_torch.codecs.basis import etc as tetc
 from uvol_tpu_torch.codecs.basis import etc1s_cuda, etc_cuda
 from uvol_tpu_torch.containers.ktx2 import read_ktx2
 from uvol_tpu_torch.entry import entry
 from uvol_tpu_torch.models import sequence as tseq
 from uvol_tpu_torch.ops import pallas_kernels
+from uvol_tpu_torch.utils.timing import device_trace
 
 pytestmark = pytest.mark.cuda
 
@@ -394,11 +396,11 @@ def test_etc1s_kmeans_iter_wide_kernel_matches_twin(card, k, kind):
 @pytest.mark.parametrize("k,n", [(2049, 1500), (4096, 1100)])
 def test_etc1s_kmeans_wide_recheck_counters_equal_the_model(card, k, n, kind):
     """The wide assignment's counters (`uvt_etc1s_kmeans_iter` with
-    `stats`) equal the CPU model's (tests/test_torch_kernel_designs.py):
+    `stats`) equal the CPU model's (tests/torch_design_models.py):
     the pairs re-checked exactly and the warp steps that took the re-check
     path, so the margin is the one the model proves; its assignment is the
     twin's."""
-    from test_torch_kernel_designs import _wide_assign_model, _wide_kmeans_case
+    from torch_design_models import _wide_assign_model, _wide_kmeans_case
     from uvol_tpu_torch import _build
 
     feats, cb = _wide_kmeans_case(kind, n, k, k + n)
@@ -564,9 +566,8 @@ def test_segment_sum_launches_a_fixed_number_of_kernels(card, k, kernels):
     idx, x = idx.to(card), x.to(card)
     etc1s_cuda.segment_sum(idx, k, x)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         etc1s_cuda.segment_sum(idx, k, x)
-        torch.cuda.synchronize()
     names = [e.name for e in prof.events() if "seg_sum" in e.name]
     assert len(names) == kernels, names
     np.testing.assert_array_equal(

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
 import uvol_tpu_torch.runtime.device_stream as ds
 from uvol_tpu_torch.runtime.device_stream import DeviceRingBuffer, stream_frames
 

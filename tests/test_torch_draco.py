@@ -18,6 +18,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
 import uvol_tpu.native as jnative
 from uvol_tpu import encoder_cli as jcli
 from uvol_tpu.codecs.draco import decoder as jdec

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
 from uvol_tpu.codecs.draco import constants as JK
 from uvol_tpu.codecs.draco.decoder import decode_drc
 from uvol_tpu.models import drc_device as jd

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
 from uvol_tpu.codecs.basis import etc as jetc
 from uvol_tpu.codecs.basis import etc_pallas as jpallas
 from uvol_tpu_torch.codecs.basis import etc as tetc

@@ -9,11 +9,11 @@ the same assignments, palettes and `.ktx2` bytes: every comparison is
 exact. The reference's palette build takes its Pallas path in interpret
 mode (the `jax_kernel_path` fixture, as in tests/test_torch_etc1s.py).
 K7 itself is held against its twin on the card by tests/test_torch_cuda.py
-and chip_smoke.py.
+and chip_smoke.py. The whole delta path at 1024/1024 (RGBA) is in
+tests/test_torch_etc1s_delta_1024.py.
 """
 
 import copy
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -21,14 +21,12 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
+from torch_etc1s_cases import GRIDS, _segment, hold_delta_encode, take_jax_kernel_path
 from uvol_tpu.codecs.basis import etc1s_encode as jenc
-from uvol_tpu.codecs.basis.transcoder import transcode_ktx2_etc1s
-from uvol_tpu.containers.ktx2 import read_ktx2
 from uvol_tpu_torch._device import fma_f32
 from uvol_tpu_torch.codecs.basis import etc1s_cuda as kern
 from uvol_tpu_torch.codecs.basis import etc1s_encode as tenc
-
-GRIDS = ("block_endpoint", "block_selector")
 
 
 @pytest.fixture(scope="module")
@@ -36,42 +34,10 @@ def jax_kernel_path():
     """Makes the JAX package's `build_palettes` take its Pallas path, in
     interpret mode, on the CPU (its own rule picks it on a TPU only), for
     the rest of the module: its compiled palette cores are kept between
-    tests. Its quad pass gets writable grids: on the delta path its sweeps
-    leave `block_selector` a read-only view of a device buffer, and the
-    quad pass writes into it (ValueError); the port's grids are writable."""
-    quads = jenc.quad_share_endpoints
-
-    def writable_quads(blocks, pal, *args, **kwargs):
-        for name in GRIDS:
-            setattr(pal, name, np.array(getattr(pal, name)))
-        return quads(blocks, pal, *args, **kwargs)
-
+    tests. Its quad pass gets writable grids (`take_jax_kernel_path`)."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax, "default_backend", lambda: "tpu")
-        mp.setattr(jenc, "_palette_core_fn",
-                   functools.partial(jenc._palette_core_fn, pallas_interpret=True))
-        mp.setattr(jenc, "_PALETTE_JIT_CACHE", {})
-        mp.setattr(jenc, "quad_share_endpoints", writable_quads)
+        take_jax_kernel_path(mp, writable_quads=True)
         yield
-
-
-def _segment(f: int = 2, h: int = 64, w: int = 64, seed: int = 3) -> np.ndarray:
-    """Shifted gradients with noise; frame 1 repeats frame 0 where f > 2."""
-    r = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w]
-    out = np.zeros((f, h, w, 3), np.uint8)
-    for i in range(f):
-        img = np.stack([(xx * 4 + i * 8) % 256, (yy * 4) % 256, ((xx + yy) * 2) % 256], -1)
-        out[i] = np.clip(img + r.integers(-6, 7, img.shape), 0, 255)
-    if f > 2:
-        out[1] = out[0]
-    return out
-
-
-def _rgba(frames: np.ndarray) -> np.ndarray:
-    f, h, w, _ = frames.shape
-    alpha = np.clip(np.mgrid[0:h, 0:w][1] * 4 - np.arange(f)[:, None, None], 0, 255)
-    return np.concatenate([frames, alpha[..., None].astype(np.uint8)], -1)
 
 
 def _pass_inputs(e: int, s: int = 64, uniform: bool = True, seed: int = 0):
@@ -106,11 +72,6 @@ def _pass_inputs(e: int, s: int = 64, uniform: bool = True, seed: int = 0):
 def _assert_pal_equal(got, want) -> None:
     for name in ("color5", "inten", "selectors", *GRIDS):
         np.testing.assert_array_equal(getattr(got, name), getattr(want, name), err_msg=name)
-
-
-def _psnr(blob: bytes, frames: np.ndarray) -> float:
-    out = transcode_ktx2_etc1s(read_ktx2(blob))[..., : frames.shape[-1]]
-    return float(10 * np.log10(255.0**2 / ((out.astype(np.float64) - frames) ** 2).mean()))
 
 
 # ---- what XLA compiles the sweep's bits table into -------------------------
@@ -358,19 +319,13 @@ def test_build_palettes_delta_path_matches_jax_kernel_path(jax_kernel_path):
 
 
 @pytest.mark.parametrize("quads", [False, True])
-@pytest.mark.parametrize("kind", ["rgb_512", "rgba_1024"])
+@pytest.mark.parametrize("kind", ["rgb_512"])
 def test_encode_delta_path_matches_jax_kernel_path(jax_kernel_path, kind, quads):
-    """2 x 64x64 RGB at 512/512, and RGBA at 1024/1024 (alpha doubles the
-    blocks to 1,024), with the defaults' delta window and lambda: the bytes
-    equal the JAX package's and decode at >= 24 dB."""
-    frames = _segment() if kind == "rgb_512" else _rgba(_segment())
-    e_n = int(kind.split("_")[1])
-    kw = dict(num_endpoints=e_n, num_selectors=e_n, endpoint_quads=quads)
-    want = jenc.encode_ktx2_etc1s(frames, **kw)
-    got = tenc.encode_ktx2_etc1s(frames, device="cpu", **kw)
-    assert got == want
-    assert read_ktx2(got).basis_lz.endpoint_count == e_n
-    assert _psnr(got, frames) >= 24.0
+    """2 x 64x64 RGB at 512/512, with the defaults' delta window and lambda:
+    the bytes equal the JAX package's and decode at >= 24 dB
+    (`hold_delta_encode`; RGBA at 1024/1024 in
+    tests/test_torch_etc1s_delta_1024.py)."""
+    hold_delta_encode(kind, quads)
 
 
 def test_encode_auto_sizes_on_noisy_content(jax_kernel_path):

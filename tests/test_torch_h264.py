@@ -16,6 +16,7 @@ import sys
 import numpy as np
 import pytest
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
 from uvol_tpu.containers import mp4 as jmp4
 from uvol_tpu.io import video as jvideo
 from uvol_tpu.native import h264c as jh264c

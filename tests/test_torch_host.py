@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
 import uvol_tpu.native as jnative
 from uvol_tpu.codecs import buffer as jbuffer
 from uvol_tpu.codecs import symbol_coding as jsym

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
 from uvol_tpu_torch.parallel.ranks import run_ranks
 
 SIZES = (2, 4)

@@ -14,6 +14,7 @@ FMA; tests/test_torch_sequence.py).
 
 import pytest
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
 from uvol_tpu_torch.parallel.multihost import make_check_inputs, run_codecs, run_multiprocess_check
 
 KEYS = ("geo_blobs", "geo_decoded", "tex_blob", "tex_decoded")

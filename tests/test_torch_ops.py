@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
 from uvol_tpu_torch import _device
 from uvol_tpu_torch.models import trajectory as ttraj
 from uvol_tpu_torch.ops import mesh_cuda

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
 from uvol_tpu.models import sequence as jseq
 from uvol_tpu.ops.pallas_kernels import fused_quantize_delta_zigzag as jax_k3
 from uvol_tpu_torch.models import sequence as tseq

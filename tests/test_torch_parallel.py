@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
 from uvol_tpu_torch.parallel import mesh as pmesh
 from uvol_tpu_torch.parallel.ranks import run_ranks
 

@@ -25,6 +25,7 @@ import pytest
 import torch
 from PIL import Image
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
 from uvol_tpu.interfaces import PlayMode as JPlayMode
 from uvol_tpu.player import v2 as jv2
 from uvol_tpu.player.clock import PlaybackClock as JClock

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
 from uvol_tpu_torch import convert
 from uvol_tpu_torch.models.pointcloud import PointCloudSequenceCodec
 from uvol_tpu_torch.models.trajectory import TrajectoryGroup, fit_trajectories

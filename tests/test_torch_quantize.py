@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
 from uvol_tpu_torch._device import true_div
 from uvol_tpu_torch.ops import prediction as tpred
 

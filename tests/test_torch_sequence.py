@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
 from uvol_tpu.codecs.basis.etc_pallas import (
     decode_etc1_images_pallas,
     encode_etc1_images_pallas,

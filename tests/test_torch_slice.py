@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
 import __graft_entry__
 from uvol_tpu_torch import _build
 from uvol_tpu_torch.entry import entry, example_inputs

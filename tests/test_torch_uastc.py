@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
 from uvol_tpu.codecs.basis import uastc as J
 from uvol_tpu_torch._device import fma_f32
 from uvol_tpu_torch.codecs.basis import uastc as T

@@ -21,6 +21,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
 from uvol_tpu.codecs.basis import astc as jastc
 from uvol_tpu.codecs.basis import bc7 as jbc7
 from uvol_tpu.codecs.basis import blockfit as jfit

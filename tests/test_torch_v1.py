@@ -17,6 +17,7 @@ import json
 import numpy as np
 import pytest
 
+import torch_cpu_share  # noqa: F401  (each xdist worker's share of the cores)
 from uvol_tpu.codecs.corto import encoder as jcorto_enc
 from uvol_tpu.containers import drcs as jdrcs
 from uvol_tpu.interfaces import PlayMode as JPlayMode

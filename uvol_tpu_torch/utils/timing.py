@@ -6,11 +6,24 @@
 `torch.profiler` trace and `device_time_ms` sums its device-side events
 by name. The device timers need a card: a measurement that finds none
 raises rather than timing the CPU.
+
+`device_trace` starts every trace on a fresh CUPTI. Kept subscribed from
+one trace to the next, CUPTI stamped the device records of an H100 with
+times that fell further outside Kineto's trace window the longer ago the
+process's first trace was: some records of a trace were dropped ~10 s
+after it, all of them 80 s after it, with the card idle or busy. With
+`TEARDOWN_CUPTI=1` Kineto tears CUPTI down when a trace stops, on a thread
+of its own that waits for the next CUDA call; were that call inside the
+next trace, that trace came back empty. So the helper makes that call
+itself, one spin kernel waited for with a pause on each side, before the
+trace and after it (`examples/torch_profiler_after_cli.py` has the series
+that show both).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import statistics
 import time
 from collections import defaultdict
@@ -106,13 +119,33 @@ def median_cuda_ms(fn: Callable[[], object], reps: int = 5, warmup: int = 1
 def device_trace(log_dir: Optional[str] = None) -> Iterator[torch.profiler.profile]:
     """Wrap a region in a `torch.profiler` trace (CPU + CUDA activities).
     The Chrome trace is written under `log_dir` when one is given; read
-    the device time with `device_time_ms` after the block."""
+    the device time with `device_time_ms` after the block. CUPTI is torn
+    down after the trace unless `TEARDOWN_CUPTI` is set otherwise (see the
+    module's docstring), and that teardown is done before the block and
+    after it, outside the trace and any region timed next."""
     _require_cuda()
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")
+    _settle_cupti()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     handler = torch.profiler.tensorboard_trace_handler(log_dir) if log_dir else None
     with torch.profiler.profile(activities=acts, on_trace_ready=handler) as prof:
         yield prof
         torch.cuda.synchronize()
+    _settle_cupti()
+
+
+#: the pause before and after `_settle_cupti`'s kernel, for Kineto's
+#: teardown thread to be waiting for the call and then to be done with it
+SETTLE_S = 0.05
+
+
+def _settle_cupti() -> None:
+    """One spin kernel, waited for: Kineto finishes a CUPTI teardown left
+    by the last trace at the next CUDA call, and this is that call."""
+    time.sleep(SETTLE_S)
+    torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+    time.sleep(SETTLE_S)
 
 
 def device_time_ms(prof) -> Dict[str, float]:
