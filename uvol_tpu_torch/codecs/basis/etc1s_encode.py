@@ -14,6 +14,14 @@ the palette relabel, the slice/codebook bit emission (native through
 `uvol_tpu_torch.native`) and the quality self-measure — is a copy of the
 reference's host code, under its names, unchanged.
 
+Each stage of a segment is timed into `utils.stats.STATS`, a span under a
+profiler trace: `etc1s.segment_s` (`encode_ktx2_etc1s`), `etc1s.build_s`
+(a build on the quality floor's lambda ladder) holding `etc1s.core_s`
+(blocks, upload, `palette_core`, the palettes fetched), `etc1s.rdo_s`,
+`etc1s.relabel_s` and `etc1s.delta_s`, then `etc1s.psnr_s` and
+`etc1s.emit_s`. The timers end where the host has the stage's result, so
+a span holds the device work it waited for.
+
 What the reference's TPU workarounds became:
 
   - `_onehot_rows` (gathers as one-hot MXU products) is a row gather;
@@ -91,6 +99,7 @@ from uvol_tpu_torch.parallel.mesh import (
     resolve_mesh_device,
     shard_frames,
 )
+from uvol_tpu_torch.utils.stats import STATS
 
 Tensor = torch.Tensor
 
@@ -392,49 +401,57 @@ def build_palettes(
     one device, as the reference does."""
     f, h, w, _ = frames.shape
     nb = (h // 4) * (w // 4)
-    blocks = _blocks_of(frames)
-    n = blocks.shape[0]
-    num_endpoints = min(num_endpoints, n)
-    num_selectors = min(num_selectors, n)
-    dev = resolve_mesh_device(device, mesh)
-    if mesh is not None and n % axis_size(mesh) != 0:
-        warnings.warn(
-            f"build_palettes: {n} blocks not divisible by the {axis_size(mesh)}-rank "
-            "frame axis; running single-device", RuntimeWarning)
-        mesh = None
-    dev_blocks = torch.from_numpy(blocks).to(dev)
-    base5, inten, sel_cb, assign, sel_assign = palette_core(
-        dev_blocks if mesh is None else shard_frames(mesh, dev_blocks),
-        num_endpoints, num_selectors, kmeans_iters, mesh=mesh,
-    )
-    pal = Palettes(
-        color5=base5.cpu().numpy().astype(np.uint8),
-        inten=inten.cpu().numpy().astype(np.uint8),
-        selectors=sel_cb.cpu().numpy().astype(np.uint8),
-        block_endpoint=np.empty((f, nb), np.int32),
-        block_selector=np.empty((f, nb), np.int32),
-    )
-    if rdo:
-        lam, lam_sel, lam_cr = rdo_lambdas
-        _rdo_refine(dev_blocks, assign, sel_assign, pal, h // 4, w // 4,
-                    lam, lam_sel, lam_cr, rdo_chain_breaks)
-    else:
-        pal.block_endpoint = assign.cpu().numpy().reshape(f, nb)
-        pal.block_selector = sel_assign.cpu().numpy().reshape(f, nb)
-    # relabel along the scan-successor chains (host, the reference's code)
-    reorder_endpoint_palette(pal)
+    with STATS.timer("etc1s.core_s"):
+        blocks = _blocks_of(frames)
+        n = blocks.shape[0]
+        num_endpoints = min(num_endpoints, n)
+        num_selectors = min(num_selectors, n)
+        dev = resolve_mesh_device(device, mesh)
+        if mesh is not None and n % axis_size(mesh) != 0:
+            warnings.warn(
+                f"build_palettes: {n} blocks not divisible by the {axis_size(mesh)}-rank "
+                "frame axis; running single-device", RuntimeWarning)
+            mesh = None
+        dev_blocks = torch.from_numpy(blocks).to(dev)
+        base5, inten, sel_cb, assign, sel_assign = palette_core(
+            dev_blocks if mesh is None else shard_frames(mesh, dev_blocks),
+            num_endpoints, num_selectors, kmeans_iters, mesh=mesh,
+        )
+        pal = Palettes(
+            color5=base5.cpu().numpy().astype(np.uint8),
+            inten=inten.cpu().numpy().astype(np.uint8),
+            selectors=sel_cb.cpu().numpy().astype(np.uint8),
+            block_endpoint=np.empty((f, nb), np.int32),
+            block_selector=np.empty((f, nb), np.int32),
+        )
+    with STATS.timer("etc1s.rdo_s"):
+        if rdo:
+            lam, lam_sel, lam_cr = rdo_lambdas
+            _rdo_refine(dev_blocks, assign, sel_assign, pal, h // 4, w // 4,
+                        lam, lam_sel, lam_cr, rdo_chain_breaks)
+        else:
+            pal.block_endpoint = assign.cpu().numpy().reshape(f, nb)
+            pal.block_selector = sel_assign.cpu().numpy().reshape(f, nb)
+
+    def relabel():  # along the scan-successor chains (host, the reference's code)
+        with STATS.timer("etc1s.relabel_s"):
+            reorder_endpoint_palette(pal)
+
+    relabel()
     if delta_window > 0 and num_endpoints >= 512:
         # endpoint-major flips at 2.5x the sweeps' lambda, then three rounds
         # of relabel and rate sweep, then a last relabel
-        delta_bias_assignments(pal, h // 4, w // 4, dev_blocks=dev_blocks,
-                               lam_bits=2.5 * delta_lambda, lam_cr=rdo_lambdas[2],
-                               chain_breaks=rdo_chain_breaks)
-        for _ in range(3):
-            reorder_endpoint_palette(pal)
-            rate_sweep_assignments(pal, h // 4, w // 4, dev_blocks=dev_blocks,
-                                   lam_bits=delta_lambda, lam_cr=rdo_lambdas[2],
+        with STATS.timer("etc1s.delta_s"):
+            delta_bias_assignments(pal, h // 4, w // 4, dev_blocks=dev_blocks,
+                                   lam_bits=2.5 * delta_lambda, lam_cr=rdo_lambdas[2],
                                    chain_breaks=rdo_chain_breaks)
-        reorder_endpoint_palette(pal)
+        for _ in range(3):
+            relabel()
+            with STATS.timer("etc1s.delta_s"):
+                rate_sweep_assignments(pal, h // 4, w // 4, dev_blocks=dev_blocks,
+                                       lam_bits=delta_lambda, lam_cr=rdo_lambdas[2],
+                                       chain_breaks=rdo_chain_breaks)
+        relabel()
     return pal
 
 
@@ -1375,44 +1392,49 @@ def encode_ktx2_etc1s(
 
     `mesh`: the palette builds run sharded over it (`build_palettes`);
     every rank writes the same bytes."""
-    device = resolve_mesh_device(device, mesh)
-    f, h, w, nch = frames.shape
-    nbx, nby = w // 4, h // 4
-    if num_endpoints == "auto" or num_selectors == "auto":
-        auto_e, auto_s = choose_codebook_sizes(frames)
-        if num_endpoints == "auto":
-            num_endpoints = auto_e
-        if num_selectors == "auto":
-            num_selectors = auto_s
-    has_alpha = nch == 4
-    rgb = frames[..., :3]
-    if has_alpha:
-        alpha_rgb = np.repeat(frames[..., 3:4], 3, axis=-1)
-        pal_input = np.concatenate([rgb, alpha_rgb], axis=0)
-    else:
-        pal_input = rgb
-    lam_ladder = [delta_lambda]
-    if delta_window > 0:
-        lam_ladder += [delta_lambda / 3.0, delta_lambda / 10.0, 0.0]
-    pal = None
-    for lam_try in lam_ladder:
-        pal = build_palettes(
-            pal_input, num_endpoints, num_selectors, kmeans_iters,
-            rdo=rdo, rdo_lambdas=rdo_lambdas,
-            delta_window=delta_window if lam_try > 0 else 0,
-            delta_lambda=lam_try,
-            # the alpha chain starts a fresh I-slice at index f
-            rdo_chain_breaks=(f,) if has_alpha else (),
-            mesh=mesh,
-            device=device,
-        )
-        if len(lam_ladder) == 1:
-            break
-        if _palette_psnr(pal_input, pal, nby, nbx) >= min_psnr_db:
-            break
-    if endpoint_quads:
-        quad_share_endpoints(_blocks_of(pal_input), pal, nby, nbx, device=device)
-    return _emit_segment(pal, f, h, w, has_alpha, history_size, srgb)
+    with STATS.timer("etc1s.segment_s"):
+        device = resolve_mesh_device(device, mesh)
+        f, h, w, nch = frames.shape
+        nbx, nby = w // 4, h // 4
+        if num_endpoints == "auto" or num_selectors == "auto":
+            auto_e, auto_s = choose_codebook_sizes(frames)
+            if num_endpoints == "auto":
+                num_endpoints = auto_e
+            if num_selectors == "auto":
+                num_selectors = auto_s
+        has_alpha = nch == 4
+        rgb = frames[..., :3]
+        if has_alpha:
+            alpha_rgb = np.repeat(frames[..., 3:4], 3, axis=-1)
+            pal_input = np.concatenate([rgb, alpha_rgb], axis=0)
+        else:
+            pal_input = rgb
+        lam_ladder = [delta_lambda]
+        if delta_window > 0:
+            lam_ladder += [delta_lambda / 3.0, delta_lambda / 10.0, 0.0]
+        pal = None
+        for lam_try in lam_ladder:
+            with STATS.timer("etc1s.build_s"):
+                pal = build_palettes(
+                    pal_input, num_endpoints, num_selectors, kmeans_iters,
+                    rdo=rdo, rdo_lambdas=rdo_lambdas,
+                    delta_window=delta_window if lam_try > 0 else 0,
+                    delta_lambda=lam_try,
+                    # the alpha chain starts a fresh I-slice at index f
+                    rdo_chain_breaks=(f,) if has_alpha else (),
+                    mesh=mesh,
+                    device=device,
+                )
+            if len(lam_ladder) == 1:
+                break
+            with STATS.timer("etc1s.psnr_s"):
+                psnr = _palette_psnr(pal_input, pal, nby, nbx)
+            if psnr >= min_psnr_db:
+                break
+        if endpoint_quads:
+            quad_share_endpoints(_blocks_of(pal_input), pal, nby, nbx, device=device)
+        with STATS.timer("etc1s.emit_s"):
+            return _emit_segment(pal, f, h, w, has_alpha, history_size, srgb)
 
 
 def encode_ktx2_etc1s_rate_target(

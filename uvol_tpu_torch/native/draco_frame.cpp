@@ -18,7 +18,6 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
-#include <ctime>
 #include <memory>
 #include <string>
 #include <vector>
@@ -271,27 +270,7 @@ struct Frame {
   std::vector<FrameAttr> attrs;
 };
 
-struct StageTimer {
-  // UVT_FRAME_TIMING=1: per-stage wall times to stderr (diagnostics only)
-  bool on;
-  struct timespec t;
-  StageTimer() {
-    const char* e = getenv("UVT_FRAME_TIMING");
-    on = e && e[0] == '1';
-    if (on) clock_gettime(CLOCK_MONOTONIC, &t);
-  }
-  void mark(const char* name) {
-    if (!on) return;
-    struct timespec n;
-    clock_gettime(CLOCK_MONOTONIC, &n);
-    double ms = (n.tv_sec - t.tv_sec) * 1e3 + (n.tv_nsec - t.tv_nsec) * 1e-6;
-    fprintf(stderr, "uvt_frame %-14s %7.3f ms\n", name, ms);
-    t = n;
-  }
-};
-
 int decode_frame(const uint8_t* data, int64_t len, Frame& out) {
-  StageTimer timer;
   Buf b{data, 0, len};
   // ---- header (decoder.py _decode_drc) ------------------------------------
   if (len < 11 || std::memcmp(data, "DRACO", 5) != 0) return FB_NOT_DRACO;
@@ -416,7 +395,6 @@ int decode_frame(const uint8_t* data, int64_t len, Frame& out) {
         vertex, vertex_corner, processed, machine_counts);
     if (rc != 0) return FB_MALFORMED;
   }
-  timer.mark("machine");
   const int64_t n_processed = machine_counts[0] + machine_counts[1];
   const int64_t num_ct_vertices = machine_counts[2];
 
@@ -453,7 +431,6 @@ int decode_frame(const uint8_t* data, int64_t len, Frame& out) {
     seam_corners[i].insert(seam_corners[i].end(), boundary.begin(),
                            boundary.end());
 
-  timer.mark("seams");
   // ---- attribute decoder headers (decoder.py) ------------------------------
   int num_decoders = b.u8();
   if (!b.ok || num_decoders <= 0 || num_decoders > 127) return FB_MALFORMED;
@@ -556,7 +533,6 @@ int decode_frame(const uint8_t* data, int64_t len, Frame& out) {
       if (rc != 0) return FB_MALFORMED;
       for (size_t k = 0; k < na; ++k)
         att_tables[ids[k]].n_attr_vertices = counts[k];
-      timer.mark("tables");
     }
   }
 
@@ -594,7 +570,6 @@ int decode_frame(const uint8_t* data, int64_t len, Frame& out) {
           processed, n_processed, fan_open_ptr,
           v2d_local.data(), d2c_local.data(), &num_values);
       if (rc != 0) return FB_MALFORMED;
-      timer.mark(" traverse");
       if (dh.decoder_type != MESH_CORNER_ATTRIBUTE) {
         shared_v2d = v2d_local;
         shared_d2c = d2c_local;
@@ -635,7 +610,6 @@ int decode_frame(const uint8_t* data, int64_t len, Frame& out) {
         std::vector<uint32_t> symbols;
         int rc = decode_symbols_raw(b, num_values * nc, symbols);
         if (rc != FB_OK) return rc;
-        timer.mark(" symbols");
 
         std::vector<int64_t> ints((size_t)num_values * nc);
         if (method == PREDICTION_NONE) {
@@ -711,7 +685,6 @@ int decode_frame(const uint8_t* data, int64_t len, Frame& out) {
         } else {
           return FB_UNSUPPORTED;
         }
-        timer.mark(" predict");
 
         if (seq_type == SEQ_QUANTIZATION) {
           double mins[8];
@@ -760,7 +733,6 @@ int decode_frame(const uint8_t* data, int64_t len, Frame& out) {
         std::vector<uint32_t> symbols;
         int rc = decode_symbols_raw(b, num_values * 2, symbols);
         if (rc != FB_OK) return rc;
-        timer.mark(" symbols");
         if (pos_values.empty() || pos_corner_map.empty())
           return FB_UNSUPPORTED;
         // octahedron transform wire data + flip stream
@@ -779,7 +751,6 @@ int decode_frame(const uint8_t* data, int64_t len, Frame& out) {
             pos_corner_map.data(), flip.prob_zero, flip.buf, flip.len,
             num_faces, v2d, st.data());
         if (rc2 != 0) return FB_MALFORMED;
-        timer.mark(" predict");
         b.u8();  // qbits (DecodeDataNeededByPortableTransform)
         if (!b.ok) return FB_TRUNCATED;
         if (out.portable) {
@@ -833,7 +804,6 @@ int decode_frame(const uint8_t* data, int64_t len, Frame& out) {
     }
 
     for (auto& at : dh.attrs) out.attrs.push_back(std::move(at));
-    timer.mark("decoder");
   }
   if (b.pos != b.end) return FB_MALFORMED;  // undecoded bytes at end
 
@@ -883,7 +853,6 @@ int decode_frame(const uint8_t* data, int64_t len, Frame& out) {
       out.point_of_corner[c] = e;
     }
     out.num_points = (int64_t)ent_rest.size();
-    timer.mark("points");
   }
   out.num_faces = num_faces;
   return FB_OK;

@@ -29,7 +29,6 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
-#include <ctime>
 #include <memory>
 #include <vector>
 
@@ -304,23 +303,6 @@ extern "C" int64_t uvt_drc_encode(
   if (att_type[0] != ATT_POSITION) return -3;
   const int64_t n = 3 * num_faces;
 
-  // env-gated stage timing (UVT_ENC_TIMING=1): prints ms per stage
-  const bool timing = [] {
-    const char* e = std::getenv("UVT_ENC_TIMING");
-    return e && e[0] == '1';
-  }();
-  struct timespec ts_prev;
-  clock_gettime(CLOCK_MONOTONIC, &ts_prev);
-  auto stamp = [&](const char* name) {
-    if (!timing) return;
-    struct timespec now;
-    clock_gettime(CLOCK_MONOTONIC, &now);
-    double ms = (now.tv_sec - ts_prev.tv_sec) * 1e3 +
-                (now.tv_nsec - ts_prev.tv_nsec) * 1e-6;
-    fprintf(stderr, "[enc] %-22s %6.2f ms\n", name, ms);
-    ts_prev = now;
-  };
-
   std::vector<AttrDesc> attrs((size_t)num_attrs);
   for (int64_t a = 0; a < num_attrs; ++a) {
     AttrDesc& ad = attrs[a];
@@ -343,7 +325,6 @@ extern "C" int64_t uvt_drc_encode(
                                           e_vcorner.data());
   if (e_nv < 0) return -4;
 
-  stamp("corner_table");
 
   // ---- boundary holes (EncoderCornerTable.__init__ hole chaining) ---------
   // out_edge: ascending-corner last-writer-wins; iteration order = first
@@ -371,7 +352,6 @@ extern "C" int64_t uvt_drc_encode(
     }
   }
 
-  stamp("holes");
 
   // ---- edgebreaker traversal ----------------------------------------------
   UBuf<uint8_t> symbols((size_t)num_faces);
@@ -394,7 +374,6 @@ extern "C" int64_t uvt_drc_encode(
   const int64_t n_splits = tcounts[2];
   const int64_t num_split_symbols = tcounts[4];
 
-  stamp("eb_traverse");
 
   // ---- decoder replay -----------------------------------------------------
   UBuf<uint8_t> syms_dec((size_t)std::max<int64_t>(num_symbols, 1));
@@ -430,7 +409,6 @@ extern "C" int64_t uvt_drc_encode(
   const int64_t n_processed = rcounts[0] + rcounts[1];
   const int64_t d_num_vertices = rcounts[2];
 
-  stamp("replay");
 
   // ---- dec<->enc maps + per-attribute seams -------------------------------
   const int64_t num_attribute_data = num_attrs - 1;
@@ -458,7 +436,6 @@ extern "C" int64_t uvt_drc_encode(
   const int64_t n_cs = mcounts[0];
   const int64_t n_boundary = mcounts[1];
 
-  stamp("maps");
 
   // ---- header + connectivity ----------------------------------------------
   EncBuf out;
@@ -552,7 +529,6 @@ extern "C" int64_t uvt_drc_encode(
     }
   }
 
-  stamp("connectivity_ser");
 
   // ---- attribute decoder headers ------------------------------------------
   out.u8((uint8_t)num_attrs);
@@ -588,7 +564,6 @@ extern "C" int64_t uvt_drc_encode(
     out.u8((uint8_t)seq_type);
   }
 
-  stamp("attr_headers");
 
   // ---- payload pass -------------------------------------------------------
   // shared DFS over ct_d for position + integer attrs
@@ -666,7 +641,6 @@ extern "C" int64_t uvt_drc_encode(
       v2d = v2d_l.data();
       d2c = d2c_l.data();
       num_values = nv_out;
-      stamp("attr_table+dfs");
     } else {
       view_vertex = d_vert.data();
       view_nv = d_vcorner_size;
@@ -685,7 +659,6 @@ extern "C" int64_t uvt_drc_encode(
       v2d = v2d_vertex.data();
       d2c = d2c_vertex.data();
       num_values = nvals_vertex;
-      stamp("vertex_dfs");
     }
 
     // values in decoder data order
@@ -737,7 +710,6 @@ extern "C" int64_t uvt_drc_encode(
       }
     }
 
-    stamp("gather+quantize");
     if (seq_type == SEQ_INTEGER || seq_type == SEQ_QUANTIZATION) {
       const bool is_uv = ad.att_type == ATT_TEX_COORD;
       out.u8((uint8_t)(is_uv ? 5 : 1));  // TEX_COORDS_PORTABLE / PARALLELOGRAM
@@ -794,7 +766,6 @@ extern "C" int64_t uvt_drc_encode(
         out.f32((float)range_value);
         out.u8((uint8_t)ad.qbits);
       }
-      stamp("predict+entropy");
       if (ad.att_type == ATT_POSITION) {
         pos_values.assign(ints.data(), ints.data() + num_values * nc);
         pos_v2d.assign(v2d, v2d + view_nv);
@@ -826,7 +797,6 @@ extern "C" int64_t uvt_drc_encode(
       out.i32((int32_t)(max_value / 2));
       if (rabs_flush(flips.data(), num_values, out) != 0) return -9;
       out.u8((uint8_t)ad.qbits);
-      stamp("normals_stage");
     }
   }
 
